@@ -1,0 +1,67 @@
+"""Weight initializers: the subset of ``analytics_zoo_tpu.nn.initializers``
+this port's layers use, drawing from an explicit ``torch.Generator``.
+
+Same distributions as the JAX package (fan computed over the trailing two
+axes of an ``(in, out)`` kernel), not the same numbers: JAX keys and torch
+generators differ, so tests that compare the two packages initialise in JAX
+and convert the weights.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+Initializer = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
+
+
+def _fans(shape: torch.Size) -> tuple:
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    fan_in = shape[-2] * receptive if len(shape) > 1 else shape[-1]
+    return fan_in, shape[-1] * receptive
+
+
+@torch.no_grad()
+def glorot_uniform(t: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    fan_in, fan_out = _fans(t.shape)
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return t.uniform_(-limit, limit, generator=generator)
+
+
+def normal(stddev: float = 0.05) -> Initializer:
+    @torch.no_grad()
+    def init(t: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return t.normal_(0.0, stddev, generator=generator)
+    return init
+
+
+@torch.no_grad()
+def zeros(t: torch.Tensor,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return t.zero_()
+
+
+@torch.no_grad()
+def ones(t: torch.Tensor,
+         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    return t.fill_(1.0)
+
+
+INITIALIZERS = {
+    "glorot_uniform": glorot_uniform,
+    "normal": normal(0.05),
+    "zeros": zeros,
+    "ones": ones,
+}
+
+
+def get(init: str) -> Initializer:
+    try:
+        return INITIALIZERS[init]
+    except KeyError:
+        raise ValueError(f"unknown initializer {init!r}; known: "
+                         f"{sorted(INITIALIZERS)}") from None
