@@ -2,10 +2,11 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The library's file name carries a hash of the source and the
-flags, so an edited source rebuilds and a stale library is never loaded.
-Builds happen at first use, from the sources in the checkout only, into
-``analytics_zoo_tpu_torch/build/`` (listed in ``.gitignore``).
+seconds).  The library's file name carries a hash of the source, the
+shared headers and the flags, so an edited source or header rebuilds and a
+stale library is never loaded.  Builds happen at first use, from the
+sources in the checkout only, into ``analytics_zoo_tpu_torch/build/``
+(listed in ``.gitignore``).
 """
 
 from __future__ import annotations
@@ -45,10 +46,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """Where the library built from ``csrc/<name>.cu`` lives.  Its name
+    carries a hash of the source, of every ``csrc/*.cuh`` (any of which the
+    source may include) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

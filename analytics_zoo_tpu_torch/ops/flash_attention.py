@@ -1,13 +1,16 @@
-"""Flash attention forward: a hand-written CUDA kernel for Hopper
-(``csrc/flash_attention_fwd.cu``) and its plain PyTorch version.
+"""Flash attention forward: hand-written CUDA kernels for Hopper and their
+plain PyTorch version.
 
 Port of ``analytics_zoo_tpu/ops/flash_attention.py``.  The TPU package runs
 the forward as a Pallas kernel (``_fwd_kernel``); here
-``flash_attention_fwd`` launches the CUDA kernel for a tensor on the card
-and uses ``flash_attention_fwd_reference`` (the blocked online-softmax math
-of the JAX package's ``_blocked_fwd_jax``) only for a tensor on the CPU.
-There is no fallback from the card to the plain version: a kernel that
-fails to build or launch raises.
+``flash_attention_fwd`` launches, for a tensor on the card, the bfloat16
+tensor-core kernel (``csrc/flash_attention_fwd.cu``) or the exact float32
+scalar kernel (``csrc/flash_attention_fwd_f32.cu``), and uses
+``flash_attention_fwd_reference`` (the blocked online-softmax math of the
+JAX package's ``_blocked_fwd_jax``) only for a tensor on the CPU.  Both
+kernels take any BH and any head dim from 1 to 256.  There is no fallback
+from the card to the plain version: a kernel that fails to build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -15,27 +18,34 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 _NEG_INF = -1e30
-_KERNEL = "flash_attention_fwd"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 256
+# dtype -> (the kernel's source, csrc/<source>.cu, and its C entry point)
+_KERNELS = {
+    torch.bfloat16: ("flash_attention_fwd", "flash_attention_fwd_bf16"),
+    torch.float32: ("flash_attention_fwd_f32", "flash_attention_fwd_f32"),
+}
+# launches of each kernel, by source; flash_attention_fwd.launches counts all
+KERNEL_LAUNCHES = {source: 0 for source, _ in _KERNELS.values()}
 _count_lock = threading.Lock()
 
 
 def flash_attention_fwd_reference(q3: torch.Tensor, k3: torch.Tensor,
                                   v3: torch.Tensor, causal: bool = False,
-                                  block_k: int = 256
+                                  block_k: int = 256,
+                                  scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online-softmax forward over key blocks of ``block_k``; ``[BH, T, D]``
     in, ``(out [BH, Tq, D] in the input dtype, lse [BH, Tq] f32)`` out.
-    Runs on any device; it is what the kernel is held against."""
+    ``scale`` defaults to ``1/sqrt(D)``.  Runs on any device; it is what
+    the kernels are held against."""
     bh, tq, d = q3.shape
     tk = k3.shape[1]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     bk = min(block_k, tk)
     qf = q3.float()
     qpos = torch.arange(tq, device=q3.device)[:, None]
@@ -72,42 +82,73 @@ def _check(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> None:
         raise ValueError("Tq and Tk must be at least 1")
 
 
+def _pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with zero columns appended to the last dim up to ``width``:
+    they add 0 to every q.k and make output columns that are cut off."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _kernel_head_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim a kernel is handed for a true ``d``: the bf16 kernel
+    copies rows in whole 16-byte pieces, so it takes multiples of 8 (others
+    are padded); the f32 kernel takes any ``d``."""
+    return -(-d // 8) * 8 if dtype == torch.bfloat16 else d
+
+
 def _launch(q3, k3, v3, causal):
-    if q3.dtype not in _DTYPES:
-        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, "
+    if q3.dtype not in _KERNELS:
+        raise ValueError(f"the CUDA kernels take float32 or bfloat16, "
                          f"not {q3.dtype}")
-    bh, tq, d = q3.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes D in {_HEAD_DIMS}, not {d}")
-    if bh > 65535:
-        raise ValueError(f"the CUDA kernel takes BH <= 65535, not {bh}")
+    d = q3.shape[-1]
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernels take 1 <= D <= {MAX_HEAD_DIM}, "
+                         f"not {d}")
     if not (q3.device == k3.device == v3.device):
         raise ValueError("q, k, v must lie on one device")
     if not (q3.is_contiguous() and k3.is_contiguous()
             and v3.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous [BH, T, D] "
+        raise ValueError("the CUDA kernels take contiguous [BH, T, D] "
                          "tensors")
+    width = _kernel_head_dim(d, q3.dtype)
+    if width != d:
+        q3, k3, v3 = (_pad_head_dim(x, width) for x in (q3, k3, v3))
+    out, lse = _run_kernel(q3, k3, v3, causal, 1.0 / math.sqrt(d))
+    if width != d:
+        out = out[..., :d].contiguous()
+    return out, lse
+
+
+def _run_kernel(q3, k3, v3, causal, scale):
+    """Launch the dtype's kernel on ``[BH, T, width]`` tensors with the
+    softmax ``scale`` of the true head dim; counts the launch."""
     from . import _build
-    lib = _build.load(_KERNEL)
-    fn = lib.flash_attention_fwd
+    source, entry = _KERNELS[q3.dtype]
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:  # ints would cut 64-bit pointers
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # the bf16 kernel copies 16-byte pieces: a view at an odd offset is
+    # copied to fresh (aligned) storage first
+    q3, k3, v3 = (x if x.data_ptr() % 16 == 0 else x.clone()
+                  for x in (q3, k3, v3))
+    bh, tq, d = q3.shape
     out = torch.empty_like(q3)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), bh, tq, k3.shape[1], d, _DTYPES[q3.dtype],
-                 int(bool(causal)), 1.0 / math.sqrt(d), stream)
+                 lse.data_ptr(), bh, tq, k3.shape[1], d, int(bool(causal)),
+                 scale, stream)
     if err != 0:
         es = lib.flash_attention_error_string
         es.argtypes, es.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err} ({es(err).decode()})")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
+                           f"({es(err).decode()})")
     with _count_lock:
         flash_attention_fwd.launches += 1
+        KERNEL_LAUNCHES[source] += 1
     return out, lse
 
 
@@ -116,9 +157,10 @@ def flash_attention_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward over ``[BH, T, D]``: ``(out, lse)``.
 
-    A CUDA tensor goes to the kernel (f32 or bf16, D in 16/32/64/128,
-    contiguous), anything else raises; a CPU tensor takes the plain
-    version.  ``flash_attention_fwd.launches`` counts kernel launches."""
+    A CUDA tensor goes to its dtype's kernel (f32 or bf16, any BH,
+    1 <= D <= 256, contiguous), anything else raises; a CPU tensor takes
+    the plain version.  ``flash_attention_fwd.launches`` counts kernel
+    launches, ``KERNEL_LAUNCHES`` each kernel's."""
     _check(q3, k3, v3)
     if q3.device.type == "cpu":
         return flash_attention_fwd_reference(q3, k3, v3, causal)

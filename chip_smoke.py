@@ -8,21 +8,26 @@ Run from the root of a checkout on a machine with one CUDA card:
 It builds the port's CUDA kernels from the sources in the checkout, then
 runs three phases, each printing one JSON line:
 
-1. ``kernel``: ``flash_attention_fwd`` against its plain PyTorch version on
-   the card over f32/bf16, causal/not, ragged T and several head dims, and
-   at every shape the BERT-base serving path gives it; then its time at
-   the BERT-base shape beside its bound, the plain version's
-   time and ``F.scaled_dot_product_attention``'s time (a yardstick only: the
-   port never calls it).
+1. ``kernel``: ``flash_attention_fwd``'s two kernels (bf16 on the tensor
+   cores, f32 scalar) against their plain PyTorch version on the card:
+   f32/bf16, causal/not, ragged T, Tq != Tk, head dims from 1 to 256, BH
+   70000, and every shape the BERT-base serving path gives them in both
+   dtypes, out and lse each; then their times at those shapes (bf16 at BH
+   12, 48, 192, 768; f32 at BH 192) beside the bound, the plain version's
+   time and ``F.scaled_dot_product_attention``'s (a yardstick only: the
+   port never calls it), each as CUDA-event time per call (``ms``) and as
+   the card's kernel time from ``torch.profiler`` (``device_ms``).
 2. ``bert_serve``: BERT-base (``BERTClassifier``, width 768, 12 layers, 12
    heads, seq 512, ``use_flash=True``) with random weights made from a seed
    in the JAX tree layout, served through ``InferenceModel`` in bf16:
-   ``warm`` then ``predict``.  The kernel's launch count over that run must
-   be 12 per forward, and the logits must match the same model served in
-   f32 with the plain attention.
+   ``warm`` then ``predict``.  The bf16 kernel's launch count over that run
+   must be 12 per forward (and the f32 kernel's 0), and the logits must
+   match the same model served in f32 with the plain attention; the model
+   served in f32 with flash must launch the f32 kernel 12 times per
+   forward and match too.
 3. ``devices``: the card as ``nvidia-smi`` reports it.
 
-Then a ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.  Any
+Then a ``kernels`` line (one entry per kernel) and, last, ``{"ok": true, "device": {...}}``.  Any
 failure raises, so the script exits non-zero and prints no last line; it
 also exits non-zero when there is no CUDA card.
 """
@@ -34,6 +39,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,11 +51,17 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 BERT_BASE = dict(vocab_size=30522, hidden_size=768, n_layers=12, n_heads=12,
                  intermediate_mult=4, max_position=512, dropout=0.0)
 SEQ = 512
+BF16_KERNEL = "flash_attention_fwd"      # csrc/<name>.cu
+F32_KERNEL = "flash_attention_fwd_f32"
 BUCKETS = (1, 4, 16, 64)  # InferenceModel's default batch buckets
 TIMED_SHAPE = dict(b=16, h=12, t=SEQ, d=64)  # the bucket-16 BERT-base call
+# head dims the JAX kernel takes that are not BERT's (it pads any D)
+HEAD_DIMS = (1, 5, 8, 24, 48, 80, 96, 112, 256)
 LATENCY_CALLS = 50  # host-timed predict calls per bucket
 # f32: same arithmetic in another summation order; bf16 out: one rounding
-# of each output to bf16 on both sides, so a few bf16 ulps of max |out|
+# of each output to bf16 on both sides, and in the kernel P rounded to bf16
+# before P @ V (relative error 2^-9 per weight, averaging out over the
+# keys), so a few bf16 ulps of max |out|
 TOL_F32 = 2e-5
 TOL_LSE = 5e-5
 TOL_BF16_REL = 2e-2
@@ -75,6 +87,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, runs: int = 3) -> float:
+    """The card's kernel time per call of ``fn``: the device-side kernel
+    events of ``iters`` calls under ``torch.profiler``, summed and divided
+    by ``iters``; the median of ``runs`` such windows.  Unlike ``cuda_ms``
+    it leaves out the gaps where the card waits for the host to launch,
+    which decide ``cuda_ms`` for a kernel shorter than its launch."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times.append(sum(
+            e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters)
+    return sorted(times)[len(times) // 2]
 
 
 def attention_bound(bh: int, tq: int, tk: int, d: int, itemsize: int,
@@ -108,6 +142,9 @@ def phase_kernel(fa) -> dict:
         out, lse = fa.flash_attention_fwd(q, k, v, causal)
         ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal)
         torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != dtype:
+            raise AssertionError(f"kernel gave {tuple(out.shape)} "
+                                 f"{out.dtype} at bh={bh} tq={tq} d={d}")
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         if dtype == torch.float32:
@@ -125,33 +162,71 @@ def phase_kernel(fa) -> dict:
                 f"{err}, lse err {lse_err}")
         return q, k, v, err
 
+    dtypes = (torch.float32, torch.bfloat16)
     cases = [(3, tq, tq, d, dt, c)
              for tq in (1, 100, 512, 1000) for d in (16, 64, 128)
-             for dt in (torch.float32, torch.bfloat16) for c in (False, True)]
+             for dt in dtypes for c in (False, True)]
     cases += [(3, 100, 300, 64, torch.float32, c) for c in (False, True)]
     cases += [(3, 300, 100, 64, torch.bfloat16, c) for c in (False, True)]
+    # every head dim the JAX kernel takes up to 256 (odd widths, ragged T,
+    # Tq != Tk), and BH past the old grid-y limit of 65535
+    cases += [(2, 77, 130, d, dt, c) for d in HEAD_DIMS for dt in dtypes
+              for c in (False, True)]
+    cases += [(2, 300, 300, 256, dt, True) for dt in dtypes]
+    cases += [(70000, 8, 8, 16, dt, c) for dt in dtypes
+              for c in (False, True)]
+    # grids large enough for the bf16 kernel's 128-row tiles (d <= 64)
+    cases += [(96, tq, tk, d, torch.bfloat16, c)
+              for tq, tk in ((1000, 700), (700, 1000)) for d in (24, 40, 64)
+              for c in (False, True)]
     # the shapes the main path gives it: BH = 12 heads x each batch bucket
     b, h, t, d = (TIMED_SHAPE[x] for x in "bhtd")
-    cases += [(h * n, t, t, d, torch.bfloat16, False) for n in BUCKETS]
-    cases += [(b * h, t, t, d, torch.float32, False)]
+    cases += [(h * n, t, t, d, dt, False) for n in BUCKETS for dt in dtypes]
     for case in cases:
         check(*case)
-    # the timed shape is one of the main path's, checked again on its inputs
-    q, k, v, timed_err = check(b * h, t, t, d, torch.bfloat16, False)
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, False))
-    plain_ms = cuda_ms(
-        lambda: fa.flash_attention_fwd_reference(q, k, v, False))
-    q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(q4, k4, v4))
-    bound_ms, bound_by = attention_bound(b * h, t, t, d, 2, False)
+
+    # times at every serving shape (bf16) and at the timed shape in f32;
+    # each shape checked again on the inputs it is timed on.  ms, plain_ms
+    # and library_ms are CUDA-event times per call, host launch included
+    # (cuda_ms); the *device_ms keys are the card's kernel time per call
+    # alone (device_ms), which differ where a call is shorter than its
+    # launch
+    timings = []
+    for bh, dtype in [(h * n, torch.bfloat16) for n in BUCKETS] + [
+            (b * h, torch.float32)]:
+        q, k, v, err = check(bh, t, t, d, dtype, False)
+        q4, k4, v4 = (x.view(bh // h, h, t, d) for x in (q, k, v))
+
+        def kernel():
+            return fa.flash_attention_fwd(q, k, v, False)
+
+        def plain():
+            return fa.flash_attention_fwd_reference(q, k, v, False)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4)
+
+        ms, plain_ms, library_ms = (cuda_ms(f)
+                                    for f in (kernel, plain, library))
+        dev_ms, plain_dev_ms, library_dev_ms = (
+            device_ms(f) for f in (kernel, plain, library))
+        bound_ms, bound_by = attention_bound(bh, t, t, d, q.element_size(),
+                                             False)
+        timings.append({
+            "kernel": fa._KERNELS[dtype][0], "bh": bh, "t": t, "d": d,
+            "dtype": str(dtype).replace("torch.", ""), "causal": False,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "device_ms": dev_ms,
+            "plain_device_ms": plain_dev_ms,
+            "library_device_ms": library_dev_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "device_share_of_bound": bound_ms / dev_ms,
+            "device_tflop_per_s": 4.0 * bh * t * t * d / dev_ms / 1e9})
     res = {"phase": "kernel", "cases": len(cases), "worst": worst,
            "tolerances": {"f32_out_abs": TOL_F32, "lse_abs": TOL_LSE,
                           "bf16_out_rel_to_max": TOL_BF16_REL},
-           "timed_shape": dict(TIMED_SHAPE, dtype="bfloat16", causal=False),
-           "max_abs_err": timed_err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+           "timed_shape": dict(TIMED_SHAPE, causal=False),
+           "timings": timings}
     emit(res)
     return res
 
@@ -207,12 +282,31 @@ def profile_predict(im, x: np.ndarray) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms in kernels)
-    flash_ms = sum(ms for k, ms in kernels if "flash_fwd_kernel" in k)
+    flash_ms = sum(ms for k, ms in kernels if "flash_fwd_" in k)
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
             "flash_share_of_busy": flash_ms / busy_ms if busy_ms else None,
             "top": [[k[:90], ms] for k, ms in top]}
+
+
+def reset_counts(fa) -> None:
+    fa.flash_attention_fwd.launches = 0
+    for name in fa.KERNEL_LAUNCHES:
+        fa.KERNEL_LAUNCHES[name] = 0
+
+
+def read_counts(fa, kernel: str, forwards: int) -> dict:
+    """The launch counts since ``reset_counts``: ``kernel`` must have run
+    once per encoder layer of every forward, and no other kernel."""
+    counts = dict(fa.KERNEL_LAUNCHES)
+    want = {name: 0 for name in counts}
+    want[kernel] = BERT_BASE["n_layers"] * forwards
+    if counts != want or fa.flash_attention_fwd.launches != want[kernel]:
+        raise AssertionError(f"kernel launches {counts} over {forwards} "
+                             f"forwards of {BERT_BASE['n_layers']} layers; "
+                             f"want {want}")
+    return counts
 
 
 def phase_bert_serve(fa) -> dict:
@@ -235,18 +329,14 @@ def phase_bert_serve(fa) -> dict:
     top = im.batch_buckets[-1]
 
     # the main path: warm, then predict (padding, trimming, the largest
-    # bucket and chunking beyond it); the kernel's count read right after
-    fa.flash_attention_fwd.launches = 0
+    # bucket and chunking beyond it); the kernels' counts read right after
+    reset_counts(fa)
     t0 = time.perf_counter()
     n_warm = im.warm([(SEQ,)], dtype=np.int32)
     warm_s = time.perf_counter() - t0
     outs = {n: im.predict(x) for n, x in batches.items()}
-    launches = fa.flash_attention_fwd.launches
     forwards = n_warm + sum(-(-n // top) for n in batches)
-    if launches != BERT_BASE["n_layers"] * forwards:
-        raise AssertionError(f"flash_attention_fwd launched {launches} "
-                             f"times over {forwards} forwards of "
-                             f"{BERT_BASE['n_layers']} layers")
+    launches = read_counts(fa, BF16_KERNEL, forwards)
 
     latency = {}
     for b in im.batch_buckets:
@@ -271,8 +361,12 @@ def phase_bert_serve(fa) -> dict:
     ref_im = served(False)
     refs = {n: ref_im.predict(x) for n, x in batches.items()}
     del ref_im
+    # the f32 flash path, its kernel counted over this run alone
     f32_im = served(True)
+    reset_counts(fa)
     f32_outs = {n: f32_im.predict(x) for n, x in batches.items()}
+    f32_forwards = sum(-(-n // f32_im.batch_buckets[-1]) for n in batches)
+    f32_launches = read_counts(fa, F32_KERNEL, f32_forwards)
     del f32_im
     for name, got, tol in (("bf16_flash_vs_f32_dense", outs, TOL_SERVE_BF16),
                            ("f32_flash_vs_f32_dense", f32_outs,
@@ -292,6 +386,7 @@ def phase_bert_serve(fa) -> dict:
     res = {"phase": "bert_serve", "config": BERT_BASE, "seq": SEQ,
            "dtype": "bfloat16", "batches": sorted(batches),
            "forwards": forwards, "flash_launches": launches,
+           "f32_forwards": f32_forwards, "f32_flash_launches": f32_launches,
            "setup_s": setup_s, "warm_s": warm_s, "latency": latency,
            "breakdown": breakdown, "errors": errors}
     emit(res)
@@ -322,20 +417,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    _build.build("flash_attention_fwd")
+    with ThreadPoolExecutor() as pool:  # one nvcc per source, together
+        list(pool.map(_build.build, (BF16_KERNEL, F32_KERNEL)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     kern = phase_kernel(fa)
     serve = phase_bert_serve(fa)
     smi = phase_devices()
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "analytics_zoo_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "analytics_zoo_tpu/ops/flash_attention.py:44",
-        "launches": serve["flash_launches"],
-        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": kern["library_ms"]}]})
+    timed = {x["kernel"]: x for x in kern["timings"]
+             if x["bh"] == TIMED_SHAPE["b"] * TIMED_SHAPE["h"]}
+    entries = []
+    for name, design, launches, path in (
+            (BF16_KERNEL, "bf16, mma.sync tensor cores, cp.async ring",
+             serve["flash_launches"][BF16_KERNEL], "bert_serve bf16"),
+            (F32_KERNEL, "f32, scalar FMAs (exact)",
+             serve["f32_flash_launches"][F32_KERNEL], "bert_serve f32")):
+        x = timed[name]
+        entries.append({
+            "name": name, "design": design, "route": "cuda",
+            "source": f"analytics_zoo_tpu_torch/csrc/{name}.cu",
+            "replaces": "analytics_zoo_tpu/ops/flash_attention.py:44",
+            "path": path, "launches": launches,
+            "max_abs_err": x["max_abs_err"], "ms": x["ms"],
+            "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+            "bound_by": x["bound_by"], "library_ms": x["library_ms"],
+            "device_ms": x["device_ms"],
+            "plain_device_ms": x["plain_device_ms"],
+            "library_device_ms": x["library_device_ms"],
+            "shape": {k: x[k] for k in ("bh", "t", "d", "dtype")}})
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

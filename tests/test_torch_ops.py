@@ -167,7 +167,8 @@ def test_wrapper_raises_on_other_devices_and_bad_shapes():
 
 @pytest.mark.parametrize("bad,match", [
     (dict(dtype=torch.float16), "float32 or bfloat16"),
-    (dict(d=24), "D in"),
+    (dict(d=264), "D <= 256"),
+    (dict(d=0), "1 <= D"),
 ])
 def test_launch_validates_before_building(bad, match):
     """The kernel's own limits are checked before any build or launch."""
@@ -200,22 +201,29 @@ def test_csrc_sources_ship_with_the_package():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_reference_on_card():
-    """The CUDA kernel against its plain version (runs on the card only)."""
+@pytest.mark.parametrize("bh", [4, 300])
+@pytest.mark.parametrize("tq,tk", [(77, 77), (130, 61)])
+@pytest.mark.parametrize("d", [24, 64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_reference_on_card(dtype, causal, d, tq, tk, bh):
+    """The CUDA kernels against their plain version (runs on the card
+    only), at chip_smoke.py's tolerances: f32 out 2e-5, bf16 out 2% of
+    max |out|, lse 5e-5; ragged T, Tq != Tk; BH 300 makes grids large
+    enough for the bf16 kernel's 128-row tiles."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for causal in (False, True):
-            q, k, v = (torch.randn(4, 77, 64, device="cuda", generator=gen
-                                   ).to(dtype) for _ in range(3))
-            before = flash_attention_fwd.launches
-            out, lse = flash_attention_fwd(q, k, v, causal)
-            assert flash_attention_fwd.launches == before + 1
-            ref, ref_lse = flash_attention_fwd_reference(q, k, v, causal)
-            scale = 1.0 if dtype == torch.float32 else \
-                ref.float().abs().max().item()
-            assert (out.float() - ref.float()).abs().max().item() \
-                <= tol * scale
-            assert (lse - ref_lse).abs().max().item() <= 5e-5
-
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(d + tq)
+    q = torch.randn(bh, tq, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(bh, tk, d, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    assert flash_attention_fwd.launches == before + 1
+    ref, ref_lse = flash_attention_fwd_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else \
+        2e-2 * ref.float().abs().max().item()
+    assert out.dtype == dtype and out.shape == (bh, tq, d)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 5e-5
