@@ -1,4 +1,4 @@
-"""JAX variables tree -> this package's ``state_dict``.
+"""JAX variables tree <-> this package's ``state_dict``.
 
 The JAX package keeps ``{"params": tree, "state": tree}`` where each tree is
 nested dicts keyed by scope names (``nn/module.py``).  The port's modules
@@ -9,7 +9,7 @@ becomes the key ``bert.layer_0.mha.wq``.  Dense kernels keep JAX's
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -43,4 +43,29 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-__all__ = ["from_jax_variables"]
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
+                     state_keys: Iterable[str] = ()) -> Dict[str, Any]:
+    """The inverse of :func:`from_jax_variables`: a ``state_dict`` as a JAX
+    ``{"params", "state"}`` tree of numpy arrays (keys split at ``.``).
+    Keys in ``state_keys`` go under ``"state"``, every other under
+    ``"params"``.  numpy has no bfloat16, so bf16 tensors come back as
+    float32 arrays (exact: every bf16 value is an f32 value)."""
+    state_keys = set(state_keys)
+    out: Dict[str, Any] = {"params": {}, "state": {}}
+    for key, t in state_dict.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        *path, leaf = key.split(".")
+        node = out["state" if key in state_keys else "params"]
+        for name in path:
+            node = node.setdefault(name, {})
+            if not isinstance(node, dict):
+                raise ValueError(f"key {key!r} nests under a leaf")
+        if leaf in node:
+            raise ValueError(f"two keys map to the leaf {key!r}")
+        node[leaf] = t.numpy().copy()
+    return out
+
+
+__all__ = ["from_jax_variables", "to_jax_variables"]

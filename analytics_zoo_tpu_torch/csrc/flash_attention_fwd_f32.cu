@@ -37,8 +37,17 @@
 // over 3.35 TB/s = 20), so it is bound by operations.  It runs at a fraction
 // of that rate: loads are synchronous and every product goes through shared
 // memory.  It serves only float32 models and the float32 reference runs.
+//
+// Head dims 257..1024 (f32, and bf16 inputs computed in f32 as the TPU kernel
+// upcasts its blocks) take the wide kernel: 16-row q tiles and 16-key tiles,
+// the head dim staged in chunks of 64 columns for S, and each block owning a
+// chunk of 256 output columns (S is recomputed once per chunk); thread
+// (a, b) of the 16 x 16 grid holds logit (row a, key b), the online softmax
+// reduces over the 16 lanes of a half-warp, and thread t accumulates output
+// column t of the chunk for all 16 rows, reading V from device memory.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -218,16 +227,141 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Wide head dims (257..1024)
+// ---------------------------------------------------------------------------
+
+constexpr int kWT = 16;          // q rows and keys per wide tile
+constexpr int kWChunk = 64;      // head-dim columns staged at a time
+constexpr int kWCols = kThreads; // output columns per block
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ lse, int tq, int tk, int d,
+                      int n_qtiles, int n_chunks, float scale, int causal) {
+  __shared__ float qs[kWT][kWChunk + 1], ks[kWT][kWChunk + 1];
+  __shared__ float ps[kWT][kWT + 1], alpha_s[kWT], l_s[kWT];
+
+  const int64_t bh = blockIdx.x / (int64_t(n_qtiles) * n_chunks);
+  const int rest = blockIdx.x % (n_qtiles * n_chunks);
+  const int q0 = (rest / n_chunks) * kWT;
+  const int chunk = rest % n_chunks;
+  const int col = chunk * kWCols + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int a = tid >> 4, b = tid & 15;  // logit (row a, key b)
+  const T* qb = q + bh * tq * d;
+  const T* kb = k + bh * tk * d;
+  const T* vb = v + bh * tk * d;
+
+  float m = kNegInf, l = 0.f;  // row a's, the same in its 16 lanes
+  float acc[kWT];
+#pragma unroll
+  for (int i = 0; i < kWT; ++i) acc[i] = 0.f;
+
+  const int kend = causal ? min(tk, q0 + kWT) : tk;
+  for (int k0 = 0; k0 < kend; k0 += kWT) {
+    float s = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kWChunk) {
+      __syncthreads();  // previous chunk (and the previous tile's P) consumed
+      for (int idx = tid; idx < kWT * kWChunk; idx += kThreads) {
+        const int r = idx / kWChunk, c = idx % kWChunk;
+        const bool cin = c0 + c < d;
+        qs[r][c] = cin && q0 + r < tq
+                       ? to_f(qb[int64_t(q0 + r) * d + c0 + c]) : 0.f;
+        ks[r][c] = cin && k0 + r < tk
+                       ? to_f(kb[int64_t(k0 + r) * d + c0 + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < kWChunk; ++c) s = fmaf(qs[a][c], ks[b][c], s);
+    }
+    const int key = k0 + b;
+    const bool keep = key < tk && (!causal || q0 + a >= key);
+    s = keep ? s * scale : kNegInf;
+    const float m_new = fmaxf(m, half_warp_max(s));
+    const float alpha = expf(m - m_new);
+    const float p = expf(s - m_new);
+    l = alpha * l + half_warp_sum(p);
+    m = m_new;
+    ps[a][b] = p;
+    if (b == 0) alpha_s[a] = alpha;
+    __syncthreads();
+    if (col < d) {
+#pragma unroll
+      for (int i = 0; i < kWT; ++i) acc[i] *= alpha_s[i];
+      const int kn = min(kWT, tk - k0);  // keys >= tk are never read
+      for (int j = 0; j < kn; ++j) {
+        const float vv = to_f(vb[int64_t(k0 + j) * d + col]);
+#pragma unroll
+        for (int i = 0; i < kWT; ++i) acc[i] = fmaf(ps[i][j], vv, acc[i]);
+      }
+    }
+  }
+
+  const float denom = fmaxf(l, 1e-30f);
+  if (b == 0) l_s[a] = denom;
+  if (chunk == 0 && b == 0 && q0 + a < tq)
+    lse[bh * tq + q0 + a] = m + logf(denom);
+  __syncthreads();
+  if (col < d) {
+#pragma unroll
+    for (int i = 0; i < kWT; ++i)
+      if (q0 + i < tq) store(out + (bh * tq + q0 + i) * d + col, acc[i] / l_s[i]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const T* q, const T* k, const T* v, T* out,
+                        float* lse, int bh, int tq, int tk, int d,
+                        float scale, int causal, cudaStream_t stream) {
+  const int n_qtiles = (tq + kWT - 1) / kWT;
+  const int n_chunks = (d + kWCols - 1) / kWCols;
+  if (int64_t(bh) * n_qtiles * n_chunks > INT32_MAX)
+    return cudaErrorInvalidValue;
+  flash_fwd_wide_kernel<T><<<bh * n_qtiles * n_chunks, kThreads, 0,
+                             stream>>>(q, k, v, out, lse, tq, tk, d,
+                                       n_qtiles, n_chunks, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Takes any 1 <= d <= 256; launches
-// on `stream`, does not synchronise, allocates nothing; returns the launch's
-// cudaError_t (0 on success).
+// Plain C entry points, bound with ctypes: float32 with any 1 <= d <= 1024,
+// and bfloat16 with 256 < d <= 1024 (narrower bf16 heads take the tensor-core
+// kernel of flash_attention_fwd.cu).  They launch on `stream`, do not
+// synchronise, allocate nothing, and return the launch's cudaError_t (0 on
+// success).
+extern "C" int flash_attention_fwd_wide_bf16(const void* q, const void* k,
+                                             const void* v, void* out,
+                                             void* lse, int bh, int tq,
+                                             int tk, int d, int causal,
+                                             float scale, void* stream) {
+  if (bh < 1 || tq < 1 || tk < 1 || d <= 256 || d > 1024)
+    return cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  return launch_wide<bf16>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), bh, tq, tk, d, scale, causal,
+      static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* out, void* lse,
                                        int bh, int tq, int tk, int d,
                                        int causal, float scale, void* stream) {
-  if (bh < 1 || tq < 1 || tk < 1 || d < 1 || d > 256)
+  if (bh < 1 || tq < 1 || tk < 1 || d < 1 || d > 1024)
     return cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -239,7 +373,8 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
   if (d <= 32) return launch<32>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
   if (d <= 64) return launch<64>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
   if (d <= 128) return launch<128>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
-  return launch<256>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
+  if (d <= 256) return launch<256>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
+  return launch_wide<float>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

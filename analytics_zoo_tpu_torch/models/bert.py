@@ -13,7 +13,7 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
-from ..nn import Dense, Dropout, Embedding, LayerNormalization, \
+from ..nn import Dense, Dropout, Embedding, LayerNormalization, Remat, \
     TransformerLayer, initializers
 from .common import ZooModel
 
@@ -26,18 +26,26 @@ class BERT(nn.Module):
     ``type_vocab`` ids); the JAX package creates it when ``init`` sees
     segment ids, PyTorch builds parameters up front.  ``dtype`` casts the
     activations after the embedding LayerNorm, so the encoder stack runs in
-    it.  ``remat`` and ``use_ring`` (training, sequence parallelism) are
-    not ported yet."""
+    it.
+
+    ``remat``: checkpoint each whole encoder block (``Remat``; its
+    parameters sit under ``remat_{i}/layer_{i}``, as in the JAX tree).
+    ``remat_attention``: checkpoint only the dense attention core (not
+    with ``use_flash=True``, which keeps no attention maps).  Both
+    recompute in the backward what they do not keep; ``use_ring``
+    (sequence parallelism) is not ported yet."""
 
     def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
                  n_layers: int = 12, n_heads: int = 12,
                  intermediate_mult: int = 4, max_position: int = 512,
                  type_vocab: int = 2, dropout: float = 0.1,
                  use_flash: bool = False, segments: bool = False,
+                 remat: bool = False, remat_attention: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.n_layers = n_layers
+        self.remat = remat
         self.dtype = dtype
         self.tok_embed = Embedding(vocab_size, hidden_size)
         self.pos_embed = nn.Parameter(torch.empty(1, max_position,
@@ -47,9 +55,14 @@ class BERT(nn.Module):
         self.embed_ln = LayerNormalization(hidden_size)
         self.embed_drop = Dropout(dropout)
         for i in range(n_layers):
-            self.add_module(f"layer_{i}", TransformerLayer(
+            block = TransformerLayer(
                 hidden_size, n_heads, hidden_mult=intermediate_mult,
-                dropout=dropout, pre_ln=True, use_flash=use_flash))
+                dropout=dropout, pre_ln=True, use_flash=use_flash,
+                remat_attention=remat_attention and not remat)
+            if remat:
+                self.add_module(f"remat_{i}", Remat(block, f"layer_{i}"))
+            else:
+                self.add_module(f"layer_{i}", block)
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -68,7 +81,8 @@ class BERT(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, mask=mask)
+            name = f"remat_{i}" if self.remat else f"layer_{i}"
+            x = getattr(self, name)(x, mask=mask)
         return x.float()
 
 
@@ -111,3 +125,17 @@ class BERTNER(ZooModel):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return self.ner_head(self.bert(ids))
+
+
+def squad_span_loss(y_pred: torch.Tensor, y_true: torch.Tensor
+                    ) -> torch.Tensor:
+    """``y_pred`` ``[B, T, 2]`` span logits; ``y_true`` int ``[B, 2]`` =
+    (start, end): the mean of the start and end cross-entropies."""
+    y_true = y_true.long()
+
+    def nll(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, 1, idx[:, None])[:, 0]
+
+    return (nll(y_pred[..., 0], y_true[:, 0]) +
+            nll(y_pred[..., 1], y_true[:, 1])).mean() / 2.0

@@ -14,6 +14,7 @@ import math
 from typing import Optional, Union
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from . import initializers
@@ -50,17 +51,30 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class MultiHeadAttention(nn.Module):
+    """``remat``: recompute the dense attention core (logits, softmax) in
+    the backward instead of keeping its ``[B, H, Tq, Tk]`` maps
+    (``torch.utils.checkpoint``); the flash core never keeps them, so
+    ``remat`` with ``use_flash=True`` is refused, as in the JAX package
+    (``"auto"`` composes: remat applies when it picks the dense path)."""
+
     def __init__(self, d_model: int, num_heads: int,
                  head_dim: Optional[int] = None, dropout: float = 0.0,
-                 use_flash: Union[bool, str] = False, causal: bool = False):
+                 use_flash: Union[bool, str] = False, causal: bool = False,
+                 remat: bool = False):
         super().__init__()
         if use_flash not in (True, False, "auto"):
             raise ValueError(f"use_flash must be True, False, or 'auto'; "
                              f"got {use_flash!r}")
+        if remat and use_flash is True:
+            raise ValueError(
+                "remat=True applies to the dense attention path only; "
+                "use_flash/use_ring kernels already rematerialize — "
+                "pick one (use_flash='auto' composes with remat)")
         self.num_heads = num_heads
         self.head_dim = head_dim or d_model // num_heads
         self.use_flash = use_flash
         self.causal = causal
+        self.remat = remat
         inner = num_heads * self.head_dim
         self.wq = nn.Parameter(torch.empty(d_model, inner))
         self.wk = nn.Parameter(torch.empty(d_model, inner))
@@ -95,7 +109,12 @@ class MultiHeadAttention(nn.Module):
             if self.causal:
                 cm = causal_mask(x.shape[1], kv.shape[1], device=x.device)
                 mask = cm if mask is None else (mask.bool() & cm)
-            ctx = dot_product_attention(q, k, v, mask)
+            if self.remat and torch.is_grad_enabled():
+                ctx = torch.utils.checkpoint.checkpoint(
+                    dot_product_attention, q, k, v, mask,
+                    use_reentrant=False)
+            else:
+                ctx = dot_product_attention(q, k, v, mask)
         out = ctx.reshape(x.shape[:-1] + (-1,)) @ self.wo.to(x.dtype)
         return self.drop(out)
 
@@ -105,11 +124,13 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, hidden_mult: int = 4,
                  dropout: float = 0.0, pre_ln: bool = False,
-                 use_flash: Union[bool, str] = False, causal: bool = False):
+                 use_flash: Union[bool, str] = False, causal: bool = False,
+                 remat_attention: bool = False):
         super().__init__()
         self.pre_ln = pre_ln
         self.mha = MultiHeadAttention(d_model, num_heads, dropout=dropout,
-                                      use_flash=use_flash, causal=causal)
+                                      use_flash=use_flash, causal=causal,
+                                      remat=remat_attention)
         self.ln1 = LayerNormalization(d_model)
         self.ln2 = LayerNormalization(d_model)
         self.ffn1 = Dense(d_model, d_model * hidden_mult, activation="gelu")

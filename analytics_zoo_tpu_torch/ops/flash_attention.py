@@ -1,15 +1,24 @@
-"""Flash attention forward: hand-written CUDA kernels for Hopper and their
-plain PyTorch version.
+"""Flash attention, forward and backward: hand-written CUDA kernels for
+Hopper and their plain PyTorch versions.
 
 Port of ``analytics_zoo_tpu/ops/flash_attention.py``.  The TPU package runs
-the forward as a Pallas kernel (``_fwd_kernel``); here
-``flash_attention_fwd`` launches, for a tensor on the card, the bfloat16
-tensor-core kernel (``csrc/flash_attention_fwd.cu``) or the exact float32
-scalar kernel (``csrc/flash_attention_fwd_f32.cu``), and uses
-``flash_attention_fwd_reference`` (the blocked online-softmax math of the
-JAX package's ``_blocked_fwd_jax``) only for a tensor on the CPU.  Both
-kernels take any BH and any head dim from 1 to 256.  There is no fallback
-from the card to the plain version: a kernel that fails to build or launch
+the forward as a Pallas kernel (``_fwd_kernel``) inside a ``jax.custom_vjp``
+whose backward is the blocked FA2 math of ``_blocked_bwd_jax``.  Here, for a
+tensor on the card:
+
+- ``flash_attention_fwd`` launches the bfloat16 tensor-core kernel
+  (``csrc/flash_attention_fwd.cu``, head dims up to 256) or the float32
+  kernel (``csrc/flash_attention_fwd_f32.cu``, which also takes bfloat16
+  heads wider than 256 and computes them in f32);
+- ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` (bf16
+  heads up to 64 on the tensor cores, f32 and wider heads in scalar f32);
+- ``flash_attention`` ties them together in a ``torch.autograd.Function``.
+
+Every kernel takes any BH and head dims from 1 to 1024.  For a tensor on
+the CPU the wrappers use ``flash_attention_fwd_reference`` and
+``flash_attention_bwd_reference`` (the blocked math of the JAX package's
+``_blocked_fwd_jax`` and ``_blocked_bwd_jax``).  There is no fallback from
+the card to the plain versions: a kernel that fails to build or launch
 raises.
 """
 
@@ -23,15 +32,32 @@ from typing import Optional, Tuple
 import torch
 
 _NEG_INF = -1e30
-MAX_HEAD_DIM = 256
-# dtype -> (the kernel's source, csrc/<source>.cu, and its C entry point)
-_KERNELS = {
-    torch.bfloat16: ("flash_attention_fwd", "flash_attention_fwd_bf16"),
-    torch.float32: ("flash_attention_fwd_f32", "flash_attention_fwd_f32"),
-}
-# launches of each kernel, by source; flash_attention_fwd.launches counts all
-KERNEL_LAUNCHES = {source: 0 for source, _ in _KERNELS.values()}
+MAX_HEAD_DIM = 1024
+# the bf16 tensor-core forward's widest head; wider bf16 heads take the f32
+# source's wide kernel
+TC_MAX_HEAD_DIM = 256
+# the backward's bf16 tensor-core path's widest head; wider heads take its
+# scalar f32 paths
+BWD_TC_MAX_HEAD_DIM = 64
+FWD_BF16 = "flash_attention_fwd"      # csrc/<source>.cu
+FWD_F32 = "flash_attention_fwd_f32"
+BWD = "flash_attention_bwd"
+_BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
+                torch.bfloat16: "flash_attention_bwd_bf16"}
+# launches of each kernel, by source; flash_attention_fwd.launches and
+# flash_attention_bwd.launches count each direction's
+KERNEL_LAUNCHES = {FWD_BF16: 0, FWD_F32: 0, BWD: 0}
 _count_lock = threading.Lock()
+
+
+def fwd_kernel(dtype: torch.dtype, d: int) -> Tuple[str, str]:
+    """(source, C entry point) of the forward kernel for ``dtype`` and a
+    head dim of ``d``."""
+    if dtype == torch.bfloat16:
+        if d <= TC_MAX_HEAD_DIM:
+            return FWD_BF16, "flash_attention_fwd_bf16"
+        return FWD_F32, "flash_attention_fwd_wide_bf16"
+    return FWD_F32, "flash_attention_fwd_f32"
 
 
 def flash_attention_fwd_reference(q3: torch.Tensor, k3: torch.Tensor,
@@ -69,6 +95,44 @@ def flash_attention_fwd_reference(q3: torch.Tensor, k3: torch.Tensor,
     return (acc / l).to(q3.dtype), (m + torch.log(l))[..., 0]
 
 
+def flash_attention_bwd_reference(q3: torch.Tensor, k3: torch.Tensor,
+                                  v3: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, dout: torch.Tensor,
+                                  causal: bool = False, block_k: int = 256,
+                                  scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """The FA2 backward over key blocks of ``block_k``: ``delta = Σ out·dO``
+    (from ``out`` in f32), then per block ``P = exp(S - lse)``,
+    ``dS = P (dO·Vᵀ - delta) scale``, ``dq += dS K``, ``dk = dSᵀ Q``,
+    ``dv = Pᵀ dO``, all accumulated in f32 and returned in the input dtype.
+    Runs on any device; it is what the kernel is held against."""
+    bh, tq, d = q3.shape
+    tk = k3.shape[1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    bk = min(block_k, tk)
+    qf, gf = q3.float(), dout.float()
+    delta = (out.float() * gf).sum(dim=-1, keepdim=True)
+    lse3 = lse[..., None]
+    qpos = torch.arange(tq, device=q3.device)[:, None]
+    dq = torch.zeros((bh, tq, d), device=q3.device)
+    dks, dvs = [], []
+    for j0 in range(0, tk, bk):
+        kj = k3[:, j0:j0 + bk].float()
+        vj = v3[:, j0:j0 + bk].float()
+        s = torch.einsum("bqd,bkd->bqk", qf, kj) * scale
+        if causal:
+            kpos = j0 + torch.arange(kj.shape[1], device=q3.device)[None, :]
+            s = torch.where(qpos >= kpos, s, _NEG_INF)
+        p = torch.exp(s - lse3)
+        dp = torch.einsum("bqd,bkd->bqk", gf, vj)
+        ds = p * (dp - delta) * scale
+        dq = dq + torch.einsum("bqk,bkd->bqd", ds, kj)
+        dks.append(torch.einsum("bqk,bqd->bkd", ds, qf))
+        dvs.append(torch.einsum("bqk,bqd->bkd", p, gf))
+    return (dq.to(q3.dtype), torch.cat(dks, dim=1).to(k3.dtype),
+            torch.cat(dvs, dim=1).to(v3.dtype))
+
+
 def _check(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> None:
     if q3.dim() != 3 or k3.dim() != 3 or v3.dim() != 3:
         raise ValueError("q, k, v must be [BH, T, D]")
@@ -82,34 +146,44 @@ def _check(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> None:
         raise ValueError("Tq and Tk must be at least 1")
 
 
-def _pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
-    """``x`` with zero columns appended to the last dim up to ``width``:
-    they add 0 to every q.k and make output columns that are cut off."""
-    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
-
-
-def _kernel_head_dim(d: int, dtype: torch.dtype) -> int:
-    """The head dim a kernel is handed for a true ``d``: the bf16 kernel
-    copies rows in whole 16-byte pieces, so it takes multiples of 8 (others
-    are padded); the f32 kernel takes any ``d``."""
-    return -(-d // 8) * 8 if dtype == torch.bfloat16 else d
-
-
-def _launch(q3, k3, v3, causal):
-    if q3.dtype not in _KERNELS:
+def _check_launch(*tensors: torch.Tensor) -> None:
+    """What every kernel takes: f32 or bf16, 1 <= D <= MAX_HEAD_DIM, one
+    device, contiguous; raises before any build or launch otherwise."""
+    q3 = tensors[0]
+    if q3.dtype not in _BWD_ENTRIES:
         raise ValueError(f"the CUDA kernels take float32 or bfloat16, "
                          f"not {q3.dtype}")
     d = q3.shape[-1]
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernels take 1 <= D <= {MAX_HEAD_DIM}, "
                          f"not {d}")
-    if not (q3.device == k3.device == v3.device):
-        raise ValueError("q, k, v must lie on one device")
-    if not (q3.is_contiguous() and k3.is_contiguous()
-            and v3.is_contiguous()):
+    if any(x.device != q3.device for x in tensors):
+        raise ValueError("the kernels' tensors must lie on one device")
+    if not all(x.is_contiguous() for x in tensors):
         raise ValueError("the CUDA kernels take contiguous [BH, T, D] "
                          "tensors")
-    width = _kernel_head_dim(d, q3.dtype)
+
+
+def _pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with zero columns appended to the last dim up to ``width``:
+    they add 0 to every q.k and make output columns that are cut off."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+
+
+def _kernel_head_dim(d: int, dtype: torch.dtype, tc_max: int) -> int:
+    """The head dim a kernel is handed for a true ``d``: bf16 heads up to
+    ``tc_max`` go to a tensor-core kernel, which copies rows in whole
+    16-byte pieces, so they are padded to a multiple of 8; the scalar
+    kernels load element by element and take any ``d``."""
+    if dtype == torch.bfloat16 and d <= tc_max:
+        return -(-d // 8) * 8
+    return d
+
+
+def _launch(q3, k3, v3, causal):
+    _check_launch(q3, k3, v3)
+    d = q3.shape[-1]
+    width = _kernel_head_dim(d, q3.dtype, TC_MAX_HEAD_DIM)
     if width != d:
         q3, k3, v3 = (_pad_head_dim(x, width) for x in (q3, k3, v3))
     out, lse = _run_kernel(q3, k3, v3, causal, 1.0 / math.sqrt(d))
@@ -118,17 +192,40 @@ def _launch(q3, k3, v3, causal):
     return out, lse
 
 
-def _run_kernel(q3, k3, v3, causal, scale):
-    """Launch the dtype's kernel on ``[BH, T, width]`` tensors with the
-    softmax ``scale`` of the true head dim; counts the launch."""
+def _entry(source: str, entry: str, n_ptrs: int, n_ints: int):
+    """The C entry point ``entry`` of ``csrc/<source>.cu`` (built at first
+    use) and its library, with its argument types set: ``n_ptrs``
+    pointers, ``n_ints`` ints, the scale (float) and the stream."""
     from . import _build
-    source, entry = _KERNELS[q3.dtype]
     lib = _build.load(source)
     fn = getattr(lib, entry)
     if fn.argtypes is None:  # ints would cut 64-bit pointers
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
+            + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _raise_on_error(lib, entry: str, err: int) -> None:
+    if err != 0:
+        es = lib.flash_attention_error_string
+        es.argtypes, es.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
+                           f"({es(err).decode()})")
+
+
+def _count(fn, source: str) -> None:
+    with _count_lock:
+        fn.launches += 1
+        KERNEL_LAUNCHES[source] += 1
+
+
+def _run_kernel(q3, k3, v3, causal, scale):
+    """Launch the forward kernel for the dtype and width of ``[BH, T,
+    width]`` tensors with the softmax ``scale`` of the true head dim;
+    counts the launch."""
+    source, entry = fwd_kernel(q3.dtype, q3.shape[-1])
+    lib, fn = _entry(source, entry, 5, 5)
     # the bf16 kernel copies 16-byte pieces: a view at an odd offset is
     # copied to fresh (aligned) storage first
     q3, k3, v3 = (x if x.data_ptr() % 16 == 0 else x.clone()
@@ -141,15 +238,58 @@ def _run_kernel(q3, k3, v3, causal, scale):
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), bh, tq, k3.shape[1], d, int(bool(causal)),
                  scale, stream)
-    if err != 0:
-        es = lib.flash_attention_error_string
-        es.argtypes, es.restype = [ctypes.c_int], ctypes.c_char_p
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err} "
-                           f"({es(err).decode()})")
-    with _count_lock:
-        flash_attention_fwd.launches += 1
-        KERNEL_LAUNCHES[source] += 1
+    _raise_on_error(lib, entry, err)
+    _count(flash_attention_fwd, source)
     return out, lse
+
+
+def _launch_bwd(q3, k3, v3, out, lse, dout, causal):
+    _check_launch(q3, k3, v3, out, lse, dout)
+    d = q3.shape[-1]
+    width = _kernel_head_dim(d, q3.dtype, BWD_TC_MAX_HEAD_DIM)
+    if width != d:
+        q3, k3, v3, out, dout = (_pad_head_dim(x, width)
+                                 for x in (q3, k3, v3, out, dout))
+    grads = _run_bwd_kernel(q3, k3, v3, out, lse, dout, causal,
+                            1.0 / math.sqrt(d))
+    if width != d:
+        grads = tuple(x[..., :d].contiguous() for x in grads)
+    return grads
+
+
+def _run_bwd_kernel(q3, k3, v3, out, lse, dout, causal, scale):
+    """Launch the backward kernel (delta, dK/dV, dQ) on ``[BH, T, width]``
+    tensors with the softmax ``scale`` of the true head dim, on the current
+    stream of the tensors' device; counts one launch."""
+    entry = _BWD_ENTRIES[q3.dtype]
+    lib, fn = _entry(BWD, entry, 10, 5)
+    # the tensor-core path copies 16-byte pieces: a view at an odd offset
+    # is copied to fresh (aligned) storage first
+    q3, k3, v3, out, dout = (x if x.data_ptr() % 16 == 0 else x.clone()
+                             for x in (q3, k3, v3, out, dout))
+    bh, tq, d = q3.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q3, k3, v3))
+    delta = torch.empty((bh, tq), dtype=torch.float32, device=q3.device)
+    with torch.cuda.device(q3.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq,
+                 k3.shape[1], d, int(bool(causal)), scale, stream)
+    _raise_on_error(lib, entry, err)
+    _count(flash_attention_bwd, BWD)
+    return dq, dk, dv
+
+
+def _on_cpu(q3: torch.Tensor, name: str) -> bool:
+    """True for a CPU tensor (the plain version), False for a CUDA one
+    (the kernel); raises for any other device."""
+    if q3.device.type == "cpu":
+        return True
+    if q3.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, "
+                         f"not {q3.device.type}")
+    return False
 
 
 def flash_attention_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
@@ -157,33 +297,88 @@ def flash_attention_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward over ``[BH, T, D]``: ``(out, lse)``.
 
-    A CUDA tensor goes to its dtype's kernel (f32 or bf16, any BH,
-    1 <= D <= 256, contiguous), anything else raises; a CPU tensor takes
+    A CUDA tensor goes to its kernel (f32 or bf16, any BH,
+    1 <= D <= 1024, contiguous), anything else raises; a CPU tensor takes
     the plain version.  ``flash_attention_fwd.launches`` counts kernel
     launches, ``KERNEL_LAUNCHES`` each kernel's."""
     _check(q3, k3, v3)
-    if q3.device.type == "cpu":
+    if _on_cpu(q3, "flash_attention_fwd"):
         return flash_attention_fwd_reference(q3, k3, v3, causal)
-    if q3.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu tensors, "
-                         f"not {q3.device.type}")
     return _launch(q3, k3, v3, causal)
 
 
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = False
+                        ) -> Tuple[torch.Tensor, ...]:
+    """Flash-attention backward over ``[BH, T, D]``: ``(dq, dk, dv)`` in the
+    input dtype, given the forward's ``out`` and ``lse`` and the output's
+    gradient ``dout``.
+
+    A CUDA tensor goes to ``csrc/flash_attention_bwd.cu`` (f32 or bf16,
+    any BH, 1 <= D <= 1024), anything else raises; a CPU tensor takes the
+    plain version.  ``flash_attention_bwd.launches`` counts kernel launches
+    (one per call: the kernel's three passes)."""
+    _check(q3, k3, v3)
+    if out.shape != q3.shape or dout.shape != q3.shape \
+            or lse.shape != q3.shape[:2]:
+        raise ValueError(f"out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)} and lse {tuple(lse.shape)} "
+                         f"do not match q {tuple(q3.shape)}")
+    if _on_cpu(q3, "flash_attention_bwd"):
+        return flash_attention_bwd_reference(q3, k3, v3, out, lse, dout,
+                                             causal)
+    if out.dtype != q3.dtype or dout.dtype != q3.dtype \
+            or lse.dtype != torch.float32:
+        raise ValueError("out and dout must have q's dtype, lse float32")
+    return _launch_bwd(q3, k3, v3, out, lse, dout, causal)
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention_fwd`` with ``flash_attention_bwd`` as its
+    gradient: the residuals are ``(q, k, v, out, lse)``, as in the JAX
+    package's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, causal):
+        out, lse = flash_attention_fwd(q3, k3, v3, causal)
+        ctx.save_for_backward(q3, k3, v3, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q3, k3, v3, out, lse = ctx.saved_tensors
+        # the permute in flash_attention makes dout a strided view
+        dq, dk, dv = flash_attention_bwd(q3, k3, v3, out, lse,
+                                         dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """Flash attention over ``[B, T, H, D]`` tensors (softmax scale
-    ``1/sqrt(D)``), forward only; matches :func:`mha_reference`."""
+    ``1/sqrt(D)``); matches :func:`mha_reference`.  Differentiable: where a
+    gradient is wanted it runs through ``_FlashAttention``, whose backward
+    is the flash backward (the kernel on the card)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     # contiguous(): at B == 1 the reshape alone is a strided view
     q3 = q.permute(0, 2, 1, 3).reshape(b * h, tq, d).contiguous()
     k3 = k.permute(0, 2, 1, 3).reshape(b * h, tk, d).contiguous()
     v3 = v.permute(0, 2, 1, 3).reshape(b * h, tk, d).contiguous()
-    out, _ = flash_attention_fwd(q3, k3, v3, causal)
+    if torch.is_grad_enabled() and (q3.requires_grad or k3.requires_grad
+                                    or v3.requires_grad):
+        out = _FlashAttention.apply(q3, k3, v3, causal)
+    else:
+        out, _ = flash_attention_fwd(q3, k3, v3, causal)
     return out.reshape(b, h, tq, d).permute(0, 2, 1, 3)
 
 

@@ -249,7 +249,11 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.nn", "analytics_zoo_tpu_torch.ops",
                 "analytics_zoo_tpu_torch.ops._build",
                 "analytics_zoo_tpu_torch.models",
-                "analytics_zoo_tpu_torch.serving"]
+                "analytics_zoo_tpu_torch.serving",
+                "analytics_zoo_tpu_torch.data",
+                "analytics_zoo_tpu_torch.orca.learn",
+                "analytics_zoo_tpu_torch.orca.learn.estimator",
+                "analytics_zoo_tpu_torch.orca.learn.optimizers"]
 
 
 def test_port_imports_without_jax():

@@ -167,7 +167,7 @@ def test_wrapper_raises_on_other_devices_and_bad_shapes():
 
 @pytest.mark.parametrize("bad,match", [
     (dict(dtype=torch.float16), "float32 or bfloat16"),
-    (dict(d=264), "D <= 256"),
+    (dict(d=1032), "D <= 1024"),
     (dict(d=0), "1 <= D"),
 ])
 def test_launch_validates_before_building(bad, match):
