@@ -50,7 +50,7 @@
 //     tx + 16 j of dK and dV; dQ mirrors the forward's f32 kernel, with dS
 //     through shared memory.  Tiles 64 x 64 up to d 128 and 32 x 32 at
 //     d 256; loads are element-wise, so any d works.
-//   * head dims 257..1024: the wide kernels, 16 x 16 tiles, the head dim
+//   * head dims above 256: the wide kernels, 16 x 16 tiles, the head dim
 //     staged in chunks of 64 columns, each block owning a chunk of 256
 //     output columns (S and dP are recomputed once per chunk).
 // Kernels are instantiated for padded widths and take the true d at run
@@ -405,7 +405,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Wide head dims (257..1024): 16 x 16 tiles, head dim staged in chunks
+// Wide head dims (above 256): 16 x 16 tiles, head dim staged in chunks
 // ---------------------------------------------------------------------------
 
 constexpr int kWT = 16;          // q rows and keys per wide tile
@@ -1052,7 +1052,7 @@ cudaError_t launch_wide(const Args& a) {
 
 template <typename T>
 cudaError_t launch(const Args& a) {
-  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1 || a.d > 1024)
+  if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1)
     return cudaErrorInvalidValue;
   const int64_t rows = int64_t(a.bh) * a.tq;
   const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
@@ -1089,7 +1089,7 @@ cudaError_t launch(const Args& a) {
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes.  Take any 1 <= d <= 1024 and
+// Plain C entry points, bound with ctypes.  Take any d >= 1 and
 // contiguous [BH, T, d] tensors of the entry's dtype (bf16 with d <= 64:
 // d a multiple of 8 and every pointer 16-byte aligned); `delta` is f32
 // scratch of BH * Tq floats.  Launch on `stream` (delta, then dK/dV, then dQ), do not

@@ -38,7 +38,7 @@
 // of that rate: loads are synchronous and every product goes through shared
 // memory.  It serves only float32 models and the float32 reference runs.
 //
-// Head dims 257..1024 (f32, and bf16 inputs computed in f32 as the TPU kernel
+// Head dims above 256 (f32, and bf16 inputs computed in f32 as the TPU kernel
 // upcasts its blocks) take the wide kernel: 16-row q tiles and 16-key tiles,
 // the head dim staged in chunks of 64 columns for S, and each block owning a
 // chunk of 256 output columns (S is recomputed once per chunk); thread
@@ -228,7 +228,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
 }
 
 // ---------------------------------------------------------------------------
-// Wide head dims (257..1024)
+// Wide head dims (above 256)
 // ---------------------------------------------------------------------------
 
 constexpr int kWT = 16;          // q rows and keys per wide tile
@@ -337,8 +337,8 @@ cudaError_t launch_wide(const T* q, const T* k, const T* v, T* out,
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes: float32 with any 1 <= d <= 1024,
-// and bfloat16 with 256 < d <= 1024 (narrower bf16 heads take the tensor-core
+// Plain C entry points, bound with ctypes: float32 with any d >= 1,
+// and bfloat16 with d > 256 (narrower bf16 heads take the tensor-core
 // kernel of flash_attention_fwd.cu).  They launch on `stream`, do not
 // synchronise, allocate nothing, and return the launch's cudaError_t (0 on
 // success).
@@ -347,7 +347,7 @@ extern "C" int flash_attention_fwd_wide_bf16(const void* q, const void* k,
                                              void* lse, int bh, int tq,
                                              int tk, int d, int causal,
                                              float scale, void* stream) {
-  if (bh < 1 || tq < 1 || tk < 1 || d <= 256 || d > 1024)
+  if (bh < 1 || tq < 1 || tk < 1 || d <= 256)
     return cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   return launch_wide<bf16>(
@@ -361,7 +361,7 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* out, void* lse,
                                        int bh, int tq, int tk, int d,
                                        int causal, float scale, void* stream) {
-  if (bh < 1 || tq < 1 || tk < 1 || d < 1 || d > 1024)
+  if (bh < 1 || tq < 1 || tk < 1 || d < 1)
     return cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);

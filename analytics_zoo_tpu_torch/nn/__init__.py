@@ -4,10 +4,17 @@ and parameter layouts), its losses and its metrics."""
 from . import activations, initializers, losses, metrics
 from .attention import (FLASH_AUTO_MIN_SEQ, MultiHeadAttention,
                         TransformerLayer, causal_mask, dot_product_attention)
-from .layers import (Dense, Dropout, Embedding, LayerNormalization, Remat,
-                     seed_dropout)
+from .layers import (AveragePooling2D, BatchNormalization, Conv2D, Dense,
+                     Dropout, Embedding, Flatten, GlobalAveragePooling2D,
+                     GlobalMaxPooling2D, LayerNormalization, MaxPooling2D,
+                     Remat, ScaledWSConv2D, Sequential, ZeroPadding2D,
+                     scaled_ws_kernel, seed_dropout)
 
 __all__ = ["activations", "initializers", "losses", "metrics", "Dense",
            "Dropout", "Embedding", "LayerNormalization", "Remat",
+           "AveragePooling2D", "BatchNormalization", "Conv2D", "Flatten",
+           "GlobalAveragePooling2D", "GlobalMaxPooling2D", "MaxPooling2D",
+           "ScaledWSConv2D", "Sequential", "ZeroPadding2D",
+           "scaled_ws_kernel",
            "seed_dropout", "MultiHeadAttention", "TransformerLayer",
            "causal_mask", "dot_product_attention", "FLASH_AUTO_MIN_SEQ"]

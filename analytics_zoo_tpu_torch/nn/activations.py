@@ -24,6 +24,7 @@ def _identity(x: torch.Tensor) -> torch.Tensor:
 
 ACTIVATIONS = {
     "gelu": gelu,
+    "relu": F.relu,
     "tanh": torch.tanh,
     None: _identity,
 }

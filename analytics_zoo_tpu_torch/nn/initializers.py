@@ -2,7 +2,8 @@
 this port's layers use, drawing from an explicit ``torch.Generator``.
 
 Same distributions as the JAX package (fan computed over the trailing two
-axes of an ``(in, out)`` kernel), not the same numbers: JAX keys and torch
+axes of an ``(in, out)`` kernel; an OIHW conv kernel's fan in is I * H *
+W), not the same numbers: JAX keys and torch
 generators differ, so tests that compare the two packages initialise in JAX
 and convert the weights.
 """
@@ -51,8 +52,24 @@ def ones(t: torch.Tensor,
     return t.fill_(1.0)
 
 
+@torch.no_grad()
+def he_normal(t: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """JAX's ``he_normal``: a normal truncated at 2 standard deviations,
+    scaled to variance ``2 / fan_in``.  A 4-D tensor is an OIHW conv kernel
+    (fan in = I * H * W, as JAX counts it on the HWIO kernel)."""
+    fan_in = t[0].numel() if t.dim() == 4 else _fans(t.shape)[0]
+    std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+
+# the standard deviation of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
 INITIALIZERS = {
     "glorot_uniform": glorot_uniform,
+    "he_normal": he_normal,
     "normal": normal(0.05),
     "zeros": zeros,
     "ones": ones,

@@ -14,7 +14,8 @@ tensor on the card:
   heads up to 64 on the tensor cores, f32 and wider heads in scalar f32);
 - ``flash_attention`` ties them together in a ``torch.autograd.Function``.
 
-Every kernel takes any BH and head dims from 1 to 1024.  For a tensor on
+Every kernel takes any BH and any head dim of at least 1, as the JAX
+kernel (which pads D) does.  For a tensor on
 the CPU the wrappers use ``flash_attention_fwd_reference`` and
 ``flash_attention_bwd_reference`` (the blocked math of the JAX package's
 ``_blocked_fwd_jax`` and ``_blocked_bwd_jax``).  There is no fallback from
@@ -32,7 +33,6 @@ from typing import Optional, Tuple
 import torch
 
 _NEG_INF = -1e30
-MAX_HEAD_DIM = 1024
 # the bf16 tensor-core forward's widest head; wider bf16 heads take the f32
 # source's wide kernel
 TC_MAX_HEAD_DIM = 256
@@ -147,16 +147,15 @@ def _check(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor) -> None:
 
 
 def _check_launch(*tensors: torch.Tensor) -> None:
-    """What every kernel takes: f32 or bf16, 1 <= D <= MAX_HEAD_DIM, one
-    device, contiguous; raises before any build or launch otherwise."""
+    """What every kernel takes: f32 or bf16, D >= 1, one device,
+    contiguous; raises before any build or launch otherwise."""
     q3 = tensors[0]
     if q3.dtype not in _BWD_ENTRIES:
         raise ValueError(f"the CUDA kernels take float32 or bfloat16, "
                          f"not {q3.dtype}")
     d = q3.shape[-1]
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernels take 1 <= D <= {MAX_HEAD_DIM}, "
-                         f"not {d}")
+    if d < 1:
+        raise ValueError(f"the CUDA kernels take 1 <= D, not {d}")
     if any(x.device != q3.device for x in tensors):
         raise ValueError("the kernels' tensors must lie on one device")
     if not all(x.is_contiguous() for x in tensors):
@@ -297,8 +296,8 @@ def flash_attention_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash-attention forward over ``[BH, T, D]``: ``(out, lse)``.
 
-    A CUDA tensor goes to its kernel (f32 or bf16, any BH,
-    1 <= D <= 1024, contiguous), anything else raises; a CPU tensor takes
+    A CUDA tensor goes to its kernel (f32 or bf16, any BH, any D >= 1,
+    contiguous), anything else raises; a CPU tensor takes
     the plain version.  ``flash_attention_fwd.launches`` counts kernel
     launches, ``KERNEL_LAUNCHES`` each kernel's."""
     _check(q3, k3, v3)
@@ -319,7 +318,7 @@ def flash_attention_bwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     gradient ``dout``.
 
     A CUDA tensor goes to ``csrc/flash_attention_bwd.cu`` (f32 or bf16,
-    any BH, 1 <= D <= 1024), anything else raises; a CPU tensor takes the
+    any BH, any D >= 1), anything else raises; a CPU tensor takes the
     plain version.  ``flash_attention_bwd.launches`` counts kernel launches
     (one per call: the kernel's three passes)."""
     _check(q3, k3, v3)

@@ -9,11 +9,19 @@ Same contract as the JAX package's ``ZooEstimator``:
   padding weighted out by a mask, the loss summed per example;
 - ``predict`` returns exactly one output row per input row.
 
-A train step is one forward, ``torch.autograd.grad`` of the loss and the
+A train step is one forward in training mode (batch norm layers use the
+batch's statistics and update their running ones, the buffers), then
+``torch.autograd.grad`` of the loss over the parameters and the
 optimizer's step (``optimizers.py``: optax's numbers, through
-``torch.optim`` where it can be configured to match) in place.  Dropout
-draws its masks from one generator on the device, seeded from ``seed``, so
-two runs with one seed repeat their masks.  The model runs on ``device`` (``None``: the card).
+``torch.optim`` where it can be configured to match) in place; the
+optimizer never sees a buffer.  ``evaluate`` and ``predict`` run in eval
+mode (running statistics, buffers fixed).  Dropout draws its masks from one
+generator on the device, seeded from ``seed``, so two runs with one seed
+repeat their masks; ``augment`` (a ``data.DeviceAugment`` chain or any
+``fn(x, generator, training)``) runs on each training batch with a second
+generator seeded from ``seed``, and deterministically (``training=False``)
+on the batches of ``evaluate``/``predict``.  The model runs on ``device``
+(``None``: the card).
 
 Constructor knobs of the JAX estimator that are not ported yet raise
 ``NotImplementedError`` (naming the ROADMAP item) when set to anything but
@@ -23,6 +31,7 @@ checkpoint format (ROADMAP Queue 1 item 8).
 
 from __future__ import annotations
 
+import itertools
 import logging
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -31,11 +40,11 @@ import torch
 from torch import nn
 
 from ... import DeviceLike, resolve_device
-from ...convert import to_jax_variables
+from ...convert import buffer_names, to_jax_variables
 from ...data.feed import DataFeed, nrows, as_feed, to_device, tree_map
 from ...nn import losses as losses_lib
 from ...nn import metrics as metrics_lib
-from ...nn.layers import seed_dropout
+from ...nn.layers import _indexed, seed_dropout
 from . import optimizers as opt_lib
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -55,7 +64,6 @@ _UNPORTED_KNOBS = {
     "profile_steps": ((10, 20), f"{_Q1} 9 (profile)"),
     "log_dir": (None, f"{_Q1} 9 (summaries)"),
     "app_name": ("train", f"{_Q1} 9 (summaries)"),
-    "augment": (None, f"{_Q1} 4 (data/augment.py)"),
     "aux_loss_weight": (0.01, f"{_Q1} 11 (MoE auxiliary losses)"),
     "embedding_lr": (None, f"{_Q1} 10 (sharded embeddings)"),
     "model_dir": (None, f"{_Q1} 8 (state plane)"),
@@ -116,9 +124,11 @@ class ZooEstimator:
                  learning_rate: Optional[Any] = None,
                  metrics: Optional[Sequence[Any]] = None,
                  grad_clip_norm: Optional[float] = None, seed: int = 0,
-                 device: DeviceLike = None, **knobs: Any):
+                 device: DeviceLike = None, augment: Any = None,
+                 **knobs: Any):
         _refuse_unported("ZooEstimator", knobs, _UNPORTED_KNOBS)
         self.device = resolve_device(device)
+        self.augment = augment
         self.model = model.to(self.device)
         self.loss_fn = losses_lib.get(loss)
         self.optimizer = opt_lib.get(optimizer, learning_rate,
@@ -126,6 +136,8 @@ class ZooEstimator:
         self.metrics = [metrics_lib.get(m) for m in (metrics or [])]
         self.seed = seed
         seed_dropout(self.model, seed, self.device)
+        self._aug_gen = torch.Generator(
+            device=_indexed(self.device)).manual_seed(int(seed))
         self._params: List[nn.Parameter] = list(self.model.parameters())
         self._opt_state: Any = None
         self._epoch = 0
@@ -139,7 +151,10 @@ class ZooEstimator:
         if self._opt_state is None:
             self._opt_state = self.optimizer.init(self._params)
         self.model.train()
-        loss = self.loss_fn(self.model(batch["x"]), batch["y"])
+        x = batch["x"]
+        if self.augment is not None:
+            x = self.augment(x, self._aug_gen, training=True)
+        loss = self.loss_fn(self.model(x), batch["y"])
         grads = torch.autograd.grad(loss, self._params, allow_unused=True)
         with torch.no_grad():
             # a parameter the loss does not reach has a zero gradient, as
@@ -151,9 +166,14 @@ class ZooEstimator:
         self._py_step += 1
         return loss.detach()
 
+    def _forward_eval(self, x: Any) -> Any:
+        if self.augment is not None:
+            x = self.augment(x, None, training=False)
+        return self.model(x)
+
     def _eval_step(self, batch: Dict[str, Any],
                    mask: torch.Tensor) -> List[torch.Tensor]:
-        out = self.model(batch["x"])
+        out = self._forward_eval(batch["x"])
         per_ex = _per_example_loss(self.loss_fn, out, batch["y"])
         stats = [torch.stack([(per_ex * mask).sum(), mask.sum()])]
         for m in self.metrics:
@@ -168,14 +188,19 @@ class ZooEstimator:
         """Train; returns ``{"loss": [...], "val_<metric>": [...]}``.
 
         ``data``: a DataFeed, an ``(x, y)`` tuple or an ``{"x", "y"}``
-        dict; ``batch_size`` is the global batch.  The loss is read back
-        once per epoch, not per step."""
+        dict; ``batch_size`` is the global batch.  Only full batches train
+        (a feed's padded last batch is skipped, so padding never enters
+        batch statistics).  The loss is read back once per epoch, not per
+        step."""
         _refuse_unported("fit", unported, _UNPORTED_FIT_ARGS)
         feed = as_feed(data, batch_size, seed=self.seed)
         history: Dict[str, List[float]] = {"loss": []}
         for _ in range(epochs):
-            losses = [self._train_step(batch)
-                      for batch in feed.epoch(self.device, self._epoch)]
+            batches = feed.epoch(self.device, self._epoch)
+            if not feed.drop_remainder:
+                batches = itertools.islice(
+                    batches, feed.num_rows // feed._local_batch)
+            losses = [self._train_step(batch) for batch in batches]
             if not losses:
                 raise ValueError(
                     "fit got no full batches (dataset smaller than one "
@@ -240,11 +265,11 @@ class ZooEstimator:
         self.model.eval()
         with torch.no_grad():
             for batch in feed.epoch(self.device, 0):
-                outs.append(_to_numpy(self.model(batch["x"])))
+                outs.append(_to_numpy(self._forward_eval(batch["x"])))
             if feed.drop_remainder:
                 rem = feed.remainder()
                 if rem is not None:  # tail rows the epoch skipped
-                    outs.append(_to_numpy(self.model(tree_map(
+                    outs.append(_to_numpy(self._forward_eval(tree_map(
                         lambda a: to_device(a, self.device), rem["x"]))))
         return np.concatenate(outs, axis=0)[:feed.num_rows]
 
@@ -252,8 +277,11 @@ class ZooEstimator:
 
     def get_model(self) -> Dict[str, Any]:
         """The current variables as the JAX tree ``{"params", "state"}``
-        of numpy arrays (``convert.to_jax_variables``)."""
-        return to_jax_variables(self.model.state_dict())
+        of numpy arrays (``convert.to_jax_variables``): parameters under
+        ``"params"``, buffers (batch norm's running statistics) under
+        ``"state"``."""
+        return to_jax_variables(self.model.state_dict(),
+                                buffer_names(self.model))
 
     def save(self, path: Optional[str] = None) -> str:
         raise NotImplementedError(

@@ -321,7 +321,10 @@ class TorchOptim(Optimizer):
         for group in optim.param_groups:
             group["lr"] = self._lr(count)
         for p, g in zip(params, grads):
-            p.grad = g
+            # the fused step wants each gradient in its parameter's layout;
+            # a conv kernel's gradient comes back channels_last
+            p.grad = g if g.stride() == p.stride() \
+                else torch.empty_like(p).copy_(g)
         optim.step()
         for p in params:
             p.grad = None

@@ -6,23 +6,31 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs four phases, each printing one
+``nvcc`` per source, all at once), then runs six phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
-   cores, f32 scalar, and the f32 source's wide kernel for head dims
-   257-1024 in both dtypes) and ``flash_attention_bwd``'s kernel (f32 and
-   bf16) against their plain PyTorch versions on the card: f32/bf16,
-   causal/not, ragged T, Tq != Tk, head dims from 1 to 1024, BH 70000, and
+   cores, f32 scalar, and the f32 source's wide kernel for head dims above
+   256 in both dtypes) and ``flash_attention_bwd``'s kernel (f32 and bf16)
+   against their plain PyTorch versions on the card: f32/bf16,
+   causal/not, ragged T, Tq != Tk, head dims from 1 to 2048, BH 70000, and
    every shape the BERT-base serving and training paths give them; then
    their times at those shapes (forward: bf16 at BH 12, 48, 192, 768, f32
-   at BH 192; backward: both dtypes at the training shape, BH 384) beside
-   the bound, the plain version's time and PyTorch's
-   ``F.scaled_dot_product_attention`` (forward, and its backward alone: a
-   yardstick only, the port never calls it), each as CUDA-event time per
-   call (``ms``) and as the card's kernel time from ``torch.profiler``
-   (``device_ms``).
-2. ``bert_serve``: BERT-base (``BERTClassifier``, width 768, 12 layers, 12
+   at BH 192; backward: both dtypes at the training shape, BH 384; the
+   wide kernels at D 320 and 1024) beside the bound, the plain version's
+   time and PyTorch's ``F.scaled_dot_product_attention`` (forward, and its
+   backward alone: a yardstick only, the port never calls it), each as
+   CUDA-event time per call (``ms``) and as the card's kernel time from
+   ``torch.profiler`` (``device_ms``).
+2. ``fused_bn``: the fused batch-norm kernels (``csrc/fused_bn.cu``, f32
+   and bf16, forward and backward with non-zero mean/var cotangents)
+   against their plain versions at every distinct shape of ResNet-50's 53
+   batch norms at batch 128, at C 3, 6, 7, 1000 and 8, with ragged rows, a
+   channel whose mean is 1e3 times its std, and a misaligned view; the
+   same input twice gives identical bits; then their times at the stem's
+   and the last stage's shapes beside the bound, the plain version and
+   ``F.batch_norm(training=True)`` on the same channels_last map.
+3. ``bert_serve``: BERT-base (``BERTClassifier``, width 768, 12 layers, 12
    heads, seq 512, ``use_flash=True``) with random weights made from a seed
    in the JAX tree layout, served through ``InferenceModel`` in bf16:
    ``warm`` then ``predict``.  The bf16 kernel's launch count over that run
@@ -30,7 +38,7 @@ JSON line:
    match the same model served in f32 with the plain attention; the model
    served in f32 with flash must launch the f32 kernel 12 times per
    forward and match too.
-3. ``bert_train``: BERT-base ``BERTSQuAD`` fine-tuned through
+4. ``bert_train``: BERT-base ``BERTSQuAD`` fine-tuned through
    ``Estimator.from_keras(loss=squad_span_loss, optimizer="adamw",
    learning_rate=1e-4)`` from the same kind of random weights.  (a) f32,
    dropout 0, batch 8: every parameter's gradient with flash attention (f32
@@ -42,12 +50,27 @@ JSON line:
    the same seed must repeat the loss history; step time, tokens/s, model
    TFLOP/s and one profiled step's idle share; then ``evaluate`` and
    ``predict`` on the card.
-4. ``devices``: the card as ``nvidia-smi`` reports it.
+5. ``resnet_train``: bench.py's ResNet-50 recipe (space-to-depth stem,
+   uint8 224 x 224 images normalised on the card, sgd at 0.1) through the
+   ``Estimator`` from random weights in the JAX tree layout.  (a) f32,
+   batch 8: the gradients of the model with the fused kernels and of the
+   one with the plain batch norm, each against a float64 model, and the
+   running statistics and the losses of a 3-step ``fit`` against each
+   other.  (b) ``norm="batch"``, bf16, global batch 128, 20 steps over 256
+   seeded images: the loss must fall, every step must launch each of the
+   four batch-norm passes 53 times and no f32 pass, and two deterministic
+   fits with the same seed must give identical step losses; images/s,
+   model TFLOP/s and one profiled step's idle share and batch norm's share
+   of the card's time; then ``evaluate`` and ``predict`` (the eval batch
+   norm).  (c) ``norm="nf"`` (no batch norm, no launch): images/s and idle
+   share.
+6. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Then a ``kernels`` line (one entry per kernel and path) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when there is no
-CUDA card.
+CUDA card.  ``--only kernel,fused_bn,...`` runs the named phases alone and
+prints neither of the last two lines.
 """
 
 from __future__ import annotations
@@ -72,12 +95,17 @@ SEQ = 512
 BF16_KERNEL = "flash_attention_fwd"      # csrc/<name>.cu
 F32_KERNEL = "flash_attention_fwd_f32"
 BWD_KERNEL = "flash_attention_bwd"
+BN_KERNEL = "fused_bn"
 BUCKETS = (1, 4, 16, 64)  # InferenceModel's default batch buckets
 TIMED_SHAPE = dict(b=16, h=12, t=SEQ, d=64)  # the bucket-16 BERT-base call
 TRAIN_SHAPE = dict(b=32, h=12, t=SEQ, d=64)  # a global-batch-32 train step
 # head dims the JAX kernel takes that are not BERT's (it pads any D)
 HEAD_DIMS = (1, 5, 8, 24, 48, 80, 96, 112, 256)
-WIDE_HEAD_DIMS = (320, 1024)  # above the tensor-core kernel's 256
+# above the tensor-core kernel's 256: the wide kernels, to 2048 (they take
+# any D); the timed ones are 320 and 1024
+WIDE_HEAD_DIMS = (320, 1024, 1536, 2048)
+WIDE_TIMED_DIMS = (320, 1024)
+WIDE_TIMED_SHAPE = dict(b=2, h=12, t=SEQ)
 # the bert_train recipe (bench.py's BERT-base SQuAD: seq 512, global batch
 # 32, adamw at 1e-4)
 TRAIN_LR = 1e-4
@@ -125,6 +153,35 @@ GRAD_NOISE = 1e-5
 # bert_train (b): the last epoch's mean loss at most this share of the
 # first epoch's
 LOSS_FALL = 0.9
+# the resnet_train recipe (bench.py's ResNet-50: bf16, space-to-depth stem,
+# global batch 128 of 224 x 224 uint8 images normalised on the card as
+# (x - 127) / 64, sgd at lr 0.1, sparse categorical cross-entropy)
+RESNET = dict(depth=50, class_num=1000, width=64, stem="space_to_depth")
+IMAGE = 224
+RESNET_BATCH = 128
+RESNET_POOL = 256       # seeded uint8 images; 2 steps an epoch
+RESNET_EPOCHS = 10      # 20 steps
+RESNET_LR = 0.1
+RESNET_BN = 53          # batch norms of ResNet-50
+RESNET_CHECK_BATCH = 8  # resnet_train (a), f32
+RESNET_CHECK_LR = 1e-5
+# resnet_train (a): the fused f32 model's worst gradient error against
+# float64 (of each tensor's max) at most this times the plain f32 model's,
+# plus TOL_TRAIN_GRAD (two summation orders of one f32 model, emulated on
+# the CPU: 0.163 vs 0.159 and 0.144 vs 0.144)
+RESNET_NOISE_FACTOR = 2.0
+# fused batch norm, kernel vs plain version on the same inputs.  f32: y and
+# dx within 1e-4 of max(1, max |ref|): the per-channel sums differ in order,
+# and a mean of 1e3 (the badly centred channel) has an f32 ulp of 6.1e-5,
+# which moves x - mean by that much over a unit std; bf16: 2% of max |ref|
+# (a mean that lands on the other side of a bf16 rounding step moves one
+# rounding of (x - T(mean)) * T(inv), up to an ulp of a value a few times
+# |y|); mean, var, dgamma, dbeta (f32 sums over up to 1.6M rows) within 1e-4
+# of max(1, max |ref|)
+TOL_BN_F32 = 1e-4
+TOL_BN_BF16_REL = 2e-2
+TOL_BN_STATS = 1e-4
+BN_EDGE = [(1001, 3), (333, 6), (4097, 7), (777, 1000), (1, 8)]
 
 
 def emit(obj) -> None:
@@ -388,6 +445,54 @@ def phase_kernel(fa) -> dict:
             "bound_by": bound_by, "device_share_of_bound": bound_ms / dev_ms,
             "device_tflop_per_s": 10.0 * bh * tt * tt * td / dev_ms / 1e9})
         del q4, k4, v4, out4
+    # the wide kernels (head dims above 256) at D 320 and 1024, both
+    # directions and dtypes; SDPA's yardstick is whichever of its
+    # memory-efficient and math backends takes the head dim
+    wide_timings = []
+    wb, wh, wt = (WIDE_TIMED_SHAPE[x] for x in "bht")
+    for d in WIDE_TIMED_DIMS:
+        for dtype in dtypes:
+            bh = wb * wh
+            q, k, v, out, g, err = check_bwd(bh, wt, wt, d, dtype, False)
+            lse = fa.flash_attention_fwd(q, k, v, False)[1]
+            q4, k4, v4 = (x.view(wb, wh, wt, d).detach().requires_grad_()
+                          for x in (q, k, v))
+            backend, sdpa_out = sdpa_any_head_dim(q4, k4, v4)
+            g4 = g.view(wb, wh, wt, d)
+            fwd_err = (fa.flash_attention_fwd(q, k, v, False)[0].float()
+                       - fa.flash_attention_fwd_reference(q, k, v)[0].float()
+                       ).abs().max().item()
+            for direction, kernel, plain, library, bnd in (
+                    ("fwd",
+                     lambda: fa.flash_attention_fwd(q, k, v, False),
+                     lambda: fa.flash_attention_fwd_reference(q, k, v),
+                     lambda: sdpa_any_head_dim(q4.detach(), k4.detach(),
+                                               v4.detach(), backend),
+                     attention_bound(bh, wt, wt, d, q.element_size(),
+                                     False)),
+                    ("bwd",
+                     lambda: fa.flash_attention_bwd(q, k, v, out, lse, g,
+                                                    False),
+                     lambda: fa.flash_attention_bwd_reference(
+                         q, k, v, out, lse, g, False),
+                     lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), g4,
+                                                 retain_graph=True),
+                     bwd_bound(bh, wt, d, q.element_size()))):
+                ms, plain_ms, library_ms = (cuda_ms(f, iters=5)
+                                            for f in (kernel, plain, library))
+                dev_ms, plain_dev_ms, library_dev_ms = (
+                    device_ms(f, iters=5) for f in (kernel, plain, library))
+                wide_timings.append({
+                    "kernel": fa.fwd_kernel(dtype, d)[0] if direction == "fwd"
+                    else BWD_KERNEL, "direction": direction, "bh": bh,
+                    "t": wt, "d": d, "dtype": str(dtype).replace("torch.", ""),
+                    "max_abs_err": fwd_err if direction == "fwd" else err,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "library": f"scaled_dot_product_attention ({backend})",
+                    "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+                    "library_device_ms": library_dev_ms,
+                    "bound_ms": bnd[0], "bound_by": bnd[1]})
+            del q4, k4, v4, sdpa_out
     res = {"phase": "kernel", "cases": len(cases),
            "bwd_cases": len(bwd_cases), "worst": worst,
            "tolerances": {"f32_out_abs": TOL_F32, "lse_abs": TOL_LSE,
@@ -396,9 +501,31 @@ def phase_kernel(fa) -> dict:
                           "bwd_bf16_rel_to_max": TOL_BWD_BF16},
            "timed_shape": dict(TIMED_SHAPE, causal=False),
            "bwd_bf16_rel_by_case": bwd_bf16_rel,
-           "timings": timings, "bwd_timings": bwd_timings}
+           "timings": timings, "bwd_timings": bwd_timings,
+           "wide_timings": wide_timings}
     emit(res)
     return res
+
+
+def sdpa_any_head_dim(q4, k4, v4, backend=None):
+    """``F.scaled_dot_product_attention`` over ``[B, H, T, D]`` on its
+    memory-efficient backend, or its math backend where that one refuses
+    the head dim; returns (backend name, output), or the output alone when
+    ``backend`` is given."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    names = {"efficient": SDPBackend.EFFICIENT_ATTENTION,
+             "math": SDPBackend.MATH}
+    for name in ([backend] if backend else list(names)):
+        try:
+            with sdpa_kernel([names[name]]):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4)
+        except RuntimeError:
+            if backend:
+                raise
+            continue
+        return out if backend else (name, out)
+    raise RuntimeError("no SDPA backend takes this head dim")
 
 
 def random_bert_variables(model: torch.nn.Module, seed: int) -> dict:
@@ -758,6 +885,479 @@ def phase_bert_train(fa) -> dict:
     return res
 
 
+class TrainNet(torch.nn.Module):
+    """bench.py's ResNet-50 training net: uint8 NHWC images, normalised on
+    the card to ``(x - 127) / 64`` in the model's dtype (or in
+    ``input_dtype``: float64 for the numerical reference), into
+    ``resnet``."""
+
+    def __init__(self, input_dtype=None, **kw):
+        super().__init__()
+        from analytics_zoo_tpu_torch.models import ResNet
+        self.resnet = ResNet(**dict(RESNET, **kw))
+        self.input_dtype = input_dtype or self.resnet.dtype
+
+    def forward(self, x):
+        return self.resnet((x.to(self.input_dtype) - 127.0) * (1.0 / 64.0))
+
+
+def bn_textbook(x, gamma, beta, eps):
+    """Training batch norm as the textbook writes it, differentiated by
+    autograd, in x's dtype: the float64 reference of resnet_train (a)."""
+    red = tuple(range(x.dim() - 1))
+    mean, var = x.mean(red), x.var(red, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta, mean, var
+
+
+def random_resnet_variables(model: torch.nn.Module, seed: int) -> dict:
+    """Random weights made with numpy in the JAX tree layout, drawn from
+    the JAX initializers' distributions: he-normal conv kernels (HWIO),
+    glorot-uniform head, unit gains, zero biases and shifts, running mean 0
+    and variance 1, SkipInit gains 0."""
+    from analytics_zoo_tpu_torch.convert import buffer_names, to_jax_variables
+    rng = np.random.default_rng(seed)
+
+    def draw(leaf, shape):
+        if leaf == "kernel" and len(shape) == 4:
+            fan_in = shape[0] * shape[1] * shape[2]
+            return rng.normal(0.0, math.sqrt(2.0 / fan_in), shape)
+        if leaf == "kernel":
+            lim = math.sqrt(6.0 / (shape[0] + shape[1]))
+            return rng.uniform(-lim, lim, shape)
+        if leaf in ("gamma", "ws_gain", "var"):
+            return np.ones(shape)
+        return np.zeros(shape)
+
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict)
+                else draw(k, v.shape).astype(np.float32)
+                for k, v in node.items()}
+
+    return walk(to_jax_variables(model.state_dict(), buffer_names(model)))
+
+
+def model_flops_per_image(model: torch.nn.Module, x: torch.Tensor) -> float:
+    """Forward FLOP per image of the convs and dense layers, from the
+    shapes one forward gives them: 2 x output elements x fan in (a conv
+    kernel OIHW, the space-to-depth stem counted as the 7x7 conv it
+    computes)."""
+    from analytics_zoo_tpu_torch.nn import Dense
+    total = [0.0]
+
+    def hook(m, _inp, out):
+        k = m.kernel
+        fan_in = k.shape[0] if isinstance(m, Dense) else k[0].numel()
+        total[0] += 2.0 * out.numel() * fan_in
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(getattr(m, "kernel", None), torch.nn.Parameter)]
+    try:
+        with torch.no_grad():
+            model.eval()(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0] / x.shape[0]
+
+
+def resnet_bn_shapes(batch: int) -> list:
+    """Every distinct (rows, C) the 53 batch norms of ResNet-50 see at
+    ``batch`` 224 x 224 images, in the order of the forward."""
+    from analytics_zoo_tpu_torch.nn import BatchNormalization
+    model = TrainNet().cuda()
+    shapes = []
+
+    def hook(_m, inp, _out):
+        *lead, c = inp[0].shape
+        shapes.append((batch * math.prod(lead[1:]), c))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, BatchNormalization)]
+    with torch.no_grad():
+        model.eval()(torch.zeros(1, IMAGE, IMAGE, 3, dtype=torch.uint8,
+                                 device="cuda"))
+    for h in hooks:
+        h.remove()
+    if len(shapes) != RESNET_BN:
+        raise AssertionError(f"ResNet-50 ran {len(shapes)} batch norms")
+    return list(dict.fromkeys(shapes))
+
+
+def bn_inputs(gen, rows, c, dtype, offset=0):
+    """x (channel 0 centred at 1e3 times its std), gamma, beta, dy and
+    non-zero dmean, dvar on the card; ``offset`` elements into a buffer
+    (an unaligned view) when given."""
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    x = 2.0 + r(rows, c)
+    x[:, 0] += 1e3 - 2.0
+    if offset:
+        buf = torch.empty(rows * c + offset, device="cuda", dtype=dtype)
+        buf[offset:] = x.reshape(-1).to(dtype)
+        x = buf[offset:].view(rows, c)
+    else:
+        x = x.to(dtype)
+    return x, 1.0 + 0.1 * r(c), 0.1 * r(c), r(rows, c).to(dtype), r(c), r(c)
+
+
+def bn_bound(rows: int, c: int, itemsize: int, direction: str) -> tuple:
+    """(ms, "bytes"): forward reads x and writes y (2 maps), backward reads
+    dy and x and writes dx (3 maps), the [C] vectors beside them."""
+    maps = 2 if direction == "fwd" else 3
+    vectors = 5 if direction == "fwd" else 8
+    return (maps * rows * c * itemsize + vectors * c * 4) / PEAK_BYTES \
+        * 1e3, "bytes"
+
+
+def phase_fused_bn(bn) -> dict:
+    """The fused batch-norm kernels against their plain versions at every
+    ResNet-50 shape (batch 128) and the edge cases, forward (y, mean, var)
+    and backward (dx, dgamma, dbeta, with non-zero dmean/dvar), both
+    dtypes; bit-for-bit repeats; then times at the stem's and the last
+    stage's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = {"f32": 0.0, "bf16_rel": 0.0, "stats": 0.0}
+    eps = 1e-3
+
+    def check(x, g, b, dy, dm, dv):
+        y, m, v = bn.bn_train_fwd(x, g, b, eps)
+        dx, dg, db = bn.bn_train_bwd(x, g, m, v, dy, dm, dv, eps)
+        ry, rm, rv = bn.bn_train_fwd_reference(x, g, b, eps)
+        rdx, rdg, rdb = bn.bn_train_bwd_reference(x, g, m, v, dy, dm, dv,
+                                                  eps)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, ref in (("y", y, ry), ("dx", dx, rdx), ("mean", m, rm),
+                             ("var", v, rv), ("dgamma", dg, rdg),
+                             ("dbeta", db, rdb)):
+            if a.shape != ref.shape or a.dtype != ref.dtype \
+                    or not torch.isfinite(a).all():
+                raise AssertionError(f"fused_bn {name}: {tuple(a.shape)} "
+                                     f"{a.dtype} at {tuple(x.shape)}")
+            e = (a.float() - ref.float()).abs().max().item()
+            top = ref.float().abs().max().item()
+            if name in ("y", "dx") and x.dtype == torch.bfloat16:
+                rel, tol, key = e / max(top, 1e-30), TOL_BN_BF16_REL, \
+                    "bf16_rel"
+            elif name in ("y", "dx"):
+                rel, tol, key = e / max(1.0, top), TOL_BN_F32, "f32"
+            else:
+                rel, tol, key = e / max(1.0, top), TOL_BN_STATS, "stats"
+            worst[key] = max(worst[key], rel)
+            if name in ("y", "dx"):
+                err = max(err, e)
+            if rel > tol:
+                raise AssertionError(
+                    f"fused_bn kernel disagrees with its plain version at "
+                    f"{tuple(x.shape)} {x.dtype}: {name} err {e} of {top}")
+        return (y, m, v, dx, dg, db), err
+
+    shapes = resnet_bn_shapes(RESNET_BATCH)
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(rows, c, dt, 0) for rows, c in shapes + BN_EDGE
+             for dt in dtypes]
+    cases += [(3001, 64, dt, 1) for dt in dtypes]  # unaligned: scalar path
+    for rows, c, dt, offset in cases:
+        check(*bn_inputs(gen, rows, c, dt, offset))
+    # no atomics: one input, identical bits
+    for rows, c in (shapes[0], shapes[-1]):
+        inputs = bn_inputs(gen, rows, c, torch.bfloat16)
+        first, _ = check(*inputs)
+        again, _ = check(*inputs)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"fused_bn: two runs at {(rows, c)} differ")
+
+    timings = []
+    last_stage = max((s for s in shapes if s[0] == shapes[-1][0]),
+                     key=lambda s: s[1])
+    for label, (rows, c) in (("stem", shapes[0]), ("stage3", last_stage)):
+        for dt in dtypes:
+            x, g, b, dy, dm, dv = bn_inputs(gen, rows, c, dt)
+            _, err = check(x, g, b, dy, dm, dv)
+            y, m, v = bn.bn_train_fwd(x, g, b, eps)
+            # F.batch_norm's yardstick on the same map as a channels_last
+            # NCHW tensor (training mode, its own statistics)
+            hw = rows // RESNET_BATCH
+            side = int(math.isqrt(hw))
+            x4 = x.view(RESNET_BATCH, side, side, c).permute(0, 3, 1, 2)
+            lib_in = x4.detach().requires_grad_()
+            lib_w, lib_b = (t.detach().requires_grad_() for t in (g, b))
+            run_m, run_v = torch.zeros(c, device="cuda"), \
+                torch.ones(c, device="cuda")
+
+            def lib_fwd():
+                return torch.nn.functional.batch_norm(
+                    lib_in, run_m, run_v, lib_w, lib_b, training=True,
+                    momentum=0.01, eps=eps)
+
+            lib_out = lib_fwd()
+            dy4 = dy.view(RESNET_BATCH, side, side, c).permute(0, 3, 1, 2)
+            for direction, kernel, plain, library in (
+                    ("fwd", lambda: bn.bn_train_fwd(x, g, b, eps),
+                     lambda: bn.bn_train_fwd_reference(x, g, b, eps),
+                     lambda: torch.nn.functional.batch_norm(
+                         x4, run_m, run_v, g, b, training=True,
+                         momentum=0.01, eps=eps)),
+                    ("bwd",
+                     lambda: bn.bn_train_bwd(x, g, m, v, dy, dm, dv, eps),
+                     lambda: bn.bn_train_bwd_reference(x, g, m, v, dy, dm,
+                                                       dv, eps),
+                     lambda: torch.autograd.grad(
+                         lib_out, (lib_in, lib_w, lib_b), dy4,
+                         retain_graph=True))):
+                ms, plain_ms, library_ms = (cuda_ms(f, iters=10)
+                                            for f in (kernel, plain, library))
+                dev_ms, plain_dev_ms, library_dev_ms = (
+                    device_ms(f, iters=10) for f in (kernel, plain, library))
+                bound_ms, bound_by = bn_bound(rows, c, x.element_size(),
+                                              direction)
+                timings.append({
+                    "kernel": BN_KERNEL, "direction": direction,
+                    "shape": label, "rows": rows, "c": c,
+                    "dtype": str(dt).replace("torch.", ""),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "device_ms": dev_ms,
+                    "plain_device_ms": plain_dev_ms,
+                    "library_device_ms": library_dev_ms,
+                    "library": "F.batch_norm(training=True), channels_last",
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "device_share_of_bound": bound_ms / dev_ms})
+            del lib_in, lib_out, x, dy, x4, dy4, y
+    res = {"phase": "fused_bn", "cases": len(cases),
+           "resnet50_shapes_batch128": shapes, "edge_shapes": BN_EDGE,
+           "worst": worst,
+           "tolerances": {"f32_rel_to_max1": TOL_BN_F32,
+                          "bf16_rel_to_max": TOL_BN_BF16_REL,
+                          "stats_rel_to_max1": TOL_BN_STATS},
+           "repeat_bitwise_identical": True, "timings": timings}
+    emit(res)
+    return res
+
+
+def read_bn_counts(bn, what: str, **per_pass: int) -> dict:
+    """The fused batch-norm launch counts since ``reset_launches``: each
+    pass of the dtypes named in ``per_pass`` (``bf16=20`` means 20 steps)
+    ``RESNET_BN`` times a step, no other."""
+    counts = dict(bn.KERNEL_LAUNCHES)
+    want = {name: RESNET_BN * per_pass.get(name.rsplit("_", 1)[1], 0)
+            for name in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: fused_bn launches {counts}; want "
+                             f"{want}")
+    return counts
+
+
+def phase_resnet_train(bn) -> dict:
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.data import as_feed
+    from analytics_zoo_tpu_torch.nn import BatchNormalization
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    t0 = time.perf_counter()
+    variables = {norm: random_resnet_variables(TrainNet(norm=norm), SEED)
+                 for norm in ("batch", "nf")}
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 4)
+
+    def model(norm="batch", plain=False, **kw):
+        m = TrainNet(norm=norm, **kw)
+        m.load_state_dict(from_jax_variables(variables[norm]), strict=True)
+        if plain:  # the yardstick: the plain batch norm on the card
+            for layer in m.modules():
+                if isinstance(layer, BatchNormalization):
+                    layer.train_fn = bn.bn_train_plain
+        return m.cuda()
+
+    def images(n):
+        return (rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8),
+                rng.integers(0, RESNET["class_num"], n).astype(np.int32))
+
+    loss_name = "sparse_categorical_crossentropy"
+
+    def estimator(m):
+        return Estimator.from_keras(m, loss=loss_name, optimizer="sgd",
+                                    learning_rate=RESNET_LR, seed=SEED)
+
+    # (a) f32, batch 8: the fused kernels and the plain batch norm, each in
+    # an f32 model on the card, against a float64 model (textbook batch
+    # norm through autograd).  This model's f32 gradients at a random init
+    # carry percents of rounding noise however they are summed (train-mode
+    # batch norm's backward subtracts per-channel projections that nearly
+    # cancel; f32 vs f64 on the CPU: 2% at the stem, 15% in stage 3), so
+    # the fused model is held to the plain one's distance from float64,
+    # not to the plain f32 model itself
+    xa, ya = images(RESNET_CHECK_BATCH)
+    xt, yt = torch.from_numpy(xa).cuda(), torch.from_numpy(ya).cuda()
+    grads, buffers, losses0 = {}, {}, {}
+    for kind in ("fused", "plain", "f64"):
+        if kind == "f64":
+            m = model(dtype="float32", input_dtype=torch.float64).double()
+            for layer in m.modules():
+                if isinstance(layer, BatchNormalization):
+                    layer.train_fn = bn_textbook
+        else:
+            m = model(plain=kind == "plain", dtype="float32")
+        bn.reset_launches()
+        out = m.train()(xt).double()
+        loss = (torch.logsumexp(out, dim=-1)
+                - out.gather(1, yt.long()[:, None])[:, 0]).mean()
+        names = [n for n, _ in m.named_parameters()]
+        grads[kind] = dict(zip(names, torch.autograd.grad(
+            loss, list(m.parameters()))))
+        read_bn_counts(bn, f"resnet_train {kind} gradients",
+                       **({"f32": 1} if kind == "fused" else {}))
+        buffers[kind] = {k: b.clone() for k, b in m.named_buffers()}
+        losses0[kind] = float(loss.detach())
+        del m, loss, out
+    noise = {}
+    for kind in ("fused", "plain"):
+        noise[kind] = max(
+            (grads[kind][n].double() - g).abs().max().item()
+            / max(g.abs().max().item(), 1e-30)
+            for n, g in grads["f64"].items())
+    if noise["fused"] > RESNET_NOISE_FACTOR * noise["plain"] + TOL_TRAIN_GRAD:
+        raise AssertionError(
+            f"resnet_train f32: the fused model's gradients lie {noise} of "
+            f"each tensor's max from float64, the plain model's "
+            f"{noise['plain']}")
+    worst_buf = 0.0
+    for name, ref in buffers["plain"].items():
+        err = (buffers["fused"][name] - ref).abs().max().item()
+        top = ref.abs().max().item()
+        worst_buf = max(worst_buf, err / top)
+        if err > TOL_TRAIN_GRAD * top:
+            raise AssertionError(f"resnet_train f32: running statistic "
+                                 f"{name} differs by {err} of max {top}")
+    del grads, buffers
+    # 3 steps over 3 distinct batches at a small learning rate: at 0.1 the
+    # second step's loss is chaotic in the gradients' rounding noise, and
+    # at 1e-4 that noise still moved it by 7.7e-5 on an H100
+    x3, y3 = images(RESNET_CHECK_BATCH * CHECK_STEPS)
+    hist = {}
+    for plain in (False, True):
+        est = Estimator.from_keras(model(plain=plain, dtype="float32"),
+                                   loss=loss_name, optimizer="sgd",
+                                   learning_rate=RESNET_CHECK_LR, seed=SEED)
+        hist[plain], _ = record_steps(est)
+        bn.reset_launches()
+        est.fit((x3, y3), epochs=1, batch_size=RESNET_CHECK_BATCH,
+                verbose=False)
+        counts = read_bn_counts(bn, "resnet_train f32 fit",
+                                **({} if plain else {"f32": CHECK_STEPS}))
+        if not plain:
+            f32_launches = counts
+        del est
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(hist[False], hist[True]))
+    if loss_err > TOL_TRAIN_LOSS or not all(map(math.isfinite, hist[False])):
+        raise AssertionError(f"resnet_train f32: loss history {hist[False]}"
+                             f" (fused) vs {hist[True]} (plain)")
+    f32_check = {"batch": RESNET_CHECK_BATCH, "steps": CHECK_STEPS,
+                 "grad_worst_rel_to_tensor_max_vs_f64": noise,
+                 "grad_noise_factor": RESNET_NOISE_FACTOR,
+                 "grad_tol": TOL_TRAIN_GRAD, "first_loss": losses0,
+                 "running_stats_worst_rel_to_tensor_max": worst_buf,
+                 "fit_learning_rate": RESNET_CHECK_LR,
+                 "loss_fused": hist[False], "loss_plain": hist[True],
+                 "loss_worst_rel": loss_err, "loss_tol": TOL_TRAIN_LOSS,
+                 "launches": f32_launches}
+
+    # (b) bench.py's recipe, norm="batch", bf16: 20 steps of batch 128
+    x, y = images(RESNET_POOL)
+    steps = RESNET_EPOCHS * (RESNET_POOL // RESNET_BATCH)
+    runs = {}
+    for norm in ("batch", "nf"):
+        est = estimator(model(norm, dtype="bfloat16"))
+        inner = est._train_step
+        step_losses, step_ms = record_steps(est)
+        bn.reset_launches()
+        t0 = time.perf_counter()
+        losses = est.fit((x, y), epochs=RESNET_EPOCHS,
+                         batch_size=RESNET_BATCH, verbose=False)["loss"]
+        fit_s = time.perf_counter() - t0
+        launches = read_bn_counts(bn, f"resnet_train {norm}",
+                                  **({"bf16": steps} if norm == "batch"
+                                     else {}))
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"resnet_train {norm}: loss {losses}")
+        if norm == "batch" and losses[-1] > LOSS_FALL * losses[0]:
+            raise AssertionError(f"resnet_train batch: loss {losses} did "
+                                 f"not fall to {LOSS_FALL} of its first "
+                                 f"epoch")
+        p50 = float(np.median(step_ms[-10:]))
+        batch = next(as_feed((x, y), RESNET_BATCH, seed=SEED).epoch(
+            est.device, 0))
+        flops = model_flops_per_image(est.model, batch["x"][:1])
+        profiled = profile_call(lambda: inner(batch), {
+            "batch_norm": ("bn_stats", "bn_normalize", "bn_bwd_")})
+        # the profiler slows the host, so beside its own idle share the
+        # card's busy time is also set against the unprofiled step p50
+        profiled["idle_share_of_p50_step"] = 1.0 - \
+            profiled["device_busy_ms"] / p50
+        runs[norm] = {
+            "loss": losses, "step_losses": step_losses, "fit_s": fit_s,
+            "launches": launches, "step_ms_last10": step_ms[-10:],
+            "step_ms_p50": p50, "images_per_s": RESNET_BATCH / (p50 / 1e3),
+            "forward_gflop_per_image": flops / 1e9,
+            "model_tflop_per_s": 3 * flops * RESNET_BATCH / p50 / 1e9,
+            "profiled_step": profiled}
+        if norm == "batch":
+            x_eval, y_eval = images(5)
+            x_eval = np.concatenate([x, x_eval])
+            y_eval = np.concatenate([y, y_eval])
+            evaluated = est.evaluate((x_eval, y_eval),
+                                     batch_size=RESNET_BATCH)
+            pred = est.predict(x_eval, batch_size=RESNET_BATCH)
+            if pred.shape != (len(x_eval), RESNET["class_num"]) \
+                    or not np.isfinite(pred).all() \
+                    or not math.isfinite(evaluated["loss"]):
+                raise AssertionError(f"resnet_train: predict gave "
+                                     f"{pred.shape}, evaluate {evaluated}")
+            runs[norm]["evaluate"] = evaluated
+            runs[norm]["predict_rows"] = int(pred.shape[0])
+        del est, inner
+        torch.cuda.empty_cache()
+        if norm == "batch":
+            # one seed, one loss history: two more fits from the same
+            # weights with cuDNN's deterministic algorithms (its default
+            # weight-gradient algorithms may add in another order from run
+            # to run; the batch-norm kernels use no atomics) must give
+            # identical step losses; the default fit's distance from them
+            # is reported
+            torch.backends.cudnn.deterministic = True
+            repeats = []
+            for _ in range(2):
+                again = estimator(model(norm, dtype="bfloat16"))
+                repeats.append(record_steps(again)[0])
+                again.fit((x, y), epochs=RESNET_EPOCHS,
+                          batch_size=RESNET_BATCH, verbose=False)
+                del again
+                torch.cuda.empty_cache()
+            torch.backends.cudnn.deterministic = False
+            if repeats[0] != repeats[1]:
+                raise AssertionError(
+                    f"resnet_train: two deterministic fits with seed {SEED} "
+                    f"gave step losses {repeats[0]} and {repeats[1]}")
+            runs[norm]["repeat_identical"] = True
+            runs[norm]["default_vs_deterministic_worst_rel"] = max(
+                abs(a - b) / max(abs(b), 1e-30)
+                for a, b in zip(step_losses, repeats[0]))
+    res = {"phase": "resnet_train", "config": RESNET, "image": IMAGE,
+           "dtype": "bfloat16", "optimizer": "sgd",
+           "learning_rate": RESNET_LR, "global_batch": RESNET_BATCH,
+           "pool": RESNET_POOL, "epochs": RESNET_EPOCHS, "steps": steps,
+           "setup_s": setup_s, "loss_fall_limit": LOSS_FALL,
+           "flop_convention": "3 x forward FLOP of the convs and the dense "
+                              "head from their shapes (2 x outputs x fan "
+                              "in; the space-to-depth stem as its 7x7 "
+                              "conv); batch norm, relu, pooling, loss and "
+                              "optimizer not counted",
+           "batch": runs["batch"], "nf": runs["nf"], "f32_check": f32_check}
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -770,7 +1370,27 @@ def phase_devices() -> str:
     return smi
 
 
-def main() -> int:
+def kernel_entry(name, design, launches, path, replaces, x) -> dict:
+    """One entry of the ``kernels`` line from a timing record ``x``."""
+    return {"name": name, "design": design, "route": "cuda",
+            "source": f"analytics_zoo_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "path": path, "launches": launches,
+            "max_abs_err": x["max_abs_err"], "ms": x["ms"],
+            "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+            "bound_by": x["bound_by"], "library_ms": x["library_ms"],
+            "device_ms": x["device_ms"],
+            "plain_device_ms": x["plain_device_ms"],
+            "library_device_ms": x["library_device_ms"]}
+
+
+def main(argv) -> int:
+    only = []
+    if argv[:1] == ["--only"] and len(argv) == 2:
+        only = argv[1].split(",")
+    elif argv:
+        print("usage: chip_smoke.py [--only phase,phase,...]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -778,16 +1398,29 @@ def main() -> int:
     import importlib
     from analytics_zoo_tpu_torch.ops import _build
     fa = importlib.import_module("analytics_zoo_tpu_torch.ops.flash_attention")
+    bn = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_bn")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc per source, together
-        list(pool.map(_build.build, (BF16_KERNEL, F32_KERNEL, BWD_KERNEL)))
+        list(pool.map(_build.build, (BF16_KERNEL, F32_KERNEL, BWD_KERNEL,
+                                     BN_KERNEL)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    if only:  # a subset of the phases, for iterating on one: no last line
+        phases = {"kernel": lambda: phase_kernel(fa),
+                  "fused_bn": lambda: phase_fused_bn(bn),
+                  "bert_serve": lambda: phase_bert_serve(fa),
+                  "bert_train": lambda: phase_bert_train(fa),
+                  "resnet_train": lambda: phase_resnet_train(bn)}
+        for name in only:
+            phases[name]()
+        return 0
     kern = phase_kernel(fa)
+    bn_kern = phase_fused_bn(bn)
     serve = phase_bert_serve(fa)
     train = phase_bert_train(fa)
+    resnet = phase_resnet_train(bn)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -795,6 +1428,7 @@ def main() -> int:
     timed.update({(BWD_KERNEL, x["dtype"]): x for x in kern["bwd_timings"]})
     fwd_src = "analytics_zoo_tpu/ops/flash_attention.py:44"
     bwd_src = "analytics_zoo_tpu/ops/flash_attention.py:187"
+    bn_src = "analytics_zoo_tpu/ops/fused_bn.py:76"
     entries = []
     for name, key, design, launches, path, replaces in (
             (BF16_KERNEL, BF16_KERNEL,
@@ -813,20 +1447,40 @@ def main() -> int:
              train["f32_check"]["launches"][BWD_KERNEL], "bert_train f32",
              bwd_src)):
         x = timed[key]
-        entries.append({
-            "name": name, "design": design, "route": "cuda",
-            "source": f"analytics_zoo_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "path": path, "launches": launches,
-            "max_abs_err": x["max_abs_err"], "ms": x["ms"],
-            "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
-            "bound_by": x["bound_by"], "library_ms": x["library_ms"],
-            "device_ms": x["device_ms"],
-            "plain_device_ms": x["plain_device_ms"],
-            "library_device_ms": x["library_device_ms"],
-            "shape": {k: x[k] for k in ("bh", "t", "d", "dtype")}})
+        entry = kernel_entry(name, design, launches, path, replaces, x)
+        entry["shape"] = {k: x[k] for k in ("bh", "t", "d", "dtype")}
+        entries.append(entry)
     entries[0]["launches_bert_train_bf16"] = train["launches"][BF16_KERNEL]
     entries[1]["launches_bert_train_f32"] = \
         train["f32_check"]["launches"][F32_KERNEL]
+    # fused batch norm: one entry per direction and dtype, timed at the
+    # stem's shape (the last stage's beside it), launches of the main path
+    # run of that dtype (bf16: resnet_train (b); f32: (a)'s fit)
+    bn_times = {(x["direction"], x["dtype"], x["shape"]): x
+                for x in bn_kern["timings"]}
+    for direction, passes in (("fwd", ("stats", "normalize")),
+                              ("bwd", ("reduce", "dx"))):
+        for dtype, sfx, counts, path in (
+                ("bfloat16", "bf16", resnet["batch"]["launches"],
+                 "resnet_train bf16"),
+                ("float32", "f32", resnet["f32_check"]["launches"],
+                 "resnet_train f32")):
+            x = bn_times[(direction, dtype, "stem")]
+            entry = kernel_entry(
+                BN_KERNEL, f"{dtype}, {direction}: "
+                f"{' and '.join(passes)} passes over [rows, C] "
+                "(16-byte channel vectors x row splits), f32 finalize, no "
+                "atomics", counts[f"{passes[0]}_{sfx}"], path, bn_src, x)
+            entry["launches_by_pass"] = {p: counts[f"{p}_{sfx}"]
+                                         for p in passes}
+            entry["shape"] = {"rows": x["rows"], "c": x["c"],
+                              "dtype": dtype}
+            y = bn_times[(direction, dtype, "stage3")]
+            entry["at_stage3"] = {k: y[k] for k in (
+                "rows", "c", "ms", "plain_ms", "library_ms", "device_ms",
+                "plain_device_ms", "library_device_ms", "bound_ms",
+                "max_abs_err")}
+            entries.append(entry)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -835,4 +1489,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -205,9 +205,26 @@ def test_bwd_wrapper_raises_on_other_devices_and_bad_shapes():
         tfa._check_launch(q.half(), q.half(), q.half())
 
 
+@pytest.mark.parametrize("d", [1536, 2048])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dims_above_1024_match_jax(causal, d):
+    """Head dims past the wide kernels' old 1024 limit: the port's forward
+    and gradients against the JAX custom_vjp (on the card these take the
+    wide kernels, which the launch path hands them unpadded)."""
+    q, k, v, g = _inputs(d, b=1, tq=9, tk=11, h=1, d=d)
+    want_out = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+    got_out = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal=causal)
+    np.testing.assert_allclose(got_out.numpy(), want_out, atol=TOL, rtol=TOL)
+    want = _jax_grads(jfa.flash_attention, q, k, v, g, causal=causal)
+    _close(_port_grads(q, k, v, g, causal), want)
+
+
 @pytest.mark.parametrize("d,dtype,width", [
     (300, torch.bfloat16, 300), (1024, torch.float32, 1024),
-    (256, torch.bfloat16, 256)])
+    (256, torch.bfloat16, 256), (2048, torch.bfloat16, 2048),
+    (1536, torch.float32, 1536)])
 def test_wide_heads_go_to_the_f32_source_unpadded(monkeypatch, d, dtype,
                                                   width):
     """Head dims above 256 take the f32 source's wide kernel in both dtypes,

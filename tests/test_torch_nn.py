@@ -211,5 +211,12 @@ def test_initializers_draw_the_jax_distributions_from_a_generator():
                        torch.ones(3))
     assert torch.equal(tnn.initializers.get("zeros")(torch.empty(3)),
                        torch.zeros(3))
+    # he_normal on an OIHW conv kernel: a normal truncated at 2 std devs,
+    # std sqrt(2 / (I * H * W)) after truncation
+    k = tnn.initializers.get("he_normal")(torch.empty(64, 16, 3, 3),
+                                          torch.Generator().manual_seed(3))
+    std = np.sqrt(2.0 / (16 * 9))
+    assert abs(k.std().item() - std) < 0.03 * std
+    assert k.abs().max().item() <= 2.0 * std / 0.87962566103423978
     with pytest.raises(ValueError, match="unknown initializer"):
-        tnn.initializers.get("he_normal")
+        tnn.initializers.get("lecun_uniform")

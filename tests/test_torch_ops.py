@@ -167,13 +167,16 @@ def test_wrapper_raises_on_other_devices_and_bad_shapes():
 
 @pytest.mark.parametrize("bad,match", [
     (dict(dtype=torch.float16), "float32 or bfloat16"),
-    (dict(d=1032), "D <= 1024"),
+    (dict(transposed=True), "contiguous"),
     (dict(d=0), "1 <= D"),
 ])
 def test_launch_validates_before_building(bad, match):
-    """The kernel's own limits are checked before any build or launch."""
+    """The kernel's own limits are checked before any build or launch (a
+    head dim has no upper limit: the wide kernels take any)."""
     d = bad.get("d", 16)
     q = torch.zeros(2, 4, d, dtype=bad.get("dtype", torch.float32))
+    if bad.get("transposed"):
+        q = torch.zeros(2, d, 4).transpose(1, 2)
     with pytest.raises(ValueError, match=match):
         tfa._launch(q, q, q, False)
 

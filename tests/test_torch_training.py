@@ -466,7 +466,7 @@ def test_estimator_asks_for_the_card_by_default(monkeypatch):
 @pytest.mark.parametrize("knob,value", [
     ("grad_accum", 2), ("sharding", "fsdp"), ("nan_policy", "skip_step"),
     ("grad_compression", "int8"), ("frozen", ["bert"]),
-    ("augment", lambda x, key, training: x), ("profile", True),
+    ("aux_loss_weight", 0.5), ("profile", True),
     ("model_dir", "ckpt"), ("checkpoint_async", True),
     ("preemption_checkpoint", True), ("embedding_lr", 0.1),
     ("log_dir", "logs")])
