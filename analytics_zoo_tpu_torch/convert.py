@@ -46,7 +46,7 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if _INT8_MARKER in node:
                 raise NotImplementedError(
                     f"int8 weight at {'/'.join(path)}: the int8 serving "
-                    "path is not ported yet (ROADMAP Queue 1 item 3)")
+                    "path is not ported yet (ROADMAP Queue 1 item 1)")
             for name, child in node.items():
                 walk(child, path + (str(name),))
             return

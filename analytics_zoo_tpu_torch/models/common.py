@@ -3,8 +3,9 @@
 
 A ZooModel is an ``nn.Module`` that records its constructor arguments in
 ``_config`` and registers its class by name, so a saved config can rebuild
-it.  Training (``compile``/``fit``) and ``save_model``/``load_model`` arrive
-with the Estimator slice.
+it.  Training through ``compile``/``fit`` and ``save_model``/``load_model``
+arrive with the state plane (ROADMAP Queue 1 item 6); until then a model
+trains through ``orca.learn.Estimator.from_keras``.
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ from the first input).  Each layer draws its initial values in
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -121,11 +122,22 @@ def seed_dropout(model: nn.Module, seed: int,
     return gen
 
 
+# set on the thread that runs a Remat block's recompute in the backward
+_recompute = threading.local()
+
+
+def recomputing() -> bool:
+    """True inside a ``Remat`` block's recompute: a layer must not update its
+    buffers there, or a step would update them twice."""
+    return getattr(_recompute, "depth", 0) > 0
+
+
 def _rewound_generators(gens: List[torch.Generator]):
     """``context_fn`` for ``torch.utils.checkpoint``: the forward records
     the generators' states, and the recompute in the backward starts from
-    them (so every dropout mask repeats) and restores the generators to
-    where they were before the recompute."""
+    them (so every dropout mask repeats), runs with ``recomputing()`` true
+    (so batch norm leaves its running statistics alone) and restores the
+    generators to where they were before the recompute."""
     states: List[torch.Tensor] = []
 
     @contextlib.contextmanager
@@ -138,9 +150,11 @@ def _rewound_generators(gens: List[torch.Generator]):
         now = [g.get_state() for g in gens]
         for g, st in zip(gens, states):
             g.set_state(st)
+        _recompute.depth = getattr(_recompute, "depth", 0) + 1
         try:
             yield
         finally:
+            _recompute.depth -= 1
             for g, st in zip(gens, now):
                 g.set_state(st)
 
@@ -151,7 +165,11 @@ class Remat(nn.Module):
     """Gradient checkpointing wrapper (port of ``nn.Remat``): the wrapped
     module's activations are recomputed in the backward instead of stored.
     The inner module sits under its own ``name``, as in the JAX tree
-    (``remat_0/layer_0/...``)."""
+    (``remat_0/layer_0/...``).  The recompute repeats the forward's dropout
+    masks and updates no buffer: a batch norm inside updates its running
+    statistics once a step, as under ``jax.checkpoint``.  It does run its
+    forward kernels again, so ``ops.fused_bn``'s launch counts include the
+    recompute: two forward launches a step for such a norm, one backward."""
 
     def __init__(self, inner: nn.Module, name: str):
         super().__init__()
@@ -492,6 +510,8 @@ class BatchNormalization(nn.Module):
 
     @torch.no_grad()
     def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if recomputing():  # the forward of this step already updated them
+            return
         m = self.momentum
         self.mean.copy_(m * self.mean + (1 - m) * mean)
         self.var.copy_(m * self.var + (1 - m) * var)

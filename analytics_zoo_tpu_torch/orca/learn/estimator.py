@@ -14,19 +14,26 @@ batch's statistics and update their running ones, the buffers), then
 ``torch.autograd.grad`` of the loss over the parameters and the
 optimizer's step (``optimizers.py``: optax's numbers, through
 ``torch.optim`` where it can be configured to match) in place; the
-optimizer never sees a buffer.  ``evaluate`` and ``predict`` run in eval
-mode (running statistics, buffers fixed).  Dropout draws its masks from one
-generator on the device, seeded from ``seed``, so two runs with one seed
-repeat their masks; ``augment`` (a ``data.DeviceAugment`` chain or any
-``fn(x, generator, training)``) runs on each training batch with a second
-generator seeded from ``seed``, and deterministically (``training=False``)
-on the batches of ``evaluate``/``predict``.  The model runs on ``device``
+optimizer never sees a buffer.  With ``grad_accum=k`` (the JAX package's
+semantics) the batch splits into ``k`` equal micro-batches, views of the
+batch on the device, each a forward and backward; their gradients sum in
+f32 buffers made once, are divided by ``k``, and one update is applied;
+the step's loss is the mean of the micro losses, and batch norm normalizes
+each micro-batch by its own statistics and updates its running ones once
+per micro-batch.  A batch that ``k`` does not divide raises.
+``evaluate`` and ``predict`` run in eval mode (running statistics,
+buffers fixed).  Dropout draws its masks from one generator on the
+device, seeded from ``seed``, so two runs with one seed repeat their
+masks; ``augment`` (a ``data.DeviceAugment`` chain or any ``fn(x,
+generator, training)``) runs on each training batch with a second
+generator seeded from ``seed``, and deterministically
+(``training=False``) on the batches of ``evaluate``/``predict``.  The model runs on ``device``
 (``None``: the card).
 
 Constructor knobs of the JAX estimator that are not ported yet raise
 ``NotImplementedError`` (naming the ROADMAP item) when set to anything but
 their default; they are never ignored.  ``save``/``load`` wait for the
-checkpoint format (ROADMAP Queue 1 item 8).
+checkpoint format (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -53,36 +60,35 @@ _Q1 = "ROADMAP Queue 1 item"
 # the JAX estimator's knobs that the port does not take yet: name ->
 # (default, where it is scheduled)
 _UNPORTED_KNOBS = {
-    "sharding": ("dp", f"{_Q1} 9 (sharding)"),
-    "grad_accum": (1, f"{_Q1} 9 (grad_accum)"),
-    "nan_policy": (None, f"{_Q1} 9 (nan_policy)"),
-    "nan_max_rollbacks": (3, f"{_Q1} 9 (nan_policy)"),
-    "grad_compression": (None, f"{_Q1} 9 (grad_compression)"),
-    "frozen": (None, f"{_Q1} 9 (frozen)"),
-    "profile": (None, f"{_Q1} 9 (profile)"),
-    "profile_dir": (None, f"{_Q1} 9 (profile)"),
-    "profile_steps": ((10, 20), f"{_Q1} 9 (profile)"),
-    "log_dir": (None, f"{_Q1} 9 (summaries)"),
-    "app_name": ("train", f"{_Q1} 9 (summaries)"),
-    "aux_loss_weight": (0.01, f"{_Q1} 11 (MoE auxiliary losses)"),
-    "embedding_lr": (None, f"{_Q1} 10 (sharded embeddings)"),
-    "model_dir": (None, f"{_Q1} 8 (state plane)"),
-    "preemption_checkpoint": (False, f"{_Q1} 8 (state plane)"),
-    "preemption_sync_every": (10, f"{_Q1} 8 (state plane)"),
-    "checkpoint_retries": (3, f"{_Q1} 8 (state plane)"),
-    "checkpoint_async": (False, f"{_Q1} 8 (state plane)"),
-    "checkpoint_inflight": ("latest-wins", f"{_Q1} 8 (state plane)"),
-    "checkpoint_keep_last": (3, f"{_Q1} 8 (state plane)"),
-    "checkpoint_anchor_every": (0, f"{_Q1} 8 (state plane)"),
-    "checkpoint_delta": (True, f"{_Q1} 8 (state plane)"),
-    "checkpoint_compact_every": (8, f"{_Q1} 8 (state plane)"),
+    "sharding": ("dp", f"{_Q1} 7 (sharding)"),
+    "nan_policy": (None, f"{_Q1} 7 (nan_policy)"),
+    "nan_max_rollbacks": (3, f"{_Q1} 7 (nan_policy)"),
+    "grad_compression": (None, f"{_Q1} 7 (grad_compression)"),
+    "frozen": (None, f"{_Q1} 7 (frozen)"),
+    "profile": (None, f"{_Q1} 7 (profile)"),
+    "profile_dir": (None, f"{_Q1} 7 (profile)"),
+    "profile_steps": ((10, 20), f"{_Q1} 7 (profile)"),
+    "log_dir": (None, f"{_Q1} 7 (summaries)"),
+    "app_name": ("train", f"{_Q1} 7 (summaries)"),
+    "aux_loss_weight": (0.01, f"{_Q1} 9 (MoE auxiliary losses)"),
+    "embedding_lr": (None, f"{_Q1} 8 (sharded embeddings)"),
+    "model_dir": (None, f"{_Q1} 6 (state plane)"),
+    "preemption_checkpoint": (False, f"{_Q1} 6 (state plane)"),
+    "preemption_sync_every": (10, f"{_Q1} 6 (state plane)"),
+    "checkpoint_retries": (3, f"{_Q1} 6 (state plane)"),
+    "checkpoint_async": (False, f"{_Q1} 6 (state plane)"),
+    "checkpoint_inflight": ("latest-wins", f"{_Q1} 6 (state plane)"),
+    "checkpoint_keep_last": (3, f"{_Q1} 6 (state plane)"),
+    "checkpoint_anchor_every": (0, f"{_Q1} 6 (state plane)"),
+    "checkpoint_delta": (True, f"{_Q1} 6 (state plane)"),
+    "checkpoint_compact_every": (8, f"{_Q1} 6 (state plane)"),
 }
 _UNPORTED_FIT_ARGS = {
-    "checkpoint_trigger": (None, f"{_Q1} 8 (state plane)"),
-    "auto_resume": (False, f"{_Q1} 8 (state plane)"),
-    "feature_cols": (None, f"{_Q1} 7 (XShards inputs)"),
-    "label_cols": (None, f"{_Q1} 7 (XShards inputs)"),
-    "prefetch": (None, f"{_Q1} 9 (prefetch)"),
+    "checkpoint_trigger": (None, f"{_Q1} 6 (state plane)"),
+    "auto_resume": (False, f"{_Q1} 6 (state plane)"),
+    "feature_cols": (None, f"{_Q1} 5 (XShards inputs)"),
+    "label_cols": (None, f"{_Q1} 5 (XShards inputs)"),
+    "prefetch": (None, f"{_Q1} 5 (prefetch)"),
 }
 
 
@@ -125,8 +131,12 @@ class ZooEstimator:
                  metrics: Optional[Sequence[Any]] = None,
                  grad_clip_norm: Optional[float] = None, seed: int = 0,
                  device: DeviceLike = None, augment: Any = None,
-                 **knobs: Any):
+                 grad_accum: int = 1, **knobs: Any):
         _refuse_unported("ZooEstimator", knobs, _UNPORTED_KNOBS)
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        self.grad_accum = int(grad_accum)
+        self._grad_sum: Optional[List[torch.Tensor]] = None
         self.device = resolve_device(device)
         self.augment = augment
         self.model = model.to(self.device)
@@ -145,17 +155,58 @@ class ZooEstimator:
 
     # -- steps ----------------------------------------------------------------
 
+    def _loss_and_grads(self, x: Any, y: Any) -> tuple:
+        """One forward in training mode and the gradient of its loss over
+        the parameters (None where the loss does not reach one)."""
+        if self.augment is not None:
+            x = self.augment(x, self._aug_gen, training=True)
+        loss = self.loss_fn(self.model(x), y)
+        return loss, torch.autograd.grad(loss, self._params,
+                                         allow_unused=True)
+
+    def _accumulated(self, batch: Dict[str, Any]) -> tuple:
+        """``grad_accum`` micro-batches of ``batch`` (views, no copy), each
+        a forward and backward; returns the mean micro loss and the f32 sum
+        of the gradients divided by ``grad_accum``, in buffers made at the
+        first step and reused."""
+        accum = self.grad_accum
+        n = nrows(batch["x"])
+        if n % accum:
+            raise ValueError(f"batch size {n} is not divisible by "
+                             f"grad_accum={accum}")
+        m = n // accum
+        if self._grad_sum is None:
+            self._grad_sum = [torch.zeros_like(p, dtype=torch.float32)
+                              for p in self._params]
+        else:
+            for s in self._grad_sum:
+                s.zero_()
+        losses = []
+        for i in range(accum):
+            micro = tree_map(lambda a: a[i * m:(i + 1) * m], batch)
+            loss, grads = self._loss_and_grads(micro["x"], micro["y"])
+            with torch.no_grad():
+                for s, g in zip(self._grad_sum, grads):
+                    if g is not None:
+                        s.add_(g)
+            losses.append(loss.detach())
+        with torch.no_grad():
+            grads = []
+            for s, p in zip(self._grad_sum, self._params):
+                s.div_(accum)
+                grads.append(s if s.dtype == p.dtype else s.to(p.dtype))
+        return torch.stack(losses).mean(), grads
+
     def _train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One optimizer step on ``batch``; returns the loss (on the
         device, not synchronised)."""
         if self._opt_state is None:
             self._opt_state = self.optimizer.init(self._params)
         self.model.train()
-        x = batch["x"]
-        if self.augment is not None:
-            x = self.augment(x, self._aug_gen, training=True)
-        loss = self.loss_fn(self.model(x), batch["y"])
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        if self.grad_accum > 1:
+            loss, grads = self._accumulated(batch)
+        else:
+            loss, grads = self._loss_and_grads(batch["x"], batch["y"])
         with torch.no_grad():
             # a parameter the loss does not reach has a zero gradient, as
             # in JAX
@@ -285,12 +336,12 @@ class ZooEstimator:
 
     def save(self, path: Optional[str] = None) -> str:
         raise NotImplementedError(
-            f"Estimator.save is not ported yet ({_Q1} 8: the checkpoint "
+            f"Estimator.save is not ported yet ({_Q1} 6: the checkpoint "
             "format comes with the state plane)")
 
     def load(self, path: Optional[str] = None) -> None:
         raise NotImplementedError(
-            f"Estimator.load is not ported yet ({_Q1} 8: the checkpoint "
+            f"Estimator.load is not ported yet ({_Q1} 6: the checkpoint "
             "format comes with the state plane)")
 
 

@@ -411,7 +411,7 @@ def get(optimizer: Any, learning_rate: Optional[Any] = None,
         if name in _NOT_PORTED:
             raise NotImplementedError(
                 f"optimizer {optimizer!r} is not ported yet (ROADMAP "
-                f"Queue 1 item 9); ported: {sorted(_FACTORIES)}")
+                f"Queue 1 item 7); ported: {sorted(_FACTORIES)}")
         if name not in _FACTORIES:
             raise ValueError(f"unknown optimizer {optimizer!r}; known: "
                              f"{sorted(_FACTORIES)}")

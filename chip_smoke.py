@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs six phases, each printing one
+``nvcc`` per source, all at once), then runs eight phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
@@ -64,7 +64,30 @@ JSON line:
    of the card's time; then ``evaluate`` and ``predict`` (the eval batch
    norm).  (c) ``norm="nf"`` (no batch norm, no launch): images/s and idle
    share.
-6. ``devices``: the card as ``nvidia-smi`` reports it.
+6. ``fused_xent``: the fused softmax cross-entropy kernels
+   (``csrc/fused_xent.cu``: forward, and the dl, dh and dW backward passes;
+   bf16 on the tensor cores, f32 on scalar FMAs) against their plain
+   versions (loss, lse, dh, dW, db) at the recipe's head shape (2,048
+   tokens, D 768, V 30,522, chunk 512) and ragged N, D and V, with labels at
+   0 and V-1, a row of equal logits and logits scaled 1e2; the same input
+   twice gives identical bits; then their times at the recipe's shape
+   beside the bound, the plain version and ``F.cross_entropy`` over the
+   materialised logits (and its ``autograd.grad``).
+7. ``bert_mlm_train``: bench.py's BERT vocab-head recipe (``bench_bert``'s
+   encoder: width 768, 12 heads, 12 post-LN layers with
+   ``remat_attention=True``, a 30,522-wide head, per-token sparse
+   cross-entropy, ``adamw`` at 1e-4, global batch 32 as ``grad_accum=8`` x
+   4 x 512 tokens) through ``Estimator.fit`` from random weights in the JAX
+   tree layout.  (a) f32, 2 layers at full width: the plain head's and
+   the fused head's gradients, and the losses of a 3-step ``grad_accum=2``
+   fit, against each other.  (b) bf16 with the plain head and (c) with the
+   head through ``fused_softmax_xent`` (a loss callable), 20 steps a fit,
+   two fits each in turns (plain, fused, fused, plain): every fit's loss
+   must fall, every (c) fit must launch the forward and each backward pass
+   8 times a step and (b) none; step time, tokens/s, model TFLOP/s, one
+   profiled step's idle share and the head's and loss's share of the card's
+   time.
+8. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Then a ``kernels`` line (one entry per kernel and path) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -182,6 +205,32 @@ TOL_BN_F32 = 1e-4
 TOL_BN_BF16_REL = 2e-2
 TOL_BN_STATS = 1e-4
 BN_EDGE = [(1001, 3), (333, 6), (4097, 7), (777, 1000), (1, 8)]
+XENT_KERNEL = "fused_xent"
+# bench.py's BERT vocab-head recipe (bench_bert): a BERT-base-width post-LN
+# encoder (token embedding plus a learned pos, 12 TransformerLayers with
+# remat_attention=True, dense attention) under a Dense(30522) vocab head,
+# per-token sparse cross-entropy, adamw at 1e-4, global batch 32 as
+# grad_accum=8 micro-batches of 4 x 512 tokens
+MLM = dict(vocab=30522, d_model=768, heads=12, layers=12)
+MLM_MICRO = 4
+MLM_ACCUM = 8
+MLM_BATCH = MLM_MICRO * MLM_ACCUM
+MLM_STEPS = 20           # 20 epochs over one seeded global batch
+MLM_CHUNK = 512          # fused_softmax_xent's chunk: one sequence
+MLM_CHECK_LAYERS = 2     # bert_mlm_train (a), f32 at full width
+MLM_CHECK_ACCUM = 2      # ... global batch 8 = 2 x 4
+# fused_xent kernel vs plain version on the same inputs: loss and lse 1e-5
+# relative (f32 sums in another order); f32 gradients 1e-5 of each tensor's
+# max; bf16: dh (rounded to bf16 once on each side) 2 bf16 ulps of its max,
+# dW and db (f32 sums of bf16-rounded terms over 2048 tokens) 1e-3 of their
+# max, 2 ulps where dW comes back in bf16
+TOL_XENT_LOSS = 1e-5
+TOL_XENT_F32 = 1e-5
+TOL_XENT_BF16_DH = 2.0 ** -7
+TOL_XENT_BF16_SUM = 1e-3
+# ragged (N, D, V, chunk) cases beside the recipe's (2048, 768, 30522, 512)
+XENT_EDGE = [(300, 40, 777, 100), (129, 13, 30, 43), (256, 64, 1000, 128),
+             (512, 768, 4099, 256)]
 
 
 def emit(obj) -> None:
@@ -541,7 +590,7 @@ def random_bert_variables(model: torch.nn.Module, seed: int) -> dict:
         if leaf in ("kernel", "wq", "wk", "wv", "wo"):
             lim = math.sqrt(6.0 / (shape[0] + shape[1]))
             arr = rng.uniform(-lim, lim, shape)
-        elif leaf in ("embeddings", "pos_embed"):
+        elif leaf in ("embeddings", "pos_embed", "pos"):
             arr = rng.normal(0.0, 0.05, shape)
         elif leaf == "gamma":
             arr = np.ones(shape)
@@ -1358,6 +1407,410 @@ def phase_resnet_train(bn) -> dict:
     return res
 
 
+def xent_inputs(gen, n, d, v, dtype, w_dtype=torch.float32, scale=1.0,
+                flat_row=False):
+    """h (scaled by ``scale``), w, bias and labels on the card, labels 0
+    and V-1 at the first and last tokens; with ``flat_row`` token 1's
+    logits are all equal (h row 0, zero bias)."""
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    h = r(n, d) * scale
+    bias = r(v) * 0.1
+    if flat_row:
+        h[1] = 0.0
+        bias.zero_()
+    labels = torch.randint(0, v, (n,), device="cuda", generator=gen)
+    labels[0], labels[-1] = 0, v - 1
+    return h.to(dtype), (r(d, v) * 0.05).to(w_dtype), bias, labels
+
+
+def xent_bound(n, d, v, h_size, w_size, direction) -> tuple:
+    """(ms, "bytes"|"operations") of the head's loss: 2NDV FLOP forward,
+    6NDV backward (the logits recomputed, then dh and dW), at the
+    activation dtype's peak; h, w, bias, labels read once and lse/loss
+    (forward) or dh, dW, db (backward) written once."""
+    flops = (2.0 if direction == "fwd" else 6.0) * n * d * v
+    nbytes = n * d * h_size + d * v * w_size + 4 * v + 8 * n + 4 * n
+    if direction == "bwd":
+        nbytes += n * d * h_size + d * v * w_size + 4 * v
+    return bound(flops, nbytes, h_size)
+
+
+def phase_fused_xent(fx) -> dict:
+    """The fused softmax cross-entropy kernels against their plain versions
+    (loss, lse, dh, dW, db) at the recipe's head shape and ragged ones,
+    f32 and bf16, labels at 0 and V-1, a row of equal logits, logits of
+    1e2 x the scale; identical bits on repeat; then times at the recipe's
+    shape beside the bound, the plain version and the library's
+    ``F.cross_entropy`` over materialised logits."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst = {"loss": 0.0, "f32": 0.0, "bf16_dh": 0.0, "bf16_sums": 0.0}
+    d, v = MLM["d_model"], MLM["vocab"]
+    n = MLM_MICRO * SEQ
+
+    def check(h, w, bias, labels, chunk):
+        g = torch.tensor(1.0, device="cuda")
+        loss, lse = fx.fused_xent_fwd(h, w, bias, labels, chunk)
+        got = (loss, lse) + fx.fused_xent_bwd(h, w, bias, labels, lse, g,
+                                              chunk)
+        rloss, rlse = fx.fused_xent_reference(h, w, bias, labels, chunk)
+        ref = (rloss, rlse) + fx.fused_xent_bwd_reference(
+            h, w, bias, labels, rlse, g, chunk)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, a, b in zip(("loss", "lse", "dh", "dw", "db"), got, ref):
+            if a.shape != b.shape or a.dtype != b.dtype \
+                    or not torch.isfinite(a).all():
+                raise AssertionError(f"fused_xent {name}: {tuple(a.shape)} "
+                                     f"{a.dtype} at {tuple(h.shape)} V {v}")
+            e = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            if name in ("loss", "lse"):
+                rel = e / max(1.0, top)
+                tol, key = TOL_XENT_LOSS, "loss"
+            elif h.dtype == torch.float32:
+                rel, tol, key = e / max(top, 1e-30), TOL_XENT_F32, "f32"
+            elif name == "dh" or a.dtype == torch.bfloat16:
+                rel, tol, key = e / max(top, 1e-30), TOL_XENT_BF16_DH, \
+                    "bf16_dh"
+            else:
+                rel, tol, key = e / max(top, 1e-30), TOL_XENT_BF16_SUM, \
+                    "bf16_sums"
+            worst[key] = max(worst[key], rel)
+            err = max(err, e)
+            if rel > tol:
+                raise AssertionError(
+                    f"fused_xent kernel disagrees with its plain version at "
+                    f"{tuple(h.shape)} V {w.shape[1]} {h.dtype} w "
+                    f"{w.dtype}: {name} err {e} of {top}")
+        return got, err
+
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(n, d, v, MLM_CHUNK, dt, torch.float32, {}) for dt in dtypes]
+    cases += [(n, d, v, MLM_CHUNK, torch.bfloat16, torch.bfloat16, {})]
+    cases += [(nn_, dd, vv, ch, dt, torch.float32, {})
+              for nn_, dd, vv, ch in XENT_EDGE for dt in dtypes]
+    cases += [(300, 40, 777, 100, torch.bfloat16, torch.bfloat16, {})]
+    cases += [(512, 96, 3001, 128, dt, torch.float32, kw) for dt in dtypes
+              for kw in ({"flat_row": True}, {"scale": 100.0})]
+    for nn_, dd, vv, ch, dt, wdt, kw in cases:
+        check(*xent_inputs(gen, nn_, dd, vv, dt, wdt, **kw), ch)
+    # no atomics: one input, identical bits
+    for dt in dtypes:
+        inputs = xent_inputs(gen, n, d, v, dt, scale=100.0)
+        first, _ = check(*inputs, MLM_CHUNK)
+        again, _ = check(*inputs, MLM_CHUNK)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"fused_xent: two runs at {dt} differ")
+
+    # times at the recipe's shape: bf16 activations with the f32 head
+    # kernel (the recipe's), and f32
+    timings = []
+    for dt in dtypes:
+        h, w, bias, labels = xent_inputs(gen, n, d, v, dt)
+        _, err = check(h, w, bias, labels, MLM_CHUNK)
+        loss, lse = fx.fused_xent_fwd(h, w, bias, labels, MLM_CHUNK)
+        g = torch.tensor(1.0, device="cuda")
+        lib_h, lib_w, lib_b = (t.detach().requires_grad_()
+                               for t in (h, w, bias))
+
+        def lib_fwd():
+            return torch.nn.functional.cross_entropy(
+                lib_h @ lib_w.to(dt) + lib_b, labels)
+
+        lib_out = lib_fwd()
+        for direction, kernel, plain, library in (
+                ("fwd",
+                 lambda: fx.fused_xent_fwd(h, w, bias, labels, MLM_CHUNK),
+                 lambda: fx.fused_xent_reference(h, w, bias, labels,
+                                                 MLM_CHUNK),
+                 lib_fwd),
+                ("bwd",
+                 lambda: fx.fused_xent_bwd(h, w, bias, labels, lse, g,
+                                           MLM_CHUNK),
+                 lambda: fx.fused_xent_bwd_reference(h, w, bias, labels, lse,
+                                                     g, MLM_CHUNK),
+                 lambda: torch.autograd.grad(lib_out, (lib_h, lib_w, lib_b),
+                                             retain_graph=True))):
+            ms, plain_ms, library_ms = (cuda_ms(f, iters=10)
+                                        for f in (kernel, plain, library))
+            dev_ms, plain_dev_ms, library_dev_ms = (
+                device_ms(f, iters=10) for f in (kernel, plain, library))
+            bound_ms, bound_by = xent_bound(n, d, v, h.element_size(),
+                                            w.element_size(), direction)
+            timings.append({
+                "kernel": XENT_KERNEL, "direction": direction, "n": n,
+                "d": d, "v": v, "chunk": MLM_CHUNK,
+                "dtype": str(dt).replace("torch.", ""),
+                "w_dtype": str(w.dtype).replace("torch.", ""),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "device_ms": dev_ms,
+                "plain_device_ms": plain_dev_ms,
+                "library_device_ms": library_dev_ms,
+                "library": "F.cross_entropy(h @ w.to(h.dtype) + b, labels)"
+                           + (" and its autograd.grad over (h, w, b)"
+                              if direction == "bwd" else ""),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "device_share_of_bound": bound_ms / dev_ms})
+        del lib_h, lib_w, lib_b, lib_out, h, w
+        torch.cuda.empty_cache()
+    res = {"phase": "fused_xent", "cases": len(cases) + 2 * len(dtypes),
+           "edge_shapes": XENT_EDGE, "worst": worst,
+           "tolerances": {"loss_lse_rel_to_max1": TOL_XENT_LOSS,
+                          "f32_rel_to_max": TOL_XENT_F32,
+                          "bf16_dh_rel_to_max": TOL_XENT_BF16_DH,
+                          "bf16_dw_db_rel_to_max": TOL_XENT_BF16_SUM},
+           "repeat_bitwise_identical": True, "timings": timings}
+    emit(res)
+    return res
+
+
+class MlmEncoder(torch.nn.Module):
+    """bench.py's ``bench_bert`` ``Encoder`` at BERT-base width, in the JAX
+    tree's names (``tok/embeddings``, ``pos``, ``block{i}/...``,
+    ``head/kernel``, ``head/bias``): the token embedding plus ``pos`` in
+    ``dtype``, ``layers`` post-LN ``TransformerLayer``s with
+    ``remat_attention=True``, then the vocab head: applied (``fused=False``,
+    logits for ``sparse_categorical_crossentropy``) or handed to the loss as
+    ``(h, head.kernel, head.bias)`` for ``fused_softmax_xent``."""
+
+    def __init__(self, layers, dtype, fused):
+        super().__init__()
+        from analytics_zoo_tpu_torch import nn as tnn
+        d, v = MLM["d_model"], MLM["vocab"]
+        self.dtype, self.fused = dtype, fused
+        self.tok = tnn.Embedding(v, d)
+        self.pos = torch.nn.Parameter(torch.empty(1, SEQ, d))
+        self.blocks = [f"block{i}" for i in range(layers)]
+        for name in self.blocks:
+            self.add_module(name, tnn.TransformerLayer(
+                d, MLM["heads"], remat_attention=True))
+        self.head = tnn.Dense(d, v)
+
+    def forward(self, ids):
+        x = (self.tok(ids) + self.pos).to(self.dtype)
+        for name in self.blocks:
+            x = getattr(self, name)(x)
+        if self.fused:
+            return x, self.head.kernel, self.head.bias
+        return self.head(x)
+
+
+def mlm_loss(fused):
+    """The recipe's loss: per-token sparse cross-entropy on the logits, or
+    the same function through ``fused_softmax_xent`` (a loss callable)."""
+    if not fused:
+        return "sparse_categorical_crossentropy"
+    from analytics_zoo_tpu_torch.ops import fused_softmax_xent
+
+    def loss(out, y):
+        return fused_softmax_xent(out[0], out[1], y, MLM_CHUNK, bias=out[2])
+
+    return loss
+
+
+def mlm_flops_per_token(layers) -> tuple:
+    """(forward FLOP per token of the encoder and the head, the recompute's
+    FLOP per token): the encoder as ``bert_flops_per_token`` at ``layers``
+    layers, the head's 2 D V, and remat_attention's second pass over the two
+    attention products (4 SEQ D a layer)."""
+    d = MLM["d_model"]
+    encoder = layers * (2.0 * 12 * d * d + 4.0 * SEQ * d)
+    return encoder + 2.0 * d * MLM["vocab"], layers * 4.0 * SEQ * d
+
+
+def read_xent_counts(fx, what, **per_dtype) -> dict:
+    """The fused_xent launch counts since ``reset_launches``: every pass of
+    the dtypes in ``per_dtype`` that many times, no other."""
+    counts = dict(fx.KERNEL_LAUNCHES)
+    want = {name: per_dtype.get(name.rsplit("_", 1)[1], 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: fused_xent launches {counts}; want "
+                             f"{want}")
+    return counts
+
+
+def phase_bert_mlm_train(fa, fx) -> dict:
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.data import as_feed
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    t0 = time.perf_counter()
+    states = {layers: from_jax_variables(random_bert_variables(
+        MlmEncoder(layers, torch.float32, False), SEED))
+        for layers in (MLM_CHECK_LAYERS, MLM["layers"])}
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    vocab = MLM["vocab"]
+
+    def model(layers, dtype, fused):
+        m = MlmEncoder(layers, dtype, fused)
+        m.load_state_dict(states[layers], strict=True)
+        return m.cuda()
+
+    def estimator(m, fused, accum):
+        return Estimator.from_keras(m, loss=mlm_loss(fused), optimizer="adamw",
+                                    learning_rate=TRAIN_LR, seed=SEED,
+                                    grad_accum=accum)
+
+    def tokens(rows):
+        return (rng.integers(0, vocab, (rows, SEQ)).astype(np.int32),
+                rng.integers(0, vocab, (rows, SEQ)).astype(np.int32))
+
+    # (a) f32, 2 layers at full width: the plain and the fused head's
+    # gradients on one micro-batch, then 3 steps of global batch 8 =
+    # grad_accum 2 x 4 each
+    xa, ya = tokens(MLM_MICRO)
+    xt, yt = torch.from_numpy(xa).cuda(), torch.from_numpy(ya).cuda()
+    grads, loss0 = {}, {}
+    for fused in (False, True):
+        m = model(MLM_CHECK_LAYERS, torch.float32, fused).train()
+        est = estimator(m, fused, 1)
+        names = [k for k, _ in m.named_parameters()]
+        loss = est.loss_fn(m(xt), yt)
+        grads[fused] = dict(zip(names, torch.autograd.grad(
+            loss, list(m.parameters()), allow_unused=True)))
+        loss0[fused] = float(loss.detach())
+        del m, est, loss
+    worst_rel, worst_head = 0.0, 0.0
+    for name, ref in grads[False].items():
+        got = grads[True][name]
+        if ref is None or got is None:
+            raise AssertionError(f"bert_mlm_train f32: no gradient of {name}")
+        top = ref.abs().max().item()
+        if top == 0.0:  # embedding rows of absent tokens
+            continue
+        rel = (got - ref).abs().max().item() / top
+        worst_rel = max(worst_rel, rel)
+        if name.startswith("head."):
+            worst_head = max(worst_head, rel)
+        if rel > TOL_TRAIN_GRAD:
+            raise AssertionError(f"bert_mlm_train f32: {name}'s gradient "
+                                 f"differs by {rel} of its max (fused vs "
+                                 f"plain head)")
+    del grads
+    x3, y3 = tokens(MLM_MICRO * MLM_CHECK_ACCUM * CHECK_STEPS)
+    hist = {}
+    for fused in (False, True):
+        est = estimator(model(MLM_CHECK_LAYERS, torch.float32, fused), fused,
+                        MLM_CHECK_ACCUM)
+        hist[fused], _ = record_steps(est)
+        fx.reset_launches()
+        est.fit((x3, y3), epochs=1, batch_size=MLM_MICRO * MLM_CHECK_ACCUM,
+                verbose=False)
+        counts = read_xent_counts(
+            fx, "bert_mlm_train f32",
+            **({"f32": MLM_CHECK_ACCUM * CHECK_STEPS} if fused else {}))
+        if fused:
+            f32_launches = counts
+        del est
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(hist[True], hist[False]))
+    if loss_err > TOL_TRAIN_LOSS or not all(map(math.isfinite, hist[True])):
+        raise AssertionError(f"bert_mlm_train f32: loss history {hist[True]}"
+                             f" (fused head) vs {hist[False]} (plain)")
+    f32_check = {"layers": MLM_CHECK_LAYERS, "micro_batch": MLM_MICRO,
+                 "grad_accum": MLM_CHECK_ACCUM, "steps": CHECK_STEPS,
+                 "first_loss": {"plain": loss0[False], "fused": loss0[True]},
+                 "grad_worst_rel_to_tensor_max": worst_rel,
+                 "head_grad_worst_rel_to_tensor_max": worst_head,
+                 "grad_tol": TOL_TRAIN_GRAD, "loss_plain": hist[False],
+                 "loss_fused": hist[True], "loss_worst_rel": loss_err,
+                 "loss_tol": TOL_TRAIN_LOSS, "launches": f32_launches}
+    torch.cuda.empty_cache()
+
+    # (b) plain head and (c) fused head: bench.py's recipe, bf16, 12
+    # layers, global batch 32 = grad_accum 8 x 4, 20 steps on one seeded
+    # batch.  The step is host-bound and the host's time swings between
+    # fits of one code, so the two heads take turns: plain, fused, fused,
+    # plain; each fit must launch as it should and lower the loss
+    x, y = tokens(MLM_BATCH)
+    fwd_flops, recompute_flops = mlm_flops_per_token(MLM["layers"])
+    d = MLM["d_model"]
+    runs = {}
+    for fused in (False, True, True, False):
+        name = "fused" if fused else "plain"
+        est = estimator(model(MLM["layers"], torch.bfloat16, fused), fused,
+                        MLM_ACCUM)
+        inner = est._train_step
+        step_losses, step_ms = record_steps(est)
+        fx.reset_launches()
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        losses = est.fit((x, y), epochs=MLM_STEPS, batch_size=MLM_BATCH,
+                         verbose=False)["loss"]
+        fit_s = time.perf_counter() - t0
+        launches = read_xent_counts(
+            fx, f"bert_mlm_train {name}",
+            **({"bf16": MLM_ACCUM * MLM_STEPS} if fused else {}))
+        read_counts(fa, "bert_mlm_train (dense attention)")
+        if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+            raise AssertionError(f"bert_mlm_train {name}: loss {losses} did "
+                                 f"not fall")
+        fit = {"loss": losses, "fit_s": fit_s,
+               "step_ms_last10": step_ms[-10:],
+               "step_ms_p50": float(np.median(step_ms[-10:]))}
+        if name in runs:  # the variant's second turn
+            run = runs[name]
+            run["fits"].append(fit)
+            run["step_ms_p50"] = float(np.median(
+                [t for f in run["fits"] for t in f["step_ms_last10"]]))
+            tokens_per_s = MLM_BATCH * SEQ / (run["step_ms_p50"] / 1e3)
+            run["tokens_per_s"] = tokens_per_s
+            run["model_tflop_per_s"] = 3 * fwd_flops * tokens_per_s / 1e12
+            run["recompute_tflop_per_s"] = (recompute_flops + (
+                2.0 * d * MLM["vocab"] if fused else 0.0)) \
+                * tokens_per_s / 1e12
+            run["profiled_step"]["idle_share_of_p50_step"] = 1.0 - \
+                run["profiled_step"]["device_busy_ms"] / run["step_ms_p50"]
+            del est, inner
+            torch.cuda.empty_cache()
+            continue
+        batch = next(as_feed((x, y), MLM_BATCH, seed=SEED).epoch(
+            est.device, 0))
+        profiled = profile_call(lambda: inner(batch),
+                                {"xent": ("xent_",)})
+        # the head and its loss alone, forward and backward on one
+        # micro-batch's activations, times the micro-batches of a step
+        h = torch.randn(MLM_MICRO, SEQ, d, device="cuda").to(torch.bfloat16)
+        h.requires_grad_()
+        yb = batch["y"][:MLM_MICRO]
+        head = est.model.head
+
+        def head_and_loss():
+            out = (h, head.kernel, head.bias) if fused else head(h)
+            loss = est.loss_fn(out, yb)
+            return torch.autograd.grad(loss, (h, head.kernel, head.bias))
+
+        head_ms = device_ms(head_and_loss, iters=5)
+        runs[name] = {
+            "fits": [fit], "launches": launches, "profiled_step": profiled,
+            "head_and_loss_device_ms_per_micro": head_ms,
+            "head_and_loss_share_of_busy":
+                MLM_ACCUM * head_ms / profiled["device_busy_ms"]}
+        del est, inner, h, head
+        torch.cuda.empty_cache()
+    res = {"phase": "bert_mlm_train", "config": dict(MLM, seq=SEQ),
+           "dtype": "bfloat16", "optimizer": "adamw",
+           "learning_rate": TRAIN_LR, "global_batch": MLM_BATCH,
+           "grad_accum": MLM_ACCUM, "micro_batch": MLM_MICRO,
+           "steps": MLM_STEPS, "chunk": MLM_CHUNK, "setup_s": setup_s,
+           "flop_convention": "model: 3 x forward FLOP per token (encoder "
+                              "GEMMs and attention products as "
+                              "bert_flops_per_token, plus the head's 2 D V); "
+                              "recompute: remat_attention's second pass of "
+                              "the attention products (4 SEQ D a layer) and, "
+                              "for the fused head, its logits recomputed in "
+                              "the backward (2 D V)",
+           "plain": runs["plain"], "fused": runs["fused"],
+           "fused_vs_plain_step_p50": runs["fused"]["step_ms_p50"]
+           / runs["plain"]["step_ms_p50"],
+           "f32_check": f32_check}
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1399,20 +1852,23 @@ def main(argv) -> int:
     from analytics_zoo_tpu_torch.ops import _build
     fa = importlib.import_module("analytics_zoo_tpu_torch.ops.flash_attention")
     bn = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_bn")
+    fx = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_xent")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc per source, together
         list(pool.map(_build.build, (BF16_KERNEL, F32_KERNEL, BWD_KERNEL,
-                                     BN_KERNEL)))
+                                     BN_KERNEL, XENT_KERNEL)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
     if only:  # a subset of the phases, for iterating on one: no last line
         phases = {"kernel": lambda: phase_kernel(fa),
                   "fused_bn": lambda: phase_fused_bn(bn),
                   "bert_serve": lambda: phase_bert_serve(fa),
                   "bert_train": lambda: phase_bert_train(fa),
-                  "resnet_train": lambda: phase_resnet_train(bn)}
+                  "resnet_train": lambda: phase_resnet_train(bn),
+                  "fused_xent": lambda: phase_fused_xent(fx),
+                  "bert_mlm_train": lambda: phase_bert_mlm_train(fa, fx)}
         for name in only:
             phases[name]()
         return 0
@@ -1421,6 +1877,8 @@ def main(argv) -> int:
     serve = phase_bert_serve(fa)
     train = phase_bert_train(fa)
     resnet = phase_resnet_train(bn)
+    xent_kern = phase_fused_xent(fx)
+    mlm = phase_bert_mlm_train(fa, fx)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -1480,6 +1938,33 @@ def main(argv) -> int:
                 "rows", "c", "ms", "plain_ms", "library_ms", "device_ms",
                 "plain_device_ms", "library_device_ms", "bound_ms",
                 "max_abs_err")}
+            entries.append(entry)
+    # fused softmax cross-entropy: one entry per direction and activation
+    # dtype, timed at the recipe's head shape, launches of the main path
+    # run of that dtype (bf16: bert_mlm_train (c); f32: (a)'s fused fit)
+    xent_times = {(x["direction"], x["dtype"]): x
+                  for x in xent_kern["timings"]}
+    xent_src = "analytics_zoo_tpu/ops/fused_xent.py:50"
+    for direction, passes in (("fwd", ("fwd",)), ("bwd", ("dl", "dh", "dw"))):
+        for dtype, sfx, counts, path, design in (
+                ("bfloat16", "bf16", mlm["fused"]["launches"],
+                 "bert_mlm_train bf16 (fused head)",
+                 "bf16, mma.sync tensor cores, cp.async double buffer"),
+                ("float32", "f32", mlm["f32_check"]["launches"],
+                 "bert_mlm_train f32 (fused head)", "f32, scalar FMAs")):
+            x = xent_times[(direction, dtype)]
+            entry = kernel_entry(
+                XENT_KERNEL, f"{design}; {direction}: "
+                + ("logit tiles' max / sum-exp / label logit, per-token "
+                   "finalize, mean; logits never written"
+                   if direction == "fwd" else
+                   "per chunk: dl, dh (split-K) and dW passes, then db")
+                + "; no atomics", counts[f"{passes[0]}_{sfx}"], path,
+                xent_src, x)
+            entry["launches_by_pass"] = {p: counts[f"{p}_{sfx}"]
+                                         for p in passes}
+            entry["shape"] = {k: x[k] for k in ("n", "d", "v", "chunk",
+                                                "dtype", "w_dtype")}
             entries.append(entry)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

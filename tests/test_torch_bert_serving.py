@@ -255,6 +255,7 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.orca.learn.estimator",
                 "analytics_zoo_tpu_torch.orca.learn.optimizers",
                 "analytics_zoo_tpu_torch.ops.fused_bn",
+                "analytics_zoo_tpu_torch.ops.fused_xent",
                 "analytics_zoo_tpu_torch.models.image",
                 "analytics_zoo_tpu_torch.data.augment",
                 "analytics_zoo_tpu_torch.nn.layers"]

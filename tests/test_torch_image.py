@@ -597,7 +597,7 @@ def test_int8_weights_are_refused_with_the_roadmap_item():
     tree = {"params": {"conv": {"kernel": {
         "__int8_weight__": np.int8(1), "q": np.zeros((3, 3, 1, 2), np.int8),
         "scale": np.ones((1, 1, 1, 2), np.float32)}}}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         from_jax_variables(tree)
 
 
