@@ -30,20 +30,32 @@
 //   3. dQ: one block per (q tile, bh), looping over key tiles (under
 //      `causal`, up to the diagonal): Q and dO staged once, K and V per
 //      tile, dQ in registers.
-// Three designs share that structure:
-//   * bf16 with head widths up to 64 (d a multiple of 8; the wrapper pads
-//     others), BERT's path: the tensor cores.  mma.sync.m16n8k16 (bf16 in,
-//     f32 accumulate) in blocks of 4 warps; each warp owns 16 keys (dK/dV)
-//     or 16 q rows (dQ) of a 64 x 64 tile.  S^T = K Q^T and dP^T = V dO^T
-//     (dK/dV) or S = Q K^T and dP = dO V^T (dQ) take the warp's K and V (or
-//     Q and dO) A-fragments from registers, loaded once, and the other side
-//     by ldmatrix; P and dS are computed on the f32 accumulator fragments
-//     (2^x by ex2.approx with scale * log2(e) folded in), rounded to bf16
-//     in place and fed straight back as the A operand of dV += P^T dO,
-//     dK += dS^T Q or dQ += dS K, whose B operands come by ldmatrix.trans
-//     (the fragment layouts are in warp_mma.cuh).  The streamed 64-row
-//     tiles are double-buffered by cp.async 16-byte copies; rows >= T and
-//     columns >= d are zero-filled by the copy.
+// Four designs share that structure (`design` below picks one):
+//   * bf16 with head widths 33-64 (d a multiple of 8; the wrapper pads
+//     others), BERT's path: wgmma fed by TMA (hopper.cuh).  A block is one
+//     warpgroup owning 64 keys (dK/dV) or 64 q rows (dQ), which streams
+//     64-row tiles of the other side through a ring of kStages TMA
+//     stages, one mbarrier each, refilled by one thread.  Every
+//     tile is 64 bf16 wide, one 128-byte swizzle atom: a 3-D tensor map
+//     over [BH, T, d] (box 1 x 64 x 64) zero-fills rows >= T of its own
+//     head and columns >= d.  Per tile, S^T = K Q^T and dP^T = V dO^T
+//     (dK/dV; S = Q K^T and dP = dO V^T in dQ) are m64n64k16 products with
+//     both operands K-major in shared memory; P and dS are computed on the
+//     f32 accumulators (2^x by ex2.approx, scale * log2(e) folded in;
+//     masks only on tiles that hold the last key, the last q row or the
+//     causal diagonal), rounded to bf16 in registers and fed as the
+//     register A operand of dV += P^T dO, dK += dS^T Q or dQ += dS K,
+//     whose B operands are the staged tiles read MN-major (the transpose
+//     bit).  Three (dK/dV) or four (dQ) such blocks share an SM, so one's
+//     softmax algebra overlaps another's products.  Its delta pass reads
+//     out and dO in 16-byte pieces.
+//   * bf16 with head widths up to 32: the tensor cores by mma.sync.m16n8k16
+//     in blocks of 4 warps; each warp owns 16 keys (dK/dV) or 16 q rows
+//     (dQ) of a 64 x 64 tile, takes its K and V (or Q and dO) A-fragments
+//     from registers and the other side by ldmatrix; P and dS, rounded to
+//     bf16 in place, are the A operand of the second products, whose B
+//     operands come by ldmatrix.trans (layouts in warp_mma.cuh).  The
+//     streamed tiles are double-buffered by cp.async 16-byte copies.
 //   * f32, and bf16 wider than 64, up to 256: scalar f32 FMAs from shared
 //     memory (tiles transposed, f32), 256 threads in a 16 x 16 grid: in
 //     dK/dV thread (ty, tx) owns keys ty*KR.. of S^T and dP^T and columns
@@ -54,15 +66,20 @@
 //     staged in chunks of 64 columns, each block owning a chunk of 256
 //     output columns (S and dP are recomputed once per chunk).
 // Kernels are instantiated for padded widths and take the true d at run
-// time.  What it leaves: wgmma with a TMA-fed ring, and tensor cores for
-// bf16 heads wider than 64.
+// time.  What it leaves: in the wgmma design a producer warp, persistent
+// blocks, and an overlap of softmax and products inside a block (one
+// tile's dV/dK products in flight with the next tile's S/dP: ptxas
+// serialised that form, C7515; or FlashAttention-3's ping-pong of two
+// warpgroups); tensor cores for bf16 heads wider than 64.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -579,7 +596,7 @@ bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores, head widths up to 64
+// bf16 on the tensor cores by mma.sync, head widths up to 32
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 128;  // 4 warps
@@ -942,6 +959,390 @@ bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores by wgmma fed by TMA, head widths 33-64
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = 64;    // rows per block and per streamed tile
+constexpr int kWgThreads = 128;
+constexpr uint32_t kWgTileBytes = kWgRows * 64 * sizeof(bf16);  // 8 KB
+
+// Stages of the ring.  A block is one warpgroup: at BERT's shape two
+// warpgroups a block (sharing the streamed tiles) ran 6-30% slower, in
+// lockstep through the per-tile barrier, and a third stage added nothing
+// (PERF.md).
+constexpr int kStages = 2;
+
+// Shared memory of both passes, in bytes from a 1024-aligned base: the
+// two tiles held for the whole block (K and V, or Q and dO), kStages ring
+// stages of each of the two streamed ones, the streamed rows' lse (x
+// log2 e) and delta (dK/dV only; two slots of 64), and kStages + 1
+// mbarriers (the stages', the held tiles').
+struct WgmmaSmem {
+  static constexpr uint32_t kHeld0 = 0;
+  static constexpr uint32_t kHeld1 = kHeld0 + kWgTileBytes;
+  static constexpr uint32_t kRing0 = kHeld1 + kWgTileBytes;
+  static constexpr uint32_t kRing1 = kRing0 + kStages * kWgTileBytes;
+  static constexpr uint32_t kLse = kRing1 + kStages * kWgTileBytes;
+  static constexpr uint32_t kDelta = kLse + 2 * kWgRows * sizeof(float);
+  static constexpr uint32_t kBar = kDelta + 2 * kWgRows * sizeof(float);
+  static constexpr size_t kBytes =
+      kBar + (kStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// The 1024-aligned base inside the dynamic shared memory.
+__device__ __forceinline__ unsigned char* wgmma_smem_base(
+    unsigned char* raw) {
+  const uint32_t addr = warp_mma::smem_addr(raw);
+  return raw + ((1024 - (addr & 1023)) & 1023);
+}
+
+// P and dS of one m64n64 tile from its S and dP accumulators (f32, the
+// wgmma layout; this thread's elements are at row row0 + 8 (e >> 1) and
+// column col0 + 8 i + (e & 1)), rounded to bf16 straight into the A
+// fragments of the next products: ap[kk] / as[kk] hold k16 step kk of P /
+// dS, and s and dp are only read.  kKeysAreRows: S^T of the dK/dV pass
+// (rows are keys, columns q rows), and lse2[8 i + u] / dlt[8 i + u] are
+// the lse (x log2 e) and delta of column col0 + 8 i + u (shared memory);
+// else S of the dQ pass, and lse2[h] / dlt[h] are those of row row0 + 8 h.
+// With kMask, elements outside [row < tq, key < tk, !causal || row >=
+// key] get 0 and are never exponentiated.
+template <bool kMask, bool kKeysAreRows>
+__device__ __forceinline__ void wgmma_p_ds(const float (&s)[32],
+                                           const float (&dp)[32],
+                                           uint32_t (&ap)[4][4],
+                                           uint32_t (&as)[4][4],
+                                           const float* lse2,
+                                           const float* dlt,
+                                           float scale_log2, float scale,
+                                           int row0, int col0, int tq,
+                                           int tk, int causal) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // elements e = 2 h and 2 h + 1
+      float p[2], ds[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = 4 * i + 2 * h + u;
+        const float l = kKeysAreRows ? lse2[8 * i + u] : lse2[h];
+        const float dd = kKeysAreRows ? dlt[8 * i + u] : dlt[h];
+        bool keep = true;
+        if (kMask) {
+          const int r = row0 + h * 8, c = col0 + 8 * i + u;
+          const int key = kKeysAreRows ? r : c, row = kKeysAreRows ? c : r;
+          keep = key < tk && row < tq && (!causal || row >= key);
+        }
+        p[u] = keep ? warp_mma::exp2_approx(fmaf(s[x], scale_log2, -l))
+                    : 0.f;
+        ds[u] = p[u] * (dp[x] - dd) * scale;
+      }
+      // element 4 i + 2 h is element 2 (2 (i % 2) + h) of step i / 2
+      ap[i / 2][2 * (i % 2) + h] = warp_mma::pack_bf16(p[0], p[1]);
+      as[i / 2][2 * (i % 2) + h] = warp_mma::pack_bf16(ds[0], ds[1]);
+    }
+}
+
+// d0 = A0 B0^T and d1 = A1 B1^T over a depth of 64, A and B 64-row K-major
+// tiles at the given shared addresses, issued as one group.
+__device__ __forceinline__ void issue_s_dp(float (&d0)[32], float (&d1)[32],
+                                           uint32_t a0, uint32_t b0,
+                                           uint32_t a1, uint32_t b1) {
+  using namespace hopper;
+  wgmma_fence();
+  wgmma_ss<false>(d0, desc_k_major(a0, 0), desc_k_major(b0, 0));
+#pragma unroll
+  for (int kd = 1; kd < 4; ++kd)
+    wgmma_ss<true>(d0, desc_k_major(a0, kd), desc_k_major(b0, kd));
+  wgmma_ss<false>(d1, desc_k_major(a1, 0), desc_k_major(b1, 0));
+#pragma unroll
+  for (int kd = 1; kd < 4; ++kd)
+    wgmma_ss<true>(d1, desc_k_major(a1, kd), desc_k_major(b1, kd));
+  wgmma_commit();
+}
+
+// delta = rowsum(out * dout) for rows of d bf16 (a multiple of 8, at most
+// 64, 16-byte aligned): 8 lanes a row, each one 16-byte piece of both.
+__global__ void __launch_bounds__(kThreads)
+bwd_delta_x8_kernel(const bf16* __restrict__ out,
+                    const bf16* __restrict__ dout, float* __restrict__ delta,
+                    int64_t rows, int d) {
+  const int64_t row = (int64_t(blockIdx.x) * kThreads + threadIdx.x) / 8;
+  const int c = (threadIdx.x & 7) * 8;
+  float s = 0.f;
+  if (row < rows && c < d) {
+    const uint4 o = *reinterpret_cast<const uint4*>(out + row * d + c);
+    const uint4 g = *reinterpret_cast<const uint4*>(dout + row * d + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 a = __bfloat1622float2(o2[i]);
+      const float2 b = __bfloat1622float2(g2[i]);
+      s = fmaf(a.x, b.x, s);
+      s = fmaf(a.y, b.y, s);
+    }
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if ((threadIdx.x & 7) == 0 && row < rows) delta[row] = s;
+}
+
+// Per tile, a block waits for the tile's copy, issues S and dP, waits,
+// computes P and dS, issues the products that use them and waits again;
+// the products of one block overlap the softmax algebra of another on the
+// same SM.  Tile m sits in stage m % kStages; a stage is refilled (by
+// thread 0) once every warp has finished the tile in it, which leaves
+// kStages - 1 tiles of lead for TMA.
+
+// 168 registers a thread: three blocks an SM.
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap g_map,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int tq, int tk, int d,
+                      int n_ktiles, float scale, int causal) {
+  using namespace hopper;
+  using L = WgmmaSmem;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wgmma_smem_base(smem_raw);
+  const uint32_t sbase = warp_mma::smem_addr(base);
+  float* lse_s = reinterpret_cast<float*>(base + L::kLse);
+  float* delta_s = reinterpret_cast<float*>(base + L::kDelta);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);  // stages
+  uint64_t* held = full + kStages;                                 // K, V
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / n_ktiles;
+  const int k0 = (blockIdx.x % n_ktiles) * kWgRows;  // the block's keys
+  const float* lb = lse + int64_t(bh) * tq;
+  const float* db = delta + int64_t(bh) * tq;
+  const float scale_log2 = scale * kLog2e;
+
+  // rows before k0 see no key of this tile under `causal`
+  const int qstart = causal ? (min(k0, tq) / kWgRows) * kWgRows : 0;
+  const int n_qt = (tq - qstart + kWgRows - 1) / kWgRows;
+  auto stage_rows = [&](int j) {  // lse and delta of q tile j, slot j & 1
+    if (tid < kWgRows) {
+      const int row = qstart + j * kWgRows + tid;
+      const bool in = row < tq;
+      lse_s[(j & 1) * kWgRows + tid] = in ? lb[row] * kLog2e : 0.f;
+      delta_s[(j & 1) * kWgRows + tid] = in ? db[row] : 0.f;
+    }
+  };
+  auto load_q_tile = [&](int j) {  // one thread: Q and dO of q tile j
+    const int st = j % kStages;
+    mbar_expect_tx(&full[st], 2 * kWgTileBytes);
+    tma_load_3d(base + L::kRing0 + st * kWgTileBytes, &q_map, &full[st], 0,
+                qstart + j * kWgRows, bh);
+    tma_load_3d(base + L::kRing1 + st * kWgTileBytes, &g_map, &full[st], 0,
+                qstart + j * kWgRows, bh);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0 && n_qt > 0) {
+    mbar_expect_tx(held, 2 * kWgTileBytes);
+    tma_load_3d(base + L::kHeld0, &k_map, held, 0, k0, bh);
+    tma_load_3d(base + L::kHeld1, &v_map, held, 0, k0, bh);
+    for (int j = 0; j < kStages && j < n_qt; ++j) load_q_tile(j);
+  }
+  if (n_qt > 0) stage_rows(0);
+  __syncthreads();
+
+  float acc_k[32], acc_v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const uint32_t k_addr = sbase + L::kHeld0;
+  const uint32_t v_addr = sbase + L::kHeld1;
+  if (n_qt > 0) mbar_wait(held, 0);
+
+  for (int j = 0; j < n_qt; ++j) {
+    const int st = j % kStages;
+    const int q0 = qstart + j * kWgRows;
+    const uint32_t q_addr = sbase + L::kRing0 + st * kWgTileBytes;
+    const uint32_t g_addr = sbase + L::kRing1 + st * kWgTileBytes;
+    if (j + 1 < n_qt) stage_rows(j + 1);
+    // every thread waits for the tile, so no copy outlives the block.
+    // Every tile is computed: the masks zero what the block's keys cannot
+    // see (keys >= Tk, or under `causal` a tile wholly before them).
+    mbar_wait(&full[st], (j / kStages) & 1);
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 q rows
+    float s[32], dp[32];
+    issue_s_dp(s, dp, k_addr, q_addr, v_addr, g_addr);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const int row0 = k0 + 16 * warp + g, col0 = q0 + 2 * t;
+    // this thread's columns' lse and delta: 8 i + 2 t + u of the slot
+    const float* l2 = lse_s + (j & 1) * kWgRows + 2 * t;
+    const float* dl = delta_s + (j & 1) * kWgRows + 2 * t;
+    uint32_t ap[4][4], as[4][4];
+    if (q0 + kWgRows > tq || k0 + kWgRows > tk ||
+        (causal && q0 < k0 + kWgRows - 1))
+      wgmma_p_ds<true, true>(s, dp, ap, as, l2, dl, scale_log2, scale, row0,
+                             col0, tq, tk, causal);
+    else
+      wgmma_p_ds<false, true>(s, dp, ap, as, l2, dl, scale_log2, scale,
+                              row0, col0, tq, tk, causal);
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_v, ap[kk], desc_mn_major(g_addr, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc_k, as[kk], desc_mn_major(q_addr, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    __syncthreads();  // stage st read by every warp; rows j+1 staged
+    if (tid == 0 && j + kStages < n_qt) load_q_tile(j + kStages);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + 16 * warp + g + 8 * r;
+      const int col = 8 * i + 2 * t;
+      if (key < tk && col < d) {
+        const int64_t off = (int64_t(bh) * tk + key) * d + col;
+        *reinterpret_cast<uint32_t*>(dk + off) =
+            warp_mma::pack_bf16(acc_k[4 * i + 2 * r], acc_k[4 * i + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off) =
+            warp_mma::pack_bf16(acc_v[4 * i + 2 * r], acc_v[4 * i + 2 * r + 1]);
+      }
+    }
+}
+
+// Bounded for four blocks an SM (at most 128 registers a thread, 126
+// used; 134 unbounded, and three blocks ran 7% slower).
+__global__ void __launch_bounds__(kWgThreads, 4)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap g_map,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int tq, int tk, int d, int n_qtiles, float scale,
+                    int causal) {
+  using namespace hopper;
+  using L = WgmmaSmem;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wgmma_smem_base(smem_raw);
+  const uint32_t sbase = warp_mma::smem_addr(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);  // stages
+  uint64_t* held = full + kStages;                                 // Q, dO
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / n_qtiles;
+  // the block's q rows; the last tile (the longest under `causal`) first
+  const int q0 = (n_qtiles - 1 - blockIdx.x % n_qtiles) * kWgRows;
+  const float scale_log2 = scale * kLog2e;
+
+  // keys past the block's last q row are all masked under `causal`
+  const int kend = causal ? min(tk, q0 + kWgRows) : tk;
+  const int n_kt = (kend + kWgRows - 1) / kWgRows;
+  auto load_kv_tile = [&](int j) {  // one thread: K and V of key tile j
+    const int st = j % kStages;
+    mbar_expect_tx(&full[st], 2 * kWgTileBytes);
+    tma_load_3d(base + L::kRing0 + st * kWgTileBytes, &k_map, &full[st], 0,
+                j * kWgRows, bh);
+    tma_load_3d(base + L::kRing1 + st * kWgTileBytes, &v_map, &full[st], 0,
+                j * kWgRows, bh);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(held, 2 * kWgTileBytes);
+    tma_load_3d(base + L::kHeld0, &q_map, held, 0, q0, bh);
+    tma_load_3d(base + L::kHeld1, &g_map, held, 0, q0, bh);
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv_tile(j);
+  }
+
+  // lse (x log2 e) and delta of this thread's rows g and g + 8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    l2[h] = row < tq ? lse[int64_t(bh) * tq + row] * kLog2e : 0.f;
+    dl[h] = row < tq ? delta[int64_t(bh) * tq + row] : 0.f;
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = sbase + L::kHeld0;
+  const uint32_t g_addr = sbase + L::kHeld1;
+  mbar_wait(held, 0);
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kStages;
+    const int k0 = j * kWgRows;
+    const uint32_t k_addr = sbase + L::kRing0 + st * kWgTileBytes;
+    const uint32_t v_addr = sbase + L::kRing1 + st * kWgTileBytes;
+    // every thread waits for the tile, so no copy outlives the block;
+    // every tile is computed, the masks zero rows >= Tq and, under
+    // `causal`, keys after them
+    mbar_wait(&full[st], (j / kStages) & 1);
+    // S = Q K^T and dP = dO V^T: 64 q rows x 64 keys
+    float s[32], dp[32];
+    issue_s_dp(s, dp, q_addr, k_addr, g_addr, v_addr);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const int row0 = q0 + 16 * warp + g, col0 = k0 + 2 * t;
+    uint32_t unused[4][4], a[4][4];  // P's fragments are not needed here
+    if (q0 + kWgRows > tq || k0 + kWgRows > tk ||
+        (causal && k0 + kWgRows - 1 > q0))
+      wgmma_p_ds<true, false>(s, dp, unused, a, l2, dl, scale_log2, scale,
+                              row0, col0, tq, tk, causal);
+    else
+      wgmma_p_ds<false, false>(s, dp, unused, a, l2, dl, scale_log2, scale,
+                               row0, col0, tq, tk, causal);
+    // dQ += dS K over the tile's 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, a[kk], desc_mn_major(k_addr, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // stage st read by every warp
+    if (tid == 0 && j + kStages < n_kt) load_kv_tile(j + kStages);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + 16 * warp + g + 8 * r;
+      const int col = 8 * i + 2 * t;
+      if (row < tq && col < d)
+        *reinterpret_cast<uint32_t*>(dq + (int64_t(bh) * tq + row) * d +
+                                     col) =
+            warp_mma::pack_bf16(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -1023,6 +1424,176 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
+// link against libcuda); null if the driver has none.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 [bh, t, d] tensor, boxes of 1 x 64 x
+// 64 with the 128-byte swizzle: rows >= t and columns >= d of a box read
+// zeros, never the next head.  d must be a multiple of 8 (16-byte rows).
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, int bh, int t,
+                     int d) {
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(t), cuuint64_t(bh)};
+  const cuuint64_t strides[2] = {cuuint64_t(d) * sizeof(bf16),
+                                 cuuint64_t(t) * d * sizeof(bf16)};
+  const cuuint32_t box[3] = {64, kWgRows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+
+// The wgmma design's three passes (delta in 16-byte pieces, dK/dV, dQ).
+cudaError_t launch_wgmma(const Args& a) {
+  const int64_t rows = int64_t(a.bh) * a.tq;
+  const int64_t delta_blocks = (rows * 8 + kThreads - 1) / kThreads;
+  if (delta_blocks > INT32_MAX) return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, gm;
+  cudaError_t err;
+  if ((err = tile_map(&qm, a.q, a.bh, a.tq, a.d)) != cudaSuccess ||
+      (err = tile_map(&km, a.k, a.bh, a.tk, a.d)) != cudaSuccess ||
+      (err = tile_map(&vm, a.v, a.bh, a.tk, a.d)) != cudaSuccess ||
+      (err = tile_map(&gm, a.dout, a.bh, a.tq, a.d)) != cudaSuccess)
+    return err;
+  const float* lse = static_cast<const float*>(a.lse);
+  float* delta = static_cast<float*>(a.delta);
+  const int n_ktiles = (a.tk + kWgRows - 1) / kWgRows;
+  const int n_qtiles = (a.tq + kWgRows - 1) / kWgRows;
+  if (int64_t(a.bh) * n_ktiles > INT32_MAX ||
+      int64_t(a.bh) * n_qtiles > INT32_MAX)
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = WgmmaSmem::kBytes;
+  const auto dkdv = bwd_dkdv_wgmma_kernel;
+  const auto dqk = bwd_dq_wgmma_kernel;
+  if ((err = cudaFuncSetAttribute(
+           dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))) !=
+          cudaSuccess)
+    return err;
+  bwd_delta_x8_kernel<<<int(delta_blocks), kThreads, 0, a.stream>>>(
+      static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.dout),
+      delta, rows, a.d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dkdv<<<a.bh * n_ktiles, kWgThreads, smem, a.stream>>>(
+      qm, km, vm, gm, lse, delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.tq, a.tk, a.d, n_ktiles, a.scale,
+      a.causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dqk<<<a.bh * n_qtiles, kWgThreads, smem, a.stream>>>(
+      qm, km, vm, gm, lse, delta, static_cast<bf16*>(a.dq), a.tq, a.tk, a.d,
+      n_qtiles, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// A check of the two wgmma operand forms alone, one warpgroup, 64 x 64 x
+// 64: b_mn_major 0: c = a b^T, a and b [64][64] K-major, both through TMA
+// (the form of S and dP); 1: c = a b, a from registers (loaded as the
+// fragment of hopper.cuh), b [k][n] through TMA, MN-major (the form of dV,
+// dK and dQ).  c is f32 [64][64].
+__global__ void __launch_bounds__(kWgThreads)
+wgmma_check_kernel(const __grid_constant__ CUtensorMap a_map,
+                   const __grid_constant__ CUtensorMap b_map,
+                   const bf16* __restrict__ a, float* __restrict__ c,
+                   int b_mn_major) {
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wgmma_smem_base(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 2 * kWgTileBytes);
+  const uint32_t a_addr = warp_mma::smem_addr(base);
+  const uint32_t b_addr = a_addr + kWgTileBytes;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 2 * kWgTileBytes);
+    tma_load_3d(base, &a_map, bar, 0, 0, 0);
+    tma_load_3d(base + kWgTileBytes, &b_map, bar, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+  float d[32];
+  if (!b_mn_major) {
+    wgmma_fence();
+    wgmma_ss<false>(d, desc_k_major(a_addr, 0), desc_k_major(b_addr, 0));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk)
+      wgmma_ss<true>(d, desc_k_major(a_addr, kk), desc_k_major(b_addr, kk));
+  } else {
+    uint32_t frag[4][4];
+    const int r = 16 * warp + g;
+    auto pair = [&](int row, int col) {
+      return *reinterpret_cast<const uint32_t*>(a + row * 64 + col);
+    };
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      frag[kk][0] = pair(r, 16 * kk + 2 * t);
+      frag[kk][1] = pair(r + 8, 16 * kk + 2 * t);
+      frag[kk][2] = pair(r, 16 * kk + 2 * t + 8);
+      frag[kk][3] = pair(r + 8, 16 * kk + 2 * t + 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(d, frag[kk], desc_mn_major(b_addr, kk));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * i + 2 * t + (e & 1)] =
+          d[4 * i + e];
+}
+
+// The backward's designs, as flash_attention.py's bwd_design names them.
+enum Design { kScalar = 0, kMmaSync = 1, kWgmma = 2, kWide = 3 };
+
+// The design that takes a head of (padded) width d.
+Design design(bool is_bf16, int d) {
+  if (d > 256) return kWide;
+  if (is_bf16 && d <= 32) return kMmaSync;
+  if (is_bf16 && d <= 64) return kWgmma;
+  return kScalar;
+}
+
 template <typename T>
 cudaError_t launch_wide(const Args& a) {
   const T* q = static_cast<const T*>(a.q);
@@ -1054,6 +1625,20 @@ template <typename T>
 cudaError_t launch(const Args& a) {
   if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1)
     return cudaErrorInvalidValue;
+  const Design des = design(std::is_same<T, bf16>::value, a.d);
+  if (des == kMmaSync || des == kWgmma) {
+    // the tensor cores take rows of whole 16-byte pieces, 16-byte
+    // aligned, by cp.async or TMA (the wrapper pads d and copies a
+    // misaligned view)
+    const uintptr_t addr =
+        reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+        reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.out) |
+        reinterpret_cast<uintptr_t>(a.dout) |
+        reinterpret_cast<uintptr_t>(a.dq) |
+        reinterpret_cast<uintptr_t>(a.dk) | reinterpret_cast<uintptr_t>(a.dv);
+    if (a.d % 8 || addr % 16) return cudaErrorInvalidValue;
+    if (des == kWgmma) return launch_wgmma(a);  // with its own delta pass
+  }
   const int64_t rows = int64_t(a.bh) * a.tq;
   const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks > INT32_MAX) return cudaErrorInvalidValue;
@@ -1063,20 +1648,8 @@ cudaError_t launch(const Args& a) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if constexpr (std::is_same<T, bf16>::value) {
-    if (a.d <= 64) {
-      // the tensor cores take rows of whole 16-byte pieces, 16-byte
-      // aligned (the wrapper pads d and copies a misaligned view)
-      const uintptr_t addr =
-          reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
-          reinterpret_cast<uintptr_t>(a.v) |
-          reinterpret_cast<uintptr_t>(a.dout) |
-          reinterpret_cast<uintptr_t>(a.dq) |
-          reinterpret_cast<uintptr_t>(a.dk) | reinterpret_cast<uintptr_t>(a.dv);
-      if (a.d % 8 || addr % 16) return cudaErrorInvalidValue;
-      if (a.d <= 16) return launch_mma<16>(a);
-      if (a.d <= 32) return launch_mma<32>(a);
-      return launch_mma<64>(a);
-    }
+    if (des == kMmaSync) return a.d <= 16 ? launch_mma<16>(a)
+                                          : launch_mma<32>(a);
   } else {  // f32 only: bf16 heads up to 64 took the tensor cores above
     if (a.d <= 16) return launch_small<T, 16, 64>(a);
     if (a.d <= 32) return launch_small<T, 32, 64>(a);
@@ -1109,6 +1682,32 @@ cudaError_t launch(const Args& a) {
 
 FLASH_BWD_ENTRY(flash_attention_bwd_f32, float)
 FLASH_BWD_ENTRY(flash_attention_bwd_bf16, __nv_bfloat16)
+
+// The design (Design above) the bf16 (is_bf16 != 0) or f32 entry takes for
+// a head of width d.
+extern "C" int flash_attention_bwd_design(int is_bf16, int d) {
+  return design(is_bf16 != 0, d);
+}
+
+// wgmma_check_kernel on bf16 [64][64] a and b, writing f32 [64][64] c, on
+// `stream`; returns the first failing call's cudaError_t.
+extern "C" int flash_attention_bwd_wgmma_check(const void* a, const void* b,
+                                               void* c, int b_mn_major,
+                                               void* stream) {
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap am, bm;
+  cudaError_t err;
+  if ((err = tile_map(&am, a, 1, 64, 64)) != cudaSuccess ||
+      (err = tile_map(&bm, b, 1, 64, 64)) != cudaSuccess)
+    return err;
+  const size_t smem = 2 * kWgTileBytes + sizeof(uint64_t) + 1024;
+  wgmma_check_kernel<<<1, kWgThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      am, bm, static_cast<const bf16*>(a), static_cast<float*>(c),
+      b_mn_major);
+  return cudaGetLastError();
+}
 
 extern "C" const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

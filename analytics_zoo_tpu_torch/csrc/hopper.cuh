@@ -1,0 +1,201 @@
+// Hopper (sm_90a) primitives shared by the package's kernels: warpgroup
+// matrix products (wgmma) on bf16 with f32 accumulators, their shared-memory
+// descriptors for the 128-byte swizzle, and TMA tile loads completed on
+// mbarriers.  wgmma exists only for sm_90a; the package builds for it.
+//
+// Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
+//   * the f32 accumulator of m64nNk16, for thread 128-lane-id = 32 w + 4 g + t
+//     (warp w of the warpgroup): d[4 i + e] is (row 16 w + g + 8 (e >> 1),
+//     column 8 i + 2 t + (e & 1)), i.e. mma.sync's m16n8 C fragment per warp
+//     and n8 chunk i;
+//   * A from registers (m64k16 bf16, four 32-bit registers): a0 = (row g,
+//     k 2t, 2t+1), a1 = (row g+8, k 2t, 2t+1), a2 = (row g, k 2t+8, +9),
+//     a3 = (row g+8, k 2t+8, +9), rows offset by 16 w.  So the accumulators
+//     of n8 chunks 2 kk and 2 kk + 1, packed pairwise to bf16, are the A
+//     fragment of k16 step kk of the next product (rows stay, columns become
+//     the depth), as FlashAttention-3 chains its products;
+//   * shared-memory tiles are 64 bf16 wide (one 128-byte row, one swizzle
+//     atom) and stored as TMA's CU_TENSOR_MAP_SWIZZLE_128B leaves them: the
+//     16-byte chunk c of row r at chunk c ^ (r % 8), 8-row groups 1024 bytes
+//     apart; a tile's base is 1024-byte aligned.
+//   * K-major operand (A [M][K] or B [N][K] with K contiguous): the
+//     descriptor's stride byte offset is 1024 (one 8-row group), its leading
+//     byte offset unused (1); k16 step kk starts 32 kk bytes into the row.
+//   * MN-major B (B [K][N] with N contiguous, the transpose bit set): with
+//     N = 64 one swizzle atom spans N, so only the stride between 8-row
+//     groups of K counts (1024); k16 step kk starts 16 kk rows (2048 kk
+//     bytes) down.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "warp_mma.cuh"
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled shared tile starting at byte address
+// `addr` (offsets in bytes).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) |
+         (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+// K-major operand: k16 step kk of a tile at `addr`.
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr, int kk) {
+  return desc_sw128(addr + 32 * kk, 16, 1024);
+}
+
+// MN-major B, 64 wide: k16 step kk (rows 16 kk .. 16 kk + 15) of a tile at
+// `addr`.  The leading offset is unused at N = 64; it is given the group
+// stride too.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, int kk) {
+  return desc_sw128(addr + 2048 * kk, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of the warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HOPPER_D32(c)                                                        \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),    \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),    \
+      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),  \
+      c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),  \
+      c(d[29]), c(d[30]), c(d[31])
+#define HOPPER_D32_REGS                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d = A B (kAccumulate false) or d += A B, m64n64k16, bf16 in, f32
+// accumulate; A and B K-major in shared memory.  Without kAccumulate d is
+// only written (scale-d 0), so the compiler never materialises its old
+// values: an ordinary write to an accumulator while products are in flight
+// makes ptxas serialise them.
+template <bool kAccumulate>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (kAccumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        HOPPER_D32_REGS ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : HOPPER_D32("+f")
+        : "l"(a), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        HOPPER_D32_REGS ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : HOPPER_D32("=f")
+        : "l"(a), "l"(b), "r"(0));
+  }
+}
+
+// d += A B, m64n64k16: A (bf16, the fragment above) from registers, B
+// MN-major in shared memory (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      HOPPER_D32_REGS ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : HOPPER_D32("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef HOPPER_D32_REGS
+#undef HOPPER_D32
+
+// ---------------------------------------------------------------------------
+// mbarrier and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   warp_mma::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The calling thread's arrival, announcing `bytes` of TMA traffic.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          warp_mma::smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A wait that lasts
+// seconds means a fault (bytes that never arrive); it traps, so the launch
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = warp_mma::smem_addr(bar);
+  uint32_t done;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 33)) {
+      __trap();
+    }
+  }
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory at `dst`, completing on `bar`.  Elements out of the tensor's
+// bounds arrive as zeros and count toward the barrier's bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :
+      : "r"(warp_mma::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(warp_mma::smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+}  // namespace hopper

@@ -10,8 +10,9 @@ tensor on the card:
   (``csrc/flash_attention_fwd.cu``, head dims up to 256) or the float32
   kernel (``csrc/flash_attention_fwd_f32.cu``, which also takes bfloat16
   heads wider than 256 and computes them in f32);
-- ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` (bf16
-  heads up to 64 on the tensor cores, f32 and wider heads in scalar f32);
+- ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``: bf16
+  heads of 33-64 on ``wgmma`` fed by a TMA ring, up to 32 on ``mma.sync``,
+  f32 and wider heads in scalar f32 (``bwd_design`` names the design);
 - ``flash_attention`` ties them together in a ``torch.autograd.Function``.
 
 Every kernel takes any BH and any head dim of at least 1, as the JAX
@@ -36,17 +37,22 @@ _NEG_INF = -1e30
 # the bf16 tensor-core forward's widest head; wider bf16 heads take the f32
 # source's wide kernel
 TC_MAX_HEAD_DIM = 256
-# the backward's bf16 tensor-core path's widest head; wider heads take its
+# the backward's bf16 tensor-core paths' widest head; wider heads take its
 # scalar f32 paths
 BWD_TC_MAX_HEAD_DIM = 64
+# the backward's designs, in the order of csrc/flash_attention_bwd.cu's
+# `Design` (flash_attention_bwd_design returns the index)
+BWD_DESIGNS = ("scalar", "mma.sync", "wgmma", "wide")
 FWD_BF16 = "flash_attention_fwd"      # csrc/<source>.cu
 FWD_F32 = "flash_attention_fwd_f32"
 BWD = "flash_attention_bwd"
 _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
 # launches of each kernel, by source; flash_attention_fwd.launches and
-# flash_attention_bwd.launches count each direction's
+# flash_attention_bwd.launches count each direction's, BWD_LAUNCHES the
+# backward's by design
 KERNEL_LAUNCHES = {FWD_BF16: 0, FWD_F32: 0, BWD: 0}
+BWD_LAUNCHES = dict.fromkeys(BWD_DESIGNS, 0)
 _count_lock = threading.Lock()
 
 
@@ -58,6 +64,22 @@ def fwd_kernel(dtype: torch.dtype, d: int) -> Tuple[str, str]:
             return FWD_BF16, "flash_attention_fwd_bf16"
         return FWD_F32, "flash_attention_fwd_wide_bf16"
     return FWD_F32, "flash_attention_fwd_f32"
+
+
+def bwd_design(dtype: torch.dtype, d: int) -> str:
+    """The design of ``csrc/flash_attention_bwd.cu`` that takes the
+    backward of a head dim ``d`` in ``dtype`` (after the wrapper's padding
+    of bf16 tensor-core heads to a multiple of 8): one of ``BWD_DESIGNS``.
+    Mirrors the source's ``design``; a ``cuda`` test holds the two
+    together."""
+    width = _kernel_head_dim(d, dtype, BWD_TC_MAX_HEAD_DIM)
+    if width > 256:
+        return "wide"
+    if dtype == torch.bfloat16 and width <= 32:
+        return "mma.sync"
+    if dtype == torch.bfloat16 and width <= BWD_TC_MAX_HEAD_DIM:
+        return "wgmma"
+    return "scalar"
 
 
 def flash_attention_fwd_reference(q3: torch.Tensor, k3: torch.Tensor,
@@ -259,11 +281,12 @@ def _launch_bwd(q3, k3, v3, out, lse, dout, causal):
 def _run_bwd_kernel(q3, k3, v3, out, lse, dout, causal, scale):
     """Launch the backward kernel (delta, dK/dV, dQ) on ``[BH, T, width]``
     tensors with the softmax ``scale`` of the true head dim, on the current
-    stream of the tensors' device; counts one launch."""
+    stream of the tensors' device; counts one launch, and one of its
+    design."""
     entry = _BWD_ENTRIES[q3.dtype]
     lib, fn = _entry(BWD, entry, 10, 5)
-    # the tensor-core path copies 16-byte pieces: a view at an odd offset
-    # is copied to fresh (aligned) storage first
+    # the tensor-core paths copy 16-byte pieces (cp.async, TMA): a view at
+    # an odd offset is copied to fresh (aligned) storage first
     q3, k3, v3, out, dout = (x if x.data_ptr() % 16 == 0 else x.clone()
                              for x in (q3, k3, v3, out, dout))
     bh, tq, d = q3.shape
@@ -277,6 +300,8 @@ def _run_bwd_kernel(q3, k3, v3, out, lse, dout, causal, scale):
                  k3.shape[1], d, int(bool(causal)), scale, stream)
     _raise_on_error(lib, entry, err)
     _count(flash_attention_bwd, BWD)
+    with _count_lock:
+        BWD_LAUNCHES[bwd_design(q3.dtype, d)] += 1
     return dq, dk, dv
 
 

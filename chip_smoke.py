@@ -11,10 +11,12 @@ JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
    cores, f32 scalar, and the f32 source's wide kernel for head dims above
-   256 in both dtypes) and ``flash_attention_bwd``'s kernel (f32 and bf16)
+   256 in both dtypes) and ``flash_attention_bwd``'s kernel (f32 and bf16:
+   ``wgmma`` fed by TMA for bf16 heads 33-64, ``mma.sync`` up to 32)
    against their plain PyTorch versions on the card: f32/bf16,
    causal/not, ragged T, Tq != Tk, head dims from 1 to 2048, BH 70000, and
-   every shape the BERT-base serving and training paths give them; then
+   every shape the BERT-base serving and training paths give them; two
+   bf16 backward calls on one input must give the same bits; then
    their times at those shapes (forward: bf16 at BH 12, 48, 192, 768, f32
    at BH 192; backward: both dtypes at the training shape, BH 384; the
    wide kernels at D 320 and 1024) beside the bound, the plain version's
@@ -46,7 +48,8 @@ JSON line:
    per-step losses of a 3-step ``fit`` (3 distinct batches) likewise.
    (b) bf16, dropout 0.1, global batch 32, 64 fixed examples, 10 epochs
    (20 steps): the loss must fall, every step must launch the bf16 forward
-   and the backward 12 times each and no f32 kernel, and a second fit with
+   and the backward 12 times each (the backward's ``wgmma`` design) and no
+   f32 kernel, and a second fit with
    the same seed must repeat the loss history; step time, tokens/s, model
    TFLOP/s and one profiled step's idle share; then ``evaluate`` and
    ``predict`` on the card.
@@ -415,8 +418,24 @@ def phase_kernel(fa) -> dict:
     bwd_cases += [(2, 77, 130, d, dt, c) for d in HEAD_DIMS + WIDE_HEAD_DIMS
                   for dt in dtypes for c in (False, True)]
     bwd_cases += [(tb * th, tt, tt, td, dt, False) for dt in dtypes]
+    # the wgmma design's other widths (the TMA box zero-fills columns d-63;
+    # 36 is padded to 40 first), ragged Tq != Tk under `causal`, and the
+    # training shape under `causal`
+    bwd_cases += [(3, tq, tk, d, torch.bfloat16, c) for d in (36, 40, 56)
+                  for tq, tk in ((77, 130), (130, 77)) for c in (False, True)]
+    bwd_cases += [(tb * th, tt, tt, td, torch.bfloat16, True)]
     for case in bwd_cases:
         check_bwd(*case)
+    # no atomics: the bf16 backward twice on one input at the training
+    # shape gives the same bits
+    q, k, v = qkv(tb * th, tt, tt, td, torch.bfloat16)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, False)
+    first, second = (fa.flash_attention_bwd(q, k, v, out, lse, g, False)
+                     for _ in range(2))
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("bf16 backward: two calls on one input differ")
+    del q, k, v, g, out, lse, first, second
 
     # times at every serving shape (bf16) and at the timed shape in f32;
     # each shape checked again on the inputs it is timed on.  ms, plain_ms
@@ -485,7 +504,8 @@ def phase_kernel(fa) -> dict:
             device_ms(f, iters=10) for f in (kernel, plain, library))
         bound_ms, bound_by = bwd_bound(bh, tt, td, q.element_size())
         bwd_timings.append({
-            "kernel": BWD_KERNEL, "bh": bh, "t": tt, "d": td,
+            "kernel": BWD_KERNEL, "design": fa.bwd_design(dtype, td),
+            "bh": bh, "t": tt, "d": td,
             "dtype": str(dtype).replace("torch.", ""), "causal": False,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "device_ms": dev_ms,
@@ -647,6 +667,19 @@ def reset_counts(fa) -> None:
     fa.flash_attention_bwd.launches = 0
     for name in fa.KERNEL_LAUNCHES:
         fa.KERNEL_LAUNCHES[name] = 0
+    for name in fa.BWD_LAUNCHES:
+        fa.BWD_LAUNCHES[name] = 0
+
+
+def read_bwd_designs(fa, what: str, design: str, runs: int) -> dict:
+    """The backward's launches by design since ``reset_counts``: all of
+    them ``design``'s, once per encoder layer of each of ``runs``."""
+    want = dict.fromkeys(fa.BWD_DESIGNS, 0)
+    want[design] = BERT_BASE["n_layers"] * runs
+    if fa.BWD_LAUNCHES != want:
+        raise AssertionError(f"{what}: backward launches by design "
+                             f"{fa.BWD_LAUNCHES}; want {want}")
+    return dict(fa.BWD_LAUNCHES)
 
 
 def read_counts(fa, what: str, **runs: int) -> dict:
@@ -846,6 +879,8 @@ def phase_bert_train(fa) -> dict:
         if use_flash:
             f32_launches = read_counts(fa, "bert_train f32", **{
                 F32_KERNEL: CHECK_STEPS, BWD_KERNEL: CHECK_STEPS})
+            f32_bwd_designs = read_bwd_designs(fa, "bert_train f32",
+                                               "scalar", CHECK_STEPS)
         del est
     loss_err = max(abs(a - b) / max(1.0, abs(b))
                    for a, b in zip(hist[True], hist[False]))
@@ -858,7 +893,8 @@ def phase_bert_train(fa) -> dict:
                  "shift_invariant_grads": shift_invariant,
                  "largest_grad": g_max, "loss_flash": hist[True],
                  "loss_dense": hist[False], "loss_worst_rel": loss_err,
-                 "loss_tol": TOL_TRAIN_LOSS, "launches": f32_launches}
+                 "loss_tol": TOL_TRAIN_LOSS, "launches": f32_launches,
+                 "bwd_launches_by_design": f32_bwd_designs}
 
     # (b) the bf16 run: dropout 0.1, global batch 32, 20 steps
     x, y = squad_examples(rng, TRAIN_EXAMPLES)
@@ -875,6 +911,7 @@ def phase_bert_train(fa) -> dict:
     fit_s = time.perf_counter() - t0
     launches = read_counts(fa, "bert_train bf16",
                            **{BF16_KERNEL: steps, BWD_KERNEL: steps})
+    bwd_designs = read_bwd_designs(fa, "bert_train bf16", "wgmma", steps)
     if not all(map(math.isfinite, losses)) \
             or losses[-1] > LOSS_FALL * losses[0]:
         raise AssertionError(f"bert_train bf16: loss {losses} did not fall "
@@ -918,6 +955,7 @@ def phase_bert_train(fa) -> dict:
            "setup_s": setup_s, "fit_s": fit_s, "loss": losses,
            "step_losses": step_losses,
            "loss_fall_limit": LOSS_FALL, "launches": launches,
+           "bwd_launches_by_design": bwd_designs,
            "step_ms_last10": last, "step_ms_p50": p50,
            "tokens_per_s": tokens_per_s,
            "model_tflop_per_s": tokens_per_s * 3 * bert_flops_per_token()
@@ -1897,8 +1935,9 @@ def main(argv) -> int:
              serve["f32_flash_launches"][F32_KERNEL], "bert_serve f32",
              fwd_src),
             (BWD_KERNEL, (BWD_KERNEL, "bfloat16"),
-             "bf16, mma.sync tensor cores (d <= 64), cp.async ring; "
-             "delta, dK/dV and dQ passes",
+             "bf16: wgmma fed by a 2-stage TMA ring, one warpgroup a "
+             "block (d 33-64); mma.sync with a cp.async ring for d <= 32, "
+             "scalar f32 above 64; delta, dK/dV and dQ passes, no atomics",
              train["launches"][BWD_KERNEL], "bert_train bf16", bwd_src),
             (BWD_KERNEL, (BWD_KERNEL, "float32"),
              "f32, scalar FMAs; delta, dK/dV and dQ passes",

@@ -330,3 +330,141 @@ def test_autograd_on_card_matches_mha_reference(causal, d):
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 1e-4 * max(
             1.0, b.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [36, 40, 48, 56])
+@pytest.mark.parametrize("causal", [False, True])
+def test_grads_match_jax_custom_vjp_at_the_wgmma_widths(causal, d):
+    """The head dims the bf16 backward's wgmma design takes (33-64), with
+    Tq != Tk and ragged T, against the JAX custom_vjp (f32, on the CPU)."""
+    q, k, v, g = _inputs(d + 7, b=1, tq=19, tk=27, h=2, d=d)
+    want = _jax_grads(jfa.flash_attention, q, k, v, g, causal=causal)
+    _close(_port_grads(q, k, v, g, causal), want)
+
+
+@pytest.mark.parametrize("dtype,d,design", [
+    (torch.bfloat16, 1, "mma.sync"), (torch.bfloat16, 24, "mma.sync"),
+    (torch.bfloat16, 32, "mma.sync"), (torch.bfloat16, 33, "wgmma"),
+    (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 65, "scalar"), (torch.bfloat16, 256, "scalar"),
+    (torch.bfloat16, 257, "wide"), (torch.float32, 8, "scalar"),
+    (torch.float32, 64, "scalar"), (torch.float32, 320, "wide")])
+def test_bwd_design_by_dtype_and_head_dim(dtype, d, design):
+    """Which design of the backward takes which (dtype, head dim): bf16
+    heads padded to 40-64 go to wgmma, up to 32 to mma.sync, f32 and bf16
+    65-256 to the scalar kernels, above 256 to the wide ones."""
+    assert tfa.bwd_design(dtype, d) == design
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def _hold_bwd_to_reference(q, k, v, out, lse, g, causal):
+    """The bf16 backward kernel against its plain version, each gradient
+    within 1e-2 of max |ref| (the tolerance of
+    test_bwd_kernel_matches_reference_on_card); returns the kernel's."""
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        ref = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 1e-2 * ref
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,d,causal", [
+    (384, 512, 512, 64, False), (384, 512, 512, 64, True),
+    (3, 77, 130, 40, False), (3, 77, 130, 40, True),
+    (3, 130, 77, 48, False), (3, 130, 77, 48, True),
+    (2, 200, 77, 36, True), (5, 130, 61, 64, True), (5, 61, 130, 64, True),
+    (2, 300, 3, 56, True), (2, 1, 300, 64, False), (7, 333, 333, 64, True)])
+def test_wgmma_bwd_matches_reference_on_card(bh, tq, tk, d, causal):
+    """The wgmma design (bf16 heads 33-64) against the plain backward: the
+    training shape, head dims the TMA box zero-fills to 64, and Tq != Tk
+    ragged under `causal`; each call launches that design once.  (Tk 1
+    under `causal`, or Tq 1 with it, is left out: one visible key makes P 1
+    and dS = P (dP - delta) 0 in exact arithmetic, so dq and dk are f32
+    rounding noise on both sides and no relative tolerance holds them.)"""
+    _needs_card()
+    q, k, v, out, lse, g = _card_case(bh + d, bh, tq, tk, d, torch.bfloat16,
+                                      causal)
+    before = dict(tfa.BWD_LAUNCHES)
+    _hold_bwd_to_reference(q, k, v, out, lse, g, causal)
+    assert tfa.BWD_LAUNCHES["wgmma"] == before["wgmma"] + 1
+    assert {n: c for n, c in tfa.BWD_LAUNCHES.items() if n != "wgmma"} == \
+        {n: c for n, c in before.items() if n != "wgmma"}
+
+
+@pytest.mark.cuda
+def test_wgmma_bwd_takes_a_misaligned_view_on_card():
+    """Views 2 bytes past a 16-byte boundary (the wrapper copies them for
+    TMA) give the plain version's gradients."""
+    _needs_card()
+    bh, t, d = 4, 100, 64
+    q, k, v, out, lse, g = _card_case(5, bh, t, t, d, torch.bfloat16, True)
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    q, k, v, out, g = (shifted(x) for x in (q, k, v, out, g))
+    _hold_bwd_to_reference(q, k, v, out, lse, g, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_bwd_repeats_bit_for_bit_on_card(causal):
+    """No atomics: two calls on one input give identical dq, dk and dv."""
+    _needs_card()
+    case = _card_case(11, 48, 512, 512, 64, torch.bfloat16, causal)
+    first = flash_attention_bwd(*case[:5], case[5], causal)
+    second = flash_attention_bwd(*case[:5], case[5], causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_mn_major", [0, 1])
+def test_wgmma_operand_form_matches_a_plain_matmul_on_card(b_mn_major):
+    """Each wgmma operand form of the backward alone, 64 x 64 x 64 through
+    TMA's 128-byte swizzle: A and B K-major in shared memory (S = A B^T,
+    as S and dP), and A from registers with B MN-major (C = A B, as dV, dK
+    and dQ); f32 sums of exact bf16 products, within 1e-5 of max |ref|."""
+    _needs_card()
+    import ctypes
+    from analytics_zoo_tpu_torch.ops import _build
+    gen = torch.Generator(device="cuda").manual_seed(b_mn_major)
+    a, b = (torch.randn(64, 64, device="cuda", generator=gen
+                        ).to(torch.bfloat16) for _ in range(2))
+    c = torch.empty(64, 64, device="cuda")
+    fn = _build.load(tfa.BWD).flash_attention_bwd_wgmma_check
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    assert fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), b_mn_major,
+              torch.cuda.current_stream().cuda_stream) == 0
+    want = a.double() @ (b.double() if b_mn_major else b.double().T)
+    torch.cuda.synchronize()
+    err = (c.double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bwd_design_of_the_source_matches_bwd_design_on_card():
+    """The source's own choice of design, for every head dim up to 1100 in
+    both dtypes, is the one bwd_design names (and counts)."""
+    _needs_card()
+    from analytics_zoo_tpu_torch.ops import _build
+    fn = _build.load(tfa.BWD).flash_attention_bwd_design
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in range(1, 1101):
+            width = tfa._kernel_head_dim(d, dtype, tfa.BWD_TC_MAX_HEAD_DIM)
+            got = tfa.BWD_DESIGNS[fn(int(dtype == torch.bfloat16), width)]
+            assert got == tfa.bwd_design(dtype, d), (dtype, d)
