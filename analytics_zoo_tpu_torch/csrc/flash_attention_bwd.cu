@@ -962,7 +962,7 @@ bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // bf16 on the tensor cores by wgmma fed by TMA, head widths 33-64
 // ---------------------------------------------------------------------------
 
-constexpr int kWgRows = 64;    // rows per block and per streamed tile
+constexpr int kWgRows = hopper::kTileRows;  // rows per block and tile
 constexpr int kWgThreads = 128;
 constexpr uint32_t kWgTileBytes = kWgRows * 64 * sizeof(bf16);  // 8 KB
 
@@ -1195,6 +1195,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_p_ds<false, true>(s, dp, ap, as, l2, dl, scale_log2, scale,
                               row0, col0, tq, tk, causal);
     // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows
+    fence_regs(ap);
+    fence_regs(as);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -1206,6 +1208,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<0>();
     fence_regs(acc_v);
     fence_regs(acc_k);
+    fence_regs(ap);
+    fence_regs(as);
     __syncthreads();  // stage st read by every warp; rows j+1 staged
     if (tid == 0 && j + kStages < n_qt) load_q_tile(j + kStages);
   }
@@ -1318,6 +1322,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_p_ds<false, false>(s, dp, unused, a, l2, dl, scale_log2, scale,
                                row0, col0, tq, tk, causal);
     // dQ += dS K over the tile's 64 keys
+    fence_regs(a);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -1325,6 +1330,7 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
+    fence_regs(a);
     __syncthreads();  // stage st read by every warp
     if (tid == 0 && j + kStages < n_kt) load_kv_tile(j + kStages);
   }
@@ -1424,59 +1430,12 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
-// link against libcuda); null if the driver has none.
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn tensor_map_encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 3-D map over a contiguous bf16 [bh, t, d] tensor, boxes of 1 x 64 x
-// 64 with the 128-byte swizzle: rows >= t and columns >= d of a box read
-// zeros, never the next head.  d must be a multiple of 8 (16-byte rows).
-cudaError_t tile_map(CUtensorMap* map, const void* ptr, int bh, int t,
-                     int d) {
-  const EncodeTiledFn encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(t), cuuint64_t(bh)};
-  const cuuint64_t strides[2] = {cuuint64_t(d) * sizeof(bf16),
-                                 cuuint64_t(t) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {64, kWgRows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-
 // The wgmma design's three passes (delta in 16-byte pieces, dK/dV, dQ).
 cudaError_t launch_wgmma(const Args& a) {
   const int64_t rows = int64_t(a.bh) * a.tq;
   const int64_t delta_blocks = (rows * 8 + kThreads - 1) / kThreads;
   if (delta_blocks > INT32_MAX) return cudaErrorInvalidValue;
+  using hopper::tile_map;
   CUtensorMap qm, km, vm, gm;
   cudaError_t err;
   if ((err = tile_map(&qm, a.q, a.bh, a.tq, a.d)) != cudaSuccess ||
@@ -1552,6 +1511,8 @@ wgmma_check_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
     for (int kk = 1; kk < 4; ++kk)
       wgmma_ss<true>(d, desc_k_major(a_addr, kk), desc_k_major(b_addr, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
   } else {
     uint32_t frag[4][4];
     const int r = 16 * warp + g;
@@ -1567,13 +1528,15 @@ wgmma_check_kernel(const __grid_constant__ CUtensorMap a_map,
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    fence_regs(frag);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs(d, frag[kk], desc_mn_major(b_addr, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(frag);
   }
-  wgmma_commit();
-  wgmma_wait<0>();
   fence_regs(d);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -1696,6 +1659,7 @@ extern "C" int flash_attention_bwd_wgmma_check(const void* a, const void* b,
                                                void* stream) {
   if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)
     return cudaErrorInvalidValue;
+  using hopper::tile_map;
   CUtensorMap am, bm;
   cudaError_t err;
   if ((err = tile_map(&am, a, 1, 64, 64)) != cudaSuccess ||

@@ -16,17 +16,43 @@
 // 256 FLOP per byte in bf16, just under the H100's ridge of about 295 (989
 // TFLOP/s over 3.35 TB/s): at the tensor-core rate the two bounds nearly
 // meet, so the kernel must keep the tensor cores fed and move each byte of
-// q, k, v from device memory about once.
+// q, k, v from device memory about once.  At head width 64 the softmax's
+// 2^x (one a logit, 16 an SM a cycle) costs the SM as many cycles as the
+// two products of a tile on the tensor cores, so the two must overlap.
 //
-// Design (the FA2 structure on mma.sync; the TPU kernel's blocking is not
-// carried over):
+// Two designs (`design` below picks one; ops/flash_attention.py's
+// fwd_design names it):
+//
+// wgmma, head widths 33-64 (BERT's 64): a block is one warpgroup (128
+// threads) owning 64 q rows, fed by TMA (hopper.cuh).
+//   * q tiles x BH are linearised onto gridDim.x, and within a bh the last
+//     q tile (the longest under `causal`) comes first.  At 91 registers
+//     and 41 KB of shared memory a block, five share an SM, so one
+//     block's softmax overlaps the others' products;
+//   * Q is loaded once by TMA into a 1024-aligned tile in the 128-byte
+//     swizzle; K and V stream as 64-row tiles through a 2-stage ring, each
+//     stage completed on an mbarrier and refilled by one thread once every
+//     warp is done with it.  The 3-D tensor maps over [BH, T, d] (box 1 x
+//     64 x 64) zero-fill rows past T of a head and columns d..63;
+//   * S = Q K^T is 4 wgmma m64n64k16 products with both operands K-major in
+//     shared memory; the online softmax runs on the f32 accumulators
+//     (mma.sync's C fragment per warp, so row max and sum reduce over the
+//     4 lanes of a quad), 2^x by ex2.approx with scale * log2(e) folded into
+//     one FMA, masks only on edge and diagonal tiles;
+//   * P is rounded to bf16 straight into the register A fragments of O +=
+//     P V, 4 products with V read MN-major (the transpose bit).  No branch
+//     goes around a product: ptxas serialises products that a branch
+//     merges (warning C7515);
+//   * the epilogue scales by 1 / max(l, 1e-30), stages each warp's rows in
+//     the Q tile (swizzled, so no bank conflicts) and stores 16-byte pieces
+//     of rows < Tq, columns < d; lse in f32.
+//
+// mma.sync, head widths up to 32 and 65-256 (the FA2 structure on
+// mma.sync.m16n8k16):
 //   * a block of 4 warps owns one q tile of one bh: 64 rows, 16 per warp,
-//     or, at head widths up to 64 when the grid still fills the card, 128
+//     or, at head widths up to 32 when the grid still fills the card, 128
 //     rows, two m16 tiles per warp, so that every K and V fragment read
-//     from shared memory (and every K/V tile read from L2) serves twice the
-//     rows.  q tiles x BH are linearised onto gridDim.x, so any BH fits,
-//     and within a bh the last q tile (the longest under `causal`) is
-//     scheduled first;
+//     from shared memory serves twice the rows;
 //   * the q tile is copied once into shared memory in bf16, and each warp
 //     moves its rows with ldmatrix into A fragments that stay in registers
 //     for the whole key loop (at D 256 they are re-read from shared memory
@@ -36,28 +62,29 @@
 //     columns >= d are zero-filled by the copy, never read from device
 //     memory.  Shared rows are padded by 16 bytes, which makes the eight row
 //     addresses of every ldmatrix fall in distinct bank groups;
-//   * S = Q K^T runs as mma.sync m16n8k16 (bf16 in, f32 accumulate), K's B
-//     fragments by ldmatrix; the online softmax works on the f32 accumulator
-//     fragments in registers: row max and row sum reduce over the 4 lanes
-//     of a quad, and 2^x (ex2.approx) takes scale * log2(e) folded into one
-//     FMA;
-//   * P never leaves registers: the f32 accumulators of two adjacent n8
-//     tiles are exactly the A fragment of one k16 step (see warp_mma.cuh),
-//     so P is rounded to bf16 in place and fed to the P V mma.sync, with V's
-//     B fragments by ldmatrix.trans.  l is summed from the f32 P;
-//   * the epilogue scales by 1 / max(l, 1e-30), stages the warp's rows in
-//     shared memory and stores them with coalesced 16-byte stores; lse in
-//     f32.
-// The kernel is instantiated for padded head widths DP = 16, 32, 64, 96,
-// 128, 256 and takes the true d <= DP at run time; d must be a multiple of 8
-// (each row a whole number of 16-byte copies), and the wrapper pads the rare
-// other d.  What it leaves: wgmma with a TMA-fed ring and warp
-// specialisation, which only Hopper has, and persistent scheduling.
+//   * S = Q K^T and O += P V as mma.sync (bf16 in, f32 accumulate), K's B
+//     fragments by ldmatrix, V's by ldmatrix.trans; the softmax as above;
+//     P never leaves registers (the f32 accumulators of two adjacent n8
+//     tiles are the A fragment of one k16 step, see warp_mma.cuh);
+//   * the epilogue stages the warp's rows in shared memory and stores them
+//     with coalesced 16-byte stores.
+// Both take the true d <= their padded width at run time; d must be a
+// multiple of 8 (each row a whole number of 16-byte copies), and the
+// wrapper pads the rare other d.  What they leave: a producer warp and
+// consumer warpgroups that overlap one block's softmax with its own
+// products (FlashAttention-3's ping-pong), persistent blocks, and the wgmma
+// design for the other widths.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <set>
+
+#include "hopper.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -326,54 +353,367 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// wgmma fed by a TMA ring, head widths 33-64
+// ---------------------------------------------------------------------------
+
+constexpr int kWgRows = hopper::kTileRows;  // q rows a block, keys a tile
+constexpr int kWgThreads = 128;             // one warpgroup
+constexpr uint32_t kWgTileBytes = kWgRows * 64 * sizeof(bf16);  // 8 KB
+
+// Stages of the K/V ring.  A third stage ran 18% slower at BH 768 (fewer
+// blocks an SM); so did two warpgroups a block sharing the ring, and the
+// next tile's S in flight with this tile's P V (PERF.md).
+constexpr int kStages = 2;
+
+// Shared memory in bytes from a 1024-aligned base: the Q tile, kStages K
+// and kStages V tiles, then the mbarriers (one a stage, Q's).
+struct WgSmem {
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kWgTileBytes;
+  static constexpr uint32_t kV = kK + kStages * kWgTileBytes;
+  static constexpr uint32_t kBar = kV + kStages * kWgTileBytes;
+  static constexpr size_t kBytes =
+      kBar + (kStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// Byte offset of bf16 element (row, col) in a 64-wide tile in the 128-byte
+// swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+__device__ __forceinline__ uint32_t swizzled(int row, int col) {
+  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// The online softmax of one 64 x 64 tile on its S accumulators (f32, the
+// wgmma layout: this thread's element 4 i + e is at row row0 + 8 (e >> 1),
+// key col0 + 8 i + (e & 1)).  With kMask, keys >= tk and, under `causal`,
+// keys after the row get -1e30 first.  Leaves 2^(scale log2(e) s - m) in
+// s, folds the tile into the running max m (in scale * log2(e) units) and
+// this lane's part of the running sum l, and returns in alpha the factor
+// that rescales O for each of the two rows.
+template <bool kMask>
+__device__ __forceinline__ void wg_softmax(float (&s)[32], float (&m)[2],
+                                           float (&l)[2], float (&alpha)[2],
+                                           float scale_log2, int row0,
+                                           int col0, int tk, int causal) {
+  if (kMask) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = col0 + 8 * i + (e & 1), row = row0 + 8 * (e >> 1);
+        if (key >= tk || (causal && key > row)) s[4 * i + e] = kNegInf;
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      mx = fmaxf(mx, fmaxf(s[4 * i + 2 * r], s[4 * i + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * scale_log2);
+    alpha[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float& x = s[4 * i + 2 * r + u];
+        x = exp2_approx(fmaf(x, scale_log2, -m_new));
+        sum += x;
+      }
+    l[r] = alpha[r] * l[r] + sum;
+  }
+}
+
+// O *= alpha by row, then P (in s) rounded to bf16 into the A fragments of
+// O += P V: k16 step kk takes accumulator chunks 2 kk and 2 kk + 1.
+__device__ __forceinline__ void wg_rescale_pack(float (&acc)[32],
+                                                const float (&s)[32],
+                                                const float (&alpha)[2],
+                                                uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      p[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+}
+
+// s = Q K^T over a depth of 64, Q and K 64-row K-major tiles; one group.
+__device__ __forceinline__ void wg_issue_s(float (&s)[32], uint32_t q_addr,
+                                           uint32_t k_addr) {
+  using namespace hopper;
+  wgmma_ss<false>(s, desc_k_major(q_addr, 0), desc_k_major(k_addr, 0));
+#pragma unroll
+  for (int kd = 1; kd < 4; ++kd)
+    wgmma_ss<true>(s, desc_k_major(q_addr, kd), desc_k_major(k_addr, kd));
+  wgmma_commit();
+}
+
+// acc += P V over the tile's 64 keys, V MN-major; one group.
+__device__ __forceinline__ void wg_issue_pv(float (&acc)[32],
+                                            const uint32_t (&p)[4][4],
+                                            uint32_t v_addr) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(acc, p[kk], desc_mn_major(v_addr, kk));
+  wgmma_commit();
+}
+
+// A block is one warpgroup owning 64 q rows of one bh.  Tile j of K and V
+// sits in stage j % kStages; once every warp is done with it, thread 0
+// refills the stage with tile j + kStages.  "Done" is a block barrier: it
+// ran faster than per-warp arrivals on an mbarrier that thread 0 waits
+// for (0.132 against 0.146 ms at BH 768 on an H100, PERF.md).  Every
+// thread waits for every tile, so no copy outlives the block.
+__global__ void __launch_bounds__(kWgThreads, 4)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       int tq, int tk, int d, int n_qtiles, float scale_log2,
+                       int causal) {
+  using namespace hopper;
+  using L = WgSmem;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_addr(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* q_bar = full + kStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / n_qtiles;
+  // the block's q rows; the last tile (the longest under `causal`) first
+  const int q0 = (n_qtiles - 1 - blockIdx.x % n_qtiles) * kWgRows;
+  const int row_w = q0 + 16 * warp;  // the warp's first row
+  // keys past the block's last q row are all masked under `causal`
+  const int kend = causal ? min(tk, q0 + kWgRows) : tk;
+  const int n_kt = (kend + kWgRows - 1) / kWgRows;
+
+  auto load_kv = [&](int j) {  // one thread: K and V of key tile j
+    const int st = j % kStages;
+    mbar_expect_tx(&full[st], 2 * kWgTileBytes);
+    tma_load_3d(base + L::kK + st * kWgTileBytes, &k_map, &full[st], 0,
+                j * kWgRows, bh);
+    tma_load_3d(base + L::kV + st * kWgTileBytes, &v_map, &full[st], 0,
+                j * kWgRows, bh);
+  };
+  auto needs_mask = [&](int j) {
+    const int k0 = j * kWgRows;
+    return k0 + kWgRows > tk || (causal && k0 + kWgRows - 1 > row_w);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, kWgTileBytes);
+    tma_load_3d(base + L::kQ, &q_map, q_bar, 0, q0, bh);
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv(j);
+  }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t p[4][4];
+  const uint32_t q_addr = sbase + L::kQ;
+  auto k_addr = [&](int j) {
+    return sbase + L::kK + (j % kStages) * kWgTileBytes;
+  };
+  auto v_addr = [&](int j) {
+    return sbase + L::kV + (j % kStages) * kWgTileBytes;
+  };
+  const int row0 = row_w + g, col0 = 2 * t;
+  mbar_wait(q_bar, 0);
+
+  for (int j = 0; j < n_kt; ++j) {
+    mbar_wait(&full[j % kStages], (j / kStages) & 1);
+    // S = Q K^T: 64 q rows x 64 keys
+    float s[32];
+    wgmma_fence();
+    wg_issue_s(s, q_addr, k_addr(j));
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (needs_mask(j))
+      wg_softmax<true>(s, m, l, alpha, scale_log2, row0, col0 + j * kWgRows,
+                       tk, causal);
+    else
+      wg_softmax<false>(s, m, l, alpha, scale_log2, row0,
+                        col0 + j * kWgRows, tk, causal);
+    // O = alpha O + P V over the tile's 64 keys
+    wg_rescale_pack(acc, s, alpha, p);
+    fence_regs(p);
+    wgmma_fence();
+    wg_issue_pv(acc, p, v_addr(j));
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+    __syncthreads();  // stage j % kStages read by every warp
+    if (tid == 0 && j + kStages < n_kt) load_kv(j + kStages);
+  }
+
+  // epilogue: each warp's 16 rows through its own rows of the Q tile (read
+  // by no product any more), in the 128-byte swizzle (no bank conflicts),
+  // then 16-byte stores of rows < tq, columns < d
+  unsigned char* os = base + L::kQ;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr = fmaxf(lr, 1e-30f);
+    const float inv = 1.f / lr;
+    const int row = 16 * warp + g + 8 * r;  // in the tile
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<uint32_t*>(os + swizzled(row, 8 * i + 2 * t)) =
+          pack_bf16(acc[4 * i + 2 * r] * inv, acc[4 * i + 2 * r + 1] * inv);
+    const int qpos = row0 + 8 * r;
+    if (t == 0 && qpos < tq)
+      lse[int64_t(bh) * tq + qpos] = m[r] * kLn2 + logf(lr);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = lane; c < 16 * 8; c += 32) {
+    const int row = 16 * warp + c / 8, col = (c % 8) * 8;
+    const int qpos = row_w + c / 8;
+    if (qpos < tq && col < d)
+      *reinterpret_cast<uint4*>(out + (int64_t(bh) * tq + qpos) * d + col) =
+          *reinterpret_cast<const uint4*>(os + swizzled(row, col));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+// The SM count of device `dev`, read from the runtime once per device.
+int sm_count(int dev) {
+  static std::mutex mu;
+  static std::map<int, int> cache;
+  const std::lock_guard<std::mutex> lock(mu);
+  int& n = cache[dev];
+  if (n == 0) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// A kernel's dynamic shared memory limit, raised once a device (the
+// attribute belongs to the kernel in one device's context); a launcher
+// keeps one for each kernel it launches.
+class SmemLimit {
+ public:
+  template <typename Kernel>
+  cudaError_t raise(Kernel kernel, int dev, size_t bytes) {
+    const std::lock_guard<std::mutex> lock(mu_);
+    if (done_.count(dev)) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err == cudaSuccess) done_.insert(dev);
+    return err;
+  }
+
+ private:
+  std::mutex mu_;
+  std::set<int> done_;
+};
+
+struct Args {
+  const bf16 *q, *k, *v;
+  bf16* out;
+  float* lse;
+  int bh, tq, tk, d, causal, dev;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <int DP, int MT>
-cudaError_t launch_mt(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                      float* lse, int bh, int tq, int tk, int d, float scale,
-                      int causal, cudaStream_t stream) {
+cudaError_t launch_mt(const Args& a) {
   constexpr bool kQInRegs = DP * MT <= 128;
   constexpr size_t smem = Layout<DP, MT>::kSmemBytes;
   const auto kernel = flash_fwd_bf16_kernel<DP, MT, kQInRegs>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  static SmemLimit limit;
+  const cudaError_t err = limit.raise(kernel, a.dev, smem);
   if (err != cudaSuccess) return err;
   const int block_m = Layout<DP, MT>::kBlockM;
-  const int n_qtiles = (tq + block_m - 1) / block_m;
-  if (int64_t(bh) * n_qtiles > INT32_MAX) return cudaErrorInvalidValue;
-  kernel<<<bh * n_qtiles, kThreads, smem, stream>>>(
-      q, k, v, out, lse, tq, tk, d, n_qtiles, scale * kLog2e, causal);
+  const int n_qtiles = (a.tq + block_m - 1) / block_m;
+  if (int64_t(a.bh) * n_qtiles > INT32_MAX) return cudaErrorInvalidValue;
+  kernel<<<a.bh * n_qtiles, kThreads, smem, a.stream>>>(
+      a.q, a.k, a.v, a.out, a.lse, a.tq, a.tk, a.d, n_qtiles,
+      a.scale * kLog2e, a.causal);
   return cudaGetLastError();
 }
 
-// 128-row q tiles (two m tiles a warp) read each K and V fragment from
-// shared memory once for twice the rows, and each K/V tile from L2 once for
-// twice the rows, but make half as many blocks (and, at 250 registers a
-// thread, fit 2 blocks an SM against 3); they are taken at head widths up
-// to 64 (registers) once the grid has 2 such blocks for every SM.
-bool two_m_tiles(int bh, int tq) {
-  int dev = 0, n_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  return int64_t(bh) * ((tq + 127) / 128) >= 2 * int64_t(n_sm);
+// mma.sync: 128-row q tiles (two m tiles a warp) read each K and V
+// fragment from shared memory once for twice the rows, and each K/V tile
+// from L2 once for twice the rows, but make half as many blocks; they are
+// taken at widths up to 32 (registers: 250 a thread at 64) once the grid
+// has 2 such blocks for every SM.
+template <int DP>
+cudaError_t launch_mma(const Args& a) {
+  if constexpr (DP <= 32) {
+    if (int64_t(a.bh) * ((a.tq + 127) / 128) >= 2 * int64_t(sm_count(a.dev)))
+      return launch_mt<DP, 2>(a);
+  }
+  return launch_mt<DP, 1>(a);
 }
 
-template <int DP>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-                   float* lse, int bh, int tq, int tk, int d, float scale,
-                   int causal, cudaStream_t stream) {
-  if constexpr (DP <= 64) {
-    if (two_m_tiles(bh, tq))
-      return launch_mt<DP, 2>(q, k, v, out, lse, bh, tq, tk, d, scale,
-                              causal, stream);
-  }
-  return launch_mt<DP, 1>(q, k, v, out, lse, bh, tq, tk, d, scale, causal,
-                          stream);
+// wgmma: one warpgroup a block, 64 q rows.
+cudaError_t launch_wgmma(const Args& a) {
+  // TMA reads and the 16-byte stores need 16-byte aligned rows
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) |
+                         reinterpret_cast<uintptr_t>(a.k) |
+                         reinterpret_cast<uintptr_t>(a.v) |
+                         reinterpret_cast<uintptr_t>(a.out);
+  if (addr % 16) return cudaErrorInvalidValue;
+  using hopper::tile_map;
+  CUtensorMap qm, km, vm;
+  cudaError_t err;
+  if ((err = tile_map(&qm, a.q, a.bh, a.tq, a.d)) != cudaSuccess ||
+      (err = tile_map(&km, a.k, a.bh, a.tk, a.d)) != cudaSuccess ||
+      (err = tile_map(&vm, a.v, a.bh, a.tk, a.d)) != cudaSuccess)
+    return err;
+  constexpr size_t smem = WgSmem::kBytes;
+  static SmemLimit limit;
+  if ((err = limit.raise(flash_fwd_wgmma_kernel, a.dev, smem)) != cudaSuccess)
+    return err;
+  const int n_qtiles = (a.tq + kWgRows - 1) / kWgRows;
+  if (int64_t(a.bh) * n_qtiles > INT32_MAX) return cudaErrorInvalidValue;
+  flash_fwd_wgmma_kernel<<<a.bh * n_qtiles, kWgThreads, smem, a.stream>>>(
+      qm, km, vm, a.out, a.lse, a.tq, a.tk, a.d, n_qtiles, a.scale * kLog2e,
+      a.causal);
+  return cudaGetLastError();
+}
+
+// The forward's designs, as flash_attention.py's fwd_design names them
+// (flash_attention_fwd_f32.cu runs the scalar and wide ones).
+enum Design { kScalar = 0, kMmaSync = 1, kWgmma = 2, kWide = 3 };
+
+// The design that takes a head of (padded) width d.
+Design design(bool is_bf16, int d) {
+  if (d > 256) return kWide;
+  if (!is_bf16) return kScalar;
+  if (d > 32 && d <= 64) return kWgmma;
+  return kMmaSync;
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  Takes d in 8, 16, ..., 256;
 // launches on `stream`, does not synchronise, allocates nothing; returns the
-// launch's cudaError_t (0 on success).
+// launch's cudaError_t (0 on success).  The wgmma design (d 33-64) needs
+// 16-byte aligned tensors.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* out, void* lse,
                                         int bh, int tq, int tk, int d,
@@ -381,18 +721,24 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         void* stream) {
   if (bh < 1 || tq < 1 || tk < 1 || d < 8 || d > 256 || d % 8)
     return cudaErrorInvalidValue;
-  const bf16* qh = static_cast<const bf16*>(q);
-  const bf16* kh = static_cast<const bf16*>(k);
-  const bf16* vh = static_cast<const bf16*>(v);
-  bf16* oh = static_cast<bf16*>(out);
-  float* lf = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 16) return launch<16>(qh, kh, vh, oh, lf, bh, tq, tk, d, scale, causal, s);
-  if (d <= 32) return launch<32>(qh, kh, vh, oh, lf, bh, tq, tk, d, scale, causal, s);
-  if (d <= 64) return launch<64>(qh, kh, vh, oh, lf, bh, tq, tk, d, scale, causal, s);
-  if (d <= 96) return launch<96>(qh, kh, vh, oh, lf, bh, tq, tk, d, scale, causal, s);
-  if (d <= 128) return launch<128>(qh, kh, vh, oh, lf, bh, tq, tk, d, scale, causal, s);
-  return launch<256>(qh, kh, vh, oh, lf, bh, tq, tk, d, scale, causal, s);
+  Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+         static_cast<const bf16*>(v), static_cast<bf16*>(out),
+         static_cast<float*>(lse), bh, tq, tk, d, causal, 0, scale,
+         static_cast<cudaStream_t>(stream)};
+  cudaError_t err = cudaGetDevice(&a.dev);
+  if (err != cudaSuccess) return err;
+  if (design(true, d) == kWgmma) return launch_wgmma(a);
+  if (d <= 16) return launch_mma<16>(a);
+  if (d <= 32) return launch_mma<32>(a);
+  if (d <= 96) return launch_mma<96>(a);
+  if (d <= 128) return launch_mma<128>(a);
+  return launch_mma<256>(a);
+}
+
+// The design (Design above) the bf16 (is_bf16 != 0) or f32 forward takes
+// for a head of width d.
+extern "C" int flash_attention_fwd_design(int is_bf16, int d) {
+  return design(is_bf16 != 0, d);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

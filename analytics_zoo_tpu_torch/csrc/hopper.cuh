@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the package's kernels: warpgroup
 // matrix products (wgmma) on bf16 with f32 accumulators, their shared-memory
 // descriptors for the 128-byte swizzle, and TMA tile loads completed on
-// mbarriers.  wgmma exists only for sm_90a; the package builds for it.
+// mbarriers, and the host's encoding of the tensor maps those loads read.
+// wgmma exists only for sm_90a; the package builds for it.
 //
 // Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
 //   * the f32 accumulator of m64nNk16, for thread 128-lane-id = 32 w + 4 g + t
@@ -30,6 +31,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "warp_mma.cuh"
@@ -80,6 +82,18 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for the register A fragments of wgmma_rs (k16 steps x four
+// registers), which the products read asynchronously: fenced before
+// wgmma_fence and after wgmma_wait, they stay live and unchanged until the
+// products are done, so the compiler neither moves a write to them across
+// the products nor hands their registers to other values meanwhile.
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[kk][x])::"memory");
 }
 
 #define HOPPER_D32(c)                                                        \
@@ -196,6 +210,60 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "r"(warp_mma::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
         "r"(warp_mma::smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// tensor maps (host)
+// ---------------------------------------------------------------------------
+
+// Rows and columns of a TMA box: one 128-byte swizzle atom of bf16 wide.
+constexpr int kTileRows = 64;
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime (no
+// link against libcuda); null if the driver has none.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 3-D map over a contiguous bf16 [bh, t, d] tensor, boxes of 1 x 64 x
+// 64 with the 128-byte swizzle: rows >= t and columns >= d of a box read
+// zeros, never the next head.  d must be a multiple of 8 (16-byte rows).
+inline cudaError_t tile_map(CUtensorMap* map, const void* ptr, int bh, int t,
+                            int d) {
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(t), cuuint64_t(bh)};
+  const cuuint64_t strides[2] = {cuuint64_t(d) * sizeof(__nv_bfloat16),
+                                 cuuint64_t(t) * d * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {64, kTileRows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

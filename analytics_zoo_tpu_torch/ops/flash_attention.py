@@ -7,9 +7,11 @@ whose backward is the blocked FA2 math of ``_blocked_bwd_jax``.  Here, for a
 tensor on the card:
 
 - ``flash_attention_fwd`` launches the bfloat16 tensor-core kernel
-  (``csrc/flash_attention_fwd.cu``, head dims up to 256) or the float32
-  kernel (``csrc/flash_attention_fwd_f32.cu``, which also takes bfloat16
-  heads wider than 256 and computes them in f32);
+  (``csrc/flash_attention_fwd.cu``: heads of 33-64 on ``wgmma`` fed by a
+  TMA ring, other heads up to 256 on ``mma.sync``) or the float32 kernel
+  (``csrc/flash_attention_fwd_f32.cu``, which also takes bfloat16 heads
+  wider than 256 and computes them in f32); ``fwd_design`` names the
+  design;
 - ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``: bf16
   heads of 33-64 on ``wgmma`` fed by a TMA ring, up to 32 on ``mma.sync``,
   f32 and wider heads in scalar f32 (``bwd_design`` names the design);
@@ -40,19 +42,22 @@ TC_MAX_HEAD_DIM = 256
 # the backward's bf16 tensor-core paths' widest head; wider heads take its
 # scalar f32 paths
 BWD_TC_MAX_HEAD_DIM = 64
-# the backward's designs, in the order of csrc/flash_attention_bwd.cu's
-# `Design` (flash_attention_bwd_design returns the index)
-BWD_DESIGNS = ("scalar", "mma.sync", "wgmma", "wide")
+# the designs of both directions, in the order of the `Design` of
+# csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu
+# (flash_attention_fwd_design and flash_attention_bwd_design return the
+# index)
+DESIGNS = ("scalar", "mma.sync", "wgmma", "wide")
 FWD_BF16 = "flash_attention_fwd"      # csrc/<source>.cu
 FWD_F32 = "flash_attention_fwd_f32"
 BWD = "flash_attention_bwd"
 _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
 # launches of each kernel, by source; flash_attention_fwd.launches and
-# flash_attention_bwd.launches count each direction's, BWD_LAUNCHES the
-# backward's by design
+# flash_attention_bwd.launches count each direction's, FWD_LAUNCHES and
+# BWD_LAUNCHES each direction's by design
 KERNEL_LAUNCHES = {FWD_BF16: 0, FWD_F32: 0, BWD: 0}
-BWD_LAUNCHES = dict.fromkeys(BWD_DESIGNS, 0)
+FWD_LAUNCHES = dict.fromkeys(DESIGNS, 0)
+BWD_LAUNCHES = dict.fromkeys(DESIGNS, 0)
 _count_lock = threading.Lock()
 
 
@@ -66,10 +71,32 @@ def fwd_kernel(dtype: torch.dtype, d: int) -> Tuple[str, str]:
     return FWD_F32, "flash_attention_fwd_f32"
 
 
+def fwd_design(dtype: torch.dtype, d: int) -> str:
+    """The design that takes the forward of a head dim ``d`` in ``dtype``
+    (after the wrapper's padding of bf16 tensor-core heads to a multiple
+    of 8): one of ``DESIGNS``.  bf16 heads of 33-64 run on ``wgmma``,
+    other bf16 heads up to 256 on ``mma.sync`` (both in
+    ``csrc/flash_attention_fwd.cu``); f32 heads up to 256 on the scalar
+    kernel and heads above 256 on the wide one (both in
+    ``csrc/flash_attention_fwd_f32.cu``).  The rule depends on nothing
+    but the dtype and the width: at BERT's shapes the ``wgmma`` design is
+    faster than ``mma.sync`` at every BH, 12 included (``PERF.md``).
+    Mirrors the source's ``design``; a ``cuda`` test holds the two
+    together."""
+    width = _kernel_head_dim(d, dtype, TC_MAX_HEAD_DIM)
+    if width > TC_MAX_HEAD_DIM:
+        return "wide"
+    if dtype != torch.bfloat16:
+        return "scalar"
+    if 32 < width <= 64:
+        return "wgmma"
+    return "mma.sync"
+
+
 def bwd_design(dtype: torch.dtype, d: int) -> str:
     """The design of ``csrc/flash_attention_bwd.cu`` that takes the
     backward of a head dim ``d`` in ``dtype`` (after the wrapper's padding
-    of bf16 tensor-core heads to a multiple of 8): one of ``BWD_DESIGNS``.
+    of bf16 tensor-core heads to a multiple of 8): one of ``DESIGNS``.
     Mirrors the source's ``design``; a ``cuda`` test holds the two
     together."""
     width = _kernel_head_dim(d, dtype, BWD_TC_MAX_HEAD_DIM)
@@ -235,20 +262,21 @@ def _raise_on_error(lib, entry: str, err: int) -> None:
                            f"({es(err).decode()})")
 
 
-def _count(fn, source: str) -> None:
+def _count(fn, source: str, by_design: dict, design: str) -> None:
     with _count_lock:
         fn.launches += 1
         KERNEL_LAUNCHES[source] += 1
+        by_design[design] += 1
 
 
 def _run_kernel(q3, k3, v3, causal, scale):
     """Launch the forward kernel for the dtype and width of ``[BH, T,
     width]`` tensors with the softmax ``scale`` of the true head dim;
-    counts the launch."""
+    counts the launch, and one of its design."""
     source, entry = fwd_kernel(q3.dtype, q3.shape[-1])
     lib, fn = _entry(source, entry, 5, 5)
-    # the bf16 kernel copies 16-byte pieces: a view at an odd offset is
-    # copied to fresh (aligned) storage first
+    # the bf16 kernel copies 16-byte pieces (cp.async, TMA): a view at an
+    # odd offset is copied to fresh (aligned) storage first
     q3, k3, v3 = (x if x.data_ptr() % 16 == 0 else x.clone()
                   for x in (q3, k3, v3))
     bh, tq, d = q3.shape
@@ -260,7 +288,7 @@ def _run_kernel(q3, k3, v3, causal, scale):
                  lse.data_ptr(), bh, tq, k3.shape[1], d, int(bool(causal)),
                  scale, stream)
     _raise_on_error(lib, entry, err)
-    _count(flash_attention_fwd, source)
+    _count(flash_attention_fwd, source, FWD_LAUNCHES, fwd_design(q3.dtype, d))
     return out, lse
 
 
@@ -299,9 +327,7 @@ def _run_bwd_kernel(q3, k3, v3, out, lse, dout, causal, scale):
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq,
                  k3.shape[1], d, int(bool(causal)), scale, stream)
     _raise_on_error(lib, entry, err)
-    _count(flash_attention_bwd, BWD)
-    with _count_lock:
-        BWD_LAUNCHES[bwd_design(q3.dtype, d)] += 1
+    _count(flash_attention_bwd, BWD, BWD_LAUNCHES, bwd_design(q3.dtype, d))
     return dq, dk, dv
 
 
@@ -324,7 +350,8 @@ def flash_attention_fwd(q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor,
     A CUDA tensor goes to its kernel (f32 or bf16, any BH, any D >= 1,
     contiguous), anything else raises; a CPU tensor takes
     the plain version.  ``flash_attention_fwd.launches`` counts kernel
-    launches, ``KERNEL_LAUNCHES`` each kernel's."""
+    launches, ``KERNEL_LAUNCHES`` each kernel's, ``FWD_LAUNCHES`` each
+    design's."""
     _check(q3, k3, v3)
     if _on_cpu(q3, "flash_attention_fwd"):
         return flash_attention_fwd_reference(q3, k3, v3, causal)

@@ -10,15 +10,18 @@ It builds the port's CUDA kernels from the sources in the checkout (one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
-   cores, f32 scalar, and the f32 source's wide kernel for head dims above
-   256 in both dtypes) and ``flash_attention_bwd``'s kernel (f32 and bf16:
+   cores: ``wgmma`` fed by TMA for heads 33-64, ``mma.sync`` for the
+   others up to 256; f32 scalar, and the f32 source's wide kernel for head
+   dims above 256 in both dtypes) and ``flash_attention_bwd``'s kernel
+   (f32 and bf16:
    ``wgmma`` fed by TMA for bf16 heads 33-64, ``mma.sync`` up to 32)
    against their plain PyTorch versions on the card: f32/bf16,
    causal/not, ragged T, Tq != Tk, head dims from 1 to 2048, BH 70000, and
    every shape the BERT-base serving and training paths give them; two
    bf16 backward calls on one input must give the same bits; then
-   their times at those shapes (forward: bf16 at BH 12, 48, 192, 768, f32
-   at BH 192; backward: both dtypes at the training shape, BH 384; the
+   their times at those shapes (forward: bf16 at BH 12, 48, 192, 768 and
+   the training shape, BH 384, and causal at BH 768, f32 at BH 192;
+   backward: both dtypes at the training shape, BH 384; the
    wide kernels at D 320 and 1024) beside the bound, the plain version's
    time and PyTorch's ``F.scaled_dot_product_attention`` (forward, and its
    backward alone: a yardstick only, the port never calls it), each as
@@ -36,10 +39,11 @@ JSON line:
    heads, seq 512, ``use_flash=True``) with random weights made from a seed
    in the JAX tree layout, served through ``InferenceModel`` in bf16:
    ``warm`` then ``predict``.  The bf16 kernel's launch count over that run
-   must be 12 per forward (and the f32 kernel's 0), and the logits must
+   must be 12 per forward, all of the ``wgmma`` design (and the f32
+   kernel's 0), and the logits must
    match the same model served in f32 with the plain attention; the model
    served in f32 with flash must launch the f32 kernel 12 times per
-   forward and match too.
+   forward (its scalar design) and match too.
 4. ``bert_train``: BERT-base ``BERTSQuAD`` fine-tuned through
    ``Estimator.from_keras(loss=squad_span_loss, optimizer="adamw",
    learning_rate=1e-4)`` from the same kind of random weights.  (a) f32,
@@ -48,8 +52,9 @@ JSON line:
    per-step losses of a 3-step ``fit`` (3 distinct batches) likewise.
    (b) bf16, dropout 0.1, global batch 32, 64 fixed examples, 10 epochs
    (20 steps): the loss must fall, every step must launch the bf16 forward
-   and the backward 12 times each (the backward's ``wgmma`` design) and no
-   f32 kernel, and a second fit with
+   and the backward 12 times each (both on their ``wgmma`` design) and no
+   f32 kernel ((a)'s fit the f32 ones, on their scalar design), and a
+   second fit with
    the same seed must repeat the loss history; step time, tokens/s, model
    TFLOP/s and one profiled step's idle share; then ``evaluate`` and
    ``predict`` on the card.
@@ -253,26 +258,85 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, runs: int = 3) -> float:
-    """The card's kernel time per call of ``fn``: the device-side kernel
-    events of ``iters`` calls under ``torch.profiler``, summed and divided
-    by ``iters``; the median of ``runs`` such windows.  Unlike ``cuda_ms``
-    it leaves out the gaps where the card waits for the host to launch,
-    which decide ``cuda_ms`` for a kernel shorter than its launch."""
+# Spin kernels, then idle time, at both ends of every profiler window;
+# the spin kernels' events are left out.  Late in a long run on the H100
+# the profiler lost a window's first kernels (of a window of one
+# fused_xent call it kept the last of 3 kernels or none, of ten calls 28
+# of 30, also with 50 ms idle at either end); the same calls in a fresh
+# process lost none.  What it loses is then the padding's.
+_PAD_LAUNCHES = 64
+_PAD_KERNEL = "spin_kernel"
+_PAD_IDLE_S = 0.05
+
+
+def _pad() -> None:
+    for _ in range(_PAD_LAUNCHES):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(_PAD_IDLE_S)
+
+
+def _profiled(fn, calls: int) -> dict:
+    """The card's events of ``calls`` calls of ``fn`` under
+    ``torch.profiler``, by kernel: {name: (count, device us)}."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _pad()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        _pad()
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _PAD_KERNEL not in e.key}
+
+
+def device_windows(fn, iters: int = 20, runs: int = 3) -> list:
+    """``runs`` profiler windows of ``iters`` calls of ``fn`` each, as
+    {kernel: (count, device us)}, each window whole: it recorded, of every
+    kernel, ``iters`` times what one call launches (the most that any of
+    three windows of one call recorded) and nothing else.  A window that
+    lost events is run again, up to ``3 * runs`` windows in all, and too
+    few whole ones raise."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        times.append(sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters)
-    return sorted(times)[len(times) // 2]
+    per_call: dict = {}
+    for _ in range(3):
+        for name, (count, _) in _profiled(fn, 1).items():
+            per_call[name] = max(per_call.get(name, 0), count)
+    if not per_call:
+        raise RuntimeError("device_windows: the profiler recorded no event "
+                           "of a call")
+    want = {name: count * iters for name, count in per_call.items()}
+    windows, short = [], []
+    for _ in range(3 * runs):
+        window = _profiled(fn, iters)
+        got = {name: count for name, (count, _) in window.items()}
+        if got == want:
+            windows.append(window)
+            if len(windows) == runs:
+                return windows
+        else:
+            short.append({n: (got.get(n, 0), want.get(n, 0))
+                          for n in set(got) | set(want)
+                          if got.get(n, 0) != want.get(n, 0)})
+    raise RuntimeError(f"device_windows: {len(windows)} of {3 * runs} "
+                       f"windows recorded {iters} calls' events whole; "
+                       f"(recorded, expected) by kernel: {short}")
+
+
+def device_ms(fn, iters: int = 20, runs: int = 3) -> float:
+    """The card's kernel time per call of ``fn``: the device-side events of
+    ``iters`` calls under ``torch.profiler``, summed and divided by
+    ``iters``; the median of ``runs`` whole windows (``device_windows``).
+    Unlike ``cuda_ms`` it leaves out the gaps where the card waits for the
+    host to launch, which decide ``cuda_ms`` for a kernel shorter than its
+    launch."""
+    times = sorted(sum(us for _, us in window.values()) / 1e3 / iters
+                   for window in device_windows(fn, iters, runs))
+    return times[len(times) // 2]
 
 
 def bound(flops: float, nbytes: float, itemsize: int) -> tuple:
@@ -358,7 +422,7 @@ def phase_kernel(fa) -> dict:
     # head dims above 256: the f32 source's wide kernel, both dtypes
     cases += [(2, 77, 130, d, dt, c) for d in WIDE_HEAD_DIMS for dt in dtypes
               for c in (False, True)]
-    cases += [(70000, 8, 8, 16, dt, c) for dt in dtypes
+    cases += [(70000, 8, 8, d, dt, c) for d in (16, 64) for dt in dtypes
               for c in (False, True)]
     # grids large enough for the bf16 kernel's 128-row tiles (d <= 64)
     cases += [(96, tq, tk, d, torch.bfloat16, c)
@@ -371,6 +435,14 @@ def phase_kernel(fa) -> dict:
     # dtypes; (a) runs f32 at batch CHECK_BATCH, checked end to end there)
     tb, th, tt, td = (TRAIN_SHAPE[x] for x in "bhtd")
     cases += [(tb * th, tt, tt, td, dt, False) for dt in dtypes]
+    # the bf16 wgmma design (heads 33-64): the largest bucket and the
+    # training shape under `causal`, the widths the TMA box zero-fills (36
+    # padded to 40 first) with ragged Tq != Tk, and one query row against
+    # many keys
+    cases += [(bh, t, t, d, torch.bfloat16, True) for bh in (h * 64, tb * th)]
+    cases += [(3, tq, tk, dd, torch.bfloat16, c) for dd in (36, 40, 48, 56)
+              for tq, tk in ((77, 130), (130, 77)) for c in (False, True)]
+    cases += [(3, 1, 300, 64, torch.bfloat16, c) for c in (False, True)]
     for case in cases:
         check(*case)
 
@@ -437,43 +509,48 @@ def phase_kernel(fa) -> dict:
         raise AssertionError("bf16 backward: two calls on one input differ")
     del q, k, v, g, out, lse, first, second
 
-    # times at every serving shape (bf16) and at the timed shape in f32;
-    # each shape checked again on the inputs it is timed on.  ms, plain_ms
+    # times at every serving shape and the training shape (bf16), the
+    # largest bucket under `causal`, and the timed shape in f32; each shape
+    # checked again on the inputs it is timed on.  ms, plain_ms
     # and library_ms are CUDA-event times per call, host launch included
     # (cuda_ms); the *device_ms keys are the card's kernel time per call
     # alone (device_ms), which differ where a call is shorter than its
     # launch
     timings = []
-    for bh, dtype in [(h * n, torch.bfloat16) for n in BUCKETS] + [
-            (b * h, torch.float32)]:
-        q, k, v, err = check(bh, t, t, d, dtype, False)
+    for bh, dtype, causal in [(h * n, torch.bfloat16, False)
+                              for n in BUCKETS] + [
+            (tb * th, torch.bfloat16, False), (h * 64, torch.bfloat16, True),
+            (b * h, torch.float32, False)]:
+        q, k, v, err = check(bh, t, t, d, dtype, causal)
         q4, k4, v4 = (x.view(bh // h, h, t, d) for x in (q, k, v))
 
         def kernel():
-            return fa.flash_attention_fwd(q, k, v, False)
+            return fa.flash_attention_fwd(q, k, v, causal)
 
         def plain():
-            return fa.flash_attention_fwd_reference(q, k, v, False)
+            return fa.flash_attention_fwd_reference(q, k, v, causal)
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4)
+                q4, k4, v4, is_causal=causal)
 
         ms, plain_ms, library_ms = (cuda_ms(f)
                                     for f in (kernel, plain, library))
         dev_ms, plain_dev_ms, library_dev_ms = (
             device_ms(f) for f in (kernel, plain, library))
         bound_ms, bound_by = attention_bound(bh, t, t, d, q.element_size(),
-                                             False)
+                                             causal)
+        pairs = t * (t + 1) / 2 if causal else t * t
         timings.append({
-            "kernel": fa.fwd_kernel(dtype, d)[0], "bh": bh, "t": t, "d": d,
-            "dtype": str(dtype).replace("torch.", ""), "causal": False,
+            "kernel": fa.fwd_kernel(dtype, d)[0],
+            "design": fa.fwd_design(dtype, d), "bh": bh, "t": t, "d": d,
+            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "device_ms": dev_ms,
             "plain_device_ms": plain_dev_ms,
             "library_device_ms": library_dev_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "device_share_of_bound": bound_ms / dev_ms,
-            "device_tflop_per_s": 4.0 * bh * t * t * d / dev_ms / 1e9})
+            "device_tflop_per_s": 4.0 * bh * pairs * d / dev_ms / 1e9})
 
     # the backward at the training shape, both dtypes, checked again on the
     # inputs it is timed on; the yardstick is SDPA's backward alone
@@ -667,19 +744,29 @@ def reset_counts(fa) -> None:
     fa.flash_attention_bwd.launches = 0
     for name in fa.KERNEL_LAUNCHES:
         fa.KERNEL_LAUNCHES[name] = 0
-    for name in fa.BWD_LAUNCHES:
-        fa.BWD_LAUNCHES[name] = 0
+    for counts in (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def read_designs(counts: dict, what: str, design: str, runs: int) -> dict:
+    """Launches by design since ``reset_counts`` (``counts``: the
+    forward's or the backward's): all of them ``design``'s, once per
+    encoder layer of each of ``runs``."""
+    want = dict.fromkeys(counts, 0)
+    want[design] = BERT_BASE["n_layers"] * runs
+    if counts != want:
+        raise AssertionError(f"{what}: launches by design {counts}; want "
+                             f"{want}")
+    return dict(counts)
+
+
+def read_fwd_designs(fa, what: str, design: str, runs: int) -> dict:
+    return read_designs(fa.FWD_LAUNCHES, f"{what} forward", design, runs)
 
 
 def read_bwd_designs(fa, what: str, design: str, runs: int) -> dict:
-    """The backward's launches by design since ``reset_counts``: all of
-    them ``design``'s, once per encoder layer of each of ``runs``."""
-    want = dict.fromkeys(fa.BWD_DESIGNS, 0)
-    want[design] = BERT_BASE["n_layers"] * runs
-    if fa.BWD_LAUNCHES != want:
-        raise AssertionError(f"{what}: backward launches by design "
-                             f"{fa.BWD_LAUNCHES}; want {want}")
-    return dict(fa.BWD_LAUNCHES)
+    return read_designs(fa.BWD_LAUNCHES, f"{what} backward", design, runs)
 
 
 def read_counts(fa, what: str, **runs: int) -> dict:
@@ -726,6 +813,7 @@ def phase_bert_serve(fa) -> dict:
     forwards = n_warm + sum(-(-n // top) for n in batches)
     launches = read_counts(fa, "bert_serve bf16",
                            **{BF16_KERNEL: forwards})
+    fwd_designs = read_fwd_designs(fa, "bert_serve bf16", "wgmma", forwards)
 
     latency = {}
     for b in im.batch_buckets:
@@ -758,6 +846,8 @@ def phase_bert_serve(fa) -> dict:
     f32_forwards = sum(-(-n // f32_im.batch_buckets[-1]) for n in batches)
     f32_launches = read_counts(fa, "bert_serve f32",
                                **{F32_KERNEL: f32_forwards})
+    f32_fwd_designs = read_fwd_designs(fa, "bert_serve f32", "scalar",
+                                       f32_forwards)
     del f32_im
     for name, got, tol in (("bf16_flash_vs_f32_dense", outs, TOL_SERVE_BF16),
                            ("f32_flash_vs_f32_dense", f32_outs,
@@ -777,7 +867,9 @@ def phase_bert_serve(fa) -> dict:
     res = {"phase": "bert_serve", "config": BERT_BASE, "seq": SEQ,
            "dtype": "bfloat16", "batches": sorted(batches),
            "forwards": forwards, "flash_launches": launches,
+           "fwd_launches_by_design": fwd_designs,
            "f32_forwards": f32_forwards, "f32_flash_launches": f32_launches,
+           "f32_fwd_launches_by_design": f32_fwd_designs,
            "setup_s": setup_s, "warm_s": warm_s, "latency": latency,
            "breakdown": breakdown, "errors": errors}
     emit(res)
@@ -879,6 +971,8 @@ def phase_bert_train(fa) -> dict:
         if use_flash:
             f32_launches = read_counts(fa, "bert_train f32", **{
                 F32_KERNEL: CHECK_STEPS, BWD_KERNEL: CHECK_STEPS})
+            f32_fwd_designs = read_fwd_designs(fa, "bert_train f32",
+                                               "scalar", CHECK_STEPS)
             f32_bwd_designs = read_bwd_designs(fa, "bert_train f32",
                                                "scalar", CHECK_STEPS)
         del est
@@ -894,6 +988,7 @@ def phase_bert_train(fa) -> dict:
                  "largest_grad": g_max, "loss_flash": hist[True],
                  "loss_dense": hist[False], "loss_worst_rel": loss_err,
                  "loss_tol": TOL_TRAIN_LOSS, "launches": f32_launches,
+                 "fwd_launches_by_design": f32_fwd_designs,
                  "bwd_launches_by_design": f32_bwd_designs}
 
     # (b) the bf16 run: dropout 0.1, global batch 32, 20 steps
@@ -911,6 +1006,7 @@ def phase_bert_train(fa) -> dict:
     fit_s = time.perf_counter() - t0
     launches = read_counts(fa, "bert_train bf16",
                            **{BF16_KERNEL: steps, BWD_KERNEL: steps})
+    fwd_designs = read_fwd_designs(fa, "bert_train bf16", "wgmma", steps)
     bwd_designs = read_bwd_designs(fa, "bert_train bf16", "wgmma", steps)
     if not all(map(math.isfinite, losses)) \
             or losses[-1] > LOSS_FALL * losses[0]:
@@ -955,6 +1051,7 @@ def phase_bert_train(fa) -> dict:
            "setup_s": setup_s, "fit_s": fit_s, "loss": losses,
            "step_losses": step_losses,
            "loss_fall_limit": LOSS_FALL, "launches": launches,
+           "fwd_launches_by_design": fwd_designs,
            "bwd_launches_by_design": bwd_designs,
            "step_ms_last10": last, "step_ms_p50": p50,
            "tokens_per_s": tokens_per_s,
@@ -1920,7 +2017,8 @@ def main(argv) -> int:
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
-             if x["bh"] == TIMED_SHAPE["b"] * TIMED_SHAPE["h"]}
+             if x["bh"] == TIMED_SHAPE["b"] * TIMED_SHAPE["h"]
+             and not x["causal"]}
     timed.update({(BWD_KERNEL, x["dtype"]): x for x in kern["bwd_timings"]})
     fwd_src = "analytics_zoo_tpu/ops/flash_attention.py:44"
     bwd_src = "analytics_zoo_tpu/ops/flash_attention.py:187"
@@ -1928,7 +2026,9 @@ def main(argv) -> int:
     entries = []
     for name, key, design, launches, path, replaces in (
             (BF16_KERNEL, BF16_KERNEL,
-             "bf16, mma.sync tensor cores, cp.async ring",
+             "bf16: wgmma fed by a 2-stage TMA ring, one warpgroup a block "
+             "of 64 q rows (d 33-64); mma.sync with a cp.async ring for "
+             "the other heads up to 256",
              serve["flash_launches"][BF16_KERNEL], "bert_serve bf16",
              fwd_src),
             (F32_KERNEL, F32_KERNEL, "f32, scalar FMAs (exact)",
@@ -1948,6 +2048,11 @@ def main(argv) -> int:
         entry["shape"] = {k: x[k] for k in ("bh", "t", "d", "dtype")}
         entries.append(entry)
     entries[0]["launches_bert_train_bf16"] = train["launches"][BF16_KERNEL]
+    entries[0]["launches_by_design"] = serve["fwd_launches_by_design"]
+    entries[0]["launches_by_design_bert_train_bf16"] = \
+        train["fwd_launches_by_design"]
+    entries[1]["launches_by_design"] = serve["f32_fwd_launches_by_design"]
+    entries[2]["launches_by_design"] = train["bwd_launches_by_design"]
     entries[1]["launches_bert_train_f32"] = \
         train["f32_check"]["launches"][F32_KERNEL]
     # fused batch norm: one entry per direction and dtype, timed at the

@@ -7,13 +7,10 @@ Run from the root of a checkout:
 
     python3 dev/torch_bwd_parts.py [-DNAME=VALUE | path/to/source.cu ...]
 
-Each argument adds one build variant beside the default build of
-``csrc/flash_attention_bwd.cu``: the same source with macros set (one
-argument, ``-D`` flags apart by spaces), or another source with the same
-C entry points (an edited copy, or an earlier commit's, unpacked with
-``git archive`` into a directory ``.gitignore`` lists); the variants are
-built together, then timed in turns (default, variants, variants
-reversed, default) in one process.  For
+Each argument adds one build variant (``dev/parts_harness.py``) beside the
+default build of ``csrc/flash_attention_bwd.cu``; the variants are built
+together, then timed in turns (default, variants, variants reversed,
+default) in one process.  For
 each build and for ``causal`` False and True it prints one JSON line: the
 largest error against ``flash_attention_bwd_reference`` relative to
 max |ref|, the CUDA-event time per call, and the card's kernel time per
@@ -26,69 +23,32 @@ the card's name and power limit.
 
 from __future__ import annotations
 
-import ctypes
 import importlib
 import json
-import os
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-
-import chip_smoke as smoke  # noqa: E402
-from analytics_zoo_tpu_torch.ops import _build  # noqa: E402
+import parts_harness as harness
+from parts_harness import smoke
 
 fa = importlib.import_module("analytics_zoo_tpu_torch.ops.flash_attention")
 PASSES = ("bwd_delta", "bwd_dkdv", "bwd_dq")
 
 
-def build_variant(arg: str) -> str:
-    """The library of one variant (``arg`` one or more ``-D`` flags, or a
-    source's path; empty: the default build); returns its path."""
-    if not arg:
-        return str(_build.build(fa.BWD))
-    if arg.endswith(".cu"):
-        flags, source = [], os.path.abspath(arg)
-    else:
-        flags, source = arg.split(), str(_build.CSRC / f"{fa.BWD}.cu")
-    name = "".join(c if c.isalnum() else "_" for c in arg)
-    path = _build.BUILD_DIR / f"lib{fa.BWD}-variant-{name}.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(path),
-         source], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    if proc.returncode != 0:
-        raise RuntimeError(proc.stdout.decode(errors="replace"))
-    return str(path)
-
-
 def by_pass(fn, iters: int = 10) -> dict:
-    """Kernel time per call of ``fn`` by pass, from one profiler window."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    """Kernel time per call of ``fn`` by pass, from one whole profiler
+    window."""
     out = dict.fromkeys(PASSES, 0.0)
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for p in PASSES:
-                if p in e.key:
-                    out[p] += e.self_device_time_total / 1e3 / iters
+    for name, (_, us) in smoke.device_windows(fn, iters, runs=1)[0].items():
+        for p in PASSES:
+            if p in name:
+                out[p] += us / 1e3 / iters
     return out
 
 
 def measure(label: str, path: str, inputs: dict) -> None:
-    # the wrapper loads its library through _build's cache: point it at
-    # this build
-    _build._loaded[fa.BWD] = ctypes.CDLL(path)
+    harness.use(fa.BWD, path)
     for causal, (q, k, v, out, lse, g) in inputs.items():
         got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal)
         ref = fa.flash_attention_bwd_reference(q, k, v, out, lse, g, causal)
@@ -101,13 +61,11 @@ def measure(label: str, path: str, inputs: dict) -> None:
 
         bh, t, d = q.shape
         pairs = t * (t + 1) / 2 if causal else t * t
-        dev = smoke.device_ms(kernel, iters=10)
         print(json.dumps({
             "build": label, "causal": causal, "bh": bh, "t": t, "d": d,
-            "max_rel_err": err, "ms": smoke.cuda_ms(kernel, iters=10),
-            "device_ms": dev, "device_ms_by_pass": by_pass(kernel),
-            "counted_tflop_per_s": 10.0 * bh * pairs * d / dev / 1e9}),
-            flush=True)
+            "max_rel_err": err,
+            **harness.timing(kernel, 10.0 * bh * pairs * d, iters=10),
+            "device_ms_by_pass": by_pass(kernel)}), flush=True)
 
 
 def main(argv) -> int:
@@ -115,9 +73,7 @@ def main(argv) -> int:
         print("torch_bwd_parts: no CUDA device", file=sys.stderr)
         return 2
     builds = ["default"] + list(argv)
-    with ThreadPoolExecutor() as pool:
-        paths = list(pool.map(
-            lambda b: build_variant("" if b == "default" else b), builds))
+    paths = [path for path, _ in harness.build_variants(fa.BWD, builds)]
     bh = smoke.TRAIN_SHAPE["b"] * smoke.TRAIN_SHAPE["h"]
     t, d = smoke.SEQ, smoke.TRAIN_SHAPE["d"]
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
@@ -127,9 +83,7 @@ def main(argv) -> int:
                                   ).to(torch.bfloat16) for _ in range(4))
         out, lse = fa.flash_attention_fwd(q, k, v, causal)
         inputs[causal] = (q, k, v, out, lse, g)
-    order = list(range(len(builds)))
-    order = order + order[1:][::-1] + [0] if len(builds) > 1 else order
-    for i in order:
+    for i in harness.in_turns(len(builds)):
         measure(builds[i], paths[i], inputs)
     b, h = smoke.TRAIN_SHAPE["b"], smoke.TRAIN_SHAPE["h"]
     for causal, (q, k, v, out, lse, g) in inputs.items():
@@ -143,18 +97,12 @@ def main(argv) -> int:
                                        retain_graph=True)
 
         pairs = t * (t + 1) / 2 if causal else t * t
-        dev = smoke.device_ms(library, iters=10)
         print(json.dumps({
             "build": "scaled_dot_product_attention backward",
             "causal": causal, "bh": bh, "t": t, "d": d,
-            "ms": smoke.cuda_ms(library, iters=10), "device_ms": dev,
-            "counted_tflop_per_s": 10.0 * bh * pairs * d / dev / 1e9}),
+            **harness.timing(library, 10.0 * bh * pairs * d, iters=10)}),
             flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    print(smi, flush=True)
+    print(harness.card(), flush=True)
     return 0
 
 

@@ -466,5 +466,5 @@ def test_bwd_design_of_the_source_matches_bwd_design_on_card():
     for dtype in (torch.float32, torch.bfloat16):
         for d in range(1, 1101):
             width = tfa._kernel_head_dim(d, dtype, tfa.BWD_TC_MAX_HEAD_DIM)
-            got = tfa.BWD_DESIGNS[fn(int(dtype == torch.bfloat16), width)]
+            got = tfa.DESIGNS[fn(int(dtype == torch.bfloat16), width)]
             assert got == tfa.bwd_design(dtype, d), (dtype, d)

@@ -95,7 +95,10 @@ def test_zero_padded_head_dim_matches_unpadded_and_pallas(d, width, causal):
 
 @pytest.mark.parametrize("dtype,d,width", [
     (torch.bfloat16, 21, 24), (torch.bfloat16, 24, 24),
-    (torch.float32, 21, 21), (torch.bfloat16, 5, 8)])
+    (torch.float32, 21, 21), (torch.bfloat16, 5, 8),
+    # the widths of the wgmma design (bf16 heads of 33-64)
+    (torch.bfloat16, 33, 40), (torch.bfloat16, 36, 40),
+    (torch.bfloat16, 57, 64), (torch.bfloat16, 64, 64)])
 def test_launch_hands_the_kernel_its_width_and_the_true_scale(
         monkeypatch, dtype, d, width):
     """The launch path around the kernel: bf16 head dims that are not a
