@@ -82,7 +82,6 @@
 
 #include <map>
 #include <mutex>
-#include <set>
 
 #include "hopper.cuh"
 #include "warp_mma.cuh"
@@ -377,12 +376,6 @@ struct WgSmem {
       kBar + (kStages + 1) * sizeof(uint64_t) + 1024;
 };
 
-// Byte offset of bf16 element (row, col) in a 64-wide tile in the 128-byte
-// swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8).
-__device__ __forceinline__ uint32_t swizzled(int row, int col) {
-  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
-}
-
 // The online softmax of one 64 x 64 tile on its S accumulators (f32, the
 // wgmma layout: this thread's element 4 i + e is at row row0 + 8 (e >> 1),
 // key col0 + 8 i + (e & 1)).  With kMask, keys >= tk and, under `causal`,
@@ -609,26 +602,6 @@ int sm_count(int dev) {
   return n;
 }
 
-// A kernel's dynamic shared memory limit, raised once a device (the
-// attribute belongs to the kernel in one device's context); a launcher
-// keeps one for each kernel it launches.
-class SmemLimit {
- public:
-  template <typename Kernel>
-  cudaError_t raise(Kernel kernel, int dev, size_t bytes) {
-    const std::lock_guard<std::mutex> lock(mu_);
-    if (done_.count(dev)) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-    if (err == cudaSuccess) done_.insert(dev);
-    return err;
-  }
-
- private:
-  std::mutex mu_;
-  std::set<int> done_;
-};
-
 struct Args {
   const bf16 *q, *k, *v;
   bf16* out;
@@ -643,7 +616,7 @@ cudaError_t launch_mt(const Args& a) {
   constexpr bool kQInRegs = DP * MT <= 128;
   constexpr size_t smem = Layout<DP, MT>::kSmemBytes;
   const auto kernel = flash_fwd_bf16_kernel<DP, MT, kQInRegs>;
-  static SmemLimit limit;
+  static hopper::SmemLimit limit;
   const cudaError_t err = limit.raise(kernel, a.dev, smem);
   if (err != cudaSuccess) return err;
   const int block_m = Layout<DP, MT>::kBlockM;
@@ -685,7 +658,7 @@ cudaError_t launch_wgmma(const Args& a) {
       (err = tile_map(&vm, a.v, a.bh, a.tk, a.d)) != cudaSuccess)
     return err;
   constexpr size_t smem = WgSmem::kBytes;
-  static SmemLimit limit;
+  static hopper::SmemLimit limit;
   if ((err = limit.raise(flash_fwd_wgmma_kernel, a.dev, smem)) != cudaSuccess)
     return err;
   const int n_qtiles = (a.tq + kWgRows - 1) / kWgRows;

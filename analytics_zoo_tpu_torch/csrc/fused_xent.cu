@@ -6,11 +6,9 @@
 // int64 labels [N]:
 //   forward:  S = h W + b in f32, never written; lse[n] = logsumexp_v S[n, v]
 //             (f32), loss = mean_n (lse[n] - S[n, label[n]]) (f32);
-//   backward, per chunk of tokens (the API's `chunk`, as the JAX op scans):
-//             dl = exp(S - lse) * (g / N) less g / N at the label, rounded to
-//             h's dtype into a [chunk, V] workspace; dh_c = dl W^T (h's
-//             dtype); dW += h_c^T dl (f32 sums, then w's dtype); db = the
-//             column sums of the f32 dl over every token.
+//   backward: dl = exp(S - lse) * (g / N) less g / N at the label, rounded
+//             to h's dtype; dh = dl W^T (h's dtype); dW = h^T dl (f32 sums,
+//             then w's dtype); db = the column sums of the f32 dl.
 //
 // What bounds it.  The forward is 2 N D V FLOP, the backward 6 N D V (the
 // logits recomputed, then dh and dW), against h and W read once and dh, dW
@@ -18,35 +16,70 @@
 // 2.9e11 FLOP for about 100 and 190 MB, so the tensor cores bound it (0.097
 // and 0.291 ms at 989 TFLOP/s), not the memory (0.03 and 0.06 ms).
 //
-// Design (the TPU op's scan is not carried over; its math is):
-//   * every product is one main loop over 128 x 128 output tiles with 256
-//     threads: bf16 operands on mma.sync m16n8k16 (f32 accumulate; 8 warps
-//     as 2 x 4, 64 x 32 each), their 32-deep k slices double-buffered in
-//     shared memory by 16-byte cp.async copies that zero-fill the ragged
-//     edges (each operand's rows padded to a whole number of 16 bytes: the
-//     pack kernel casts an f32 W, or a W or h of unaligned width, into bf16
-//     copies with zeroed pad columns, once per call); f32 operands on scalar
-//     f32 FMAs (exact products, as JAX's f32 dot), 8 x 8 outputs a thread;
-//   * four epilogues on the f32 accumulators, written once for both routes:
-//     the forward's row statistics (per token and vocabulary tile: the max,
-//     the sum of exp(S - max) and the label's logit, from the same f32 S);
-//     dl with db's column sums; dh's split-K partials; dW's running sum;
-//   * no atomics anywhere.  The forward writes per-tile partials that a
-//     finalize kernel combines per token in tile order (online max
-//     rescaling), then one block reduces the mean; dh splits the vocabulary
-//     (K) across blocks to fill the card (a chunk gives it only 24 output
-//     tiles) and a reduce kernel sums the splits in order; each dW tile is
-//     owned by one block and the chunks add in order; db sums its per-tile
-//     partials in order.  Two runs give identical bits.
-// What it leaves: wgmma with a TMA-fed ring and warp specialisation, a
-// persistent schedule, and fusing the dh and dW products so that dl never
+// Two designs of the backward (`bwd_design` below; ops/fused_xent.py's
+// bwd_design names it), and one of the forward:
+//
+// wgmma, the bf16 backward (h bf16, W bf16 or f32): three products over
+// every token, one launch each, on wgmma m64n128k16 fed by a TMA ring.
+//   * a block is two warpgroups (256 threads) owning a 128 x 128 output
+//     tile, each warpgroup 64 rows; 64-deep k slices of both operands
+//     arrive as four 64 x 64 boxes (8 KB, the 128-byte swizzle, 1024-byte
+//     aligned) in a ring of kWgStages stages, each completed on an
+//     mbarrier; thread 0 refills the stage the products of the step before
+//     read, once a block barrier shows both warpgroups done with it (one
+//     group of products stays in flight across the barrier).  At 3 stages
+//     (96 KB) and at most 128 registers two blocks share an SM, so one
+//     block's epilogue overlaps the other's products;
+//   * the three products read their operands in the three forms wgmma
+//     takes: S = h W (h K-major, the packed W [D][round8(V)] MN-major),
+//     dh = dl W^T (dl and W both K-major: W read as [n = d][k = v]), dW =
+//     h^T dl (h and dl both MN-major: h is stored [token][d]);
+//   * the dl pass recomputes S per tile (K = D) and writes dl = the
+//     formula above in bf16 to a workspace [N][round8(V)] (zeros in the
+//     pad columns), staged through shared memory for 16-byte stores, and
+//     db's column partials per token tile; the dh pass splits the
+//     vocabulary (K) so that the [N, D] output fills the card, f32
+//     partials summed in split order by a reduce kernel; the dW pass runs
+//     K = N, so every dW tile's f32 sum stays in registers from the first
+//     token to the last and is written once, in W's dtype;
+//   * grid order: token tiles fastest in the dl pass (the blocks sharing a
+//     W tile run together; h stays in L2), d tiles fastest in the dW and
+//     dh passes (the blocks sharing a dl tile run together);
+//   * ragged edges read as zeros (TMA's out-of-bounds fill; the pack
+//     kernel zeroes W's and h's pad columns); stores are masked to N, D, V.
+//   Workspace (the wrapper's): dl [N][round8(V)] bf16, dh's partials
+//   [splits][N][D] f32, db's [cdiv(N, 128)][V] f32, the packed W (f32 W or
+//   V not a multiple of 8) and h (D not a multiple of 8); they grow with N.
+//
+// scalar, the f32 backward, and the forward of both dtypes: one main loop
+// over 128 x 128 output tiles with 256 threads: bf16 operands (the
+// forward's) on mma.sync m16n8k16 (f32 accumulate; 8 warps as 2 x 4, 64 x
+// 32 each), their 32-deep k slices double-buffered in shared memory by
+// 16-byte cp.async copies that zero-fill the ragged edges; f32 operands on
+// scalar f32 FMAs (exact products, as JAX's f32 dot), 8 x 8 outputs a
+// thread.  Its epilogues: the forward's row statistics (per token and
+// vocabulary tile: the max, the sum of exp(S - max) and the label's logit,
+// from the same f32 S); and, per chunk of tokens (the API's `chunk`, as the
+// JAX op scans), dl into a [chunk][V] workspace with db's column sums,
+// dh's split-K partials and dW's running sum (in dw itself when W is f32,
+// else an f32 [D][V] buffer).
+//
+// No atomics anywhere.  The forward writes per-tile partials that a
+// finalize kernel combines per token in tile order (online max rescaling),
+// then one block reduces the mean; dh's splits and db's tiles are summed in
+// order; each dW tile is owned by one block.  Two runs give identical bits.
+// What it leaves: a producer warp and persistent blocks that overlap a
+// tile's epilogue with the next tile's products, the forward and the f32
+// backward on wgmma, and fusing the dh and dW products so that dl never
 // leaves the chip.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -104,13 +137,12 @@ __device__ __forceinline__ void load_async(bf16* s, const bf16* g, int ld,
   }
 }
 
-// bf16 operands on the tensor cores.  acc[i][j] is element (row(i), col(j))
-// of the block's tile: warp w = 4 wm + wn holds rows [64 wm, 64 wm + 64) and
-// columns [32 wn, 32 wn + 32) as 4 x 4 m16n8 tiles, whose C fragments
-// (warp_mma.cuh) put rows g and g + 8, columns 2t and 2t + 1 in each lane.
+// bf16 operands on the tensor cores (the forward's).  acc[i][j] is element
+// (row(i), col(j)) of the block's tile: warp w = 4 wm + wn holds rows
+// [64 wm, 64 wm + 64) and columns [32 wn, 32 wn + 32) as 4 x 4 m16n8 tiles,
+// whose C fragments (warp_mma.cuh) put rows g and g + 8, columns 2t and
+// 2t + 1 in each lane.
 struct TensorCores {
-  static constexpr bool kPairedCols = true;  // col(2q + 1) == col(2q) + 1
-
   __device__ static int row(int i) {
     return (threadIdx.x >> 7) * 64 + (i >> 1) * 16 + (i & 1) * 8 +
            ((threadIdx.x & 31) >> 2);
@@ -119,24 +151,22 @@ struct TensorCores {
     return ((threadIdx.x >> 5) & 3) * 32 + (j >> 1) * 8 +
            2 * (threadIdx.x & 3) + (j & 1);
   }
-  // this thread's place among the 16 that share each of its rows (columns)
+  // this thread's place among the 16 that share each of its rows
   __device__ static int row_slot() {
     return ((threadIdx.x >> 5) & 3) * 4 + (threadIdx.x & 3);
   }
-  __device__ static int col_slot() {
-    return (threadIdx.x >> 7) * 8 + ((threadIdx.x & 31) >> 2);
-  }
 
-  // acc = A[m0.., k0..k1) B[k0..k1), n0..]: A stored [m][k] (or [k][m] with
-  // kAT), B stored [k][n] (or [n][k] with kBT); rows/columns of m >= m_lim,
-  // n >= n_lim and k >= k1 read as zero.
+  // acc = A[m0.., k0..k1) B[k0..k1), n0..]: A stored [m][k], B stored
+  // [k][n]; rows/columns of m >= m_lim, n >= n_lim and k >= k1 read as
+  // zero.
   template <bool kAT, bool kBT, typename TA, typename TB>
   __device__ static void mainloop(float (&acc)[8][8], const TA* A, int lda,
                                   int m0, int m_lim, const TB* B, int ldb,
                                   int n0, int n_lim, int k0, int k1,
                                   unsigned char* smem_raw) {
-    constexpr int SA = kAT ? kTile + 8 : kBK + 8;
-    constexpr int SB = kBT ? kBK + 8 : kTile + 8;
+    static_assert(!kAT && !kBT, "the forward's operand forms only");
+    constexpr int SA = kBK + 8;
+    constexpr int SB = kTile + 8;
     constexpr int kStage = kTile * (kBK + 8);  // >= kBK * (kTile + 8)
     static_assert(4 * kStage * sizeof(bf16) <= kSmemBytes, "shared memory");
     bf16* As = reinterpret_cast<bf16*>(smem_raw);  // two stages
@@ -151,14 +181,8 @@ struct TensorCores {
     auto load = [&](int st, int k) {
       bf16* as = As + st * kStage;
       bf16* bs = Bs + st * kStage;
-      if (kAT)
-        load_async<kBK, kTile>(as, A, lda, k, k1, m0, m_lim);
-      else
-        load_async<kTile, kBK>(as, A, lda, m0, m_lim, k, k1);
-      if (kBT)
-        load_async<kTile, kBK>(bs, B, ldb, n0, n_lim, k, k1);
-      else
-        load_async<kBK, kTile>(bs, B, ldb, k, k1, n0, n_lim);
+      load_async<kTile, kBK>(as, A, lda, m0, m_lim, k, k1);
+      load_async<kBK, kTile>(bs, B, ldb, k, k1, n0, n_lim);
       cp_async_commit();
     };
 
@@ -178,27 +202,15 @@ struct TensorCores {
       for (int ks = 0; ks < kBK / 16; ++ks) {
         uint32_t a[4][4];
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          if (kAT)
-            ldmatrix_x4_trans(
-                a[mt],
-                as + (ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * SA +
-                    wm * 64 + mt * 16 + ((lane >> 3) & 1) * 8);
-          else
-            ldmatrix_x4(a[mt], as + (wm * 64 + mt * 16 + (lane & 15)) * SA +
-                                   ks * 16 + (lane >> 4) * 8);
-        }
+        for (int mt = 0; mt < 4; ++mt)
+          ldmatrix_x4(a[mt], as + (wm * 64 + mt * 16 + (lane & 15)) * SA +
+                                 ks * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int nb = 0; nb < 2; ++nb) {
           uint32_t b[4];
-          if (kBT)
-            ldmatrix_x4(b, bs + (wn * 32 + nb * 16 + (lane & 7) +
-                                 ((lane >> 4) & 1) * 8) * SB +
-                               ks * 16 + ((lane >> 3) & 1) * 8);
-          else
-            ldmatrix_x4_trans(
-                b, bs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SB +
-                       wn * 32 + nb * 16 + (lane >> 4) * 8);
+          ldmatrix_x4_trans(
+              b, bs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SB +
+                     wn * 32 + nb * 16 + (lane >> 4) * 8);
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt) {
             mma_at(acc, mt, 2 * nb, a[mt], b[0], b[1]);
@@ -214,8 +226,6 @@ struct TensorCores {
 // f32 (or bf16, read as f32) operands on scalar FMAs: thread (ty, tx) holds
 // rows ty + 16 i and columns tx + 16 j of the tile.
 struct ScalarF32 {
-  static constexpr bool kPairedCols = false;
-
   __device__ static int row(int i) { return (threadIdx.x >> 4) + 16 * i; }
   __device__ static int col(int j) { return (threadIdx.x & 15) + 16 * j; }
   __device__ static int row_slot() { return threadIdx.x & 15; }
@@ -388,7 +398,7 @@ xent_mean(const float* __restrict__ loss_tok, int n,
   if (threadIdx.x == 0) *loss = red[0] / float(n);
 }
 
-// -- backward --------------------------------------------------------------
+// -- backward, f32: per chunk, the scalar main loop --------------------------
 
 // Pass 1, one chunk of `rows` tokens: S recomputed per tile, then
 // dl = exp(S - lse) * scale less scale at the label (scale = g / n_total),
@@ -429,21 +439,10 @@ xent_bwd_dl(const TA* h, int ldh, const TB* w, int ldw, int w_lim,
       acc[i][j] = x;
     }
     TD* out = dl + size_t(r) * ldl;
-    if constexpr (E::kPairedCols && sizeof(TD) == 2) {
-      // c even and ldl a multiple of 8: a 4-byte store of two columns
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        const int c = n0 + E::col(j);
-        if (c < ldl)
-          *reinterpret_cast<uint32_t*>(out + c) =
-              pack_bf16(acc[i][j], acc[i][j + 1]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + E::col(j);
-        if (c < ldl) out[c] = from_f<TD>(acc[i][j]);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const int c = n0 + E::col(j);
+      if (c < ldl) out[c] = from_f<TD>(acc[i][j]);
     }
   }
   float* red = reinterpret_cast<float*>(smem);  // [kTile columns][kSlots]
@@ -484,7 +483,8 @@ xent_bwd_dh(const TD* dl, int ldl, const TB* w, int ldw, int rows, int d,
   }
 }
 
-// dh = the sum of the splits' partials, in split order, in TH.
+// dh = the sum of the splits' partials, in split order, in TH (both
+// designs).
 template <typename TH>
 __global__ void xent_dh_reduce(const float* __restrict__ part, int splits,
                                size_t count, TH* __restrict__ dh) {
@@ -550,6 +550,252 @@ __global__ void xent_pack(const T* __restrict__ src, int rows, int cols,
     const int c = int(i - r * ld);
     dst[i] = __float2bfloat16_rn(c < cols ? to_f(src[r * cols + c]) : 0.f);
   }
+}
+
+// -- backward, bf16: wgmma fed by a TMA ring -------------------------------
+
+constexpr int kWgThreads = 256;  // two warpgroups, 64 output rows each
+constexpr int kWgBK = 64;        // k per stage: one 128-byte swizzle atom
+// Stages of the ring: at 3 two blocks share an SM; 2 stages ran 11% slower
+// at the recipe's shape, 4 (one block an SM) 5% slower (PERF.md).
+constexpr int kWgStages = 3;
+constexpr uint32_t kWgBox = 64 * 64 * sizeof(bf16);  // one TMA box, 8 KB
+constexpr uint32_t kWgStageBytes = 4 * kWgBox;       // A: 2 boxes, B: 2
+// the stages, their mbarriers and the 1024-byte alignment of the base
+constexpr size_t kWgSmemBytes =
+    kWgStages * kWgStageBytes + kWgStages * sizeof(uint64_t) + 1024;
+constexpr int kWgBlocksPerSm = 2;
+static_assert(kWgBlocksPerSm * kWgSmemBytes <= 227 * 1024, "shared memory");
+
+// The block's 1024-aligned shared memory.
+__device__ __forceinline__ unsigned char* wg_base(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// acc = A B over k slices [k0, k0 + 64 nk) for the block's 128 x 128 tile
+// at (m0, n0): thread (warpgroup w, warp wi, lane 4 g + t) holds rows 64 w
+// + 16 wi + g + 8 (e >> 1) and columns 8 i + 2 t + (e & 1) as acc[4 i + e].
+// Each stage holds A's two 64-row halves (warpgroup w reads half w) and B's
+// 128 columns as two boxes.  A is read K-major from a map over [m][k]
+// (kAT false) or MN-major from one over [k][m] (kAT true); likewise B from
+// [n][k] (kBT false) or [k][n] (kBT true).  Rows and columns outside a map
+// read as zeros.
+template <bool kAT, bool kBT>
+__device__ __forceinline__ void wg_mainloop(float (&acc)[64],
+                                            const CUtensorMap* a_map,
+                                            const CUtensorMap* b_map, int m0,
+                                            int n0, int k0, int nk,
+                                            unsigned char* base) {
+  using namespace hopper;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(base + kWgStages * kWgStageBytes);
+  const uint32_t sbase = smem_addr(base);
+  auto load = [&](int j) {  // one thread: k slice j into stage j % stages
+    const int st = j % kWgStages, k = k0 + j * kWgBK;
+    unsigned char* s = base + st * kWgStageBytes;
+    mbar_expect_tx(&full[st], kWgStageBytes);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tma_load_3d(s + i * kWgBox, a_map, &full[st],
+                  kAT ? m0 + 64 * i : k, kAT ? k : m0 + 64 * i, 0);
+      tma_load_3d(s + (2 + i) * kWgBox, b_map, &full[st],
+                  kBT ? n0 + 64 * i : k, kBT ? k : n0 + 64 * i, 0);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kWgStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < kWgStages && j < nk; ++j) load(j);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % kWgStages;
+    mbar_wait(&full[st], (kt / kWgStages) & 1);
+    const uint32_t a_addr = sbase + st * kWgStageBytes + wg * kWgBox;
+    const uint32_t b_addr = sbase + st * kWgStageBytes + 2 * kWgBox;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      const uint64_t a = kAT ? desc_sw128(a_addr + 2048 * kk, kWgBox, 1024)
+                             : desc_k_major(a_addr, kk);
+      const uint64_t b = kBT ? desc_sw128(b_addr + 2048 * kk, kWgBox, 1024)
+                             : desc_k_major(b_addr, kk);
+      wgmma_ss_n128<kAT, kBT>(acc, a, b);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of step kt - 1 are done
+    fence_regs(acc);
+    __syncthreads();  // ... in both warpgroups: refill their stage
+    if (tid == 0 && kt >= 1 && kt - 1 + kWgStages < nk)
+      load(kt - 1 + kWgStages);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// This thread's place in the tile: row 64 w + 16 wi + g (+ 8), column 2 t.
+struct WgPos {
+  int row, col;
+  __device__ WgPos()
+      : row((threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2)),
+        col(2 * (threadIdx.x & 3)) {}
+};
+
+// out[r][c] = acc for r < m_lim, c < n_lim (row stride ld), in TO; two
+// columns a store where ld is even.
+template <typename TO>
+__device__ __forceinline__ void wg_store(const float (&acc)[64], TO* out,
+                                         int ld, int m0, int m_lim, int n0,
+                                         int n_lim) {
+  const WgPos p;
+  const bool paired = (ld & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + p.row + 8 * h;
+    if (r >= m_lim) continue;
+    TO* o = out + size_t(r) * ld;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = n0 + 8 * i + p.col;
+      const float x0 = acc[4 * i + 2 * h], x1 = acc[4 * i + 2 * h + 1];
+      if (paired && c + 1 < n_lim) {
+        if constexpr (sizeof(TO) == 4)
+          *reinterpret_cast<float2*>(o + c) = make_float2(x0, x1);
+        else
+          *reinterpret_cast<uint32_t*>(o + c) = pack_bf16(x0, x1);
+      } else {
+        if (c < n_lim) o[c] = from_f<TO>(x0);
+        if (c + 1 < n_lim) o[c + 1] = from_f<TO>(x1);
+      }
+    }
+  }
+}
+
+// The dl pass: blockIdx.x a token tile, blockIdx.y a vocabulary tile.  S =
+// h W over the (padded) width dp, then dl = exp(S + b - lse) * scale less
+// scale at the label (scale = g / n), 0 past V or N; dl in bf16 to dl[n][ldl]
+// (ldl = round8(V), its pad columns zero) and the tile's column sums of the
+// f32 dl as row blockIdx.x of dbp[][v].
+__global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
+xent_wg_dl(const __grid_constant__ CUtensorMap h_map,
+           const __grid_constant__ CUtensorMap w_map, int dp,
+           const float* __restrict__ bias, const int64_t* __restrict__ labels,
+           const float* __restrict__ lse, const float* __restrict__ g, int n,
+           int v, bf16* __restrict__ dl, int ldl, float* __restrict__ dbp) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wg_base(smem_raw);
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  float acc[64];
+  wg_mainloop<false, true>(acc, &h_map, &w_map, m0, n0, 0,
+                           (dp + kWgBK - 1) / kWgBK, base);
+  const WgPos p;
+  const float scale = g[0] / float(n);
+  float ls[2];
+  int64_t lab[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + p.row + 8 * h;
+    ls[h] = r < n ? lse[r] : 0.f;
+    lab[h] = r < n ? labels[r] : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = n0 + 8 * i + p.col + u;
+      const float bc = c < v ? bias[c] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float x = 0.f;
+        if (c < v && m0 + p.row + 8 * h < n) {
+          x = expf(acc[4 * i + 2 * h + u] + bc - ls[h]) * scale;
+          if (c == lab[h]) x += -scale;
+        }
+        acc[4 * i + 2 * h + u] = x;
+      }
+    }
+  // the bf16 tile through the ring's first 32 KB (two 64-column halves, in
+  // the 128-byte swizzle: no bank conflicts), once both warpgroups' products
+  // are done; the column sums' [8 warps][128] after it
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      *reinterpret_cast<uint32_t*>(
+          base + (i >> 3) * (kTile * 128) +
+          hopper::swizzled(p.row + 8 * h, 8 * (i & 7) + p.col)) =
+          pack_bf16(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+  float* red = reinterpret_cast<float*>(base + 2 * kTile * 128);
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float cs = acc[4 * i + u] + acc[4 * i + 2 + u];
+      cs += __shfl_xor_sync(0xffffffffu, cs, 4);
+      cs += __shfl_xor_sync(0xffffffffu, cs, 8);
+      cs += __shfl_xor_sync(0xffffffffu, cs, 16);
+      if (lane < 4) red[warp * kTile + 8 * i + p.col + u] = cs;
+    }
+  __syncthreads();
+  // 16-byte stores: a row's 256 bytes by 16 consecutive threads
+#pragma unroll
+  for (int j = 0; j < kTile * kTile / 8 / kWgThreads; ++j) {
+    const int c = threadIdx.x + j * kWgThreads;
+    const int row = c >> 4, half = (c >> 3) & 1, col = (c & 7) * 8;
+    const int gc = n0 + 64 * half + col;
+    if (m0 + row < n && gc < ldl)
+      *reinterpret_cast<uint4*>(dl + size_t(m0 + row) * ldl + gc) =
+          *reinterpret_cast<const uint4*>(base + half * (kTile * 128) +
+                                          hopper::swizzled(row, col));
+  }
+  const int c = threadIdx.x;
+  if (c < kTile && n0 + c < v) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWgThreads / 32; ++w) sum += red[w * kTile + c];
+    dbp[size_t(blockIdx.x) * v + n0 + c] = sum;
+  }
+}
+
+// The dh pass: blockIdx.x a d tile, blockIdx.y a token tile, blockIdx.z a
+// split of the vocabulary [z split_len, (z + 1) split_len) within vp:
+// part[z][n][d] = dl W^T over the split, in f32.
+__global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
+xent_wg_dh(const __grid_constant__ CUtensorMap dl_map,
+           const __grid_constant__ CUtensorMap w_map, int vp, int split_len,
+           int n, int d, float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wg_base(smem_raw);
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.z * split_len;
+  const int len = min(split_len, vp - k0);
+  float acc[64];
+  wg_mainloop<false, false>(acc, &dl_map, &w_map, m0, n0, k0,
+                            (len + kWgBK - 1) / kWgBK, base);
+  wg_store(acc, part + size_t(blockIdx.z) * n * d, d, m0, n, n0, d);
+}
+
+// The dW pass: blockIdx.x a d tile, blockIdx.y a vocabulary tile; dW = h^T
+// dl over every token, summed in f32 in registers, written once in TO.
+template <typename TO>
+__global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
+xent_wg_dw(const __grid_constant__ CUtensorMap h_map,
+           const __grid_constant__ CUtensorMap dl_map, int n, int d, int v,
+           TO* __restrict__ dw) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wg_base(smem_raw);
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  float acc[64];
+  wg_mainloop<true, true>(acc, &h_map, &dl_map, m0, n0, 0,
+                          (n + kWgBK - 1) / kWgBK, base);
+  wg_store(acc, dw, v, m0, d, n0, v);
 }
 
 // -- host side -------------------------------------------------------------
@@ -630,7 +876,7 @@ cudaError_t run_bwd(const Operands& o, const float* bias,
   const TH* h = static_cast<const TH*>(o.h);
   const TW* w = static_cast<const TW*>(o.w);
   const int chunks = n / chunk, row_tiles = cdiv(chunk, kTile);
-  const int ldl = o.w_lim;  // dl's row: V, or round8(V) on the tensor cores
+  const int ldl = o.w_lim;  // dl's row: V
   float* acc_buf = dw_acc ? dw_acc : reinterpret_cast<float*>(dw);
   const size_t dh_count = size_t(chunk) * d;
   const size_t want_blocks = (dh_count + kThreads - 1) / kThreads;
@@ -662,9 +908,64 @@ cudaError_t run_bwd(const Operands& o, const float* bias,
   return cudaGetLastError();
 }
 
+// The bf16 backward on wgmma: the dl, dh (with its reduce) and dW passes
+// over every token, then db.  TMA reads the operands through 2-D maps
+// (as [1][rows][cols]) of 64 x 64 boxes: h [n][dp], W [d][vp] and the dl
+// workspace [n][vp], each row a whole number of 16 bytes.
+template <typename TO>
+cudaError_t run_bwd_wgmma(const Operands& o, const float* bias,
+                          const int64_t* labels, const float* lse,
+                          const float* g, int n, int d, int v, int splits,
+                          int split_len, bf16* dl, float* dbp, float* dh_part,
+                          bf16* dh, TO* dw, float* db, cudaStream_t s) {
+  const int dp = o.ldh, vp = o.ldw;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(o.h) |
+                         reinterpret_cast<uintptr_t>(o.w) |
+                         reinterpret_cast<uintptr_t>(dl);
+  if (addr % 16 || dp % 8 || vp % 8) return cudaErrorInvalidValue;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  using hopper::tile_map;
+  CUtensorMap hm, wm, lm;
+  if ((err = tile_map(&hm, o.h, 1, n, dp)) != cudaSuccess ||
+      (err = tile_map(&wm, o.w, 1, d, vp)) != cudaSuccess ||
+      (err = tile_map(&lm, dl, 1, n, vp)) != cudaSuccess)
+    return err;
+  static hopper::SmemLimit dl_limit, dh_limit, dw_limit;
+  if ((err = dl_limit.raise(xent_wg_dl, dev, kWgSmemBytes)) != cudaSuccess ||
+      (err = dh_limit.raise(xent_wg_dh, dev, kWgSmemBytes)) != cudaSuccess ||
+      (err = dw_limit.raise(xent_wg_dw<TO>, dev, kWgSmemBytes)) !=
+          cudaSuccess)
+    return err;
+  const int row_tiles = cdiv(n, kTile), d_tiles = cdiv(d, kTile);
+  xent_wg_dl<<<dim3(row_tiles, cdiv(v, kTile)), kWgThreads, kWgSmemBytes,
+               s>>>(hm, wm, dp, bias, labels, lse, g, n, v, dl, vp, dbp);
+  XENT_CHECK();
+  xent_wg_dh<<<dim3(d_tiles, row_tiles, splits), kWgThreads, kWgSmemBytes,
+               s>>>(lm, wm, vp, split_len, n, d, dh_part);
+  XENT_CHECK();
+  const size_t dh_count = size_t(n) * d;
+  const size_t want_blocks = (dh_count + kThreads - 1) / kThreads;
+  xent_dh_reduce<bf16>
+      <<<want_blocks < size_t(kPackBlocks) ? int(want_blocks) : kPackBlocks,
+         kThreads, 0, s>>>(dh_part, splits, dh_count, dh);
+  XENT_CHECK();
+  xent_wg_dw<TO><<<dim3(d_tiles, cdiv(v, kTile)), kWgThreads, kWgSmemBytes,
+                   s>>>(hm, lm, n, d, v, dw);
+  XENT_CHECK();
+  xent_db<<<cdiv(v, kThreads), kThreads, 0, s>>>(dbp, row_tiles, v, db);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int n, int d, int v) {
   return n < 1 || d < 1 || v < 1 || cdiv(v, kTile) > 65535;
 }
+
+// The backward's designs, as fused_xent.py's bwd_design names them.
+enum BwdDesign { kBwdScalar = 0, kBwdWgmma = 1 };
+
+BwdDesign bwd_design(int tc) { return tc ? kBwdWgmma : kBwdScalar; }
 
 }  // namespace
 
@@ -700,9 +1001,12 @@ extern "C" int fused_xent_fwd(int tc, int w_bf16, const void* h, void* hp,
                                           s);
 }
 
-// dl: [chunk][V] (round8(V) on the tensor cores) in h's dtype; dbp:
-// [N / chunk * cdiv(chunk, 128)][V] f32; dh_part: [splits][chunk][D] f32;
-// dw_acc: a [D][V] f32 sum (null: dw itself, which must then be f32).
+// The wgmma design (tc): dl [N][round8(V)] bf16; dbp [cdiv(N, 128)][V]
+// f32; dh_part [splits][N][D] f32, the vocabulary split into ranges of
+// split_len (a multiple of 64) that cover round8(V) exactly; dw_acc unused.
+// The scalar design (f32): dl [chunk][V]; dbp [N / chunk * cdiv(chunk,
+// 128)][V] f32; dh_part [splits][chunk][D] f32; dw_acc a [D][V] f32 sum
+// (null: dw itself, which must then be f32).
 extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
                               const void* w, void* wp, const void* bias,
                               const void* labels, const void* lse,
@@ -711,8 +1015,13 @@ extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
                               void* dh_part, void* dw_acc, void* dh, void* dw,
                               void* db, void* stream) {
   if (bad_shape(n, d, v) || chunk < 1 || n % chunk || splits < 1 ||
-      splits > 65535 || split_len < 1 || (w_bf16 && !dw_acc))
+      splits > 65535 || split_len < 1)
     return cudaErrorInvalidValue;
+  const int64_t vp = round8(v);
+  if (tc && (split_len % kWgBK || int64_t(splits - 1) * split_len >= vp ||
+             int64_t(splits) * split_len < vp || cdiv(n, kTile) > 65535))
+    return cudaErrorInvalidValue;
+  if (!tc && w_bf16 && !dw_acc) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Operands o;
   cudaError_t e = Operands::make(&o, tc, w_bf16, h, hp, w, wp, n, d, v, s);
@@ -729,12 +1038,12 @@ extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
     bf16* dlb = static_cast<bf16*>(dl);
     bf16* dhb = static_cast<bf16*>(dh);
     if (w_bf16)
-      return run_bwd<TensorCores, bf16, bf16, bf16>(
-          o, b, lab, ls, gg, n, d, v, chunk, splits, split_len, dlb, dbp_f,
-          part, acc, dhb, static_cast<bf16*>(dw), dbf, s);
-    return run_bwd<TensorCores, bf16, bf16, float>(
-        o, b, lab, ls, gg, n, d, v, chunk, splits, split_len, dlb, dbp_f,
-        part, acc, dhb, static_cast<float*>(dw), dbf, s);
+      return run_bwd_wgmma<bf16>(o, b, lab, ls, gg, n, d, v, splits,
+                                 split_len, dlb, dbp_f, part, dhb,
+                                 static_cast<bf16*>(dw), dbf, s);
+    return run_bwd_wgmma<float>(o, b, lab, ls, gg, n, d, v, splits,
+                                split_len, dlb, dbp_f, part, dhb,
+                                static_cast<float*>(dw), dbf, s);
   }
   float* dlf = static_cast<float*>(dl);
   float* dhf = static_cast<float*>(dh);
@@ -746,6 +1055,9 @@ extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
       o, b, lab, ls, gg, n, d, v, chunk, splits, split_len, dlf, dbp_f, part,
       acc, dhf, static_cast<float*>(dw), dbf, s);
 }
+
+// The design (BwdDesign above) the bf16 (tc != 0) or f32 backward takes.
+extern "C" int fused_xent_bwd_design(int tc) { return bwd_design(tc); }
 
 extern "C" const char* fused_xent_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the package's kernels: warpgroup
 // matrix products (wgmma) on bf16 with f32 accumulators, their shared-memory
 // descriptors for the 128-byte swizzle, and TMA tile loads completed on
-// mbarriers, and the host's encoding of the tensor maps those loads read.
+// mbarriers, and the host's encoding of the tensor maps those loads read
+// and raising of a kernel's shared memory limit.
 // wgmma exists only for sm_90a; the package builds for it.
 //
 // Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
@@ -22,9 +23,11 @@
 //   * K-major operand (A [M][K] or B [N][K] with K contiguous): the
 //     descriptor's stride byte offset is 1024 (one 8-row group), its leading
 //     byte offset unused (1); k16 step kk starts 32 kk bytes into the row.
-//   * MN-major B (B [K][N] with N contiguous, the transpose bit set): with
-//     N = 64 one swizzle atom spans N, so only the stride between 8-row
-//     groups of K counts (1024); k16 step kk starts 16 kk rows (2048 kk
+//   * MN-major operand (A [K][M] or B [K][N] with M or N contiguous, the
+//     transpose bit set): a swizzle atom spans 64 of M or N; the stride
+//     byte offset is the stride between 8-row groups of K (1024 in a tile
+//     of 128-byte rows), the leading byte offset the stride between atoms
+//     along M or N (unused at 64); k16 step kk starts 16 kk rows (2048 kk
 //     bytes) down.
 
 #pragma once
@@ -33,6 +36,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
 
 #include "warp_mma.cuh"
 
@@ -43,7 +49,7 @@ namespace hopper {
 // ---------------------------------------------------------------------------
 
 // Descriptor of a 128-byte-swizzled shared tile starting at byte address
-// `addr` (offsets in bytes).
+// `addr` (offsets in bytes: `lbo` leading, `sbo` stride).
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return uint64_t((addr & 0x3FFFF) >> 4) |
@@ -79,9 +85,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous products that own it.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // The same for the register A fragments of wgmma_rs (k16 steps x four
@@ -106,30 +113,62 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
   "%30, %31}"
+#define HOPPER_D64(c)                                                        \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),    \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),    \
+      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),  \
+      c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),  \
+      c(d[29]), c(d[30]), c(d[31]), c(d[32]), c(d[33]), c(d[34]), c(d[35]),  \
+      c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]), c(d[41]), c(d[42]),  \
+      c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), c(d[49]),  \
+      c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]),  \
+      c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define HOPPER_D64_REGS                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
 
 // d = A B (kAccumulate false) or d += A B, m64n64k16, bf16 in, f32
-// accumulate; A and B K-major in shared memory.  Without kAccumulate d is
-// only written (scale-d 0), so the compiler never materialises its old
-// values: an ordinary write to an accumulator while products are in flight
-// makes ptxas serialise them.
-template <bool kAccumulate>
+// accumulate; A and B in shared memory, K-major, or MN-major where kTransA
+// (kTransB) sets the transpose bit.  Without kAccumulate d is only written
+// (scale-d 0), so the compiler never materialises its old values: an
+// ordinary write to an accumulator while products are in flight makes
+// ptxas serialise them.
+template <bool kAccumulate, bool kTransA = false, bool kTransB = false>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b) {
   if constexpr (kAccumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        HOPPER_D32_REGS ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        HOPPER_D32_REGS ", %32, %33, p, 1, 1, %35, %36;\n}\n"
         : HOPPER_D32("+f")
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(int(kTransA)), "n"(int(kTransB)));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        HOPPER_D32_REGS ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        HOPPER_D32_REGS ", %32, %33, p, 1, 1, %35, %36;\n}\n"
         : HOPPER_D32("=f")
-        : "l"(a), "l"(b), "r"(0));
+        : "l"(a), "l"(b), "r"(0), "n"(int(kTransA)), "n"(int(kTransB)));
   }
+}
+
+// d += A B, m64n128k16, bf16 in, f32 accumulate (d[4 i + e] as above, i
+// up to 15); A and B in shared memory, K-major or MN-major as in wgmma_ss.
+// An MN-major B spans two swizzle atoms of N: its descriptor's leading
+// byte offset is the stride between them.
+template <bool kTransA, bool kTransB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      HOPPER_D64_REGS ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : HOPPER_D64("+f")
+      : "l"(a), "l"(b), "r"(1), "n"(int(kTransA)), "n"(int(kTransB)));
 }
 
 // d += A B, m64n64k16: A (bf16, the fragment above) from registers, B
@@ -144,6 +183,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// Byte offset of bf16 element (row, col) of a 64-wide tile in the 128-byte
+// swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8).
+__device__ __forceinline__ uint32_t swizzled(int row, int col) {
+  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+#undef HOPPER_D64_REGS
+#undef HOPPER_D64
 #undef HOPPER_D32_REGS
 #undef HOPPER_D32
 
@@ -265,5 +312,25 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* ptr, int bh, int t,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
+
+// A kernel's dynamic shared memory limit, raised once a device (the
+// attribute belongs to the kernel in one device's context); a launcher
+// keeps one for each kernel it launches.
+class SmemLimit {
+ public:
+  template <typename Kernel>
+  cudaError_t raise(Kernel kernel, int dev, size_t bytes) {
+    const std::lock_guard<std::mutex> lock(mu_);
+    if (done_.count(dev)) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+    if (err == cudaSuccess) done_.insert(dev);
+    return err;
+  }
+
+ private:
+  std::mutex mu_;
+  std::set<int> done_;
+};
 
 }  // namespace hopper

@@ -13,18 +13,21 @@ sums db from the f32 values.  Here, for a tensor on the card:
 - ``fused_xent_fwd`` launches ``csrc/fused_xent.cu``'s forward (the logit
   tiles' max, sum of exponentials and label logit, combined per token into
   the logsumexp and the mean loss; the logits are never written);
-- ``fused_xent_bwd`` launches its backward (per chunk: the ``dl`` pass
-  into a ``[chunk, vocab]`` workspace, the ``dh`` and ``dW`` products;
-  then db);
+- ``fused_xent_bwd`` launches its backward: for bf16 activations three
+  ``wgmma`` products over every token (the ``dl`` pass into a ``[tokens,
+  vocab]`` workspace, ``dh`` split over the vocabulary, ``dW`` with its
+  f32 sum kept on chip from the first token to the last), for f32 the
+  scalar passes per chunk of tokens; then db;
 - ``fused_softmax_xent`` ties them together in a
   ``torch.autograd.Function`` whose residuals are ``(h, w, bias, labels,
   lse)``, as the ``custom_vjp``'s are.
 
-bf16 activations run on the tensor cores (``mma.sync``), f32 activations
-on scalar f32 FMAs (exact f32 products, as JAX's f32 dot).  For a tensor
-on the CPU the wrappers use ``fused_xent_reference`` and
-``fused_xent_bwd_reference``, which repeat the JAX op's chunked math step
-by step.  There is no fallback from the card to the plain versions: a
+bf16 activations run on the tensor cores (the forward on ``mma.sync``,
+the backward on ``wgmma`` fed by TMA), f32 activations on scalar f32 FMAs
+(exact f32 products, as JAX's f32 dot); ``bwd_design`` names the
+backward's design.  For a tensor on the CPU the wrappers use
+``fused_xent_reference`` and ``fused_xent_bwd_reference``, which repeat
+the JAX op's chunked math step by step.  There is no fallback from the card to the plain versions: a
 kernel that fails to build or launch raises.
 """
 
@@ -33,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,8 +50,13 @@ PASSES = ("fwd", "dl", "dh", "dw")
 KERNEL_LAUNCHES = {f"{p}_{s}": 0 for s in _SUFFIX.values() for p in PASSES}
 _count_lock = threading.Lock()
 TILE = 128            # the kernels' output tile, rows and columns
-SPLIT_K_STEP = 32     # dh's split-K ranges are whole multiples of this
-TARGET_BLOCKS = 2 * 132  # dh's split-K fills two blocks on each of 132 SMs
+SPLIT_K_STEP = 32     # the scalar dh's split-K ranges: multiples of this
+TARGET_BLOCKS = 2 * 132  # the scalar dh's split-K: two blocks an SM
+# the backward's designs, in the order of the source's BwdDesign
+BWD_DESIGNS = ("scalar", "wgmma")
+WG_BK = 64            # the wgmma design's k slice: its dh splits' step
+# the wgmma dh's splits: four waves of two blocks on each of 132 SMs
+WG_TARGET_BLOCKS = 4 * 2 * 132
 
 
 def _flatten(h: torch.Tensor, labels: torch.Tensor
@@ -172,14 +180,50 @@ def dh_splits(chunk: int, d: int, k: int) -> Tuple[int, int]:
     return -(-k // length), length
 
 
+class BwdPlan(NamedTuple):
+    """The wgmma backward's grids: ``TILE``-square output tiles over
+    tokens (``row_tiles``), D (``d_tiles``) and V (``v_tiles``); dh's
+    vocabulary (K, padded to ``vp``) in ``splits`` ranges of ``split_len``
+    columns."""
+    row_tiles: int
+    d_tiles: int
+    v_tiles: int
+    vp: int
+    splits: int
+    split_len: int
+
+
+def bwd_plan(n: int, d: int, v: int) -> BwdPlan:
+    """The grids of the wgmma backward at ``n`` tokens, width ``d`` and
+    vocabulary ``v``: the dl pass ``row_tiles x v_tiles`` blocks, dW
+    ``d_tiles x v_tiles``, dh ``d_tiles x row_tiles x splits``, with enough
+    splits of whole ``WG_BK`` slices to make about ``WG_TARGET_BLOCKS``
+    blocks (at the recipe's 2048 x 768 -> 30,522: 96 tiles x 11 splits of
+    2,816 columns) and no split empty."""
+    vp = _round8(v)
+    tiles = _tiles(n) * _tiles(d)
+    steps = -(-vp // WG_BK)
+    per_split = -(-steps // min(steps, -(-WG_TARGET_BLOCKS // tiles)))
+    return BwdPlan(_tiles(n), _tiles(d), _tiles(v), vp,
+                   -(-steps // per_split), per_split * WG_BK)
+
+
+def bwd_design(dtype: torch.dtype) -> str:
+    """The design of ``csrc/fused_xent.cu``'s backward for activations in
+    ``dtype``: one of ``BWD_DESIGNS`` (bf16 ``wgmma``, f32 ``scalar``).
+    Mirrors the source's ``bwd_design``; a ``cuda`` test holds the two
+    together."""
+    return "wgmma" if dtype == torch.bfloat16 else "scalar"
+
+
 def _aligned(t: torch.Tensor) -> bool:
     return t.is_contiguous() and t.data_ptr() % 16 == 0
 
 
 class _Operands:
     """The products' operands on the card.  The tensor-core route copies
-    its bf16 operands with 16-byte ``cp.async`` and wants each row a whole
-    number of 16 bytes: ``w`` in f32, or with a width V that is not a
+    its bf16 operands with 16-byte ``cp.async`` or TMA and wants each row a
+    whole number of 16 bytes: ``w`` in f32, or with a width V that is not a
     multiple of 8, is cast into a bf16 ``[D, round8(V)]`` copy by the pack
     kernel (one pass per call); ``h`` likewise when D is not a multiple of
     8.  The scalar f32 route reads any width and any dtype of ``w``."""
@@ -280,17 +324,22 @@ def _launch_bwd(h2, w, bias, labels, lse, g, chunk):
     v = w.shape[1]
     ops = _Operands(h2, w)
     dev = h2.device
-    splits, split_len = dh_splits(chunk, d, ops.vp)
-    dl = torch.empty(chunk, ops.vp, dtype=h2.dtype, device=dev)
-    dbp = torch.empty(_tiles(chunk) * (n // chunk) * v, dtype=torch.float32,
-                      device=dev)
-    dh_part = torch.empty(splits * chunk * d, dtype=torch.float32,
+    dw_acc = None
+    if ops.tc:  # wgmma: every token at once
+        plan = bwd_plan(n, d, v)
+        splits, split_len, rows = plan.splits, plan.split_len, n
+        dbp_rows = plan.row_tiles
+    else:  # scalar: per chunk; dW sums its chunks in f32 (in dw if f32)
+        splits, split_len = dh_splits(chunk, d, ops.vp)
+        rows, dbp_rows = chunk, _tiles(chunk) * (n // chunk)
+        if w.dtype != torch.float32:
+            dw_acc = torch.empty(d, v, dtype=torch.float32, device=dev)
+    dl = torch.empty(rows, ops.vp, dtype=h2.dtype, device=dev)
+    dbp = torch.empty(dbp_rows * v, dtype=torch.float32, device=dev)
+    dh_part = torch.empty(splits * rows * d, dtype=torch.float32,
                           device=dev)
     dh = torch.empty(n, d, dtype=h2.dtype, device=dev)
     dw = torch.empty(d, v, dtype=w.dtype, device=dev)
-    # dW sums its chunks in f32: into dw itself when w is f32
-    dw_acc = None if w.dtype == torch.float32 else torch.empty(
-        d, v, dtype=torch.float32, device=dev)
     db = torch.empty(v, dtype=torch.float32, device=dev)
     bias_f, labels = _f32(bias), _labels(labels)
     lse, g = lse.contiguous(), _f32(g).reshape(1)
@@ -339,7 +388,17 @@ def fused_xent_bwd(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
     A CUDA tensor goes to ``csrc/fused_xent.cu``, anything else raises; a
     CPU tensor takes the plain version.  ``fused_xent_bwd.launches`` counts
-    calls that launched the kernels."""
+    calls that launched the kernels.
+
+    Workspace on the card, from ``torch.empty`` on the current stream
+    (the call does not synchronise).  bf16 (``wgmma``): ``dl`` ``[tokens,
+    round8(V)]`` bf16 (125 MB at the recipe's 2048 x 30,522), dh's f32
+    partials ``[splits, tokens, D]`` (69 MB there, ``bwd_plan``), db's
+    per-tile sums, and a bf16 copy of W when W is f32 or V is not a
+    multiple of 8 (47 MB); all grow with the token count, and ``chunk``
+    shapes none of it (only dW's f32 summation order differs from the
+    plain version's).  f32 (``scalar``): per chunk, ``dl`` ``[chunk, V]``
+    and dh's partials, plus a ``[D, V]`` f32 sum of dW when W is bf16."""
     _check(h, w, bias, labels, chunk)
     if _on_cpu(h, "fused_xent_bwd"):
         return fused_xent_bwd_reference(h, w, bias, labels, lse, g, chunk)
@@ -398,4 +457,4 @@ def reset_launches() -> None:
 
 __all__ = ["fused_softmax_xent", "fused_xent_fwd", "fused_xent_bwd",
            "fused_xent_reference", "fused_xent_bwd_reference",
-           "KERNEL_LAUNCHES", "reset_launches"]
+           "KERNEL_LAUNCHES", "reset_launches", "bwd_design", "bwd_plan"]

@@ -74,9 +74,10 @@ JSON line:
    share.
 6. ``fused_xent``: the fused softmax cross-entropy kernels
    (``csrc/fused_xent.cu``: forward, and the dl, dh and dW backward passes;
-   bf16 on the tensor cores, f32 on scalar FMAs) against their plain
-   versions (loss, lse, dh, dW, db) at the recipe's head shape (2,048
-   tokens, D 768, V 30,522, chunk 512) and ragged N, D and V, with labels at
+   bf16 on the tensor cores, its backward on ``wgmma``, f32 on scalar
+   FMAs) against their plain versions (loss, lse, dh, dW, db) at the
+   recipe's head shape (2,048 tokens, D 768, V 30,522, chunk 512; W f32,
+   and bf16 too) and ragged N, D and V, with labels at
    0 and V-1, a row of equal logits and logits scaled 1e2; the same input
    twice gives identical bits; then their times at the recipe's shape
    beside the bound, the plain version and ``F.cross_entropy`` over the
@@ -1676,6 +1677,7 @@ def phase_fused_xent(fx) -> dict:
                                             w.element_size(), direction)
             timings.append({
                 "kernel": XENT_KERNEL, "direction": direction, "n": n,
+                "design": fx.bwd_design(dt) if direction == "bwd" else None,
                 "d": d, "v": v, "chunk": MLM_CHUNK,
                 "dtype": str(dt).replace("torch.", ""),
                 "w_dtype": str(w.dtype).replace("torch.", ""),
@@ -2089,22 +2091,31 @@ def main(argv) -> int:
     xent_times = {(x["direction"], x["dtype"]): x
                   for x in xent_kern["timings"]}
     xent_src = "analytics_zoo_tpu/ops/fused_xent.py:50"
+    bwd_designs = {
+        "wgmma": "bf16, wgmma m64n128k16 fed by a TMA ring, two warpgroups "
+                 "a 128 x 128 tile; over every token: dl, dh (split-K, "
+                 "reduced in order) and dW (f32 sum in registers, written "
+                 "once) passes, then db",
+        "scalar": "f32, scalar FMAs; per chunk: dl, dh (split-K) and dW "
+                  "passes, then db"}
     for direction, passes in (("fwd", ("fwd",)), ("bwd", ("dl", "dh", "dw"))):
-        for dtype, sfx, counts, path, design in (
+        for dtype, sfx, counts, path in (
                 ("bfloat16", "bf16", mlm["fused"]["launches"],
-                 "bert_mlm_train bf16 (fused head)",
-                 "bf16, mma.sync tensor cores, cp.async double buffer"),
+                 "bert_mlm_train bf16 (fused head)"),
                 ("float32", "f32", mlm["f32_check"]["launches"],
-                 "bert_mlm_train f32 (fused head)", "f32, scalar FMAs")):
+                 "bert_mlm_train f32 (fused head)")):
             x = xent_times[(direction, dtype)]
+            if direction == "fwd":
+                design = ("bf16, mma.sync tensor cores, cp.async double "
+                          "buffer" if sfx == "bf16" else "f32, scalar FMAs")
+                design += ("; fwd: logit tiles' max / sum-exp / label "
+                           "logit, per-token finalize, mean; logits never "
+                           "written")
+            else:
+                design = f"{x['design']}: {bwd_designs[x['design']]}"
             entry = kernel_entry(
-                XENT_KERNEL, f"{design}; {direction}: "
-                + ("logit tiles' max / sum-exp / label logit, per-token "
-                   "finalize, mean; logits never written"
-                   if direction == "fwd" else
-                   "per chunk: dl, dh (split-K) and dW passes, then db")
-                + "; no atomics", counts[f"{passes[0]}_{sfx}"], path,
-                xent_src, x)
+                XENT_KERNEL, design + "; no atomics",
+                counts[f"{passes[0]}_{sfx}"], path, xent_src, x)
             entry["launches_by_pass"] = {p: counts[f"{p}_{sfx}"]
                                          for p in passes}
             entry["shape"] = {k: x[k] for k in ("n", "d", "v", "chunk",

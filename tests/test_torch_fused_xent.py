@@ -21,6 +21,7 @@ and db (f32 sums of bf16-rounded terms) to 1e-3 of their max (2 bf16 ulps
 where dW comes back in bf16).  The same input twice gives identical bits.
 """
 
+import ctypes
 import importlib
 
 import jax
@@ -241,6 +242,33 @@ def test_dh_split_k_ranges_cover_the_vocabulary(chunk, d, k):
         assert (splits, length) == (11, 2784)
 
 
+@pytest.mark.parametrize("n,d,v", [(2048, 768, 30522), (129, 13, 30),
+                                   (300, 40, 777), (512, 768, 4099),
+                                   (5504, 64, 1000), (1, 1, 1)])
+def test_bwd_plan_covers_every_tile_and_the_vocabulary(n, d, v):
+    """The wgmma backward's grids cover tokens, D and V with whole tiles,
+    and dh's splits cover round8(V) in whole k slices, none empty."""
+    plan = tfx.bwd_plan(n, d, v)
+    for count, tiles in ((n, plan.row_tiles), (d, plan.d_tiles),
+                         (v, plan.v_tiles)):
+        assert (tiles - 1) * tfx.TILE < count <= tiles * tfx.TILE
+    assert plan.vp == -(-v // 8) * 8
+    assert plan.split_len % tfx.WG_BK == 0
+    assert (plan.splits - 1) * plan.split_len < plan.vp \
+        <= plan.splits * plan.split_len
+    blocks = plan.row_tiles * plan.d_tiles * plan.splits
+    assert blocks <= tfx.WG_TARGET_BLOCKS + plan.row_tiles * plan.d_tiles
+    if (n, d, v) == (2048, 768, 30522):  # the recipe's: 4 waves of 264
+        assert (plan.splits, plan.split_len, blocks) == (11, 2816, 1056)
+
+
+@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "wgmma"),
+                                          (torch.float32, "scalar")])
+def test_bwd_design_names_the_backward_by_dtype(dtype, design):
+    assert tfx.bwd_design(dtype) == design
+    assert design in tfx.BWD_DESIGNS
+
+
 # -- on the card --------------------------------------------------------------
 
 def _card_case(gen, n, d, v, dtype, w_dtype, scale=1.0):
@@ -316,3 +344,97 @@ def test_kernels_repeat_bit_for_bit_on_card(dtype):
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     assert all(torch.isfinite(t).all() for t in runs[0])
+
+
+def _bwd_errors(h, w, bias, labels, g, chunk):
+    """The backward of the kernels against the plain version's from the
+    same lse: (dh, dw, db) relative to max |ref|, after checking dtypes
+    and shapes."""
+    _, lse = fused_xent_fwd(h, w, bias, labels, chunk)
+    got = fused_xent_bwd(h, w, bias, labels, lse, g, chunk)
+    ref = fused_xent_bwd_reference(h, w, bias, labels, lse, g, chunk)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.isfinite(a).all()
+    return got, [_rel(a, b) for a, b in zip(got, ref)]
+
+
+# the wgmma design's cases: (n, d, v, chunk, w dtype, g): the recipe's
+# head with f32 and bf16 W; token counts that are no multiple of 64 or 128;
+# D 13 and 40 (h packed, or one 64-wide box part empty); V 30 and 4,099
+WGMMA_CASES = [(2048, 768, 30522, 512, "float32", 1.0),
+               (2048, 768, 30522, 512, "bfloat16", 1.0),
+               (300, 40, 777, 100, "float32", 1.0),
+               (129, 13, 30, 43, "bfloat16", 0.37),
+               (200, 96, 4099, 8, "float32", 2.5),
+               (512, 768, 4099, 256, "bfloat16", 1.0),
+               (1000, 13, 30, 1000, "float32", 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,v,chunk,w_dtype,g", WGMMA_CASES)
+def test_wgmma_backward_matches_the_plain_version_on_card(n, d, v, chunk,
+                                                          w_dtype, g):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert tfx.bwd_design(torch.bfloat16) == "wgmma"
+    gen = torch.Generator(device="cuda").manual_seed(n + d + v)
+    h, w, bias, labels = _card_case(gen, n, d, v, torch.bfloat16,
+                                    getattr(torch, w_dtype))
+    before = dict(tfx.KERNEL_LAUNCHES)
+    _, (e_dh, e_dw, e_db) = _bwd_errors(
+        h, w, bias, labels, torch.tensor(g, device="cuda"), chunk)
+    for p in ("dl", "dh", "dw"):
+        assert tfx.KERNEL_LAUNCHES[f"{p}_bf16"] == before[f"{p}_bf16"] + 1
+    assert e_dh <= 2 * BF16_ULP
+    assert e_dw <= (1e-3 if w_dtype == "float32" else 2 * BF16_ULP)
+    assert e_db <= 1e-3
+
+
+@pytest.mark.cuda
+def test_wgmma_backward_is_the_same_for_every_chunk_on_card():
+    """``chunk`` shapes the plain version, not the kernels' schedule: 43,
+    128 and every token give identical bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    n = 43 * 128
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    h, w, bias, labels = _card_case(gen, n, 64, 1000, torch.bfloat16,
+                                    torch.float32)
+    g = torch.tensor(1.0, device="cuda")
+    _, lse = fused_xent_fwd(h, w, bias, labels, n)
+    runs = [fused_xent_bwd(h, w, bias, labels, lse, g, chunk)
+            for chunk in (43, 128, n)]
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    _, errs = _bwd_errors(h, w, bias, labels, g, 43)
+    assert errs[0] <= 2 * BF16_ULP and max(errs[1:]) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_wgmma_backward_repeats_bit_for_bit_at_the_recipe_on_card(w_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    h, w, bias, labels = _card_case(gen, 2048, 768, 30522, torch.bfloat16,
+                                    getattr(torch, w_dtype), scale=10.0)
+    g = torch.tensor(1.0, device="cuda")
+    _, lse = fused_xent_fwd(h, w, bias, labels, 512)
+    first = fused_xent_bwd(h, w, bias, labels, lse, g, 512)
+    again = fused_xent_bwd(h, w, bias, labels, lse, g, 512)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_design_mirrors_the_source_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from analytics_zoo_tpu_torch.ops import _build
+    fn = _build.load(tfx.SOURCE).fused_xent_bwd_design
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    dt = getattr(torch, dtype)
+    assert tfx.BWD_DESIGNS[fn(int(dt == torch.bfloat16))] == \
+        tfx.bwd_design(dt)
