@@ -9,9 +9,12 @@ per-channel shift (``_normalize``); the backward takes ``s1 = Σdy`` and
 ``s2 = Σdy·x̂`` in f32 and one element pass for dx that includes the
 ``dmean``/``dvar`` cotangent terms.  Here, for a tensor on the card:
 
-- ``bn_train_fwd`` launches ``csrc/fused_bn.cu``'s forward (stats pass,
-  finalize, normalize pass);
-- ``bn_train_bwd`` launches its backward (reduce pass, finalize, dx pass);
+- ``bn_train_fwd`` launches ``csrc/fused_bn.cu``'s forward kernel (one
+  persistent cooperative launch: shifted sums, a grid-wide barrier, the
+  per-channel scalars and y, with as much of the map as fits kept in
+  shared memory between the two);
+- ``bn_train_bwd`` launches its backward kernel (the same shape: s1 and
+  s2, the barrier, dgamma, dbeta and dx);
 - ``bn_train`` ties them together in a ``torch.autograd.Function`` that
   returns ``(y, mean, var)`` and saves ``(x, gamma, mean, var)``, as the
   ``custom_vjp`` does.
@@ -27,27 +30,79 @@ the kernels are held against on the card; the port's layers never call it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 SOURCE = "fused_bn"  # csrc/<source>.cu
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-PASSES = ("stats", "normalize", "reduce", "dx")
-# launches of each pass by dtype ("stats_bf16", ...): the forward entry
-# launches the stats and normalize passes, the backward entry the reduce
-# and dx passes; bn_train_fwd.launches and bn_train_bwd.launches count the
-# entries' calls
+PASSES = ("fwd", "bwd")
+# launches of each kernel by dtype ("fwd_bf16", ...): each entry call
+# launches its direction's kernel once; bn_train_fwd.launches and
+# bn_train_bwd.launches count the entries' calls
 KERNEL_LAUNCHES = {f"{p}_{s}": 0 for s in _SUFFIX.values() for p in PASSES}
 _count_lock = threading.Lock()
-# the grid: enough (channel tile x row split) blocks to fill 132 SMs at 8
-# blocks of 256 threads each, and at least 4 rows per thread
-TARGET_BLOCKS = 132 * 8
+# the launch (as csrc/fused_bn.cu derives it): blocks of 512 threads, one
+# an SM, over tiles of up to 512 channel vectors (whole rows of every
+# ResNet-50 map); at least 4 rows a thread;
+# up to 200 KB of each block's rows kept in shared memory between the
+# kernel's two phases (the card allows 227 KB a block, the kernel's
+# reduction buffer takes 16 KB of it)
+THREADS = 512
 MIN_ROWS_PER_THREAD = 4
-MAX_SPLITS = 65535
-_THREADS, _MAX_TX = 256, 32
+RESIDENT_BYTES = 200 * 1024
+SMEM_PER_BLOCK = 232_448
+
+
+class Plan(NamedTuple):
+    """One launch over ``[rows, c]``: blocks of ``tx`` x ``ty`` threads
+    (channel vectors x row groups) over ``ctiles`` channel tiles, each
+    tile's rows split among ``blocks`` as evenly as the counts allow (at
+    most ``splits`` a tile); each block keeps ``keep`` of its at most
+    ``rows_per_block`` rows in ``smem_bytes`` of shared memory; the
+    workspace is ``work_floats`` f32 (two [c] outputs, the partials, four
+    [c] per-channel scalars, the barrier's counter)."""
+    tx: int
+    ty: int
+    ctiles: int
+    blocks: int
+    splits: int
+    rows_per_block: int
+    keep: int
+    smem_bytes: int
+    work_floats: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(rows: int, c: int, itemsize: int, vec: bool, direction: str,
+         sm_count: int) -> Plan:
+    """The launch of ``direction``'s kernel ("fwd" keeps x on chip, "bwd"
+    dy and x) over ``[rows, c]`` on a card of ``sm_count`` SMs."""
+    v = 16 // itemsize if vec else 1
+    nvec = c // v
+    tx = min(nvec, THREADS)
+    ty = THREADS // tx
+    ctiles = -(-nvec // tx)
+    per_tile = max(1, min(-(-sm_count // ctiles),
+                          -(-rows // (ty * MIN_ROWS_PER_THREAD))))
+    blocks = min(sm_count, ctiles * per_tile)
+    # more tiles than blocks: a block takes several, none kept on chip
+    units = max(blocks, ctiles)
+    rows_per_block = -(-rows // (units // ctiles))
+    row_bytes = tx * v * itemsize * (1 if direction == "fwd" else 2)
+    keep = (min(rows_per_block, RESIDENT_BYTES // row_bytes)
+            if vec and units == blocks else 0)
+    splits = -(-units // ctiles)
+    return Plan(tx, ty, ctiles, blocks, splits, rows_per_block, keep,
+                keep * row_bytes, 6 * c + 2 * splits * c + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -130,19 +185,6 @@ def _check(x: torch.Tensor, *per_channel: torch.Tensor) -> None:
                              f"{tuple(t.shape)}")
 
 
-def grid(rows: int, c: int, itemsize: int, vec: bool) -> Tuple[int, int, int]:
-    """(threads across channel vectors, row groups, row splits) of the
-    kernels' grid over ``[rows, c]`` (the CUDA source derives the first two
-    the same way)."""
-    nvec = c // (16 // itemsize) if vec else c
-    tx = min(nvec, _MAX_TX)
-    ty = _THREADS // tx
-    ctiles = -(-nvec // tx)
-    splits = min(-(-TARGET_BLOCKS // ctiles),
-                 -(-rows // (ty * MIN_ROWS_PER_THREAD)), MAX_SPLITS)
-    return tx, ty, max(1, splits)
-
-
 def _vectorized(c: int, itemsize: int, *maps: torch.Tensor) -> bool:
     """16-byte vectors of channels: C a whole number of them and every map
     16-byte aligned (a view at an odd offset takes the scalar path)."""
@@ -151,24 +193,36 @@ def _vectorized(c: int, itemsize: int, *maps: torch.Tensor) -> bool:
 
 
 _ENTRY_ARGS = {
-    # pointers, then rows (long long), C, splits, vec (int), eps, stream
-    "fwd": 7,
-    "bwd": 11,
+    # pointers, then rows (long long), C, blocks, keep, vec (int), eps, stream
+    "fwd": 5,
+    "bwd": 9,
 }
+_entries: dict = {}
 
 
 def _entry(direction: str, dtype: torch.dtype):
     """The C entry point ``fused_bn_<direction>_<dtype>`` (built at first
     use) and its library, with its argument types set."""
-    from . import _build
-    lib = _build.load(SOURCE)
-    fn = getattr(lib, f"fused_bn_{direction}_{_SUFFIX[dtype]}")
-    if fn.argtypes is None:  # ints would cut 64-bit pointers
+    key = (direction, dtype)
+    if key not in _entries:
+        from . import _build
+        lib = _build.load(SOURCE)
+        fn = getattr(lib, f"fused_bn_{direction}_{_SUFFIX[dtype]}")
         fn.argtypes = [ctypes.c_void_p] * _ENTRY_ARGS[direction] + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib, fn
+            ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int  # ints would cut 64-bit pointers
+        _entries[key] = lib, fn
+    return _entries[key]
+
+
+def _on_stream(device: torch.device, call):
+    """``call(stream)`` on ``device``'s current stream, with ``device``
+    made current for the launch where it is not."""
+    if device.index == torch.cuda.current_device():
+        return call(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return call(torch.cuda.current_stream().cuda_stream)
 
 
 def _raise_on_error(lib, entry: str, err: int) -> None:
@@ -204,22 +258,17 @@ def _launch_fwd(x, gamma, beta, eps):
     c, rows = x.shape[-1], _rows(x)
     y = torch.empty_like(x)
     vec = _vectorized(c, x.element_size(), x, y)
-    _, _, splits = grid(rows, c, x.element_size(), vec)
-    mean = torch.empty(c, dtype=torch.float32, device=x.device)
-    var = torch.empty_like(mean)
-    work = torch.empty((2 * splits + 4) * c, dtype=torch.float32,
-                       device=x.device)
+    p = plan(rows, c, x.element_size(), vec, "fwd", _sm_count(x.device.index))
+    work = torch.empty(p.work_floats, dtype=torch.float32, device=x.device)
     gamma, beta = _f32(gamma), _f32(beta)
     lib, fn = _entry("fwd", x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                 gamma.data_ptr(), beta.data_ptr(), work.data_ptr(), rows, c,
-                 splits, int(vec), float(eps), stream)
+    err = _on_stream(x.device, lambda stream: fn(
+        x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        work.data_ptr(), rows, c, p.blocks, p.keep, int(vec), float(eps),
+        stream))
     _raise_on_error(lib, "fused_bn forward", err)
-    sfx = _SUFFIX[x.dtype]
-    _count(bn_train_fwd, f"stats_{sfx}", f"normalize_{sfx}")
-    return y, mean, var
+    _count(bn_train_fwd, f"fwd_{_SUFFIX[x.dtype]}")
+    return y, work[:c], work[c:2 * c]
 
 
 def _launch_bwd(x, gamma, mean, var, dy, dmean, dvar, eps):
@@ -230,25 +279,19 @@ def _launch_bwd(x, gamma, mean, var, dy, dmean, dvar, eps):
     c, rows = x.shape[-1], _rows(x)
     dx = torch.empty_like(x)
     vec = _vectorized(c, x.element_size(), x, dy, dx)
-    _, _, splits = grid(rows, c, x.element_size(), vec)
-    dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
-    dbeta = torch.empty_like(dgamma)
-    work = torch.empty((2 * splits + 4) * c, dtype=torch.float32,
-                       device=x.device)
+    p = plan(rows, c, x.element_size(), vec, "bwd", _sm_count(x.device.index))
+    work = torch.empty(p.work_floats, dtype=torch.float32, device=x.device)
     gamma, mean, var, dmean, dvar = (_f32(t) for t in
                                      (gamma, mean, var, dmean, dvar))
     lib, fn = _entry("bwd", x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(dy.data_ptr(), x.data_ptr(), gamma.data_ptr(),
-                 mean.data_ptr(), var.data_ptr(), dmean.data_ptr(),
-                 dvar.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
-                 dbeta.data_ptr(), work.data_ptr(), rows, c, splits,
-                 int(vec), float(eps), stream)
+    err = _on_stream(x.device, lambda stream: fn(
+        dy.data_ptr(), x.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+        var.data_ptr(), dmean.data_ptr(), dvar.data_ptr(), dx.data_ptr(),
+        work.data_ptr(), rows, c, p.blocks, p.keep, int(vec), float(eps),
+        stream))
     _raise_on_error(lib, "fused_bn backward", err)
-    sfx = _SUFFIX[x.dtype]
-    _count(bn_train_bwd, f"reduce_{sfx}", f"dx_{sfx}")
-    return dx, dgamma, dbeta
+    _count(bn_train_bwd, f"bwd_{_SUFFIX[x.dtype]}")
+    return dx, work[:c], work[c:2 * c]
 
 
 def bn_train_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -259,7 +302,7 @@ def bn_train_fwd(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     A CUDA tensor goes to ``csrc/fused_bn.cu`` (f32 or bf16, any shape
     ``[..., C]``), anything else raises; a CPU tensor takes the plain
     version.  ``bn_train_fwd.launches`` counts calls that launched the
-    kernels, ``KERNEL_LAUNCHES`` each pass's launches."""
+    kernel, ``KERNEL_LAUNCHES`` each kernel's launches by dtype."""
     _check(x, gamma, beta)
     if _on_cpu(x, "bn_train_fwd"):
         return bn_train_fwd_reference(x, gamma, beta, eps)
@@ -278,7 +321,7 @@ def bn_train_bwd(x: torch.Tensor, gamma: torch.Tensor, mean: torch.Tensor,
 
     A CUDA tensor goes to ``csrc/fused_bn.cu``, anything else raises; a
     CPU tensor takes the plain version.  ``bn_train_bwd.launches`` counts
-    calls that launched the kernels."""
+    calls that launched the kernel."""
     _check(x, gamma, mean, var, dmean, dvar)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} does not match x "
@@ -341,4 +384,4 @@ def reset_launches() -> None:
 
 __all__ = ["bn_train", "bn_train_plain", "bn_train_fwd", "bn_train_bwd",
            "bn_train_fwd_reference", "bn_train_bwd_reference",
-           "KERNEL_LAUNCHES", "reset_launches"]
+           "KERNEL_LAUNCHES", "Plan", "plan", "reset_launches"]

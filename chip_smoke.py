@@ -27,13 +27,15 @@ JSON line:
    backward alone: a yardstick only, the port never calls it), each as
    CUDA-event time per call (``ms``) and as the card's kernel time from
    ``torch.profiler`` (``device_ms``).
-2. ``fused_bn``: the fused batch-norm kernels (``csrc/fused_bn.cu``, f32
-   and bf16, forward and backward with non-zero mean/var cotangents)
+2. ``fused_bn``: the fused batch-norm kernels (``csrc/fused_bn.cu``, one
+   persistent cooperative launch a direction, f32 and bf16, forward and
+   backward with non-zero mean/var cotangents)
    against their plain versions at every distinct shape of ResNet-50's 53
    batch norms at batch 128, at C 3, 6, 7, 1000 and 8, with ragged rows, a
    channel whose mean is 1e3 times its std, and a misaligned view; the
    same input twice gives identical bits; then their times at the stem's
-   and the last stage's shapes beside the bound, the plain version and
+   shape, the one 11 of the 53 norms see (25,088 x 256) and the last
+   stage's beside the bound, the plain version and
    ``F.batch_norm(training=True)`` on the same channels_last map.
 3. ``bert_serve``: BERT-base (``BERTClassifier``, width 768, 12 layers, 12
    heads, seq 512, ``use_flash=True``) with random weights made from a seed
@@ -66,8 +68,9 @@ JSON line:
    running statistics and the losses of a 3-step ``fit`` against each
    other.  (b) ``norm="batch"``, bf16, global batch 128, 20 steps over 256
    seeded images: the loss must fall, every step must launch each of the
-   four batch-norm passes 53 times and no f32 pass, and two deterministic
-   fits with the same seed must give identical step losses; images/s,
+   two batch-norm kernels (forward, backward) 53 times and no f32 one,
+   and two deterministic fits with the same seed must give identical
+   step losses; images/s,
    model TFLOP/s and one profiled step's idle share and batch norm's share
    of the card's time; then ``evaluate`` and ``predict`` (the eval batch
    norm).  (c) ``norm="nf"`` (no batch norm, no launch): images/s and idle
@@ -1145,27 +1148,30 @@ def model_flops_per_image(model: torch.nn.Module, x: torch.Tensor) -> float:
     return total[0] / x.shape[0]
 
 
-def resnet_bn_shapes(batch: int) -> list:
+def resnet_bn_maps(batch: int, device: str = "cuda") -> dict:
     """Every distinct (rows, C) the 53 batch norms of ResNet-50 see at
-    ``batch`` 224 x 224 images, in the order of the forward."""
+    ``batch`` 224 x 224 images, in the order of the forward, with how many
+    norms see it (one image through the model on ``device``)."""
     from analytics_zoo_tpu_torch.nn import BatchNormalization
-    model = TrainNet().cuda()
-    shapes = []
+    model = TrainNet().to(device)
+    maps: dict = {}
 
     def hook(_m, inp, _out):
         *lead, c = inp[0].shape
-        shapes.append((batch * math.prod(lead[1:]), c))
+        key = (batch * math.prod(lead[1:]), c)
+        maps[key] = maps.get(key, 0) + 1
 
     hooks = [m.register_forward_hook(hook) for m in model.modules()
              if isinstance(m, BatchNormalization)]
     with torch.no_grad():
         model.eval()(torch.zeros(1, IMAGE, IMAGE, 3, dtype=torch.uint8,
-                                 device="cuda"))
+                                 device=device))
     for h in hooks:
         h.remove()
-    if len(shapes) != RESNET_BN:
-        raise AssertionError(f"ResNet-50 ran {len(shapes)} batch norms")
-    return list(dict.fromkeys(shapes))
+    if sum(maps.values()) != RESNET_BN:
+        raise AssertionError(f"ResNet-50 ran {sum(maps.values())} batch "
+                             f"norms")
+    return maps
 
 
 def bn_inputs(gen, rows, c, dtype, offset=0):
@@ -1199,8 +1205,8 @@ def phase_fused_bn(bn) -> dict:
     """The fused batch-norm kernels against their plain versions at every
     ResNet-50 shape (batch 128) and the edge cases, forward (y, mean, var)
     and backward (dx, dgamma, dbeta, with non-zero dmean/dvar), both
-    dtypes; bit-for-bit repeats; then times at the stem's and the last
-    stage's shapes."""
+    dtypes; bit-for-bit repeats; then times at the stem's shape, the one
+    the most norms see and the last stage's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = {"f32": 0.0, "bf16_rel": 0.0, "stats": 0.0}
     eps = 1e-3
@@ -1238,7 +1244,8 @@ def phase_fused_bn(bn) -> dict:
                     f"{tuple(x.shape)} {x.dtype}: {name} err {e} of {top}")
         return (y, m, v, dx, dg, db), err
 
-    shapes = resnet_bn_shapes(RESNET_BATCH)
+    counts = resnet_bn_maps(RESNET_BATCH)
+    shapes = list(counts)
     dtypes = (torch.float32, torch.bfloat16)
     cases = [(rows, c, dt, 0) for rows, c in shapes + BN_EDGE
              for dt in dtypes]
@@ -1256,7 +1263,9 @@ def phase_fused_bn(bn) -> dict:
     timings = []
     last_stage = max((s for s in shapes if s[0] == shapes[-1][0]),
                      key=lambda s: s[1])
-    for label, (rows, c) in (("stem", shapes[0]), ("stage3", last_stage)):
+    most_norms = max(counts, key=counts.get)  # 25,088 x 256: 11 of 53
+    for label, (rows, c) in (("stem", shapes[0]), ("most_norms", most_norms),
+                             ("stage3", last_stage)):
         for dt in dtypes:
             x, g, b, dy, dm, dv = bn_inputs(gen, rows, c, dt)
             _, err = check(x, g, b, dy, dm, dv)
@@ -1310,7 +1319,9 @@ def phase_fused_bn(bn) -> dict:
                     "device_share_of_bound": bound_ms / dev_ms})
             del lib_in, lib_out, x, dy, x4, dy4, y
     res = {"phase": "fused_bn", "cases": len(cases),
-           "resnet50_shapes_batch128": shapes, "edge_shapes": BN_EDGE,
+           "resnet50_shapes_batch128": shapes,
+           "resnet50_norms_by_shape": [[*k, n] for k, n in counts.items()],
+           "edge_shapes": BN_EDGE,
            "worst": worst,
            "tolerances": {"f32_rel_to_max1": TOL_BN_F32,
                           "bf16_rel_to_max": TOL_BN_BF16_REL,
@@ -1475,7 +1486,7 @@ def phase_resnet_train(bn) -> dict:
             est.device, 0))
         flops = model_flops_per_image(est.model, batch["x"][:1])
         profiled = profile_call(lambda: inner(batch), {
-            "batch_norm": ("bn_stats", "bn_normalize", "bn_bwd_")})
+            "batch_norm": ("bn_fwd_kernel", "bn_bwd_kernel")})
         # the profiler slows the host, so beside its own idle share the
         # card's busy time is also set against the unprofiled step p50
         profiled["idle_share_of_p50_step"] = 1.0 - \
@@ -2062,8 +2073,7 @@ def main(argv) -> int:
     # run of that dtype (bf16: resnet_train (b); f32: (a)'s fit)
     bn_times = {(x["direction"], x["dtype"], x["shape"]): x
                 for x in bn_kern["timings"]}
-    for direction, passes in (("fwd", ("stats", "normalize")),
-                              ("bwd", ("reduce", "dx"))):
+    for direction, passes in (("fwd", ("fwd",)), ("bwd", ("bwd",))):
         for dtype, sfx, counts, path in (
                 ("bfloat16", "bf16", resnet["batch"]["launches"],
                  "resnet_train bf16"),
@@ -2071,19 +2081,24 @@ def main(argv) -> int:
                  "resnet_train f32")):
             x = bn_times[(direction, dtype, "stem")]
             entry = kernel_entry(
-                BN_KERNEL, f"{dtype}, {direction}: "
-                f"{' and '.join(passes)} passes over [rows, C] "
-                "(16-byte channel vectors x row splits), f32 finalize, no "
-                "atomics", counts[f"{passes[0]}_{sfx}"], path, bn_src, x)
+                BN_KERNEL, f"{dtype}, {direction}: one persistent "
+                "cooperative launch, a 512-thread block an SM over "
+                "(16-byte channel vectors x row ranges): f32 partials, one "
+                "grid barrier, each block's own finalize, then the output; "
+                "up to 200 KB of each block's rows kept in shared memory "
+                "(cp.async.bulk) between the phases, the rest re-read in "
+                "reverse; no atomics", counts[f"{passes[0]}_{sfx}"], path,
+                bn_src, x)
             entry["launches_by_pass"] = {p: counts[f"{p}_{sfx}"]
                                          for p in passes}
             entry["shape"] = {"rows": x["rows"], "c": x["c"],
                               "dtype": dtype}
-            y = bn_times[(direction, dtype, "stage3")]
-            entry["at_stage3"] = {k: y[k] for k in (
-                "rows", "c", "ms", "plain_ms", "library_ms", "device_ms",
-                "plain_device_ms", "library_device_ms", "bound_ms",
-                "max_abs_err")}
+            for label in ("most_norms", "stage3"):
+                y = bn_times[(direction, dtype, label)]
+                entry[f"at_{label}"] = {k: y[k] for k in (
+                    "rows", "c", "ms", "plain_ms", "library_ms",
+                    "device_ms", "plain_device_ms", "library_device_ms",
+                    "bound_ms", "max_abs_err")}
             entries.append(entry)
     # fused softmax cross-entropy: one entry per direction and activation
     # dtype, timed at the recipe's head shape, launches of the main path

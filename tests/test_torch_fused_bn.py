@@ -202,18 +202,73 @@ def test_wrapper_raises_on_other_devices_and_bad_shapes():
     (1_605_632, 64, 2, True), (6_272, 2048, 2, True), (392, 1000, 4, True),
     (8, 3, 4, False), (1, 7, 2, False), (100_000, 6, 2, False)])
 def test_grid_fills_the_card_within_its_limits(rows, c, itemsize, vec):
-    """ResNet-50's stem and last-stage maps, the edge widths: at most one
-    wave of blocks, at least one split, at least 4 rows a thread where
-    there are rows enough, never more than 256 threads a block."""
-    tx, ty, splits = fused_bn.grid(rows, c, itemsize, vec)
-    nvec = c // (16 // itemsize) if vec else c
-    ctiles = -(-nvec // tx)
-    assert 1 <= tx <= 32 and tx * ty <= 256
-    assert 1 <= splits <= fused_bn.MAX_SPLITS
-    assert ctiles * splits <= max(fused_bn.TARGET_BLOCKS, ctiles)
-    assert splits == 1 or -(-rows // splits) >= ty * 4 * 0.5
-    if rows >= 1_000_000 or c >= 2048:
-        assert ctiles * splits >= 132  # every SM has a block
+    """ResNet-50's stem and last-stage maps, the edge widths: one block an
+    SM at most (the cooperative launch's limit), every SM a block where
+    there are rows enough, at least 4 rows a thread otherwise, never more
+    than 512 threads a block, the rows kept on chip within the block's
+    shared memory, and a workspace of [2 C] outputs, the [splits, 2, C]
+    partials, [4 C] per-channel scalars and the barrier's word, in both
+    directions."""
+    for direction in ("fwd", "bwd"):
+        p = fused_bn.plan(rows, c, itemsize, vec, direction, 132)
+        nvec = c // (16 // itemsize) if vec else c
+        assert 1 <= p.tx <= 512 and p.tx * p.ty <= 512
+        assert p.ctiles == -(-nvec // p.tx)
+        assert 1 <= p.blocks <= 132
+        units = max(p.blocks, p.ctiles)
+        assert p.splits == -(-units // p.ctiles)
+        assert p.rows_per_block == -(-rows // (units // p.ctiles))
+        if rows >= 1_000_000 or c >= 2048:
+            assert p.blocks == 132  # every SM has a block
+        else:
+            assert p.blocks == 1 or p.rows_per_block >= p.ty * 4 * 0.5
+        maps = 1 if direction == "fwd" else 2
+        assert p.smem_bytes == p.keep * p.tx * (16 if vec else itemsize) \
+            * maps
+        assert p.smem_bytes <= fused_bn.RESIDENT_BYTES
+        assert p.keep <= p.rows_per_block
+        assert (p.keep > 0) == vec  # the scalar path streams every row
+        assert p.work_floats == 6 * c + 2 * p.splits * c + 1
+
+
+# ResNet-50's 12 distinct batch-norm maps at batch 128 (224 x 224 images,
+# the space-to-depth stem) with how many of its 53 norms see each: the
+# shapes chip_smoke.py times and dev/torch_bn_parts.py sums over
+RESNET50_MAPS = {
+    (1_605_632, 64): 1, (401_408, 64): 6, (401_408, 256): 4,
+    (401_408, 128): 1, (100_352, 128): 7, (100_352, 512): 5,
+    (100_352, 256): 1, (25_088, 256): 11, (25_088, 1024): 7,
+    (25_088, 512): 1, (6_272, 512): 5, (6_272, 2048): 4}
+
+
+def test_resnet50_maps_are_the_models_own():
+    """The table above is what the port's ResNet-50 gives its batch norms
+    (chip_smoke.resnet_bn_maps, on the CPU at one image)."""
+    import chip_smoke
+    assert chip_smoke.resnet_bn_maps(128, device="cpu") == RESNET50_MAPS
+    assert sum(RESNET50_MAPS.values()) == chip_smoke.RESNET_BN
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("rows,c", list(RESNET50_MAPS))
+def test_plan_keeps_the_resnet50_maps_on_chip(rows, c, direction):
+    """bf16 on 132 SMs: a map of at most 25.7 MB is read from device memory
+    once in the forward (every block keeps all its rows), one of at most
+    12.85 MB in the backward (dy and x both kept); of a larger map (the
+    205 MB stem's among them) each block keeps a part and streams the
+    rest; always within the 227 KB a block may have."""
+    p = fused_bn.plan(rows, c, 2, True, direction, 132)
+    mb = rows * c * 2 / 1e6
+    whole = mb <= (25.7 if direction == "fwd" else 12.85)
+    assert p.blocks == 132
+    assert (p.keep == p.rows_per_block) == whole
+    assert 0 < p.keep <= p.rows_per_block
+    static = 512 * 8 * 4 + 64  # the reduction buffer and the mbarriers
+    assert p.ctiles == 1  # whole rows: one bulk copy a piece
+    assert p.smem_bytes + static <= fused_bn.SMEM_PER_BLOCK
+    if not whole:  # as many rows as fit in the budget
+        maps = 1 if direction == "fwd" else 2
+        assert p.smem_bytes + p.tx * 16 * maps > fused_bn.RESIDENT_BYTES
 
 
 def _jax_layer(x, variables, training, axis=-1):
@@ -274,11 +329,13 @@ def test_batchnorm_training_updates_buffers_with_keras_momentum():
 
 # every distinct (rows, C) of ResNet-50's 53 batch norms at batch 2 (224 x
 # 224: the card-test batch; chip_smoke.py runs batch 128), the edge widths,
-# rows that fill no block evenly
+# rows that fill no block evenly, channels in more tiles than the card has
+# SMs (each block takes several, streaming every row)
 CARD_SHAPES = [(2 * 112 * 112, 64), (2 * 56 * 56, 64), (2 * 56 * 56, 256),
                (2 * 28 * 28, 128), (2 * 28 * 28, 512), (2 * 14 * 14, 256),
                (2 * 14 * 14, 1024), (2 * 7 * 7, 512), (2 * 7 * 7, 2048),
-               (5, 3), (1001, 6), (333, 7), (77, 1000), (1, 8), (257, 1000)]
+               (5, 3), (1001, 6), (333, 7), (77, 1000), (1, 8), (257, 1000),
+               (40, 4500), (9, 40_000)]  # more channel tiles than SMs
 
 
 def _card_inputs(seed, rows, c, dtype, offset=0):
@@ -342,3 +399,58 @@ def test_kernels_take_a_misaligned_view_and_repeat_bits(dtype):
     again = _card_check(*inputs)  # no atomics: identical bits
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c,whole", [(401_408, 64, False),
+                                          (6_272, 512, True)])
+def test_kernels_keep_or_stream_the_map_and_repeat_bits(rows, c, whole,
+                                                        dtype):
+    """A map larger than the blocks' shared memory together (51 MB in bf16,
+    ResNet-50's stage 1 at batch 32: part kept, the rest re-read) and one
+    smaller (every row kept in both directions), against the plain
+    versions, twice with identical bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sms = fused_bn._sm_count(torch.cuda.current_device())
+    for direction in ("fwd", "bwd"):
+        p = fused_bn.plan(rows, c, dtype.itemsize, True, direction, sms)
+        assert (p.keep == p.rows_per_block) == whole and p.keep > 0
+    inputs = _card_inputs(rows ^ c, rows, c, dtype)
+    first = _card_check(*inputs)
+    again = _card_check(*inputs)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_replay_in_a_cuda_graph(dtype):
+    """Both directions captured in one ``torch.cuda.CUDAGraph`` (the
+    cooperative launches and the barrier word's reset on the stream) and
+    replayed three times give the eager call's bits each time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, g, b, dy, dm, dv = _card_inputs(21, 25_088, 256, dtype)
+
+    def both():
+        y, m, v = fused_bn.bn_train_fwd(x, g, b, EPS)
+        return (y, m, v, *fused_bn.bn_train_bwd(x, g, m, v, dy, dm, dv, EPS))
+
+    eager = [t.clone() for t in both()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = both()
+    for _ in range(3):
+        for t in captured:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, want in zip(captured, eager):
+            assert torch.equal(a, want)
