@@ -30,7 +30,7 @@
 //   3. dQ: one block per (q tile, bh), looping over key tiles (under
 //      `causal`, up to the diagonal): Q and dO staged once, K and V per
 //      tile, dQ in registers.
-// Four designs share that structure (`design` below picks one):
+// Five designs share that structure (`design` below picks one):
 //   * bf16 with head widths 33-64 (d a multiple of 8; the wrapper pads
 //     others), BERT's path: wgmma fed by TMA (hopper.cuh).  A block is one
 //     warpgroup owning 64 keys (dK/dV) or 64 q rows (dQ), which streams
@@ -56,7 +56,18 @@
 //     bf16 in place, are the A operand of the second products, whose B
 //     operands come by ldmatrix.trans (layouts in warp_mma.cuh).  The
 //     streamed tiles are double-buffered by cp.async 16-byte copies.
-//   * f32, and bf16 wider than 64, up to 256: scalar f32 FMAs from shared
+//   * f32 with head widths up to 64 (BERT's f32 path): wgmma in 3xTF32,
+//     each f32 product three tf32 products of big and small parts, which
+//     keeps about f32's accuracy at the tensor cores' tf32 rate (495
+//     TFLOP/s dense against 67 for f32 FMAs: the bound at BERT-base
+//     training, 3 x 10 BH T^2 d FLOP, is 0.39 ms against the FMAs' 0.96).
+//     wgmma takes tf32 from shared memory only K-major, so a split pass
+//     first writes every operand's parts in the layouts the products read
+//     (q, k, v, dO as they are; q, dO, k transposed); the passes then run
+//     as the bf16 design's, with 32-row streamed tiles and one block an SM
+//     (the parts of a block's tiles fill 160-192 KB).  Section "f32 on the
+//     tensor cores" below.
+//   * f32 and bf16 wider than 64, up to 256: scalar f32 FMAs from shared
 //     memory (tiles transposed, f32), 256 threads in a 16 x 16 grid: in
 //     dK/dV thread (ty, tx) owns keys ty*KR.. of S^T and dP^T and columns
 //     tx + 16 j of dK and dV; dQ mirrors the forward's f32 kernel, with dS
@@ -70,7 +81,9 @@
 // blocks, and an overlap of softmax and products inside a block (one
 // tile's dV/dK products in flight with the next tile's S/dP: ptxas
 // serialised that form, C7515; or FlashAttention-3's ping-pong of two
-// warpgroups); tensor cores for bf16 heads wider than 64.
+// warpgroups); tensor cores for heads wider than 64; in the 3xTF32
+// design, splitting in shared memory after the TMA load instead of the
+// split pass's extra traffic, and more than one block an SM.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -1349,12 +1362,473 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
+// f32 on the tensor cores by wgmma in 3xTF32, head widths up to 64
+// ---------------------------------------------------------------------------
+//
+// The bf16 design's three passes with f32 operands: every product is three
+// tf32 products (hopper.cuh: big and small parts, small terms first, f32
+// sums).  wgmma reads tf32 from shared memory only K-major, so a split pass
+// writes each operand's parts once, in the layouts the products read:
+// q, k, v and dO as they are ([BH, T, 64]: the K-major A and B of S^T =
+// K Q^T, dP^T = V dO^T, S = Q K^T and dP = dO V^T), and q, dO and k
+// transposed ([BH, 64, T]: the B of dK += dS^T Q, dV += P^T dO and dQ +=
+// dS K, whose depth is T), T in the order hopper.cuh gives within each
+// group of 8 so that P and dS pass from their accumulators to register A
+// fragments without a shuffle.  P and dS are split in registers.  A block
+// is one warpgroup (64 keys, or 64 q rows) holding its own tiles' parts
+// (64 KB) and streaming 32-row tiles of the other side through a 2-stage
+// TMA ring; the shared memory (192 KB in dK/dV, 160 KB in dQ) allows one
+// block an SM.
+
+constexpr int kTfHeld = 64;   // keys (dK/dV) or q rows (dQ) of a block
+constexpr int kTfRows = 32;   // rows of a streamed tile
+constexpr int kTfStages = 2;
+constexpr uint32_t kTfHeldAtom = kTfHeld * 128;   // 64 rows x 32 f32: 8 KB
+constexpr uint32_t kTfHeldPart = 2 * kTfHeldAtom; // 64 rows x d 0-63
+constexpr uint32_t kTfRowAtom = kTfRows * 128;    // 32 rows x 32 f32: 4 KB
+constexpr uint32_t kTfRowPart = 2 * kTfRowAtom;   // 32 rows x d 0-63
+constexpr uint32_t kTfColPart = kTfHeld * 128;    // d 0-63 x 32 columns
+
+// Shared memory of a pass, bytes from a 1024-aligned base: the held tiles'
+// parts (two operands x big, small), kTfStages stages of the streamed
+// operands' parts, the streamed rows' lse and delta (dK/dV only; two slots
+// of 32), then kTfStages + 1 mbarriers.
+template <bool kDkdv>
+struct TfSmem {
+  static constexpr uint32_t kHeld0 = 0;
+  static constexpr uint32_t kHeld1 = 2 * kTfHeldPart;
+  static constexpr uint32_t kRing = 4 * kTfHeldPart;
+  // dK/dV: Q, dO (32 x 64) then Q^T, dO^T (64 x 32); dQ: K, V, then K^T
+  static constexpr uint32_t kStage =
+      kDkdv ? 4 * kTfRowPart + 4 * kTfColPart : 4 * kTfRowPart + 2 * kTfColPart;
+  static constexpr uint32_t kRows = kRing + kTfStages * kStage;
+  static constexpr uint32_t kBar =
+      kRows + (kDkdv ? 4 * kTfRows * sizeof(float) : 0);
+  static constexpr size_t kBytes =
+      kBar + (kTfStages + 1) * sizeof(uint64_t) + 1024;
+};
+static_assert(TfSmem<true>::kBytes <= 232448, "dK/dV shared memory");
+
+// One tensor of the split pass: src [bh][t][d] f32; nat [2 bh][t][dp] its
+// big (plane 2 b) and small (plane 2 b + 1) parts, columns past d zero; tr,
+// unless null, [2 bh][dp][tp] the parts transposed, each group of 8
+// positions holding rows 0, 2, 4, 6, 1, 3, 5, 7 of its group (hopper.cuh),
+// zeros past t.
+struct SplitJob {
+  const float* src;
+  float *nat, *tr;
+  int t, tp;
+};
+struct SplitJobs {
+  SplitJob job[4];
+};
+
+// blockIdx.x: 32 rows of one head (bh = blockIdx.x / tiles), blockIdx.y
+// the job.
+__global__ void __launch_bounds__(kThreads)
+bwd_split_tf32_kernel(const __grid_constant__ SplitJobs jobs, int tiles,
+                      int d, int dp) {
+  __shared__ float tile[kTfRows][kTfHeld + 1];
+  const SplitJob& J = jobs.job[blockIdx.y];
+  const int64_t bh = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x % tiles) * kTfRows;
+  if (t0 >= J.tp) return;
+  for (int i = threadIdx.x; i < kTfRows * dp; i += kThreads) {
+    const int r = i / dp, c = i % dp;
+    const bool in = t0 + r < J.t;
+    const float x =
+        in && c < d ? J.src[(bh * J.t + t0 + r) * d + c] : 0.f;
+    tile[r][c] = x;
+    if (in) {
+      uint32_t big, small;
+      hopper::tf32_split(x, big, small);
+      J.nat[((2 * bh) * J.t + t0 + r) * dp + c] = __uint_as_float(big);
+      J.nat[((2 * bh + 1) * J.t + t0 + r) * dp + c] = __uint_as_float(small);
+    }
+  }
+  if (J.tr == nullptr) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < dp * kTfRows; i += kThreads) {
+    const int c = i / kTfRows, j = i % kTfRows;
+    if (t0 + j >= J.tp) continue;
+    // position j holds row p of its group of 8
+    const int p = (j & 7) < 4 ? 2 * (j & 7) : 2 * ((j & 7) - 4) + 1;
+    uint32_t big, small;
+    hopper::tf32_split(tile[(j & ~7) + p][c], big, small);
+    J.tr[((2 * bh) * dp + c) * J.tp + t0 + j] = __uint_as_float(big);
+    J.tr[((2 * bh + 1) * dp + c) * J.tp + t0 + j] = __uint_as_float(small);
+  }
+}
+
+// d = A B^T over a depth of 64 (8 k8 steps) in 3xTF32, A and B K-major
+// parts (big at a / b, small `part` bytes after) whose 32-wide atoms lie
+// `atom` bytes apart; one group of products, not committed.
+template <int N>
+__device__ __forceinline__ void tf32x3_ss_d64(float (&d)[N / 2], uint32_t a,
+                                              uint32_t a_part, uint32_t a_atom,
+                                              uint32_t b, uint32_t b_part,
+                                              uint32_t b_atom) {
+  using namespace hopper;
+  wgmma_tf32_ss<false, N>(d, desc_tf32(a, 0, a_atom),
+                          desc_tf32(b + b_part, 0, b_atom));
+  wgmma_tf32_ss<true, N>(d, desc_tf32(a + a_part, 0, a_atom),
+                         desc_tf32(b, 0, b_atom));
+  wgmma_tf32_ss<true, N>(d, desc_tf32(a, 0, a_atom), desc_tf32(b, 0, b_atom));
+#pragma unroll
+  for (int kk = 1; kk < 8; ++kk) {
+    wgmma_tf32_ss<true, N>(d, desc_tf32(a, kk, a_atom),
+                           desc_tf32(b + b_part, kk, b_atom));
+    wgmma_tf32_ss<true, N>(d, desc_tf32(a + a_part, kk, a_atom),
+                           desc_tf32(b, kk, b_atom));
+    wgmma_tf32_ss<true, N>(d, desc_tf32(a, kk, a_atom),
+                           desc_tf32(b, kk, b_atom));
+  }
+}
+
+// P and dS of one m64n32 tile from its S and dP accumulators (f32; this
+// thread's elements at row row0 + 8 (e >> 1), column col0 + 8 i + (e & 1)),
+// split into big and small tf32 parts straight into the A fragments of the
+// next products (k8 step i = n8 chunk i, hopper.cuh's order: a0 = e 0, a1
+// = e 2, a2 = e 1, a3 = e 3).  kKeysAreRows: S^T of the dK/dV pass, lse /
+// dlt of column col0 + 8 i + u at [8 i + u]; else S of the dQ pass, lse /
+// dlt of row row0 + 8 h at [h].  kWantP: P's fragments too (dK/dV).  With
+// kMask, elements outside [row < tq, key < tk, !causal || row >= key] get
+// 0 and are never exponentiated.
+template <bool kMask, bool kKeysAreRows, bool kWantP>
+__device__ __forceinline__ void tf32_p_ds(
+    const float (&s)[16], const float (&dp)[16], uint32_t (&pb)[4][4],
+    uint32_t (&ps)[4][4], uint32_t (&db)[4][4], uint32_t (&dsm)[4][4],
+    const float* lse, const float* dlt, float scale, int row0, int col0,
+    int tq, int tk, int causal) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = 4 * i + 2 * h + u;
+        const float l = kKeysAreRows ? lse[8 * i + u] : lse[h];
+        const float dd = kKeysAreRows ? dlt[8 * i + u] : dlt[h];
+        bool keep = true;
+        if (kMask) {
+          const int r = row0 + h * 8, c = col0 + 8 * i + u;
+          const int key = kKeysAreRows ? r : c, row = kKeysAreRows ? c : r;
+          keep = key < tk && row < tq && (!causal || row >= key);
+        }
+        const float p = keep ? expf(fmaf(s[x], scale, -l)) : 0.f;
+        const int a = 2 * u + h;  // e = 2 h + u -> register a
+        if (kWantP) hopper::tf32_split(p, pb[i][a], ps[i][a]);
+        hopper::tf32_split(p * (dp[x] - dd) * scale, db[i][a], dsm[i][a]);
+      }
+}
+
+// out[row][c] = acc (row < rows, c < d) for this thread's rows row0 and
+// row0 + 8 of an m64n64 accumulator (columns 8 i + 2 t, + 1).
+__device__ __forceinline__ void tf32_store(const float (&acc)[32],
+                                           float* out, int row0, int rows,
+                                           int d, int t) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r, col = 8 * i + 2 * t;
+      if (row >= rows) continue;
+      float* o = out + int64_t(row) * d;
+      if (col < d) o[col] = acc[4 * i + 2 * r];
+      if (col + 1 < d) o[col + 1] = acc[4 * i + 2 * r + 1];
+    }
+}
+
+// Per q tile of 32 rows, a block waits for the tile's parts, issues S^T
+// and dP^T (48 products), waits, computes P and dS, issues dV += P^T dO
+// and dK += dS^T Q (24 each) and waits again; a stage is refilled once every
+// warp has finished the tile in it.
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap g_map,
+                     const __grid_constant__ CUtensorMap qt_map,
+                     const __grid_constant__ CUtensorMap gt_map,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int tq, int tk, int d,
+                     int n_ktiles, float scale, int causal) {
+  using namespace hopper;
+  using L = TfSmem<true>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wgmma_smem_base(smem_raw);
+  const uint32_t sbase = warp_mma::smem_addr(base);
+  float* lse_s = reinterpret_cast<float*>(base + L::kRows);
+  float* delta_s = lse_s + 2 * kTfRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);  // stages
+  uint64_t* held = full + kTfStages;                               // K, V
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / n_ktiles;
+  const int k0 = (blockIdx.x % n_ktiles) * kTfHeld;  // the block's keys
+  const float* lb = lse + int64_t(bh) * tq;
+  const float* db = delta + int64_t(bh) * tq;
+
+  // rows before k0 see no key of this tile under `causal`
+  const int qstart = causal ? (min(k0, tq) / kTfRows) * kTfRows : 0;
+  const int n_qt = (tq - qstart + kTfRows - 1) / kTfRows;
+  auto stage_rows = [&](int j) {  // lse and delta of q tile j, slot j & 1
+    if (tid < kTfRows) {
+      const int row = qstart + j * kTfRows + tid;
+      const bool in = row < tq;
+      lse_s[(j & 1) * kTfRows + tid] = in ? lb[row] : 0.f;
+      delta_s[(j & 1) * kTfRows + tid] = in ? db[row] : 0.f;
+    }
+  };
+  auto load_held = [&](const CUtensorMap* map, uint32_t off) {
+    for (int part = 0; part < 2; ++part)
+      for (int a = 0; a < 2; ++a)
+        tma_load_3d(base + off + part * kTfHeldPart + a * kTfHeldAtom, map,
+                    held, 32 * a, k0, 2 * bh + part);
+  };
+  auto load_q_tile = [&](int j) {  // one thread: q tile j's parts
+    const int st = j % kTfStages, q0 = qstart + j * kTfRows;
+    unsigned char* s = base + L::kRing + st * L::kStage;
+    mbar_expect_tx(&full[st], L::kStage);
+    for (int part = 0; part < 2; ++part) {
+      for (int a = 0; a < 2; ++a) {
+        tma_load_3d(s + part * kTfRowPart + a * kTfRowAtom, &q_map, &full[st],
+                    32 * a, q0, 2 * bh + part);
+        tma_load_3d(s + (2 + part) * kTfRowPart + a * kTfRowAtom, &g_map,
+                    &full[st], 32 * a, q0, 2 * bh + part);
+      }
+      tma_load_3d(s + 4 * kTfRowPart + part * kTfColPart, &qt_map, &full[st],
+                  q0, 0, 2 * bh + part);
+      tma_load_3d(s + 4 * kTfRowPart + (2 + part) * kTfColPart, &gt_map,
+                  &full[st], q0, 0, 2 * bh + part);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kTfStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0 && n_qt > 0) {
+    mbar_expect_tx(held, 4 * kTfHeldPart);
+    load_held(&k_map, L::kHeld0);
+    load_held(&v_map, L::kHeld1);
+    for (int j = 0; j < kTfStages && j < n_qt; ++j) load_q_tile(j);
+  }
+  if (n_qt > 0) stage_rows(0);
+  __syncthreads();
+
+  float acc_k[32], acc_v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const uint32_t k_addr = sbase + L::kHeld0;
+  const uint32_t v_addr = sbase + L::kHeld1;
+  if (n_qt > 0) mbar_wait(held, 0);
+
+  for (int j = 0; j < n_qt; ++j) {
+    const int st = j % kTfStages;
+    const int q0 = qstart + j * kTfRows;
+    const uint32_t q_addr = sbase + L::kRing + st * L::kStage;
+    const uint32_t g_addr = q_addr + 2 * kTfRowPart;
+    const uint32_t qt_addr = q_addr + 4 * kTfRowPart;
+    const uint32_t gt_addr = qt_addr + 2 * kTfColPart;
+    if (j + 1 < n_qt) stage_rows(j + 1);
+    mbar_wait(&full[st], (j / kTfStages) & 1);
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 32 q rows
+    float s[16], dp[16];
+    wgmma_fence();
+    tf32x3_ss_d64<32>(s, k_addr, kTfHeldPart, kTfHeldAtom, q_addr,
+                      kTfRowPart, kTfRowAtom);
+    tf32x3_ss_d64<32>(dp, v_addr, kTfHeldPart, kTfHeldAtom, g_addr,
+                      kTfRowPart, kTfRowAtom);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const int row0 = k0 + 16 * warp + g, col0 = q0 + 2 * t;
+    // this thread's columns' lse and delta: 8 i + 2 t + u of the slot
+    const float* ls = lse_s + (j & 1) * kTfRows + 2 * t;
+    const float* dl = delta_s + (j & 1) * kTfRows + 2 * t;
+    uint32_t pb[4][4], ps[4][4], sb[4][4], ss[4][4];
+    if (q0 + kTfRows > tq || k0 + kTfHeld > tk ||
+        (causal && q0 < k0 + kTfHeld - 1))
+      tf32_p_ds<true, true, true>(s, dp, pb, ps, sb, ss, ls, dl, scale, row0,
+                                  col0, tq, tk, causal);
+    else
+      tf32_p_ds<false, true, true>(s, dp, pb, ps, sb, ss, ls, dl, scale,
+                                   row0, col0, tq, tk, causal);
+    // dV += P^T dO and dK += dS^T Q over the tile's 32 q rows
+    fence_regs(pb);
+    fence_regs(ps);
+    fence_regs(sb);
+    fence_regs(ss);
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_tf32x3_rs<64>(acc_v, pb[kk], ps[kk], desc_tf32(gt_addr, kk, 0),
+                          desc_tf32(gt_addr + kTfColPart, kk, 0));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_tf32x3_rs<64>(acc_k, sb[kk], ss[kk], desc_tf32(qt_addr, kk, 0),
+                          desc_tf32(qt_addr + kTfColPart, kk, 0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    fence_regs(pb);
+    fence_regs(ps);
+    fence_regs(sb);
+    fence_regs(ss);
+    __syncthreads();  // stage st read by every warp; rows j+1 staged
+    if (tid == 0 && j + kTfStages < n_qt) load_q_tile(j + kTfStages);
+  }
+
+  const int64_t off = int64_t(bh) * tk * d;
+  tf32_store(acc_k, dk + off, k0 + 16 * warp + g, tk, d, t);
+  tf32_store(acc_v, dv + off, k0 + 16 * warp + g, tk, d, t);
+}
+
+// Per key tile of 32, as the dK/dV pass: S = Q K^T and dP = dO V^T, then
+// dQ += dS K.
+__global__ void __launch_bounds__(kWgThreads, 1)
+bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap g_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap kt_map,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int tq, int tk, int d, int n_qtiles, float scale,
+                   int causal) {
+  using namespace hopper;
+  using L = TfSmem<false>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wgmma_smem_base(smem_raw);
+  const uint32_t sbase = warp_mma::smem_addr(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);  // stages
+  uint64_t* held = full + kTfStages;                               // Q, dO
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / n_qtiles;
+  // the block's q rows; the last tile (the longest under `causal`) first
+  const int q0 = (n_qtiles - 1 - blockIdx.x % n_qtiles) * kTfHeld;
+
+  // keys past the block's last q row are all masked under `causal`
+  const int kend = causal ? min(tk, q0 + kTfHeld) : tk;
+  const int n_kt = (kend + kTfRows - 1) / kTfRows;
+  auto load_held = [&](const CUtensorMap* map, uint32_t off) {
+    for (int part = 0; part < 2; ++part)
+      for (int a = 0; a < 2; ++a)
+        tma_load_3d(base + off + part * kTfHeldPart + a * kTfHeldAtom, map,
+                    held, 32 * a, q0, 2 * bh + part);
+  };
+  auto load_kv_tile = [&](int j) {  // one thread: key tile j's parts
+    const int st = j % kTfStages, k0 = j * kTfRows;
+    unsigned char* s = base + L::kRing + st * L::kStage;
+    mbar_expect_tx(&full[st], L::kStage);
+    for (int part = 0; part < 2; ++part) {
+      for (int a = 0; a < 2; ++a) {
+        tma_load_3d(s + part * kTfRowPart + a * kTfRowAtom, &k_map, &full[st],
+                    32 * a, k0, 2 * bh + part);
+        tma_load_3d(s + (2 + part) * kTfRowPart + a * kTfRowAtom, &v_map,
+                    &full[st], 32 * a, k0, 2 * bh + part);
+      }
+      tma_load_3d(s + 4 * kTfRowPart + part * kTfColPart, &kt_map, &full[st],
+                  k0, 0, 2 * bh + part);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kTfStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(held, 4 * kTfHeldPart);
+    load_held(&q_map, L::kHeld0);
+    load_held(&g_map, L::kHeld1);
+    for (int j = 0; j < kTfStages && j < n_kt; ++j) load_kv_tile(j);
+  }
+
+  // lse and delta of this thread's rows g and g + 8
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    lr[h] = row < tq ? lse[int64_t(bh) * tq + row] : 0.f;
+    dr[h] = row < tq ? delta[int64_t(bh) * tq + row] : 0.f;
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = sbase + L::kHeld0;
+  const uint32_t g_addr = sbase + L::kHeld1;
+  mbar_wait(held, 0);
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kTfStages;
+    const int k0 = j * kTfRows;
+    const uint32_t k_addr = sbase + L::kRing + st * L::kStage;
+    const uint32_t v_addr = k_addr + 2 * kTfRowPart;
+    const uint32_t kt_addr = k_addr + 4 * kTfRowPart;
+    mbar_wait(&full[st], (j / kTfStages) & 1);
+    // S = Q K^T and dP = dO V^T: 64 q rows x 32 keys
+    float s[16], dp[16];
+    wgmma_fence();
+    tf32x3_ss_d64<32>(s, q_addr, kTfHeldPart, kTfHeldAtom, k_addr,
+                      kTfRowPart, kTfRowAtom);
+    tf32x3_ss_d64<32>(dp, g_addr, kTfHeldPart, kTfHeldAtom, v_addr,
+                      kTfRowPart, kTfRowAtom);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const int row0 = q0 + 16 * warp + g, col0 = k0 + 2 * t;
+    uint32_t unused[4][4], sb[4][4], ss[4][4];  // P's parts: not needed
+    if (q0 + kTfHeld > tq || k0 + kTfRows > tk ||
+        (causal && k0 + kTfRows - 1 > q0))
+      tf32_p_ds<true, false, false>(s, dp, unused, unused, sb, ss, lr, dr,
+                                    scale, row0, col0, tq, tk, causal);
+    else
+      tf32_p_ds<false, false, false>(s, dp, unused, unused, sb, ss, lr, dr,
+                                     scale, row0, col0, tq, tk, causal);
+    // dQ += dS K over the tile's 32 keys
+    fence_regs(sb);
+    fence_regs(ss);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_tf32x3_rs<64>(acc, sb[kk], ss[kk], desc_tf32(kt_addr, kk, 0),
+                          desc_tf32(kt_addr + kTfColPart, kk, 0));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(sb);
+    fence_regs(ss);
+    __syncthreads();  // stage st read by every warp
+    if (tid == 0 && j + kTfStages < n_kt) load_kv_tile(j + kTfStages);
+  }
+
+  tf32_store(acc, dq + int64_t(bh) * tq * d, q0 + 16 * warp + g, tq, d, t);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *out, *dout, *lse;
-  void *delta, *dq, *dk, *dv;
+  void *delta, *work, *dq, *dk, *dv;
   int bh, tq, tk, d, causal;
   float scale;
   cudaStream_t stream;
@@ -1374,11 +1848,13 @@ cudaError_t launch_small(const Args& a) {
       int64_t(a.bh) * n_qtiles > INT32_MAX)
     return cudaErrorInvalidValue;
 
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
   constexpr size_t kv_smem = DkdvLayout<D, BT, BT>::kSmemBytes;
   const auto dkdv = bwd_dkdv_kernel<T, D, BT, BT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kv_smem));
-  if (err != cudaSuccess) return err;
+  static hopper::SmemLimit dkdv_limit, dq_limit;
+  if ((err = dkdv_limit.raise(dkdv, dev, kv_smem)) != cudaSuccess) return err;
   dkdv<<<a.bh * n_ktiles, kThreads, kv_smem, a.stream>>>(
       q, k, v, g, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
       a.tq, a.tk, a.d, n_ktiles, a.scale, a.causal);
@@ -1387,9 +1863,7 @@ cudaError_t launch_small(const Args& a) {
 
   constexpr size_t q_smem = DqLayout<D, BT, BT>::kSmemBytes;
   const auto dqk = bwd_dq_kernel<T, D, BT, BT>;
-  err = cudaFuncSetAttribute(
-      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, int(q_smem));
-  if (err != cudaSuccess) return err;
+  if ((err = dq_limit.raise(dqk, dev, q_smem)) != cudaSuccess) return err;
   dqk<<<a.bh * n_qtiles, kThreads, q_smem, a.stream>>>(
       q, k, v, g, lse, delta, static_cast<T*>(a.dq), a.tq, a.tk, a.d,
       n_qtiles, a.scale, a.causal);
@@ -1412,12 +1886,13 @@ cudaError_t launch_mma(const Args& a) {
   constexpr size_t smem = MmaLayout<DP>::kSmemBytes;
   const auto dkdv = bwd_dkdv_mma_kernel<DP>;
   const auto dqk = bwd_dq_mma_kernel<DP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
+  static hopper::SmemLimit dkdv_limit, dq_limit;
+  if ((err = dkdv_limit.raise(dkdv, dev, smem)) != cudaSuccess ||
+      (err = dq_limit.raise(dqk, dev, smem)) != cudaSuccess)
+    return err;
   dkdv<<<a.bh * n_ktiles, kMmaThreads, smem, a.stream>>>(
       q, k, v, g, lse, delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.tq, a.tk, a.d, n_ktiles, a.scale,
@@ -1453,12 +1928,11 @@ cudaError_t launch_wgmma(const Args& a) {
   constexpr size_t smem = WgmmaSmem::kBytes;
   const auto dkdv = bwd_dkdv_wgmma_kernel;
   const auto dqk = bwd_dq_wgmma_kernel;
-  if ((err = cudaFuncSetAttribute(
-           dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))) !=
-          cudaSuccess ||
-      (err = cudaFuncSetAttribute(
-           dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))) !=
-          cudaSuccess)
+  int dev;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  static hopper::SmemLimit dkdv_limit, dq_limit;
+  if ((err = dkdv_limit.raise(dkdv, dev, smem)) != cudaSuccess ||
+      (err = dq_limit.raise(dqk, dev, smem)) != cudaSuccess)
     return err;
   bwd_delta_x8_kernel<<<int(delta_blocks), kThreads, 0, a.stream>>>(
       static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.dout),
@@ -1472,6 +1946,91 @@ cudaError_t launch_wgmma(const Args& a) {
   dqk<<<a.bh * n_qtiles, kWgThreads, smem, a.stream>>>(
       qm, km, vm, gm, lse, delta, static_cast<bf16*>(a.dq), a.tq, a.tk, a.d,
       n_qtiles, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// The f32 workspace of the 3xTF32 design, in floats: the split parts of
+// q, k, v and dO ([2 bh][t][dp] each) and of q, dO and k transposed ([2
+// bh][dp][round8(t)] each).
+int64_t tf32_work_floats(int64_t bh, int64_t tq, int64_t tk, int d) {
+  const int64_t dp = (d + 7) / 8 * 8;
+  const int64_t tqp = (tq + 7) / 8 * 8, tkp = (tk + 7) / 8 * 8;
+  return 2 * bh * dp * (2 * tq + 2 * tk + 2 * tqp + tkp);
+}
+
+// The 3xTF32 design's passes: split (into `work`), delta, dK/dV, dQ.
+cudaError_t launch_tf32(const Args& a) {
+  const int dp = (a.d + 7) / 8 * 8;
+  const int tqp = (a.tq + 7) / 8 * 8, tkp = (a.tk + 7) / 8 * 8;
+  const int64_t bh = a.bh;
+  float* nat_q = static_cast<float*>(a.work);
+  float* nat_k = nat_q + 2 * bh * a.tq * dp;
+  float* nat_v = nat_k + 2 * bh * a.tk * dp;
+  float* nat_g = nat_v + 2 * bh * a.tk * dp;
+  float* tr_q = nat_g + 2 * bh * a.tq * dp;
+  float* tr_g = tr_q + 2 * bh * dp * tqp;
+  float* tr_k = tr_g + 2 * bh * dp * tqp;
+  const int tiles = ((tqp > tkp ? tqp : tkp) + kTfRows - 1) / kTfRows;
+  const int n_ktiles = (a.tk + kTfHeld - 1) / kTfHeld;
+  const int n_qtiles = (a.tq + kTfHeld - 1) / kTfHeld;
+  const int64_t rows = bh * a.tq;
+  const int64_t delta_blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (bh * tiles > INT32_MAX || bh * n_ktiles > INT32_MAX ||
+      bh * n_qtiles > INT32_MAX || 2 * bh > INT32_MAX ||
+      delta_blocks > INT32_MAX || a.work == nullptr ||
+      reinterpret_cast<uintptr_t>(a.work) % 16)
+    return cudaErrorInvalidValue;
+  const SplitJobs jobs{{{static_cast<const float*>(a.q), nat_q, tr_q, a.tq,
+                         tqp},
+                        {static_cast<const float*>(a.k), nat_k, tr_k, a.tk,
+                         tkp},
+                        {static_cast<const float*>(a.v), nat_v, nullptr, a.tk,
+                         tkp},
+                        {static_cast<const float*>(a.dout), nat_g, tr_g, a.tq,
+                         tqp}}};
+  bwd_split_tf32_kernel<<<dim3(unsigned(bh * tiles), 4), kThreads, 0,
+                          a.stream>>>(jobs, tiles, a.d, dp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  float* delta = static_cast<float*>(a.delta);
+  bwd_delta_kernel<float><<<int(delta_blocks), kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.out), static_cast<const float*>(a.dout),
+      delta, rows, a.d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  using hopper::tile_map_f32;
+  const int planes = int(2 * bh);
+  CUtensorMap km, vm, qm, gm, qtm, gtm, qhm, ghm, krm, vrm, ktm;
+  if ((err = tile_map_f32(&km, nat_k, planes, a.tk, dp, kTfHeld)) ||
+      (err = tile_map_f32(&vm, nat_v, planes, a.tk, dp, kTfHeld)) ||
+      (err = tile_map_f32(&qm, nat_q, planes, a.tq, dp, kTfRows)) ||
+      (err = tile_map_f32(&gm, nat_g, planes, a.tq, dp, kTfRows)) ||
+      (err = tile_map_f32(&qtm, tr_q, planes, dp, tqp, kTfHeld)) ||
+      (err = tile_map_f32(&gtm, tr_g, planes, dp, tqp, kTfHeld)) ||
+      (err = tile_map_f32(&qhm, nat_q, planes, a.tq, dp, kTfHeld)) ||
+      (err = tile_map_f32(&ghm, nat_g, planes, a.tq, dp, kTfHeld)) ||
+      (err = tile_map_f32(&krm, nat_k, planes, a.tk, dp, kTfRows)) ||
+      (err = tile_map_f32(&vrm, nat_v, planes, a.tk, dp, kTfRows)) ||
+      (err = tile_map_f32(&ktm, tr_k, planes, dp, tkp, kTfHeld)))
+    return err;
+  int dev;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  static hopper::SmemLimit dkdv_limit, dq_limit;
+  if ((err = dkdv_limit.raise(bwd_dkdv_tf32_kernel, dev,
+                              TfSmem<true>::kBytes)) != cudaSuccess ||
+      (err = dq_limit.raise(bwd_dq_tf32_kernel, dev,
+                            TfSmem<false>::kBytes)) != cudaSuccess)
+    return err;
+  const float* lse = static_cast<const float*>(a.lse);
+  bwd_dkdv_tf32_kernel<<<int(bh * n_ktiles), kWgThreads, TfSmem<true>::kBytes,
+                         a.stream>>>(km, vm, qm, gm, qtm, gtm, lse, delta,
+                                     static_cast<float*>(a.dk),
+                                     static_cast<float*>(a.dv), a.tq, a.tk,
+                                     a.d, n_ktiles, a.scale, a.causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  bwd_dq_tf32_kernel<<<int(bh * n_qtiles), kWgThreads, TfSmem<false>::kBytes,
+                       a.stream>>>(qhm, ghm, krm, vrm, ktm, lse, delta,
+                                   static_cast<float*>(a.dq), a.tq, a.tk, a.d,
+                                   n_qtiles, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -1546,14 +2105,101 @@ wgmma_check_kernel(const __grid_constant__ CUtensorMap a_map,
           d[4 * i + e];
 }
 
+// A check of the 3xTF32 operand forms alone, one warpgroup, 64 x 64 x 64,
+// f32: form 0: c = a b^T, a and b [64][64] K-major, both through TMA as
+// big and small parts (the form of S and dP); 1: c = a b^T with a from
+// registers, loaded as an m64n64 accumulator would hold it and passed on
+// in hopper.cuh's fragment order, b [n][k] K-major with k in that
+// fragment order within each group of 8 (the form of dV, dK and dQ).  The
+// parts arrays hold each operand's big and small parts ([2][64][64]); c is
+// f32 [64][64].
+__global__ void __launch_bounds__(kWgThreads)
+tf32_check_kernel(const __grid_constant__ CUtensorMap a_map,
+                  const __grid_constant__ CUtensorMap b_map,
+                  const float* __restrict__ a, float* __restrict__ c,
+                  int form) {
+  using namespace hopper;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wgmma_smem_base(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 4 * kTfHeldPart);
+  const uint32_t a_addr = warp_mma::smem_addr(base);
+  const uint32_t b_addr = a_addr + 2 * kTfHeldPart;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 4 * kTfHeldPart);
+    for (int part = 0; part < 2; ++part)
+      for (int at = 0; at < 2; ++at) {
+        tma_load_3d(base + part * kTfHeldPart + at * kTfHeldAtom, &a_map, bar,
+                    32 * at, 0, part);
+        tma_load_3d(base + (2 + part) * kTfHeldPart + at * kTfHeldAtom,
+                    &b_map, bar, 32 * at, 0, part);
+      }
+  }
+  mbar_wait(bar, 0);
+  float d[32];
+  if (form == 0) {
+    wgmma_fence();
+    tf32x3_ss_d64<64>(d, a_addr, kTfHeldPart, kTfHeldAtom, b_addr,
+                      kTfHeldPart, kTfHeldAtom);
+    wgmma_commit();
+    wgmma_wait<0>();
+  } else {
+    uint32_t big[8][4], small[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // accumulator element e of chunk kk
+        const float x = a[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * kk +
+                          2 * t + (e & 1)];
+        const int r = 2 * (e & 1) + (e >> 1);
+        tf32_split(x, big[kk][r], small[kk][r]);
+      }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+    fence_regs(big);
+    fence_regs(small);
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_tf32x3_rs<64>(d, big[kk], small[kk],
+                          desc_tf32(b_addr, kk, kTfHeldAtom),
+                          desc_tf32(b_addr + kTfHeldPart, kk, kTfHeldAtom));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(big);
+    fence_regs(small);
+  }
+  fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[(16 * warp + g + 8 * (e >> 1)) * 64 + 8 * i + 2 * t + (e & 1)] =
+          d[4 * i + e];
+}
+
 // The backward's designs, as flash_attention.py's bwd_design names them.
-enum Design { kScalar = 0, kMmaSync = 1, kWgmma = 2, kWide = 3 };
+enum Design {
+  kScalar = 0,
+  kMmaSync = 1,
+  kWgmma = 2,
+  kWide = 3,
+  kWgmmaTf32 = 4
+};
 
 // The design that takes a head of (padded) width d.
 Design design(bool is_bf16, int d) {
   if (d > 256) return kWide;
   if (is_bf16 && d <= 32) return kMmaSync;
   if (is_bf16 && d <= 64) return kWgmma;
+  if (!is_bf16 && d <= 64) return kWgmmaTf32;
   return kScalar;
 }
 
@@ -1589,6 +2235,7 @@ cudaError_t launch(const Args& a) {
   if (a.bh < 1 || a.tq < 1 || a.tk < 1 || a.d < 1)
     return cudaErrorInvalidValue;
   const Design des = design(std::is_same<T, bf16>::value, a.d);
+  if (des == kWgmmaTf32) return launch_tf32(a);  // with its own delta pass
   if (des == kMmaSync || des == kWgmma) {
     // the tensor cores take rows of whole 16-byte pieces, 16-byte
     // aligned, by cp.async or TMA (the wrapper pads d and copies a
@@ -1613,10 +2260,6 @@ cudaError_t launch(const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (des == kMmaSync) return a.d <= 16 ? launch_mma<16>(a)
                                           : launch_mma<32>(a);
-  } else {  // f32 only: bf16 heads up to 64 took the tensor cores above
-    if (a.d <= 16) return launch_small<T, 16, 64>(a);
-    if (a.d <= 32) return launch_small<T, 32, 64>(a);
-    if (a.d <= 64) return launch_small<T, 64, 64>(a);
   }
   if (a.d <= 128) return launch_small<T, 128, 64>(a);
   if (a.d <= 256) return launch_small<T, 256, 32>(a);
@@ -1628,17 +2271,19 @@ cudaError_t launch(const Args& a) {
 // Plain C entry points, bound with ctypes.  Take any d >= 1 and
 // contiguous [BH, T, d] tensors of the entry's dtype (bf16 with d <= 64:
 // d a multiple of 8 and every pointer 16-byte aligned); `delta` is f32
-// scratch of BH * Tq floats.  Launch on `stream` (delta, then dK/dV, then dQ), do not
-// synchronise, allocate nothing; return the first failing launch's
-// cudaError_t (0 on success).
+// scratch of BH * Tq floats, `work` f32 scratch of
+// flash_attention_bwd_work_floats floats (16-byte aligned; null where
+// that is 0).  Launch on `stream` (the 3xTF32 design's split, then delta,
+// dK/dV, dQ), do not synchronise, allocate nothing; return the first
+// failing launch's cudaError_t (0 on success).
 #define FLASH_BWD_ENTRY(NAME, T)                                            \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* out, const void* dout, const void* lse,   \
-                      void* delta, void* dq, void* dk, void* dv, int bh,    \
-                      int tq, int tk, int d, int causal, float scale,       \
-                      void* stream) {                                       \
-    const Args a{q,  k,  v,  out, dout, lse, delta, dq,    dk,              \
-                 dv, bh, tq, tk,  d,    causal, scale,                      \
+                      void* delta, void* work, void* dq, void* dk,          \
+                      void* dv, int bh, int tq, int tk, int d, int causal,  \
+                      float scale, void* stream) {                          \
+    const Args a{q,  k,  v,  out, dout,   lse,   delta, work, dq,           \
+                 dk, dv, bh, tq,  tk, d, causal, scale,                     \
                  static_cast<cudaStream_t>(stream)};                        \
     return launch<T>(a);                                                    \
   }
@@ -1650,6 +2295,14 @@ FLASH_BWD_ENTRY(flash_attention_bwd_bf16, __nv_bfloat16)
 // a head of width d.
 extern "C" int flash_attention_bwd_design(int is_bf16, int d) {
   return design(is_bf16 != 0, d);
+}
+
+// The floats of `work` the bf16 (is_bf16 != 0) or f32 entry needs at these
+// sizes: the 3xTF32 design's split parts, else 0.
+extern "C" long long flash_attention_bwd_work_floats(int is_bf16, int bh,
+                                                     int tq, int tk, int d) {
+  if (design(is_bf16 != 0, d) != kWgmmaTf32) return 0;
+  return tf32_work_floats(bh, tq, tk, d);
 }
 
 // wgmma_check_kernel on bf16 [64][64] a and b, writing f32 [64][64] c, on
@@ -1670,6 +2323,35 @@ extern "C" int flash_attention_bwd_wgmma_check(const void* a, const void* b,
                        static_cast<cudaStream_t>(stream)>>>(
       am, bm, static_cast<const bf16*>(a), static_cast<float*>(c),
       b_mn_major);
+  return cudaGetLastError();
+}
+
+// tf32_check_kernel on f32 [64][64] a (and its parts [2][64][64] in
+// a_parts) and b's parts b_parts [2][64][64], writing f32 [64][64] c, on
+// `stream`; returns the first failing call's cudaError_t.
+extern "C" int flash_attention_bwd_tf32_check(const void* a,
+                                              const void* a_parts,
+                                              const void* b_parts, void* c,
+                                              int form, void* stream) {
+  if ((reinterpret_cast<uintptr_t>(a_parts) |
+       reinterpret_cast<uintptr_t>(b_parts)) %
+      16)
+    return cudaErrorInvalidValue;
+  using hopper::tile_map_f32;
+  CUtensorMap am, bm;
+  cudaError_t err;
+  if ((err = tile_map_f32(&am, a_parts, 2, 64, 64, kTfHeld)) != cudaSuccess ||
+      (err = tile_map_f32(&bm, b_parts, 2, 64, 64, kTfHeld)) != cudaSuccess)
+    return err;
+  int dev;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  const size_t smem = 4 * kTfHeldPart + sizeof(uint64_t) + 1024;
+  static hopper::SmemLimit limit;
+  if ((err = limit.raise(tf32_check_kernel, dev, smem)) != cudaSuccess)
+    return err;
+  tf32_check_kernel<<<1, kWgThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      am, bm, static_cast<const float*>(a), static_cast<float*>(c), form);
   return cudaGetLastError();
 }
 

@@ -14,7 +14,9 @@
 // logits recomputed, then dh and dW), against h and W read once and dh, dW
 // written once: at BERT-base's head (N 2048, D 768, V 30522) 9.6e10 and
 // 2.9e11 FLOP for about 100 and 190 MB, so the tensor cores bound it (0.097
-// and 0.291 ms at 989 TFLOP/s), not the memory (0.03 and 0.06 ms).
+// and 0.291 ms at 989 TFLOP/s), not the memory (0.03 and 0.06 ms).  In f32
+// the backward's bound is its logits at the FMAs' 67 TFLOP/s (1.43 ms) and
+// dh, dW in 3xTF32 at 495 (1.16 ms): 2.60 ms.
 //
 // Two designs of the backward (`bwd_design` below; ops/fused_xent.py's
 // bwd_design names it), and one of the forward:
@@ -51,27 +53,43 @@
 //   [splits][N][D] f32, db's [cdiv(N, 128)][V] f32, the packed W (f32 W or
 //   V not a multiple of 8) and h (D not a multiple of 8); they grow with N.
 //
-// scalar, the f32 backward, and the forward of both dtypes: one main loop
-// over 128 x 128 output tiles with 256 threads: bf16 operands (the
-// forward's) on mma.sync m16n8k16 (f32 accumulate; 8 warps as 2 x 4, 64 x
-// 32 each), their 32-deep k slices double-buffered in shared memory by
-// 16-byte cp.async copies that zero-fill the ragged edges; f32 operands on
-// scalar f32 FMAs (exact products, as JAX's f32 dot), 8 x 8 outputs a
-// thread.  Its epilogues: the forward's row statistics (per token and
-// vocabulary tile: the max, the sum of exp(S - max) and the label's logit,
-// from the same f32 S); and, per chunk of tokens (the API's `chunk`, as the
-// JAX op scans), dl into a [chunk][V] workspace with db's column sums,
-// dh's split-K partials and dW's running sum (in dw itself when W is f32,
-// else an f32 [D][V] buffer).
+// wgmma_tf32, the f32 backward (h f32, W f32 or bf16): the dl pass over
+// every token on the scalar main loop below, then dh = dl W^T and dW = h^T
+// dl on wgmma in 3xTF32 (each f32 product three tf32 products of big and
+// small parts, hopper.cuh), over every token as in the bf16 design.  The
+// logits stay on f32 FMAs because dl = exp(S - lse) needs S to the last
+// bits of the forward's sums: at logits of 1e2 (chip_smoke.py's scaled
+// case) an S summed in any other order, 3xTF32's or f32's, moves dl by
+// 1e-4-7e-4 of its max against 1e-5 allowed (dev/torch_tf32_probe.py, on
+// the card), while dh and dW in 3xTF32 from the exact dl move by 2e-7.
+// The two products read their A operand from registers (a raw f32 tile of
+// dl through TMA, split in registers; read transposed for dW) and B as
+// K-major parts that split passes write once: W's [2][D][round8(V)] and
+// h's transposed [2][D][round8(N)] (wgmma takes tf32 only K-major).  Two
+// warpgroups a 128 x 128 tile, 64-deep k slices through a 2-stage TMA
+// ring (192 KB: one block an SM).  Workspace: dl [N][round8(V)] f32 (250
+// MB at the recipe), W's parts (188 MB), h's (13 MB), dh's partials.
+//
+// scalar, the forward of both dtypes and the f32 backward's dl pass: 256
+// threads over 128 x 128 output tiles for bf16 operands (the forward's),
+// on mma.sync m16n8k16 (f32 accumulate; 8 warps as 2 x 4, 64 x 32 each),
+// their 32-deep k slices double-buffered in shared memory by 16-byte
+// cp.async copies that zero-fill the ragged edges; over 128 x 256 tiles
+// for f32 operands, on scalar f32 FMAs (exact products summed in k order,
+// as JAX's f32 dot and cuBLAS's), 8 x 16 outputs a thread, 8-deep k slices
+// double-buffered through registers.  Its epilogues: the forward's row
+// statistics (per token and vocabulary tile: the max, the sum of exp(S -
+// max) and the label's logit, from the same f32 S); and the f32 dl into a
+// [N][round8(V)] workspace with db's column sums.
 //
 // No atomics anywhere.  The forward writes per-tile partials that a
 // finalize kernel combines per token in tile order (online max rescaling),
 // then one block reduces the mean; dh's splits and db's tiles are summed in
 // order; each dW tile is owned by one block.  Two runs give identical bits.
 // What it leaves: a producer warp and persistent blocks that overlap a
-// tile's epilogue with the next tile's products, the forward and the f32
-// backward on wgmma, and fusing the dh and dW products so that dl never
-// leaves the chip.
+// tile's epilogue with the next tile's products, the forward on wgmma,
+// fusing the dh and dW products so that dl never leaves the chip, and a
+// faster f32 FMA main loop (the f32 logits must keep its k order).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -90,7 +108,7 @@ using namespace warp_mma;
 constexpr int kTile = 128;     // output tile: rows and columns
 constexpr int kThreads = 256;
 constexpr int kBK = 32;        // tensor-core route: k per shared stage
-constexpr int kBKs = 16;       // scalar route: k per shared stage
+constexpr int kBKs = 8;        // scalar route: k per shared stage
 constexpr int kSlots = 16;     // threads that share one row (or column)
 constexpr int kSmemBytes = 40960;
 
@@ -143,6 +161,8 @@ __device__ __forceinline__ void load_async(bf16* s, const bf16* g, int ld,
 // whose C fragments (warp_mma.cuh) put rows g and g + 8, columns 2t and
 // 2t + 1 in each lane.
 struct TensorCores {
+  static constexpr int kN = 8;           // columns a thread
+  static constexpr int kTileN = kTile;   // columns a block
   __device__ static int row(int i) {
     return (threadIdx.x >> 7) * 64 + (i >> 1) * 16 + (i & 1) * 8 +
            ((threadIdx.x & 31) >> 2);
@@ -223,70 +243,115 @@ struct TensorCores {
   }
 };
 
-// f32 (or bf16, read as f32) operands on scalar FMAs: thread (ty, tx) holds
-// rows ty + 16 i and columns tx + 16 j of the tile.
+// f32 (or bf16, read as f32) operands on scalar FMAs: a 128 x 256 tile,
+// thread (ty, tx) holding rows 4 ty + r and 64 + 4 ty + r and columns
+// 64 q + 4 tx + c (r, c < 4, q < 4), so each k step reads them as six
+// 16-byte shared loads for 128 FMAs: shared memory (128 bytes a clock)
+// then feeds the FMAs with a quarter to spare, where an 8 x 8 tile needs
+// exactly its rate.  Every output is one chain of fmaf over k in order
+// from 0, as JAX's f32 dot and cuBLAS's f32 GEMM sum it (the backward's
+// dl needs the forward's logits to the last bit); the k slices are
+// double-buffered, the next one's loads in flight during the FMAs.
 struct ScalarF32 {
-  __device__ static int row(int i) { return (threadIdx.x >> 4) + 16 * i; }
-  __device__ static int col(int j) { return (threadIdx.x & 15) + 16 * j; }
+  static constexpr int kN = 16;             // columns a thread
+  static constexpr int kTileN = 2 * kTile;  // columns a block
+  __device__ static int row(int i) {
+    return 64 * (i >> 2) + 4 * (threadIdx.x >> 4) + (i & 3);
+  }
+  __device__ static int col(int j) {
+    return 64 * (j >> 2) + 4 * (threadIdx.x & 15) + (j & 3);
+  }
   __device__ static int row_slot() { return threadIdx.x & 15; }
   __device__ static int col_slot() { return threadIdx.x >> 4; }
 
+  // acc = A[m0.., k0..k1) B[k0..k1), n0..]: A stored [m][k], B [k][n];
+  // rows of m >= m_lim, columns of n >= n_lim and k >= k1 read as zero.
   template <bool kAT, bool kBT, typename TA, typename TB>
-  __device__ static void mainloop(float (&acc)[8][8], const TA* A, int lda,
+  __device__ static void mainloop(float (&acc)[8][kN], const TA* A, int lda,
                                   int m0, int m_lim, const TB* B, int ldb,
                                   int n0, int n_lim, int k0, int k1,
                                   unsigned char* smem_raw) {
-    constexpr int S = kTile + 4;
-    static_assert(2 * kBKs * S * sizeof(float) <= kSmemBytes, "shared memory");
-    float* As = reinterpret_cast<float*>(smem_raw);  // [k][m]
-    float* Bs = As + kBKs * S;                       // [k][n]
+    static_assert(!kAT && !kBT, "the forward's operand forms only");
+    constexpr int SA = kTile + 4, SB = kTileN + 4;  // 16-byte rows
+    constexpr int kStageA = kBKs * SA, kStageB = kBKs * SB;
+    static_assert(2 * (kStageA + kStageB) * sizeof(float) <= kSmemBytes,
+                  "shared memory");
+    float* As = reinterpret_cast<float*>(smem_raw);  // 2 x [k][m]
+    float* Bs = As + 2 * kStageA;                    // 2 x [k][n]
     const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k = k0; k < k1; k += kBKs) {
-      // consecutive threads on the operand's contiguous dimension
+      for (int j = 0; j < kN; ++j) acc[i][j] = 0.f;
+    constexpr int kLoadsA = kTile * kBKs / kThreads;
+    constexpr int kLoadsB = kTileN * kBKs / kThreads;
+    float ra[kLoadsA], rb[kLoadsB];
+    auto load = [&](int k) {  // slice k into registers
 #pragma unroll
-      for (int i = 0; i < kTile * kBKs / kThreads; ++i) {
+      for (int i = 0; i < kLoadsA; ++i) {
         const int e = threadIdx.x + i * kThreads;
-        const int am = kAT ? e % kTile : e / kBKs;
-        const int ak = kAT ? e / kTile : e % kBKs;
-        const bool aok = m0 + am < m_lim && k + ak < k1;
-        As[ak * S + am] =
-            aok ? to_f(kAT ? A[size_t(k + ak) * lda + m0 + am]
-                           : A[size_t(m0 + am) * lda + k + ak])
-                : 0.f;
-        const int bn = kBT ? e / kBKs : e % kTile;
-        const int bk = kBT ? e % kBKs : e / kTile;
-        const bool bok = n0 + bn < n_lim && k + bk < k1;
-        Bs[bk * S + bn] =
-            bok ? to_f(kBT ? B[size_t(n0 + bn) * ldb + k + bk]
-                           : B[size_t(k + bk) * ldb + n0 + bn])
-                : 0.f;
+        const int am = e / kBKs, ak = e % kBKs;
+        ra[i] = m0 + am < m_lim && k + ak < k1
+                    ? to_f(A[size_t(m0 + am) * lda + k + ak])
+                    : 0.f;
       }
-      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kLoadsB; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        const int bn = e % kTileN, bk = e / kTileN;
+        rb[i] = n0 + bn < n_lim && k + bk < k1
+                    ? to_f(B[size_t(k + bk) * ldb + n0 + bn])
+                    : 0.f;
+      }
+    };
+    auto store = [&](int st) {  // ... and from registers into stage st
+#pragma unroll
+      for (int i = 0; i < kLoadsA; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        As[st * kStageA + (e % kBKs) * SA + e / kBKs] = ra[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kLoadsB; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        Bs[st * kStageB + (e / kTileN) * SB + e % kTileN] = rb[i];
+      }
+    };
+    if (k0 >= k1) return;
+    load(k0);
+    store(0);
+    __syncthreads();
+    int st = 0;
+    for (int k = k0; k < k1; k += kBKs, st ^= 1) {
+      const bool more = k + kBKs < k1;
+      if (more) load(k + kBKs);
+      const float* as = As + st * kStageA;
+      const float* bs = Bs + st * kStageB;
 #pragma unroll
       for (int kk = 0; kk < kBKs; ++kk) {
-        float a[8], b[8];
+        float a[8], b[kN];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = As[kk * S + ty + 16 * i];
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float4*>(a + 4 * h) =
+              *reinterpret_cast<const float4*>(as + kk * SA + 64 * h + 4 * ty);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = Bs[kk * S + tx + 16 * j];
+        for (int q = 0; q < kN / 4; ++q)
+          *reinterpret_cast<float4*>(b + 4 * q) =
+              *reinterpret_cast<const float4*>(bs + kk * SB + 64 * q + 4 * tx);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < kN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
       }
-      __syncthreads();
+      if (more) store(st ^ 1);
+      __syncthreads();  // stage st read by all; stage st ^ 1 written
     }
   }
 };
 
 // -- forward ---------------------------------------------------------------
 
-// One 128-token x 128-column tile of S = h W + b (blockIdx.x: tokens,
-// blockIdx.y: vocabulary tile): per token the tile's max, sum of
+// One tile of S = h W + b, 128 tokens x E::kTileN columns (blockIdx.x:
+// tokens, blockIdx.y: vocabulary tile): per token the tile's max, sum of
 // exp(S - max) and, where the label falls in the tile, its logit (else 0),
 // as part[q][tile][token] for q = 0, 1, 2.  The logits never leave the chip.
 template <class E, typename TA, typename TB>
@@ -296,8 +361,8 @@ xent_fwd_tiles(const TA* h, int ldh, const TB* w, int ldw, int w_lim,
                const int64_t* __restrict__ labels, int n, int d, int v,
                float* __restrict__ part) {
   __shared__ __align__(16) unsigned char smem[kSmemBytes];
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  float acc[8][8];
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * E::kTileN;
+  float acc[8][E::kN];
   E::template mainloop<false, false>(acc, h, ldh, m0, n, w, ldw, n0, w_lim, 0,
                                      d, smem);
   // [3][kTile rows][kSlots]: each thread's part of its rows
@@ -309,7 +374,7 @@ xent_fwd_tiles(const TA* h, int ldh, const TB* w, int ldw, int w_lim,
     const int64_t lab = m0 + r < n ? labels[m0 + r] : -1;
     float mx = -INFINITY, lab_logit = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < E::kN; ++j) {
       const int c = n0 + E::col(j);
       if (c < v) {
         acc[i][j] += bias[c];
@@ -319,7 +384,7 @@ xent_fwd_tiles(const TA* h, int ldh, const TB* w, int ldw, int w_lim,
     }
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < E::kN; ++j)
       if (n0 + E::col(j) < v) sum += expf(acc[i][j] - mx);
     red[(0 * kTile + r) * kSlots + slot] = mx;
     red[(1 * kTile + r) * kSlots + slot] = sum;
@@ -398,41 +463,42 @@ xent_mean(const float* __restrict__ loss_tok, int n,
   if (threadIdx.x == 0) *loss = red[0] / float(n);
 }
 
-// -- backward, f32: per chunk, the scalar main loop --------------------------
+// -- backward, f32: the dl pass on the scalar main loop ----------------------
 
-// Pass 1, one chunk of `rows` tokens: S recomputed per tile, then
-// dl = exp(S - lse) * scale less scale at the label (scale = g / n_total),
-// stored in TD (h's dtype) to dl[rows][ldl] (zeros in the columns
-// v <= c < ldl), and the tile's column sums of the f32 dl as row
-// dbp_row0 + blockIdx.x of dbp[][v].
+// The dl pass of n tokens: S recomputed per tile, then dl = exp(S - lse)
+// * scale less scale at the label (scale = g / n), stored in TD (h's
+// dtype) to dl[n][ldl] (zeros in the columns v <= c < ldl), and the tile's
+// column sums of the f32 dl as row blockIdx.x of dbp[][v].
 template <class E, typename TA, typename TB, typename TD>
 __global__ void __launch_bounds__(kThreads)
 xent_bwd_dl(const TA* h, int ldh, const TB* w, int ldw, int w_lim,
             const float* __restrict__ bias, const int64_t* __restrict__ labels,
             const float* __restrict__ lse, const float* __restrict__ g,
-            int n_total, int rows, int d, int v, TD* __restrict__ dl, int ldl,
-            float* __restrict__ dbp, int dbp_row0) {
+            int n, int d, int v, TD* __restrict__ dl, int ldl,
+            float* __restrict__ dbp) {
   __shared__ __align__(16) unsigned char smem[kSmemBytes];
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  float acc[8][8];
-  E::template mainloop<false, false>(acc, h, ldh, m0, rows, w, ldw, n0, w_lim,
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * E::kTileN;
+  float acc[8][E::kN];
+  E::template mainloop<false, false>(acc, h, ldh, m0, n, w, ldw, n0, w_lim,
                                      0, d, smem);
-  const float scale = g[0] / float(n_total);
-  float colsum[8];
+  const float scale = g[0] / float(n);
+  float colsum[E::kN];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) colsum[j] = 0.f;
+  for (int j = 0; j < E::kN; ++j) colsum[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = m0 + E::row(i);
-    if (r >= rows) continue;
+    if (r >= n) continue;
     const float ls = lse[r];
     const int64_t lab = labels[r];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < E::kN; ++j) {
       const int c = n0 + E::col(j);
       float x = 0.f;
       if (c < v) {
-        x = expf(acc[i][j] + bias[c] - ls) * scale;
+        // __expf: within 15 ulp where exp(x) > 1e-5 (x > -11.5), 1e-6 of
+        // dl's max, and a tenth of the f32 tolerance
+        x = __expf(acc[i][j] + bias[c] - ls) * scale;
         if (c == lab) x += -scale;
         colsum[j] += x;
       }
@@ -440,51 +506,36 @@ xent_bwd_dl(const TA* h, int ldh, const TB* w, int ldw, int w_lim,
     }
     TD* out = dl + size_t(r) * ldl;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < E::kN; j += 4) {  // four adjacent columns
       const int c = n0 + E::col(j);
-      if (c < ldl) out[c] = from_f<TD>(acc[i][j]);
+      if constexpr (sizeof(TD) == 4) {
+        if (c + 3 < ldl) {  // ldl a multiple of 4: 16-byte aligned
+          *reinterpret_cast<float4*>(out + c) = make_float4(
+              acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c + u < ldl) out[c + u] = from_f<TD>(acc[i][j + u]);
     }
   }
-  float* red = reinterpret_cast<float*>(smem);  // [kTile columns][kSlots]
+  // [E::kTileN columns][kSlots]
+  float* red = reinterpret_cast<float*>(smem);
   const int slot = E::col_slot();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) red[E::col(j) * kSlots + slot] = colsum[j];
+  for (int j = 0; j < E::kN; ++j) red[E::col(j) * kSlots + slot] = colsum[j];
   __syncthreads();
   const int c = threadIdx.x;
-  if (c < kTile && n0 + c < v) {
+  static_assert(E::kTileN <= kThreads, "a thread a column");
+  if (c < E::kTileN && n0 + c < v) {
     float s = 0.f;
     for (int q = 0; q < kSlots; ++q) s += red[c * kSlots + q];
-    dbp[size_t(dbp_row0 + blockIdx.x) * v + n0 + c] = s;
+    dbp[size_t(blockIdx.x) * v + n0 + c] = s;
   }
 }
 
-// Pass 2, one chunk: dh_c = dl W^T over the vocabulary range of split
-// blockIdx.z, as f32 partials part[split][rows][d].
-template <class E, typename TD, typename TB>
-__global__ void __launch_bounds__(kThreads)
-xent_bwd_dh(const TD* dl, int ldl, const TB* w, int ldw, int rows, int d,
-            int k_lim, int split_len, float* __restrict__ part) {
-  __shared__ __align__(16) unsigned char smem[kSmemBytes];
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int k0 = blockIdx.z * split_len;
-  const int k1 = min(k0 + split_len, k_lim);
-  float acc[8][8];
-  E::template mainloop<false, true>(acc, dl, ldl, m0, rows, w, ldw, n0, d, k0,
-                                    k1, smem);
-  float* out = part + size_t(blockIdx.z) * rows * d;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + E::row(i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + E::col(j);
-      if (r < rows && c < d) out[size_t(r) * d + c] = acc[i][j];
-    }
-  }
-}
-
-// dh = the sum of the splits' partials, in split order, in TH (both
-// designs).
+// dh = the sum of the splits' partials, in split order, in TH.
 template <typename TH>
 __global__ void xent_dh_reduce(const float* __restrict__ part, int splits,
                                size_t count, TH* __restrict__ dh) {
@@ -493,38 +544,6 @@ __global__ void xent_dh_reduce(const float* __restrict__ part, int splits,
     float s = 0.f;
     for (int z = 0; z < splits; ++z) s += part[z * count + i];
     dh[i] = from_f<TH>(s);
-  }
-}
-
-// Pass 3, one chunk: dW[d][v] += h_c^T dl, each 128 x 128 tile owned by one
-// block.  The first chunk writes, later ones add to acc_buf (f32); the last
-// writes out in w's dtype (acc_buf and out may be one f32 buffer).
-template <class E, typename TA, typename TD, typename TO>
-__global__ void __launch_bounds__(kThreads)
-xent_bwd_dw(const TA* h, int ldh, int h_lim, const TD* dl, int ldl,
-            int dl_lim, int rows, int d, int v, float* acc_buf, TO* out,
-            int first, int last) {
-  __shared__ __align__(16) unsigned char smem[kSmemBytes];
-  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  float acc[8][8];
-  E::template mainloop<true, false>(acc, h, ldh, m0, h_lim, dl, ldl, n0,
-                                    dl_lim, 0, rows, smem);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + E::row(i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + E::col(j);
-      if (r < d && c < v) {
-        const size_t idx = size_t(r) * v + c;
-        float x = acc[i][j];
-        if (!first) x = acc_buf[idx] + x;
-        if (last)
-          out[idx] = from_f<TO>(x);
-        else
-          acc_buf[idx] = x;
-      }
-    }
   }
 }
 
@@ -798,6 +817,230 @@ xent_wg_dw(const __grid_constant__ CUtensorMap h_map,
   wg_store(acc, dw, v, m0, d, n0, v);
 }
 
+// -- backward, f32: dh and dW on wgmma in 3xTF32 ---------------------------
+//
+// The dl pass runs on the scalar main loop (its logits are the forward's
+// f32 sums, in the forward's order: see the header); the two products
+// after it run on the tensor cores, each f32 product three tf32 ones
+// (hopper.cuh).  wgmma reads tf32 only K-major from shared memory, so the
+// A operand comes from registers: each warpgroup loads its 64 rows of a
+// raw f32 tile of dl (as it is, or read transposed) from shared memory and
+// splits it there; the B operand is K-major parts written once by split
+// passes: W's as it is ([2][D][round8(V)]: dh = dl W^T reads W as [n =
+// d][k = v]) and h's transposed ([2][D][round8(N)]: dW^T = dl^T h reads h
+// as [n = d][k = token]).  A block is two warpgroups owning a 128 x 128
+// output tile; 64-deep k slices (A 32 KB, B's parts 64 KB, each 32 wide a
+// TMA box) arrive through a ring of kTfStages TMA stages (64-deep ran 2%
+// faster than 32-deep in four stages, PERF.md).
+
+constexpr int kTfBK = 64;  // k per stage: two 128-byte swizzle atoms of f32
+constexpr int kTfStages = 2;
+constexpr int kTfSteps = kTfBK / 8;                       // k8 steps a stage
+constexpr uint32_t kTfAtom = kTile * 32 * sizeof(float);  // 128 rows: 16 KB
+constexpr uint32_t kTfA = kTfBK / 32 * kTfAtom;           // 32 KB
+constexpr uint32_t kTfStageBytes = 3 * kTfA;              // A, B big, small
+constexpr size_t kTfSmemBytes =
+    kTfStages * kTfStageBytes + kTfStages * sizeof(uint64_t) + 1024;
+static_assert(kTfSmemBytes <= 227 * 1024, "shared memory");
+
+// sum = A B^T in 3xTF32 over k slices [k0, k0 + kTfBK nk) for the block's
+// 128 x 128 tile at (m0, n0), sum laid out as wg_mainloop's acc.  Each
+// slice's products go to an accumulator of their own, which is then added
+// to sum in f32 (rounded to nearest): the tensor cores' own additions
+// round less carefully, and over a K of thousands their error grew to
+// 2.5e-5 of dh's max against 1e-5 allowed (PERF.md).  A is raw f32, from a
+// map over [m][k] (kAT false: boxes of 128 rows x 32) or over [k][m] (kAT
+// true: four boxes of kTfBK x 32, read transposed); B's big and small
+// parts from a map over [2][n][k] (boxes of 128 rows x 32).  Rows and
+// columns outside a map read as zeros.
+template <bool kAT>
+__device__ __forceinline__ void tf_mainloop(float (&sum)[64],
+                                            const CUtensorMap* a_map,
+                                            const CUtensorMap* b_map, int m0,
+                                            int n0, int k0, int nk,
+                                            unsigned char* base) {
+  using namespace hopper;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(base + kTfStages * kTfStageBytes);
+  const uint32_t sbase = smem_addr(base);
+  auto load = [&](int j) {  // one thread: k slice j into stage j % stages
+    const int st = j % kTfStages, k = k0 + j * kTfBK;
+    unsigned char* s = base + st * kTfStageBytes;
+    mbar_expect_tx(&full[st], kTfStageBytes);
+    if (kAT) {  // four boxes of kTfBK rows (k) x 32 (m)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        tma_load_3d(s + b * (kTfA / 4), a_map, &full[st], m0 + 32 * b, k, 0);
+    }
+#pragma unroll
+    for (int a = 0; a < kTfBK / 32; ++a) {  // 128 rows x 32 (k) each
+      if (!kAT)
+        tma_load_3d(s + a * kTfAtom, a_map, &full[st], k + 32 * a, m0, 0);
+      tma_load_3d(s + kTfA + a * kTfAtom, b_map, &full[st], k + 32 * a, n0,
+                  0);
+      tma_load_3d(s + 2 * kTfA + a * kTfAtom, b_map, &full[st], k + 32 * a,
+                  n0, 1);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < kTfStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int j = 0; j < kTfStages && j < nk; ++j) load(j);
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % kTfStages;
+    mbar_wait(&full[st], (kt / kTfStages) & 1);
+    const unsigned char* a_tile = base + st * kTfStageBytes;
+    // this thread's A fragments: (row g or g + 8, depth t or t + 4) of its
+    // warp's 16 rows, each k8 step, split into tf32 parts
+    uint32_t ab[kTfSteps][4], as[kTfSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < kTfSteps; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int m = 64 * wg + 16 * warp + g + 8 * (x & 1);
+        const int k = 8 * kk + t + 4 * (x >> 1);
+        const int kc = k & 31;
+        const uint32_t off =
+            kAT ? (m >> 5) * (kTfA / 4) + k * 128 +
+                      ((((m & 31) >> 2) ^ (k & 7)) << 4) + (m & 3) * 4
+                : (k >> 5) * kTfAtom + m * 128 +
+                      (((kc >> 2) ^ (m & 7)) << 4) + (kc & 3) * 4;
+        tf32_split(*reinterpret_cast<const float*>(a_tile + off), ab[kk][x],
+                   as[kk][x]);
+      }
+    const uint32_t b_addr = sbase + st * kTfStageBytes + kTfA;
+    fence_regs(ab);
+    fence_regs(as);
+    wgmma_fence();
+    wgmma_tf32x3_rs<128, false>(acc, ab[0], as[0],
+                                desc_tf32(b_addr, 0, kTfAtom),
+                                desc_tf32(b_addr + kTfA, 0, kTfAtom));
+#pragma unroll
+    for (int kk = 1; kk < kTfSteps; ++kk)
+      wgmma_tf32x3_rs<128>(acc, ab[kk], as[kk],
+                           desc_tf32(b_addr, kk, kTfAtom),
+                           desc_tf32(b_addr + kTfA, kk, kTfAtom));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(ab);
+    fence_regs(as);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+    __syncthreads();  // both warpgroups done with stage st: refill it
+    if (tid == 0 && kt + kTfStages < nk) load(kt + kTfStages);
+  }
+}
+
+// The dh pass: blockIdx.x a d tile, blockIdx.y a token tile, blockIdx.z a
+// split of the vocabulary [z split_len, (z + 1) split_len) within vp:
+// part[z][n][d] = dl W^T over the split, in f32.
+__global__ void __launch_bounds__(kWgThreads, 1)
+xent_tf_dh(const __grid_constant__ CUtensorMap dl_map,
+           const __grid_constant__ CUtensorMap w_map, int vp, int split_len,
+           int n, int d, float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wg_base(smem_raw);
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.z * split_len;
+  const int len = min(split_len, vp - k0);
+  float acc[64];
+  tf_mainloop<false>(acc, &dl_map, &w_map, m0, n0, k0,
+                     (len + kTfBK - 1) / kTfBK, base);
+  wg_store(acc, part + size_t(blockIdx.z) * n * d, d, m0, n, n0, d);
+}
+
+// The dW pass: blockIdx.x a d tile, blockIdx.y a vocabulary tile; dW^T =
+// dl^T h over every token, summed in f32 in registers, written once to
+// dw[d][v] in TO.
+template <typename TO>
+__global__ void __launch_bounds__(kWgThreads, 1)
+xent_tf_dw(const __grid_constant__ CUtensorMap dl_map,
+           const __grid_constant__ CUtensorMap ht_map, int n, int d, int v,
+           TO* __restrict__ dw) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wg_base(smem_raw);
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  float acc[64];
+  tf_mainloop<true>(acc, &dl_map, &ht_map, m0, n0, 0,
+                    (n + kTfBK - 1) / kTfBK, base);
+  // acc holds (row v, column d): stored to dw[d][v]
+  const WgPos p;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + p.row + 8 * h;
+    if (r >= v) continue;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = n0 + 8 * i + p.col + u;
+        if (c < d) dw[size_t(c) * v + r] = from_f<TO>(acc[4 * i + 2 * h + u]);
+      }
+  }
+}
+
+// dst[2][rows][ld]: the big and small tf32 parts of src [rows][cols] (read
+// as f32), zeros in the columns cols <= c < ld; ld a multiple of 4, dst
+// 16-byte aligned: four columns a thread, 16-byte stores.
+template <typename T>
+__global__ void xent_split(const T* __restrict__ src, int rows, int cols,
+                           float* __restrict__ dst, int ld) {
+  const size_t total = size_t(rows) * ld;
+  for (size_t i = 4 * (blockIdx.x * size_t(blockDim.x) + threadIdx.x);
+       i < total; i += 4 * size_t(gridDim.x) * blockDim.x) {
+    const size_t r = i / ld;
+    const int c = int(i - r * ld);
+    uint32_t big[4], small[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      hopper::tf32_split(c + u < cols ? to_f(src[r * cols + c + u]) : 0.f,
+                         big[u], small[u]);
+    *reinterpret_cast<uint4*>(dst + i) =
+        make_uint4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<uint4*>(dst + total + i) =
+        make_uint4(small[0], small[1], small[2], small[3]);
+  }
+}
+
+// dst[2][cols][ld]: the big and small tf32 parts of src^T (src [rows][cols]
+// f32), zeros in the columns rows <= r < ld; 32 x 32 tiles through shared
+// memory, blockIdx.x over src's rows, blockIdx.y over its columns.
+__global__ void __launch_bounds__(kThreads)
+xent_split_t(const float* __restrict__ src, int rows, int cols,
+             float* __restrict__ dst, int ld) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 8 * i, c = c0 + tx;
+    tile[ty + 8 * i][tx] =
+        r < rows && c < cols ? src[size_t(r) * cols + c] : 0.f;
+  }
+  __syncthreads();
+  const size_t plane = size_t(cols) * ld;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + ty + 8 * i, r = r0 + tx;
+    if (c < cols && r < ld) {
+      uint32_t big, small;
+      hopper::tf32_split(tile[tx][ty + 8 * i], big, small);
+      dst[size_t(c) * ld + r] = __uint_as_float(big);
+      dst[plane + size_t(c) * ld + r] = __uint_as_float(small);
+    }
+  }
+}
+
 // -- host side -------------------------------------------------------------
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -855,7 +1098,7 @@ cudaError_t run_fwd(const Operands& o, const float* bias,
                     const int64_t* labels, int n, int d, int v, float* part,
                     float* lse, float* loss_tok, float* loss,
                     cudaStream_t s) {
-  const dim3 grid(cdiv(n, kTile), cdiv(v, kTile));
+  const dim3 grid(cdiv(n, kTile), cdiv(v, E::kTileN));
   xent_fwd_tiles<E, TH, TW><<<grid, kThreads, 0, s>>>(
       static_cast<const TH*>(o.h), o.ldh, static_cast<const TW*>(o.w), o.ldw,
       o.w_lim, bias, labels, n, d, v, part);
@@ -864,47 +1107,6 @@ cudaError_t run_fwd(const Operands& o, const float* bias,
                                                      loss_tok);
   XENT_CHECK();
   xent_mean<<<1, 1024, 0, s>>>(loss_tok, n, loss);
-  return cudaGetLastError();
-}
-
-template <class E, typename TH, typename TW, typename TO>
-cudaError_t run_bwd(const Operands& o, const float* bias,
-                    const int64_t* labels, const float* lse, const float* g,
-                    int n, int d, int v, int chunk, int splits, int split_len,
-                    TH* dl, float* dbp, float* dh_part, float* dw_acc, TH* dh,
-                    TO* dw, float* db, cudaStream_t s) {
-  const TH* h = static_cast<const TH*>(o.h);
-  const TW* w = static_cast<const TW*>(o.w);
-  const int chunks = n / chunk, row_tiles = cdiv(chunk, kTile);
-  const int ldl = o.w_lim;  // dl's row: V
-  float* acc_buf = dw_acc ? dw_acc : reinterpret_cast<float*>(dw);
-  const size_t dh_count = size_t(chunk) * d;
-  const size_t want_blocks = (dh_count + kThreads - 1) / kThreads;
-  const int reduce_blocks =
-      want_blocks < size_t(kPackBlocks) ? int(want_blocks) : kPackBlocks;
-  for (int c = 0; c < chunks; ++c) {
-    const TH* hc = h + size_t(c) * chunk * o.ldh;
-    const size_t t0 = size_t(c) * chunk;
-    xent_bwd_dl<E, TH, TW, TH>
-        <<<dim3(row_tiles, cdiv(v, kTile)), kThreads, 0, s>>>(
-            hc, o.ldh, w, o.ldw, o.w_lim, bias, labels + t0, lse + t0, g, n,
-            chunk, d, v, dl, ldl, dbp, c * row_tiles);
-    XENT_CHECK();
-    xent_bwd_dh<E, TH, TW>
-        <<<dim3(row_tiles, cdiv(d, kTile), splits), kThreads, 0, s>>>(
-            dl, ldl, w, o.ldw, chunk, d, o.w_lim, split_len, dh_part);
-    XENT_CHECK();
-    xent_dh_reduce<TH><<<reduce_blocks, kThreads, 0, s>>>(
-        dh_part, splits, dh_count, dh + t0 * d);
-    XENT_CHECK();
-    xent_bwd_dw<E, TH, TH, TO>
-        <<<dim3(cdiv(d, kTile), cdiv(v, kTile)), kThreads, 0, s>>>(
-            hc, o.ldh, o.h_lim, dl, ldl, o.w_lim, chunk, d, v, acc_buf, dw,
-            c == 0, c == chunks - 1);
-    XENT_CHECK();
-  }
-  xent_db<<<cdiv(v, kThreads), kThreads, 0, s>>>(dbp, chunks * row_tiles, v,
-                                                 db);
   return cudaGetLastError();
 }
 
@@ -958,19 +1160,80 @@ cudaError_t run_bwd_wgmma(const Operands& o, const float* bias,
   return cudaGetLastError();
 }
 
+// The f32 backward: W's parts and h's transposed parts, the dl pass
+// (scalar, every token at once), dh on wgmma in 3xTF32 with its reduce,
+// dW likewise, then db.  TMA reads dl [n][vp] (raw f32), W's parts
+// [2][d][vp] and h^T's [2][d][np] through 3-D maps.
+template <typename TW>
+cudaError_t run_bwd_tf32(const Operands& o, const float* bias,
+                         const int64_t* labels, const float* lse,
+                         const float* g, int n, int d, int v, int splits,
+                         int split_len, float* dl, float* wsplit, float* ht,
+                         float* dbp, float* dh_part, float* dh, TW* dw,
+                         float* db, cudaStream_t s) {
+  const int vp = round8(v), np = round8(n);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(dl) |
+                         reinterpret_cast<uintptr_t>(wsplit) |
+                         reinterpret_cast<uintptr_t>(ht);
+  if (addr % 16) return cudaErrorInvalidValue;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const float* h = static_cast<const float*>(o.h);
+  const TW* w = static_cast<const TW*>(o.w);
+  xent_split<TW><<<kPackBlocks, kThreads, 0, s>>>(w, d, v, wsplit, vp);
+  XENT_CHECK();
+  xent_split_t<<<dim3(cdiv(np, 32), cdiv(d, 32)), kThreads, 0, s>>>(
+      h, n, d, ht, np);
+  XENT_CHECK();
+  const int row_tiles = cdiv(n, kTile), d_tiles = cdiv(d, kTile);
+  const int v_tiles = cdiv(v, kTile);
+  xent_bwd_dl<ScalarF32, float, TW, float>
+      <<<dim3(row_tiles, cdiv(v, ScalarF32::kTileN)), kThreads, 0, s>>>(
+          h, d, w, v, v, bias, labels, lse, g, n, d, v, dl, vp, dbp);
+  XENT_CHECK();
+  using hopper::tile_map_f32;
+  CUtensorMap lm, ltm, wm, hm;
+  if ((err = tile_map_f32(&lm, dl, 1, n, vp, kTile)) != cudaSuccess ||
+      (err = tile_map_f32(&ltm, dl, 1, n, vp, kTfBK)) != cudaSuccess ||
+      (err = tile_map_f32(&wm, wsplit, 2, d, vp, kTile)) != cudaSuccess ||
+      (err = tile_map_f32(&hm, ht, 2, d, np, kTile)) != cudaSuccess)
+    return err;
+  static hopper::SmemLimit dh_limit, dw_limit;
+  if ((err = dh_limit.raise(xent_tf_dh, dev, kTfSmemBytes)) != cudaSuccess ||
+      (err = dw_limit.raise(xent_tf_dw<TW>, dev, kTfSmemBytes)) !=
+          cudaSuccess)
+    return err;
+  xent_tf_dh<<<dim3(d_tiles, row_tiles, splits), kWgThreads, kTfSmemBytes,
+               s>>>(lm, wm, vp, split_len, n, d, dh_part);
+  XENT_CHECK();
+  const size_t dh_count = size_t(n) * d;
+  const size_t want_blocks = (dh_count + kThreads - 1) / kThreads;
+  xent_dh_reduce<float>
+      <<<want_blocks < size_t(kPackBlocks) ? int(want_blocks) : kPackBlocks,
+         kThreads, 0, s>>>(dh_part, splits, dh_count, dh);
+  XENT_CHECK();
+  xent_tf_dw<TW><<<dim3(d_tiles, v_tiles), kWgThreads, kTfSmemBytes, s>>>(
+      ltm, hm, n, d, v, dw);
+  XENT_CHECK();
+  xent_db<<<cdiv(v, kThreads), kThreads, 0, s>>>(dbp, row_tiles, v, db);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int n, int d, int v) {
   return n < 1 || d < 1 || v < 1 || cdiv(v, kTile) > 65535;
 }
 
 // The backward's designs, as fused_xent.py's bwd_design names them.
-enum BwdDesign { kBwdScalar = 0, kBwdWgmma = 1 };
+enum BwdDesign { kBwdWgmma = 0, kBwdWgmmaTf32 = 1 };
 
-BwdDesign bwd_design(int tc) { return tc ? kBwdWgmma : kBwdScalar; }
+BwdDesign bwd_design(int tc) { return tc ? kBwdWgmma : kBwdWgmmaTf32; }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  `tc`: bf16 activations on the
-// tensor cores (else f32 on scalar FMAs); `w_bf16`: W's dtype (else f32).
+// tensor cores (else f32: the forward and the backward's logits on scalar
+// FMAs, its dh and dW on wgmma in 3xTF32); `w_bf16`: W's dtype (else f32).
 // hp / wp: where to pack h / W for the tensor cores (null: used as given,
 // which needs bf16 rows of a whole number of 16 bytes).  They launch on
 // `stream`, do not synchronise, allocate nothing, and return the first
@@ -1001,27 +1264,26 @@ extern "C" int fused_xent_fwd(int tc, int w_bf16, const void* h, void* hp,
                                           s);
 }
 
-// The wgmma design (tc): dl [N][round8(V)] bf16; dbp [cdiv(N, 128)][V]
-// f32; dh_part [splits][N][D] f32, the vocabulary split into ranges of
-// split_len (a multiple of 64) that cover round8(V) exactly; dw_acc unused.
-// The scalar design (f32): dl [chunk][V]; dbp [N / chunk * cdiv(chunk,
-// 128)][V] f32; dh_part [splits][chunk][D] f32; dw_acc a [D][V] f32 sum
-// (null: dw itself, which must then be f32).
+// Both designs run over every token at once: dl [N][round8(V)] (bf16 for
+// tc, else f32); dbp [cdiv(N, 128)][V] f32; dh_part [splits][N][D] f32,
+// the vocabulary split into ranges of split_len (a multiple of 64) that
+// cover round8(V) exactly.  f32 only: wp W's tf32 parts
+// [2][D][round8(V)], ht h's transposed [2][D][round8(N)] (f32, 16-byte
+// aligned, as dl).
 extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
                               const void* w, void* wp, const void* bias,
                               const void* labels, const void* lse,
-                              const void* g, int n, int d, int v, int chunk,
-                              int splits, int split_len, void* dl, void* dbp,
-                              void* dh_part, void* dw_acc, void* dh, void* dw,
+                              const void* g, int n, int d, int v, int splits,
+                              int split_len, void* dl, void* dbp,
+                              void* dh_part, void* ht, void* dh, void* dw,
                               void* db, void* stream) {
-  if (bad_shape(n, d, v) || chunk < 1 || n % chunk || splits < 1 ||
-      splits > 65535 || split_len < 1)
-    return cudaErrorInvalidValue;
   const int64_t vp = round8(v);
-  if (tc && (split_len % kWgBK || int64_t(splits - 1) * split_len >= vp ||
-             int64_t(splits) * split_len < vp || cdiv(n, kTile) > 65535))
+  const int step = tc ? kWgBK : kTfBK;
+  if (bad_shape(n, d, v) || splits < 1 || splits > 65535 || split_len < 1 ||
+      split_len % step || int64_t(splits - 1) * split_len >= vp ||
+      int64_t(splits) * split_len < vp || cdiv(n, kTile) > 65535 ||
+      (!tc && (wp == nullptr || ht == nullptr)))
     return cudaErrorInvalidValue;
-  if (!tc && w_bf16 && !dw_acc) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Operands o;
   cudaError_t e = Operands::make(&o, tc, w_bf16, h, hp, w, wp, n, d, v, s);
@@ -1032,7 +1294,6 @@ extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
   const float* gg = static_cast<const float*>(g);
   float* dbp_f = static_cast<float*>(dbp);
   float* part = static_cast<float*>(dh_part);
-  float* acc = static_cast<float*>(dw_acc);
   float* dbf = static_cast<float*>(db);
   if (tc) {
     bf16* dlb = static_cast<bf16*>(dl);
@@ -1046,14 +1307,16 @@ extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
                                 static_cast<float*>(dw), dbf, s);
   }
   float* dlf = static_cast<float*>(dl);
+  float* wsplit = static_cast<float*>(wp);
+  float* htf = static_cast<float*>(ht);
   float* dhf = static_cast<float*>(dh);
   if (w_bf16)
-    return run_bwd<ScalarF32, float, bf16, bf16>(
-        o, b, lab, ls, gg, n, d, v, chunk, splits, split_len, dlf, dbp_f,
-        part, acc, dhf, static_cast<bf16*>(dw), dbf, s);
-  return run_bwd<ScalarF32, float, float, float>(
-      o, b, lab, ls, gg, n, d, v, chunk, splits, split_len, dlf, dbp_f, part,
-      acc, dhf, static_cast<float*>(dw), dbf, s);
+    return run_bwd_tf32<bf16>(o, b, lab, ls, gg, n, d, v, splits, split_len,
+                              dlf, wsplit, htf, dbp_f, part, dhf,
+                              static_cast<bf16*>(dw), dbf, s);
+  return run_bwd_tf32<float>(o, b, lab, ls, gg, n, d, v, splits, split_len,
+                             dlf, wsplit, htf, dbp_f, part, dhf,
+                             static_cast<float*>(dw), dbf, s);
 }
 
 // The design (BwdDesign above) the bf16 (tc != 0) or f32 backward takes.

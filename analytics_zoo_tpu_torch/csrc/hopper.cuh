@@ -1,5 +1,6 @@
 // Hopper (sm_90a) primitives shared by the package's kernels: warpgroup
-// matrix products (wgmma) on bf16 with f32 accumulators, their shared-memory
+// matrix products (wgmma) on bf16, and on tf32 in three passes for f32
+// operands, with f32 accumulators, their shared-memory
 // descriptors for the 128-byte swizzle, and TMA tile loads completed on
 // mbarriers, and the host's encoding of the tensor maps those loads read
 // and raising of a kernel's shared memory limit.
@@ -103,6 +104,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
     for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[kk][x])::"memory");
 }
 
+#define HOPPER_D16(c)                                                        \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),    \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),    \
+      c(d[15])
+#define HOPPER_D16_REGS                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HOPPER_D32(c)                                                        \
   c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),    \
       c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),    \
@@ -183,6 +190,143 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ---------------------------------------------------------------------------
+// wgmma on tf32 (f32 operands at three products per f32 product)
+// ---------------------------------------------------------------------------
+//
+// tf32 operands are 32-bit f32 words of which the tensor cores use 19 bits
+// (sign, exponent, 10 mantissa bits).  3xTF32 keeps about f32's accuracy:
+// x = big + small with big = tf32(x) (cvt.rna: to nearest, ties away) and
+// small = tf32(x - big), and a b ~ big_a small_b + small_a big_b + big_a
+// big_b, accumulated in f32.  wgmma reads tf32 from shared memory only
+// K-major (the transpose bits exist for 16-bit types alone), so every
+// staged operand has K contiguous:
+//   * a tile's rows are K-major f32 rows cut into 128-byte swizzle atoms of
+//     32 values (the TMA box is 32 wide); a tile of K 64 is two atoms,
+//     `atom` bytes apart (rows x 128), and k8 step kk starts 32 (kk % 4)
+//     bytes into atom kk / 4; the stride byte offset is 1024 (8 rows);
+//   * A from registers (m64k8, four 32-bit registers, rows offset by 16
+//     w): a0 = (row g, k t), a1 = (row g + 8, k t), a2 = (row g, k t + 4),
+//     a3 = (row g + 8, k t + 4).  An m64nN f32 accumulator holds, in n8
+//     chunk i, (row g, columns 2t, 2t + 1) and (row g + 8, the same), so
+//     chunk i becomes k8 step i of the next product as a0 = d[4i], a1 =
+//     d[4i + 2], a2 = d[4i + 1], a3 = d[4i + 3]: depth slot t is column 2t
+//     and slot t + 4 column 2t + 1.  The B operand of such a product keeps
+//     its K in that order within each group of 8: depth j at position j / 2
+//     when j is even, 4 + j / 2 when odd.
+
+// The tf32 parts of x: big (rounded to nearest, ties away) and small.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));
+}
+
+// K-major f32 operand: k8 step kk of a tile at `addr` whose 32-wide atoms
+// lie `atom` bytes apart.
+__device__ __forceinline__ uint64_t desc_tf32(uint32_t addr, int kk,
+                                              uint32_t atom) {
+  return desc_sw128(addr + (kk >> 2) * atom + (kk & 3) * 32, 16, 1024);
+}
+
+// d (+)= A B, m64nNk8 (N 32 or 64: 16 or 32 accumulators), tf32 in, f32
+// accumulate, A and B K-major in shared memory.  Without kAccumulate d is
+// only written (scale-d 0), as in wgmma_ss.
+template <bool kAccumulate, int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b) {
+  constexpr int kScale = kAccumulate ? 1 : 0;
+  if constexpr (N == 32) {
+    if constexpr (kAccumulate) {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+          HOPPER_D16_REGS ", %16, %17, p, 1, 1;\n}\n"
+          : HOPPER_D16("+f") : "l"(a), "l"(b), "r"(kScale));
+    } else {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+          HOPPER_D16_REGS ", %16, %17, p, 1, 1;\n}\n"
+          : HOPPER_D16("=f") : "l"(a), "l"(b), "r"(kScale));
+    }
+  } else {
+    static_assert(N == 64, "m64n32 or m64n64");
+    if constexpr (kAccumulate) {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+          HOPPER_D32_REGS ", %32, %33, p, 1, 1;\n}\n"
+          : HOPPER_D32("+f") : "l"(a), "l"(b), "r"(kScale));
+    } else {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+          HOPPER_D32_REGS ", %32, %33, p, 1, 1;\n}\n"
+          : HOPPER_D32("=f") : "l"(a), "l"(b), "r"(kScale));
+    }
+  }
+}
+
+// d (+)= A B, m64nNk8 (N 64 or 128), tf32: A (four registers, the fragment
+// above) from registers, B K-major in shared memory; without kAccumulate
+// (N 128) d is only written, as in wgmma_ss.
+template <int N, bool kAccumulate = true>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  if constexpr (N == 64) {
+    static_assert(kAccumulate, "m64n64: accumulate only");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        HOPPER_D32_REGS ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : HOPPER_D32("+f")
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else if constexpr (kAccumulate) {
+    static_assert(N == 128, "m64n64 or m64n128");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        HOPPER_D64_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : HOPPER_D64("+f")
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    static_assert(N == 128, "m64n64 or m64n128");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        HOPPER_D64_REGS ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : HOPPER_D64("=f")
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+  }
+}
+
+// The 3xTF32 product of one k8 step from register A parts (big, small)
+// and B parts in shared memory: the two small terms, then the big one;
+// without kAccumulate the first one overwrites d.
+template <int N, bool kAccumulate = true>
+__device__ __forceinline__ void wgmma_tf32x3_rs(float (&d)[N / 2],
+                                                const uint32_t (&a_big)[4],
+                                                const uint32_t (&a_small)[4],
+                                                uint64_t b_big,
+                                                uint64_t b_small) {
+  wgmma_tf32_rs<N, kAccumulate>(d, a_small, b_big);
+  wgmma_tf32_rs<N>(d, a_big, b_small);
+  wgmma_tf32_rs<N>(d, a_big, b_big);
+}
+
+// Register A fragments (k8 steps x four registers) read asynchronously by
+// wgmma_tf32_rs: fenced as fence_regs does for the bf16 ones.
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[kk][x])::"memory");
+}
+
 // Byte offset of bf16 element (row, col) of a 64-wide tile in the 128-byte
 // swizzle: 16-byte chunk c of row r sits at chunk c ^ (r % 8).
 __device__ __forceinline__ uint32_t swizzled(int row, int col) {
@@ -193,6 +337,8 @@ __device__ __forceinline__ uint32_t swizzled(int row, int col) {
 #undef HOPPER_D64
 #undef HOPPER_D32_REGS
 #undef HOPPER_D32
+#undef HOPPER_D16_REGS
+#undef HOPPER_D16
 
 // ---------------------------------------------------------------------------
 // mbarrier and TMA
@@ -307,6 +453,29 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* ptr, int bh, int t,
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-D map over a contiguous f32 [planes, rows, cols] tensor, boxes of 1
+// x box_rows x 32 (one 128-byte swizzle atom) with the 128-byte swizzle:
+// rows >= rows and columns >= cols of a box read zeros.  cols must be a
+// multiple of 4 (16-byte rows).
+inline cudaError_t tile_map_f32(CUtensorMap* map, const void* ptr,
+                                int planes, int rows, int cols,
+                                int box_rows) {
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
+                              cuuint64_t(planes)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * sizeof(float),
+                                 cuuint64_t(rows) * cols * sizeof(float)};
+  const cuuint32_t box[3] = {32, cuuint32_t(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
       strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

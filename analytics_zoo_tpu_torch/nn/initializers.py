@@ -11,7 +11,7 @@ and convert the weights.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -76,7 +76,9 @@ INITIALIZERS = {
 }
 
 
-def get(init: str) -> Initializer:
+def get(init: Union[str, Initializer]) -> Initializer:
+    if callable(init):
+        return init
     try:
         return INITIALIZERS[init]
     except KeyError:

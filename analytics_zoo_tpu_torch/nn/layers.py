@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,23 +31,35 @@ from . import activations, initializers
 
 class Dense(nn.Module):
     """Fully connected layer: the matmul runs in the input's dtype, the bias
-    is added in the output's dtype (as ``layers.py`` Dense does)."""
+    (where ``use_bias``) is added in the output's dtype (as ``layers.py``
+    Dense does).  ``activation`` is a name of ``activations`` or a
+    callable; ``kernel_init`` and ``bias_init`` a name of ``initializers``
+    or a callable ``(tensor, generator) -> tensor``."""
 
     def __init__(self, in_features: int, units: int,
-                 activation: Optional[str] = None):
+                 activation: Union[str, Callable, None] = None,
+                 use_bias: bool = True,
+                 kernel_init: Union[str, Callable] = "glorot_uniform",
+                 bias_init: Union[str, Callable] = "zeros"):
         super().__init__()
         self.activation = activations.get(activation)
+        self.use_bias = use_bias
+        self.kernel_init = initializers.get(kernel_init)
+        self.bias_init = initializers.get(bias_init)
         self.kernel = nn.Parameter(torch.empty(in_features, units))
-        self.bias = nn.Parameter(torch.empty(units))
+        self.bias = nn.Parameter(torch.empty(units)) if use_bias else None
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        initializers.glorot_uniform(self.kernel, generator)
-        initializers.zeros(self.bias)
+        self.kernel_init(self.kernel, generator)
+        if self.bias is not None:
+            self.bias_init(self.bias, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel.to(x.dtype)
-        return self.activation(y + self.bias.to(y.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return self.activation(y)
 
 
 class Embedding(nn.Module):

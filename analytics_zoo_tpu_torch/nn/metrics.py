@@ -73,7 +73,16 @@ class TopKAccuracy(_Fraction):
 
     def update(self, y_pred, y_true, mask=None):
         m = _ones_mask(y_pred, mask)
-        topk = torch.topk(y_pred, self.k, dim=-1).indices
+        # jax.lax.top_k puts the lower index first among equal scores and
+        # -0 after +0 (torch.topk leaves ties unordered): a stable sort on
+        # the sign of the zeros, then a stable descending one on the
+        # scores, does both
+        neg_zero = (y_pred == 0) & torch.signbit(y_pred)
+        order = torch.sort(neg_zero.to(torch.uint8), dim=-1,
+                           stable=True).indices
+        ranked = torch.sort(y_pred.gather(-1, order), dim=-1,
+                            descending=True, stable=True).indices
+        topk = order.gather(-1, ranked[..., :self.k])
         true = (torch.argmax(y_true, dim=-1)
                 if y_true.dim() == y_pred.dim() else y_true)
         hit = _per_example((topk == true[..., None].long()).any(dim=-1))

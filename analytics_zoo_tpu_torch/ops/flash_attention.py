@@ -14,7 +14,9 @@ tensor on the card:
   design;
 - ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``: bf16
   heads of 33-64 on ``wgmma`` fed by a TMA ring, up to 32 on ``mma.sync``,
-  f32 and wider heads in scalar f32 (``bwd_design`` names the design);
+  f32 heads up to 64 on ``wgmma`` in 3xTF32 (three tf32 products per f32
+  product, about f32's accuracy), wider heads in scalar f32
+  (``bwd_design`` names the design);
 - ``flash_attention`` ties them together in a ``torch.autograd.Function``.
 
 Every kernel takes any BH and any head dim of at least 1, as the JAX
@@ -46,7 +48,7 @@ BWD_TC_MAX_HEAD_DIM = 64
 # csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu
 # (flash_attention_fwd_design and flash_attention_bwd_design return the
 # index)
-DESIGNS = ("scalar", "mma.sync", "wgmma", "wide")
+DESIGNS = ("scalar", "mma.sync", "wgmma", "wide", "wgmma_tf32")
 FWD_BF16 = "flash_attention_fwd"      # csrc/<source>.cu
 FWD_F32 = "flash_attention_fwd_f32"
 BWD = "flash_attention_bwd"
@@ -97,15 +99,17 @@ def bwd_design(dtype: torch.dtype, d: int) -> str:
     """The design of ``csrc/flash_attention_bwd.cu`` that takes the
     backward of a head dim ``d`` in ``dtype`` (after the wrapper's padding
     of bf16 tensor-core heads to a multiple of 8): one of ``DESIGNS``.
-    Mirrors the source's ``design``; a ``cuda`` test holds the two
-    together."""
+    bf16 heads of 33-64 run on ``wgmma``, up to 32 on ``mma.sync``; f32
+    heads up to 64 on ``wgmma`` in 3xTF32 (``wgmma_tf32``); wider heads up
+    to 256 on the scalar kernels, above 256 on the wide ones.  Mirrors the
+    source's ``design``; a ``cuda`` test holds the two together."""
     width = _kernel_head_dim(d, dtype, BWD_TC_MAX_HEAD_DIM)
     if width > 256:
         return "wide"
-    if dtype == torch.bfloat16 and width <= 32:
-        return "mma.sync"
-    if dtype == torch.bfloat16 and width <= BWD_TC_MAX_HEAD_DIM:
-        return "wgmma"
+    if width <= BWD_TC_MAX_HEAD_DIM:
+        if dtype != torch.bfloat16:
+            return "wgmma_tf32"
+        return "mma.sync" if width <= 32 else "wgmma"
     return "scalar"
 
 
@@ -306,13 +310,26 @@ def _launch_bwd(q3, k3, v3, out, lse, dout, causal):
     return grads
 
 
+def _work_floats(lib, dtype: torch.dtype, bh: int, tq: int, tk: int,
+                 d: int) -> int:
+    """The f32 workspace the backward's design needs at these sizes (the
+    3xTF32 design's split parts: 2 x BH x (2 Tq + 2 Tk + 2 round8(Tq) +
+    round8(Tk)) x round8(d) floats, 0 for the others), as the source
+    counts it."""
+    fn = lib.flash_attention_bwd_work_floats
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
+    return int(fn(int(dtype == torch.bfloat16), bh, tq, tk, d))
+
+
 def _run_bwd_kernel(q3, k3, v3, out, lse, dout, causal, scale):
-    """Launch the backward kernel (delta, dK/dV, dQ) on ``[BH, T, width]``
-    tensors with the softmax ``scale`` of the true head dim, on the current
-    stream of the tensors' device; counts one launch, and one of its
-    design."""
+    """Launch the backward kernel (delta, dK/dV, dQ; the 3xTF32 design's
+    split pass first) on ``[BH, T, width]`` tensors with the softmax
+    ``scale`` of the true head dim, on the current stream of the tensors'
+    device; counts one launch, and one of its design."""
     entry = _BWD_ENTRIES[q3.dtype]
-    lib, fn = _entry(BWD, entry, 10, 5)
+    lib, fn = _entry(BWD, entry, 11, 5)
     # the tensor-core paths copy 16-byte pieces (cp.async, TMA): a view at
     # an odd offset is copied to fresh (aligned) storage first
     q3, k3, v3, out, dout = (x if x.data_ptr() % 16 == 0 else x.clone()
@@ -320,10 +337,14 @@ def _run_bwd_kernel(q3, k3, v3, out, lse, dout, causal, scale):
     bh, tq, d = q3.shape
     dq, dk, dv = (torch.empty_like(x) for x in (q3, k3, v3))
     delta = torch.empty((bh, tq), dtype=torch.float32, device=q3.device)
+    floats = _work_floats(lib, q3.dtype, bh, tq, k3.shape[1], d)
+    work = torch.empty(floats, dtype=torch.float32, device=q3.device) \
+        if floats else None
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 0 if work is None else work.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, tq,
                  k3.shape[1], d, int(bool(causal)), scale, stream)
     _raise_on_error(lib, entry, err)

@@ -13,19 +13,23 @@ sums db from the f32 values.  Here, for a tensor on the card:
 - ``fused_xent_fwd`` launches ``csrc/fused_xent.cu``'s forward (the logit
   tiles' max, sum of exponentials and label logit, combined per token into
   the logsumexp and the mean loss; the logits are never written);
-- ``fused_xent_bwd`` launches its backward: for bf16 activations three
-  ``wgmma`` products over every token (the ``dl`` pass into a ``[tokens,
-  vocab]`` workspace, ``dh`` split over the vocabulary, ``dW`` with its
-  f32 sum kept on chip from the first token to the last), for f32 the
-  scalar passes per chunk of tokens; then db;
+- ``fused_xent_bwd`` launches its backward over every token: the ``dl``
+  pass into a ``[tokens, vocab]`` workspace, ``dh`` split over the
+  vocabulary, ``dW`` with its f32 sum kept on chip from the first token to
+  the last, then db.  bf16 activations run all three products on
+  ``wgmma``; f32 activations run the ``dl`` pass's logits on scalar f32
+  FMAs (in the forward's summation order: dl = exp(S - lse) needs S to its
+  last bits, see ``csrc/fused_xent.cu``) and ``dh`` and ``dW`` on ``wgmma``
+  in 3xTF32 (three tf32 products per f32 product);
 - ``fused_softmax_xent`` ties them together in a
   ``torch.autograd.Function`` whose residuals are ``(h, w, bias, labels,
   lse)``, as the ``custom_vjp``'s are.
 
 bf16 activations run on the tensor cores (the forward on ``mma.sync``,
-the backward on ``wgmma`` fed by TMA), f32 activations on scalar f32 FMAs
-(exact f32 products, as JAX's f32 dot); ``bwd_design`` names the
-backward's design.  For a tensor on the CPU the wrappers use
+the backward on ``wgmma`` fed by TMA); f32 activations' forward and
+logits on scalar f32 FMAs (exact f32 products, as JAX's f32 dot), their
+dh and dW on ``wgmma`` in 3xTF32; ``bwd_design`` names the backward's
+design.  For a tensor on the CPU the wrappers use
 ``fused_xent_reference`` and ``fused_xent_bwd_reference``, which repeat
 the JAX op's chunked math step by step.  There is no fallback from the card to the plain versions: a
 kernel that fails to build or launch raises.
@@ -45,18 +49,21 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 PASSES = ("fwd", "dl", "dh", "dw")
 # calls of each pass by activation dtype ("fwd_bf16", ...): one forward
 # entry call counts "fwd" (its pack, tile, finalize and mean kernels); one
-# backward entry call counts "dl", "dh" and "dw" once each, though it
-# launches each of those kernels once per chunk
+# backward entry call counts "dl", "dh" and "dw" once each
 KERNEL_LAUNCHES = {f"{p}_{s}": 0 for s in _SUFFIX.values() for p in PASSES}
 _count_lock = threading.Lock()
 TILE = 128            # the kernels' output tile, rows and columns
-SPLIT_K_STEP = 32     # the scalar dh's split-K ranges: multiples of this
-TARGET_BLOCKS = 2 * 132  # the scalar dh's split-K: two blocks an SM
-# the backward's designs, in the order of the source's BwdDesign
-BWD_DESIGNS = ("scalar", "wgmma")
+# the backward's designs, in the order of the source's BwdDesign;
+# BWD_LAUNCHES counts the backward's entry calls by design
+BWD_DESIGNS = ("wgmma", "wgmma_tf32")
+BWD_LAUNCHES = dict.fromkeys(BWD_DESIGNS, 0)
 WG_BK = 64            # the wgmma design's k slice: its dh splits' step
 # the wgmma dh's splits: four waves of two blocks on each of 132 SMs
 WG_TARGET_BLOCKS = 4 * 2 * 132
+TF_BK = 64            # the wgmma_tf32 design's k slice
+# ... and its dh's splits: eight waves of one block on each of 132 SMs
+# (at the recipe 96 tiles x 11 splits fill them exactly)
+TF_TARGET_BLOCKS = 8 * 132
 
 
 def _flatten(h: torch.Tensor, labels: torch.Tensor
@@ -171,17 +178,8 @@ def _tiles(x: int) -> int:
     return -(-x // TILE)
 
 
-def dh_splits(chunk: int, d: int, k: int) -> Tuple[int, int]:
-    """(splits, length) of the dh product's vocab (K) range: enough splits
-    that the chunk's ``[chunk, d]`` output tiles make ``TARGET_BLOCKS``
-    blocks, each split a whole number of ``SPLIT_K_STEP`` columns."""
-    splits = max(1, -(-TARGET_BLOCKS // (_tiles(chunk) * _tiles(d))))
-    length = -(-(-(-k // splits)) // SPLIT_K_STEP) * SPLIT_K_STEP
-    return -(-k // length), length
-
-
 class BwdPlan(NamedTuple):
-    """The wgmma backward's grids: ``TILE``-square output tiles over
+    """The backward's grids: ``TILE``-square output tiles over
     tokens (``row_tiles``), D (``d_tiles``) and V (``v_tiles``); dh's
     vocabulary (K, padded to ``vp``) in ``splits`` ranges of ``split_len``
     columns."""
@@ -193,27 +191,31 @@ class BwdPlan(NamedTuple):
     split_len: int
 
 
-def bwd_plan(n: int, d: int, v: int) -> BwdPlan:
-    """The grids of the wgmma backward at ``n`` tokens, width ``d`` and
-    vocabulary ``v``: the dl pass ``row_tiles x v_tiles`` blocks, dW
-    ``d_tiles x v_tiles``, dh ``d_tiles x row_tiles x splits``, with enough
-    splits of whole ``WG_BK`` slices to make about ``WG_TARGET_BLOCKS``
-    blocks (at the recipe's 2048 x 768 -> 30,522: 96 tiles x 11 splits of
-    2,816 columns) and no split empty."""
+def bwd_plan(n: int, d: int, v: int, design: str = "wgmma") -> BwdPlan:
+    """The grids of the backward's ``design`` at ``n`` tokens, width
+    ``d`` and vocabulary ``v``: the dl pass ``row_tiles x v_tiles``
+    blocks, dW ``d_tiles x v_tiles``, dh ``d_tiles x row_tiles x splits``,
+    with enough splits of whole k slices (``WG_BK`` for ``wgmma``,
+    ``TF_BK`` for ``wgmma_tf32``) to make about ``WG_TARGET_BLOCKS`` (two
+    blocks an SM) or ``TF_TARGET_BLOCKS`` (one) blocks and no split empty:
+    at the recipe's 2048 x 768 -> 30,522, 96 tiles x 11 splits of 2,816
+    columns (both designs)."""
+    step, target = ((WG_BK, WG_TARGET_BLOCKS) if design == "wgmma"
+                    else (TF_BK, TF_TARGET_BLOCKS))
     vp = _round8(v)
     tiles = _tiles(n) * _tiles(d)
-    steps = -(-vp // WG_BK)
-    per_split = -(-steps // min(steps, -(-WG_TARGET_BLOCKS // tiles)))
+    steps = -(-vp // step)
+    per_split = -(-steps // min(steps, -(-target // tiles)))
     return BwdPlan(_tiles(n), _tiles(d), _tiles(v), vp,
-                   -(-steps // per_split), per_split * WG_BK)
+                   -(-steps // per_split), per_split * step)
 
 
 def bwd_design(dtype: torch.dtype) -> str:
     """The design of ``csrc/fused_xent.cu``'s backward for activations in
-    ``dtype``: one of ``BWD_DESIGNS`` (bf16 ``wgmma``, f32 ``scalar``).
-    Mirrors the source's ``bwd_design``; a ``cuda`` test holds the two
-    together."""
-    return "wgmma" if dtype == torch.bfloat16 else "scalar"
+    ``dtype``: one of ``BWD_DESIGNS`` (bf16 ``wgmma``, f32
+    ``wgmma_tf32``).  Mirrors the source's ``bwd_design``; a ``cuda`` test
+    holds the two together."""
+    return "wgmma" if dtype == torch.bfloat16 else "wgmma_tf32"
 
 
 def _aligned(t: torch.Tensor) -> bool:
@@ -221,20 +223,29 @@ def _aligned(t: torch.Tensor) -> bool:
 
 
 class _Operands:
-    """The products' operands on the card.  The tensor-core route copies
-    its bf16 operands with 16-byte ``cp.async`` or TMA and wants each row a
-    whole number of 16 bytes: ``w`` in f32, or with a width V that is not a
-    multiple of 8, is cast into a bf16 ``[D, round8(V)]`` copy by the pack
-    kernel (one pass per call); ``h`` likewise when D is not a multiple of
-    8.  The scalar f32 route reads any width and any dtype of ``w``."""
+    """The products' operands on the card.  The bf16 tensor-core route
+    copies its operands with 16-byte ``cp.async`` or TMA and wants each row
+    a whole number of 16 bytes: ``w`` in f32, or with a width V that is not
+    a multiple of 8, is cast into a bf16 ``[D, round8(V)]`` copy by the
+    pack kernel (one pass per call); ``h`` likewise when D is not a
+    multiple of 8.  The f32 route's scalar loops read any width and any
+    dtype of ``w``; its backward's split passes write ``wp``, W's tf32
+    parts ``[2, D, round8(V)]``, and ``ht``, h's transposed ``[2, D,
+    round8(N)]`` (``with_parts``)."""
 
-    def __init__(self, h2: torch.Tensor, w: torch.Tensor):
+    def __init__(self, h2: torch.Tensor, w: torch.Tensor,
+                 with_parts: bool = False):
         n, d = h2.shape
         v = w.shape[1]
         self.tc = h2.dtype == torch.bfloat16
         self.h = h2.contiguous()
         self.w = w.contiguous()
-        self.hp = self.wp = None
+        self.hp = self.wp = self.ht = None
+        if with_parts and not self.tc:
+            self.wp = torch.empty(2, d, _round8(v), dtype=torch.float32,
+                                  device=h2.device)
+            self.ht = torch.empty(2, d, _round8(n), dtype=torch.float32,
+                                  device=h2.device)
         self.dp, self.vp = (_round8(d), _round8(v)) if self.tc else (d, v)
         if self.tc:
             if not (self.w.dtype == torch.bfloat16 and v % 8 == 0
@@ -263,9 +274,8 @@ def _entry(name: str):
             # part, lse, loss_tok, loss; stream
             "fwd": [i, i] + [p] * 6 + [i] * 3 + [p] * 4 + [p],
             # tc, w_bf16; h, hp, w, wp, bias, labels, lse, g; n, d, v,
-            # chunk, splits, split_len; dl, dbp, dh_part, dw_acc, dh, dw,
-            # db; stream
-            "bwd": [i, i] + [p] * 8 + [i] * 6 + [p] * 7 + [p],
+            # splits, split_len; dl, dbp, dh_part, ht, dh, dw, db; stream
+            "bwd": [i, i] + [p] * 8 + [i] * 5 + [p] * 7 + [p],
         }[name]
         fn.restype = ctypes.c_int
     return lib, fn
@@ -279,11 +289,13 @@ def _raise_on_error(lib, entry: str, err: int) -> None:
                            f"({es(err).decode()})")
 
 
-def _count(fn, *names: str) -> None:
+def _count(fn, *names: str, design: Optional[str] = None) -> None:
     with _count_lock:
         fn.launches += 1
         for name in names:
             KERNEL_LAUNCHES[name] += 1
+        if design is not None:
+            BWD_LAUNCHES[design] += 1
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -318,25 +330,17 @@ def _launch_fwd(h2, w, bias, labels, chunk):
     return loss, lse
 
 
-def _launch_bwd(h2, w, bias, labels, lse, g, chunk):
+def _launch_bwd(h2, w, bias, labels, lse, g):
     _check_launch(h2, w, bias, labels, lse, g)
     n, d = h2.shape
     v = w.shape[1]
-    ops = _Operands(h2, w)
+    ops = _Operands(h2, w, with_parts=True)
     dev = h2.device
-    dw_acc = None
-    if ops.tc:  # wgmma: every token at once
-        plan = bwd_plan(n, d, v)
-        splits, split_len, rows = plan.splits, plan.split_len, n
-        dbp_rows = plan.row_tiles
-    else:  # scalar: per chunk; dW sums its chunks in f32 (in dw if f32)
-        splits, split_len = dh_splits(chunk, d, ops.vp)
-        rows, dbp_rows = chunk, _tiles(chunk) * (n // chunk)
-        if w.dtype != torch.float32:
-            dw_acc = torch.empty(d, v, dtype=torch.float32, device=dev)
-    dl = torch.empty(rows, ops.vp, dtype=h2.dtype, device=dev)
-    dbp = torch.empty(dbp_rows * v, dtype=torch.float32, device=dev)
-    dh_part = torch.empty(splits * rows * d, dtype=torch.float32,
+    design = bwd_design(h2.dtype)
+    plan = bwd_plan(n, d, v, design)
+    dl = torch.empty(n, plan.vp, dtype=h2.dtype, device=dev)
+    dbp = torch.empty(plan.row_tiles * v, dtype=torch.float32, device=dev)
+    dh_part = torch.empty(plan.splits * n * d, dtype=torch.float32,
                           device=dev)
     dh = torch.empty(n, d, dtype=h2.dtype, device=dev)
     dw = torch.empty(d, v, dtype=w.dtype, device=dev)
@@ -349,13 +353,14 @@ def _launch_bwd(h2, w, bias, labels, lse, g, chunk):
         err = fn(int(ops.tc), int(ops.w.dtype == torch.bfloat16),
                  ops.h.data_ptr(), ops.ptr(ops.hp), ops.w.data_ptr(),
                  ops.ptr(ops.wp), bias_f.data_ptr(), labels.data_ptr(),
-                 lse.data_ptr(), g.data_ptr(), n, d, v, chunk, splits,
-                 split_len, dl.data_ptr(), dbp.data_ptr(),
-                 dh_part.data_ptr(), ops.ptr(dw_acc), dh.data_ptr(),
+                 lse.data_ptr(), g.data_ptr(), n, d, v, plan.splits,
+                 plan.split_len, dl.data_ptr(), dbp.data_ptr(),
+                 dh_part.data_ptr(), ops.ptr(ops.ht), dh.data_ptr(),
                  dw.data_ptr(), db.data_ptr(), stream)
     _raise_on_error(lib, "fused_xent backward", err)
     sfx = _SUFFIX[h2.dtype]
-    _count(fused_xent_bwd, f"dl_{sfx}", f"dh_{sfx}", f"dw_{sfx}")
+    _count(fused_xent_bwd, f"dl_{sfx}", f"dh_{sfx}", f"dw_{sfx}",
+           design=design)
     return dh, dw, db.to(bias.dtype)
 
 
@@ -391,19 +396,19 @@ def fused_xent_bwd(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     calls that launched the kernels.
 
     Workspace on the card, from ``torch.empty`` on the current stream
-    (the call does not synchronise).  bf16 (``wgmma``): ``dl`` ``[tokens,
-    round8(V)]`` bf16 (125 MB at the recipe's 2048 x 30,522), dh's f32
-    partials ``[splits, tokens, D]`` (69 MB there, ``bwd_plan``), db's
-    per-tile sums, and a bf16 copy of W when W is f32 or V is not a
-    multiple of 8 (47 MB); all grow with the token count, and ``chunk``
-    shapes none of it (only dW's f32 summation order differs from the
-    plain version's).  f32 (``scalar``): per chunk, ``dl`` ``[chunk, V]``
-    and dh's partials, plus a ``[D, V]`` f32 sum of dW when W is bf16."""
+    (the call does not synchronise), over every token: ``dl`` ``[tokens,
+    round8(V)]`` in h's dtype (125 MB bf16 at the recipe's 2048 x 30,522,
+    250 MB f32), dh's f32 partials ``[splits, tokens, D]`` (``bwd_plan``:
+    69 MB bf16, 38 MB f32), db's per-tile sums; bf16 (``wgmma``): a bf16
+    copy of W when W is f32 or V is not a multiple of 8 (47 MB); f32
+    (``wgmma_tf32``): W's tf32 parts (188 MB) and h's transposed (13 MB).
+    ``chunk`` shapes none of it (only dW's f32 summation order differs
+    from the plain version's).  ``BWD_LAUNCHES`` counts calls by design."""
     _check(h, w, bias, labels, chunk)
     if _on_cpu(h, "fused_xent_bwd"):
         return fused_xent_bwd_reference(h, w, bias, labels, lse, g, chunk)
     hf, lf = _flatten(h, labels)
-    dh, dw, db = _launch_bwd(hf, w, bias, lf, lse, g, chunk)
+    dh, dw, db = _launch_bwd(hf, w, bias, lf, lse, g)
     return dh.reshape(h.shape), dw, db
 
 
@@ -451,10 +456,12 @@ def reset_launches() -> None:
     """Set every launch count of this module to 0."""
     with _count_lock:
         fused_xent_fwd.launches = fused_xent_bwd.launches = 0
-        for name in KERNEL_LAUNCHES:
-            KERNEL_LAUNCHES[name] = 0
+        for counts in (KERNEL_LAUNCHES, BWD_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
 
 
 __all__ = ["fused_softmax_xent", "fused_xent_fwd", "fused_xent_bwd",
            "fused_xent_reference", "fused_xent_bwd_reference",
-           "KERNEL_LAUNCHES", "reset_launches", "bwd_design", "bwd_plan"]
+           "KERNEL_LAUNCHES", "BWD_LAUNCHES", "reset_launches", "bwd_design",
+           "bwd_plan"]

@@ -14,11 +14,13 @@ JSON line:
    others up to 256; f32 scalar, and the f32 source's wide kernel for head
    dims above 256 in both dtypes) and ``flash_attention_bwd``'s kernel
    (f32 and bf16:
-   ``wgmma`` fed by TMA for bf16 heads 33-64, ``mma.sync`` up to 32)
+   ``wgmma`` fed by TMA for bf16 heads 33-64, ``mma.sync`` up to 32, and
+   ``wgmma`` in 3xTF32 for f32 heads up to 64)
    against their plain PyTorch versions on the card: f32/bf16,
    causal/not, ragged T, Tq != Tk, head dims from 1 to 2048, BH 70000, and
    every shape the BERT-base serving and training paths give them; two
-   bf16 backward calls on one input must give the same bits; then
+   backward calls on one input must give the same bits, in both dtypes;
+   then
    their times at those shapes (forward: bf16 at BH 12, 48, 192, 768 and
    the training shape, BH 384, and causal at BH 768, f32 at BH 192;
    backward: both dtypes at the training shape, BH 384; the
@@ -26,7 +28,9 @@ JSON line:
    time and PyTorch's ``F.scaled_dot_product_attention`` (forward, and its
    backward alone: a yardstick only, the port never calls it), each as
    CUDA-event time per call (``ms``) and as the card's kernel time from
-   ``torch.profiler`` (``device_ms``).
+   ``torch.profiler`` (``device_ms``).  An f32 row's bound is its FLOP in
+   3xTF32 on the tensor cores (``bound_ms``) and at the f32 FMAs' rate
+   (``fma_bound_ms``).
 2. ``fused_bn``: the fused batch-norm kernels (``csrc/fused_bn.cu``, one
    persistent cooperative launch a direction, f32 and bf16, forward and
    backward with non-zero mean/var cotangents)
@@ -55,8 +59,8 @@ JSON line:
    (b) bf16, dropout 0.1, global batch 32, 64 fixed examples, 10 epochs
    (20 steps): the loss must fall, every step must launch the bf16 forward
    and the backward 12 times each (both on their ``wgmma`` design) and no
-   f32 kernel ((a)'s fit the f32 ones, on their scalar design), and a
-   second fit with
+   f32 kernel ((a)'s fit the f32 ones: the forward on its scalar design,
+   the backward on ``wgmma_tf32``), and a second fit with
    the same seed must repeat the loss history; step time, tokens/s, model
    TFLOP/s and one profiled step's idle share; then ``evaluate`` and
    ``predict`` on the card.
@@ -77,8 +81,9 @@ JSON line:
    share.
 6. ``fused_xent``: the fused softmax cross-entropy kernels
    (``csrc/fused_xent.cu``: forward, and the dl, dh and dW backward passes;
-   bf16 on the tensor cores, its backward on ``wgmma``, f32 on scalar
-   FMAs) against their plain versions (loss, lse, dh, dW, db) at the
+   bf16 on the tensor cores, its backward on ``wgmma``; f32's forward and
+   logits on scalar FMAs, its dh and dW on ``wgmma`` in 3xTF32) against
+   their plain versions (loss, lse, dh, dW, db) at the
    recipe's head shape (2,048 tokens, D 768, V 30,522, chunk 512; W f32,
    and bf16 too) and ragged N, D and V, with labels at
    0 and V-1, a row of equal logits and logits scaled 1e2; the same input
@@ -96,7 +101,9 @@ JSON line:
    head through ``fused_softmax_xent`` (a loss callable), 20 steps a fit,
    two fits each in turns (plain, fused, fused, plain): every fit's loss
    must fall, every (c) fit must launch the forward and each backward pass
-   8 times a step and (b) none; step time, tokens/s, model TFLOP/s, one
+   8 times a step (the backward on ``wgmma``; (a)'s fused fit 6 times in
+   all, on ``wgmma_tf32``) and (b) none; step time, tokens/s, model
+   TFLOP/s, one
    profiled step's idle share and the head's and loss's share of the card's
    time.
 8. ``devices``: the card as ``nvidia-smi`` reports it.
@@ -123,6 +130,10 @@ import torch
 SEED = 0
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense tf32 tensor-core rate
+# tf32 products per f32 product at about f32's accuracy (3xTF32: big and
+# small parts of each operand, the small x small term dropped)
+TF32_PASSES = 3
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 BERT_BASE = dict(vocab_size=30522, hidden_size=768, n_layers=12, n_heads=12,
                  intermediate_mult=4, max_position=512, dropout=0.0)
@@ -343,32 +354,40 @@ def device_ms(fn, iters: int = 20, runs: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound(flops: float, nbytes: float, itemsize: int) -> tuple:
+def bound(flops: float, nbytes: float, itemsize: int,
+          fma: bool = False) -> tuple:
     """(ms, "bytes"|"operations"): the larger of the operations at the
-    dtype's peak rate and the bytes at the memory rate."""
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    dtype's peak rate and the bytes at the memory rate.  f32 operations at
+    f32's accuracy take the tensor cores' 3xTF32 (TF32_PASSES x FLOP at
+    495 TFLOP/s); ``fma`` takes the f32 FMAs' 67 TFLOP/s instead (the
+    bound before the f32 designs used the tensor cores, kept beside it)."""
+    if itemsize == 2:
+        peak = PEAK_BF16_FLOPS
+    else:
+        peak = PEAK_F32_FLOPS if fma else PEAK_TF32_FLOPS / TF32_PASSES
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def bwd_bound(bh: int, t: int, d: int, itemsize: int) -> tuple:
+def bwd_bound(bh: int, t: int, d: int, itemsize: int,
+              fma: bool = False) -> tuple:
     """The backward's least time (not causal): 10 * BH * T^2 * D FLOP (the
     FA2 backward's five products), q, k, v, out, dout read once and dq,
     dk, dv written once."""
     return bound(10.0 * bh * t * t * d, 8.0 * bh * t * d * itemsize,
-                 itemsize)
+                 itemsize, fma)
 
 
 def attention_bound(bh: int, tq: int, tk: int, d: int, itemsize: int,
-                    causal: bool) -> tuple:
+                    causal: bool, fma: bool = False) -> tuple:
     """(ms, "bytes"|"operations"): the least time for the forward's work:
     q, k, v read once, out and lse written once; 4*tq*tk*d FLOP per head
     (the causal half when masked), at the dtype's peak rate."""
     pairs = sum(min(i + 1, tk) for i in range(tq)) if causal else tq * tk
     flops = 4.0 * bh * pairs * d
     nbytes = (2 * bh * tq * d + 2 * bh * tk * d) * itemsize + bh * tq * 4
-    return bound(flops, nbytes, itemsize)
+    return bound(flops, nbytes, itemsize, fma)
 
 
 def phase_kernel(fa) -> dict:
@@ -502,16 +521,18 @@ def phase_kernel(fa) -> dict:
     bwd_cases += [(tb * th, tt, tt, td, torch.bfloat16, True)]
     for case in bwd_cases:
         check_bwd(*case)
-    # no atomics: the bf16 backward twice on one input at the training
-    # shape gives the same bits
-    q, k, v = qkv(tb * th, tt, tt, td, torch.bfloat16)
-    g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
-    out, lse = fa.flash_attention_fwd(q, k, v, False)
-    first, second = (fa.flash_attention_bwd(q, k, v, out, lse, g, False)
-                     for _ in range(2))
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("bf16 backward: two calls on one input differ")
-    del q, k, v, g, out, lse, first, second
+    # no atomics: the backward twice on one input at the training shape
+    # gives the same bits, in both dtypes
+    for dtype in dtypes:
+        q, k, v = qkv(tb * th, tt, tt, td, dtype)
+        g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+        out, lse = fa.flash_attention_fwd(q, k, v, False)
+        first, second = (fa.flash_attention_bwd(q, k, v, out, lse, g, False)
+                         for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{dtype} backward: two calls on one input "
+                                 f"differ")
+        del q, k, v, g, out, lse, first, second
 
     # times at every serving shape and the training shape (bf16), the
     # largest bucket under `causal`, and the timed shape in f32; each shape
@@ -544,6 +565,8 @@ def phase_kernel(fa) -> dict:
             device_ms(f) for f in (kernel, plain, library))
         bound_ms, bound_by = attention_bound(bh, t, t, d, q.element_size(),
                                              causal)
+        fma_ms = attention_bound(bh, t, t, d, 4, causal, fma=True)[0] \
+            if dtype == torch.float32 else None
         pairs = t * (t + 1) / 2 if causal else t * t
         timings.append({
             "kernel": fa.fwd_kernel(dtype, d)[0],
@@ -553,7 +576,8 @@ def phase_kernel(fa) -> dict:
             "library_ms": library_ms, "device_ms": dev_ms,
             "plain_device_ms": plain_dev_ms,
             "library_device_ms": library_dev_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "device_share_of_bound": bound_ms / dev_ms,
+            "bound_by": bound_by, "fma_bound_ms": fma_ms,
+            "device_share_of_bound": bound_ms / dev_ms,
             "device_tflop_per_s": 4.0 * bh * pairs * d / dev_ms / 1e9})
 
     # the backward at the training shape, both dtypes, checked again on the
@@ -584,6 +608,8 @@ def phase_kernel(fa) -> dict:
         dev_ms, plain_dev_ms, library_dev_ms = (
             device_ms(f, iters=10) for f in (kernel, plain, library))
         bound_ms, bound_by = bwd_bound(bh, tt, td, q.element_size())
+        fma_ms = bwd_bound(bh, tt, td, 4, fma=True)[0] \
+            if dtype == torch.float32 else None
         bwd_timings.append({
             "kernel": BWD_KERNEL, "design": fa.bwd_design(dtype, td),
             "bh": bh, "t": tt, "d": td,
@@ -592,8 +618,53 @@ def phase_kernel(fa) -> dict:
             "library_ms": library_ms, "device_ms": dev_ms,
             "plain_device_ms": plain_dev_ms,
             "library_device_ms": library_dev_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "device_share_of_bound": bound_ms / dev_ms,
+            "bound_by": bound_by, "fma_bound_ms": fma_ms,
+            "device_share_of_bound": bound_ms / dev_ms,
             "device_tflop_per_s": 10.0 * bh * tt * tt * td / dev_ms / 1e9})
+        del q4, k4, v4, out4
+    # the bf16 designs no main path takes at the training shape's BH 384 x
+    # T 512: the forward's and the backward's mma.sync at D 32, the
+    # forward's mma.sync and the backward's scalar kernel at D 128; each
+    # checked on the inputs it is timed on, beside its bound, its plain
+    # version and SDPA's (forward, or its backward alone)
+    other_timings = []
+    for od in (32, 128):
+        bh = tb * th
+        q, k, v, out, g, err = check_bwd(bh, tt, tt, od, torch.bfloat16,
+                                         False)
+        fwd_err = check(bh, tt, tt, od, torch.bfloat16, False)[3]
+        lse = fa.flash_attention_fwd(q, k, v, False)[1]
+        q4, k4, v4 = (x.view(tb, th, tt, od).detach().requires_grad_()
+                      for x in (q, k, v))
+        out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+        g4 = g.view(tb, th, tt, od)
+        for direction, kernel, plain, library, bnd, e in (
+                ("fwd", lambda: fa.flash_attention_fwd(q, k, v, False),
+                 lambda: fa.flash_attention_fwd_reference(q, k, v, False),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q4.detach(), k4.detach(), v4.detach()),
+                 attention_bound(bh, tt, tt, od, 2, False), fwd_err),
+                ("bwd",
+                 lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, False),
+                 lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse,
+                                                          g, False),
+                 lambda: torch.autograd.grad(out4, (q4, k4, v4), g4,
+                                             retain_graph=True),
+                 bwd_bound(bh, tt, od, 2), err)):
+            other_timings.append({
+                "kernel": fa.fwd_kernel(torch.bfloat16, od)[0]
+                if direction == "fwd" else BWD_KERNEL,
+                "direction": direction,
+                "design": fa.fwd_design(torch.bfloat16, od)
+                if direction == "fwd" else fa.bwd_design(torch.bfloat16, od),
+                "bh": bh, "t": tt, "d": od, "dtype": "bfloat16",
+                "max_abs_err": e, "ms": cuda_ms(kernel, iters=10),
+                "plain_ms": cuda_ms(plain, iters=5),
+                "library_ms": cuda_ms(library, iters=10),
+                "device_ms": device_ms(kernel, iters=10),
+                "plain_device_ms": device_ms(plain, iters=5),
+                "library_device_ms": device_ms(library, iters=10),
+                "bound_ms": bnd[0], "bound_by": bnd[1]})
         del q4, k4, v4, out4
     # the wide kernels (head dims above 256) at D 320 and 1024, both
     # directions and dtypes; SDPA's yardstick is whichever of its
@@ -612,14 +683,15 @@ def phase_kernel(fa) -> dict:
             fwd_err = (fa.flash_attention_fwd(q, k, v, False)[0].float()
                        - fa.flash_attention_fwd_reference(q, k, v)[0].float()
                        ).abs().max().item()
-            for direction, kernel, plain, library, bnd in (
+            for direction, kernel, plain, library, bnd, fma_bnd in (
                     ("fwd",
                      lambda: fa.flash_attention_fwd(q, k, v, False),
                      lambda: fa.flash_attention_fwd_reference(q, k, v),
                      lambda: sdpa_any_head_dim(q4.detach(), k4.detach(),
                                                v4.detach(), backend),
                      attention_bound(bh, wt, wt, d, q.element_size(),
-                                     False)),
+                                     False),
+                     attention_bound(bh, wt, wt, d, 4, False, fma=True)),
                     ("bwd",
                      lambda: fa.flash_attention_bwd(q, k, v, out, lse, g,
                                                     False),
@@ -627,7 +699,8 @@ def phase_kernel(fa) -> dict:
                          q, k, v, out, lse, g, False),
                      lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), g4,
                                                  retain_graph=True),
-                     bwd_bound(bh, wt, d, q.element_size()))):
+                     bwd_bound(bh, wt, d, q.element_size()),
+                     bwd_bound(bh, wt, d, 4, fma=True))):
                 ms, plain_ms, library_ms = (cuda_ms(f, iters=5)
                                             for f in (kernel, plain, library))
                 dev_ms, plain_dev_ms, library_dev_ms = (
@@ -641,7 +714,9 @@ def phase_kernel(fa) -> dict:
                     "library": f"scaled_dot_product_attention ({backend})",
                     "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
                     "library_device_ms": library_dev_ms,
-                    "bound_ms": bnd[0], "bound_by": bnd[1]})
+                    "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "fma_bound_ms": fma_bnd[0] if dtype == torch.float32
+                    else None})
             del q4, k4, v4, sdpa_out
     res = {"phase": "kernel", "cases": len(cases),
            "bwd_cases": len(bwd_cases), "worst": worst,
@@ -652,6 +727,7 @@ def phase_kernel(fa) -> dict:
            "timed_shape": dict(TIMED_SHAPE, causal=False),
            "bwd_bf16_rel_by_case": bwd_bf16_rel,
            "timings": timings, "bwd_timings": bwd_timings,
+           "other_design_timings": other_timings,
            "wide_timings": wide_timings}
     emit(res)
     return res
@@ -978,7 +1054,7 @@ def phase_bert_train(fa) -> dict:
             f32_fwd_designs = read_fwd_designs(fa, "bert_train f32",
                                                "scalar", CHECK_STEPS)
             f32_bwd_designs = read_bwd_designs(fa, "bert_train f32",
-                                               "scalar", CHECK_STEPS)
+                                               "wgmma_tf32", CHECK_STEPS)
         del est
     loss_err = max(abs(a - b) / max(1.0, abs(b))
                    for a, b in zip(hist[True], hist[False]))
@@ -1572,7 +1648,7 @@ def xent_inputs(gen, n, d, v, dtype, w_dtype=torch.float32, scale=1.0,
     return h.to(dtype), (r(d, v) * 0.05).to(w_dtype), bias, labels
 
 
-def xent_bound(n, d, v, h_size, w_size, direction) -> tuple:
+def xent_bound(n, d, v, h_size, w_size, direction, fma=False) -> tuple:
     """(ms, "bytes"|"operations") of the head's loss: 2NDV FLOP forward,
     6NDV backward (the logits recomputed, then dh and dW), at the
     activation dtype's peak; h, w, bias, labels read once and lse/loss
@@ -1581,7 +1657,7 @@ def xent_bound(n, d, v, h_size, w_size, direction) -> tuple:
     nbytes = n * d * h_size + d * v * w_size + 4 * v + 8 * n + 4 * n
     if direction == "bwd":
         nbytes += n * d * h_size + d * v * w_size + 4 * v
-    return bound(flops, nbytes, h_size)
+    return bound(flops, nbytes, h_size, fma)
 
 
 def phase_fused_xent(fx) -> dict:
@@ -1686,6 +1762,8 @@ def phase_fused_xent(fx) -> dict:
                 device_ms(f, iters=10) for f in (kernel, plain, library))
             bound_ms, bound_by = xent_bound(n, d, v, h.element_size(),
                                             w.element_size(), direction)
+            fma_ms = xent_bound(n, d, v, 4, w.element_size(), direction,
+                                fma=True)[0] if dt == torch.float32 else None
             timings.append({
                 "kernel": XENT_KERNEL, "direction": direction, "n": n,
                 "design": fx.bwd_design(dt) if direction == "bwd" else None,
@@ -1700,6 +1778,7 @@ def phase_fused_xent(fx) -> dict:
                            + (" and its autograd.grad over (h, w, b)"
                               if direction == "bwd" else ""),
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                "fma_bound_ms": fma_ms,
                 "device_share_of_bound": bound_ms / dev_ms})
         del lib_h, lib_w, lib_b, lib_out, h, w
         torch.cuda.empty_cache()
@@ -1779,6 +1858,18 @@ def read_xent_counts(fx, what, **per_dtype) -> dict:
     return counts
 
 
+def read_xent_designs(fx, what, design=None, calls=0) -> dict:
+    """The fused_xent backward's calls by design since ``reset_launches``:
+    ``calls`` of ``design``, none of another."""
+    want = dict.fromkeys(fx.BWD_DESIGNS, 0)
+    if design is not None:
+        want[design] = calls
+    if fx.BWD_LAUNCHES != want:
+        raise AssertionError(f"{what}: fused_xent backward calls by design "
+                             f"{fx.BWD_LAUNCHES}; want {want}")
+    return dict(fx.BWD_LAUNCHES)
+
+
 def phase_bert_mlm_train(fa, fx) -> dict:
     from analytics_zoo_tpu_torch.convert import from_jax_variables
     from analytics_zoo_tpu_torch.data import as_feed
@@ -1847,11 +1938,14 @@ def phase_bert_mlm_train(fa, fx) -> dict:
         fx.reset_launches()
         est.fit((x3, y3), epochs=1, batch_size=MLM_MICRO * MLM_CHECK_ACCUM,
                 verbose=False)
-        counts = read_xent_counts(
-            fx, "bert_mlm_train f32",
-            **({"f32": MLM_CHECK_ACCUM * CHECK_STEPS} if fused else {}))
+        calls = MLM_CHECK_ACCUM * CHECK_STEPS
+        counts = read_xent_counts(fx, "bert_mlm_train f32",
+                                  **({"f32": calls} if fused else {}))
+        designs = read_xent_designs(
+            fx, "bert_mlm_train f32", *(("wgmma_tf32", calls) if fused
+                                        else ()))
         if fused:
-            f32_launches = counts
+            f32_launches, f32_designs = counts, designs
         del est
     loss_err = max(abs(a - b) / max(1.0, abs(b))
                    for a, b in zip(hist[True], hist[False]))
@@ -1865,7 +1959,8 @@ def phase_bert_mlm_train(fa, fx) -> dict:
                  "head_grad_worst_rel_to_tensor_max": worst_head,
                  "grad_tol": TOL_TRAIN_GRAD, "loss_plain": hist[False],
                  "loss_fused": hist[True], "loss_worst_rel": loss_err,
-                 "loss_tol": TOL_TRAIN_LOSS, "launches": f32_launches}
+                 "loss_tol": TOL_TRAIN_LOSS, "launches": f32_launches,
+                 "bwd_launches_by_design": f32_designs}
     torch.cuda.empty_cache()
 
     # (b) plain head and (c) fused head: bench.py's recipe, bf16, 12
@@ -1892,6 +1987,9 @@ def phase_bert_mlm_train(fa, fx) -> dict:
         launches = read_xent_counts(
             fx, f"bert_mlm_train {name}",
             **({"bf16": MLM_ACCUM * MLM_STEPS} if fused else {}))
+        designs = read_xent_designs(
+            fx, f"bert_mlm_train {name}",
+            *(("wgmma", MLM_ACCUM * MLM_STEPS) if fused else ()))
         read_counts(fa, "bert_mlm_train (dense attention)")
         if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
             raise AssertionError(f"bert_mlm_train {name}: loss {losses} did "
@@ -1933,7 +2031,8 @@ def phase_bert_mlm_train(fa, fx) -> dict:
 
         head_ms = device_ms(head_and_loss, iters=5)
         runs[name] = {
-            "fits": [fit], "launches": launches, "profiled_step": profiled,
+            "fits": [fit], "launches": launches,
+            "bwd_launches_by_design": designs, "profiled_step": profiled,
             "head_and_loss_device_ms_per_micro": head_ms,
             "head_and_loss_share_of_busy":
                 MLM_ACCUM * head_ms / profiled["device_busy_ms"]}
@@ -1978,7 +2077,8 @@ def kernel_entry(name, design, launches, path, replaces, x) -> dict:
             "replaces": replaces, "path": path, "launches": launches,
             "max_abs_err": x["max_abs_err"], "ms": x["ms"],
             "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
-            "bound_by": x["bound_by"], "library_ms": x["library_ms"],
+            "bound_by": x["bound_by"], "fma_bound_ms": x.get("fma_bound_ms"),
+            "library_ms": x["library_ms"],
             "device_ms": x["device_ms"],
             "plain_device_ms": x["plain_device_ms"],
             "library_device_ms": x["library_device_ms"]}
@@ -2053,7 +2153,12 @@ def main(argv) -> int:
              "scalar f32 above 64; delta, dK/dV and dQ passes, no atomics",
              train["launches"][BWD_KERNEL], "bert_train bf16", bwd_src),
             (BWD_KERNEL, (BWD_KERNEL, "float32"),
-             "f32, scalar FMAs; delta, dK/dV and dQ passes",
+             "f32: wgmma in 3xTF32 (big and small tf32 parts, three "
+             "products per f32 product) fed by a 2-stage TMA ring of "
+             "32-row tiles, one warpgroup a block of 64 keys or q rows, one "
+             "block an SM (d <= 64; scalar FMAs above); a split pass "
+             "writes each operand's parts, transposed where a product's "
+             "depth is T; then delta, dK/dV and dQ passes, no atomics",
              train["f32_check"]["launches"][BWD_KERNEL], "bert_train f32",
              bwd_src)):
         x = timed[key]
@@ -2066,6 +2171,8 @@ def main(argv) -> int:
         train["fwd_launches_by_design"]
     entries[1]["launches_by_design"] = serve["f32_fwd_launches_by_design"]
     entries[2]["launches_by_design"] = train["bwd_launches_by_design"]
+    entries[3]["launches_by_design"] = \
+        train["f32_check"]["bwd_launches_by_design"]
     entries[1]["launches_bert_train_f32"] = \
         train["f32_check"]["launches"][F32_KERNEL]
     # fused batch norm: one entry per direction and dtype, timed at the
@@ -2111,8 +2218,14 @@ def main(argv) -> int:
                  "a 128 x 128 tile; over every token: dl, dh (split-K, "
                  "reduced in order) and dW (f32 sum in registers, written "
                  "once) passes, then db",
-        "scalar": "f32, scalar FMAs; per chunk: dl, dh (split-K) and dW "
-                  "passes, then db"}
+        "wgmma_tf32": "f32: the dl pass's logits on scalar FMAs in the "
+                      "forward's summation order, then dh (split-K, "
+                      "reduced in order) and dW (f32 sum in registers) on "
+                      "wgmma m64n128k8 in 3xTF32 (A from registers, split "
+                      "there; B as tf32 parts from split passes of W and "
+                      "h^T) fed by a 2-stage TMA ring of 64-deep slices, "
+                      "two warpgroups a 128 x 128 tile; over every token; "
+                      "then db"}
     for direction, passes in (("fwd", ("fwd",)), ("bwd", ("dl", "dh", "dw"))):
         for dtype, sfx, counts, path in (
                 ("bfloat16", "bf16", mlm["fused"]["launches"],
@@ -2133,6 +2246,10 @@ def main(argv) -> int:
                 counts[f"{passes[0]}_{sfx}"], path, xent_src, x)
             entry["launches_by_pass"] = {p: counts[f"{p}_{sfx}"]
                                          for p in passes}
+            if direction == "bwd":
+                entry["launches_by_design"] = (
+                    mlm["fused"] if sfx == "bf16" else mlm["f32_check"]
+                )["bwd_launches_by_design"]
             entry["shape"] = {k: x[k] for k in ("n", "d", "v", "chunk",
                                                 "dtype", "w_dtype")}
             entries.append(entry)

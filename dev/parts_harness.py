@@ -12,6 +12,8 @@ into a directory ``.gitignore`` lists).
 from __future__ import annotations
 
 import ctypes
+import importlib
+import importlib.util
 import os
 import subprocess
 import sys
@@ -81,3 +83,30 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+
+
+def parent_ops(pkg: str, module: str) -> tuple:
+    """The ``ops.<module>`` module of the package at ``pkg`` (an earlier
+    commit's ``analytics_zoo_tpu_torch``, unpacked with ``git archive``
+    into a directory ``.gitignore`` lists), imported as
+    ``parent_analytics_zoo_tpu_torch`` (its relative imports stay inside
+    it, and it builds its own ``csrc`` into its own build directory), and
+    that package's ``_build``."""
+    name = "parent_analytics_zoo_tpu_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return (importlib.import_module(f"{name}.ops.{module}"),
+            importlib.import_module(f"{name}.ops._build"))
+
+
+def take_parent(argv: list) -> tuple:
+    """(the package of ``--parent PKG`` or None, the other arguments)."""
+    if "--parent" in argv:
+        i = argv.index("--parent")
+        return argv[i + 1], argv[:i] + argv[i + 2:]
+    return None, argv

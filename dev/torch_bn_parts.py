@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import ctypes
 import importlib
-import importlib.util
 import json
 import math
 import os
@@ -59,21 +58,6 @@ DTYPES = (torch.bfloat16, torch.float32)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def parent_module(pkg: str):
-    """The ``ops.fused_bn`` module of the package at ``pkg``, imported as
-    ``parent_analytics_zoo_tpu_torch`` (its relative imports stay inside
-    it), and its ``_build``."""
-    name = "parent_analytics_zoo_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        name, os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{name}.ops.fused_bn"),
-            importlib.import_module(f"{name}.ops._build"))
 
 
 def channels_last(t, rows, c):
@@ -149,7 +133,7 @@ def main(argv) -> int:
     built = harness.build_variants(bn.SOURCE, sources, ("-Xptxas", "-v"))
     sides = [(label, bn, path) for label, (path, _) in zip(builds, built)]
     if parent:
-        parent_bn, parent_build = parent_module(parent)
+        parent_bn, parent_build = harness.parent_ops(parent, "fused_bn")
         parent_build._loaded[parent_bn.SOURCE] = ctypes.CDLL(built[-1][0])
         sides.append(("parent", parent_bn, None))
     for (label, _, _), (_, log) in zip(sides, built):

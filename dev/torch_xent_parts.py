@@ -5,7 +5,8 @@ V 30,522, bf16 h, f32 W, chunk 512).
 
 Run from the root of a checkout:
 
-    python3 dev/torch_xent_parts.py [--sass DIR] [-DNAME=VALUE | path.cu ...]
+    python3 dev/torch_xent_parts.py [--sass DIR] [--parent PKG]
+        [-DNAME=VALUE | path.cu ...]
 
 Each argument adds one build variant (``dev/parts_harness.py``) beside the
 default build of ``csrc/fused_xent.cu``: ``-D`` flags, or another source
@@ -25,6 +26,13 @@ and by pass (pack, dl, dh, dh_reduce, dw, db) and the counted TFLOP/s
 f32 forward and backward (f32 h) on the same build.  Then, as a yardstick the port never calls, ``autograd.grad``
 of ``F.cross_entropy`` over the materialised logits, and the card's name
 and power limit.
+
+``--parent PKG`` (an earlier commit's package, unpacked as
+``dev/torch_bwd_parts.py`` says) then times that package's forward and
+backward, its own wrapper on its own source, in turns with this
+checkout's (this, parent, parent, this), bf16 and f32 each, the backward
+by pass too, and says whether each forward's loss and lse equal this
+checkout's bit for bit.
 
 ``--sass DIR`` also compiles ``flash_attention_fwd.cu``,
 ``flash_attention_bwd.cu`` and ``fused_xent.cu`` from ``DIR`` (an earlier
@@ -132,7 +140,7 @@ def by_pass(fn, iters: int = 10) -> dict:
     window."""
     out = dict.fromkeys(PASSES, 0.0)
     for name, (_, us) in smoke.device_windows(fn, iters, runs=1)[0].items():
-        m = re.search(r"xent_(?:wg_|bwd_)?([a-z_]+)", name)
+        m = re.search(r"xent_(?:wg_|bwd_|tf_)?([a-z_]+)", name)
         key = m.group(1) if m else name
         out[key] = out.get(key, 0.0) + us / 1e3 / iters
     return out
@@ -158,6 +166,46 @@ def measure(label: str, path: str, data, data_f32) -> None:
         "device_ms_by_pass": by_pass(kernel),
         "bound_ms": smoke.xent_bound(N, D, V, 2, 4, "bwd")[0], **others}),
         flush=True)
+
+
+def against_parent(parent: str, data, data_f32) -> None:
+    """This checkout's backward and the parent package's in turns, both
+    dtypes: errors, card time in all and by pass, and the bounds (3xTF32
+    and the f32 FMAs' for f32)."""
+    parent_fx = harness.parent_ops(parent, "fused_xent")[0]
+    for label, mod in (("this", fx), ("parent", parent_fx),
+                       ("parent", parent_fx), ("this", fx)):
+        for dt in (data, data_f32):
+            h, w, bias, labels = dt[:4]
+            fwd = mod.fused_xent_fwd(h, w, bias, labels, CHUNK)
+            mine = fx.fused_xent_fwd(h, w, bias, labels, CHUNK)
+            fwd_same = all(torch.equal(a, b) for a, b in zip(fwd, mine))
+            fwd_ms = smoke.device_ms(
+                lambda: mod.fused_xent_fwd(h, w, bias, labels, CHUNK),
+                iters=10)
+            got = mod.fused_xent_bwd(*dt, CHUNK)
+            ref = fx.fused_xent_bwd_reference(*dt, CHUNK)
+            err = max((a.float() - b.float()).abs().max().item()
+                      / b.float().abs().max().item()
+                      for a, b in zip(got, ref))
+            del got, ref
+
+            def kernel():
+                return mod.fused_xent_bwd(*dt, CHUNK)
+
+            size = dt[0].element_size()
+            print(json.dumps({
+                "build": label, "dtype": str(dt[0].dtype).replace(
+                    "torch.", ""), "design": mod.bwd_design(dt[0].dtype),
+                "n": N, "d": D, "v": V, "max_rel_err": err,
+                **harness.timing(kernel, 6.0 * N * D * V, iters=10),
+                "device_ms_by_pass": by_pass(kernel),
+                "fwd_device_ms": fwd_ms,
+                "fwd_bitwise_equal_to_this": fwd_same,
+                "bound_ms": smoke.xent_bound(N, D, V, size, 4, "bwd")[0],
+                "fma_bound_ms": smoke.xent_bound(N, D, V, size, 4, "bwd",
+                                                 fma=True)[0]
+                if size == 4 else None}), flush=True)
 
 
 def _functions(sass: str) -> dict:
@@ -224,6 +272,8 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("torch_xent_parts: no CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parent, argv = harness.take_parent(list(argv))
     if argv[:1] == ["--sass"]:
         sass_check(argv[1])
         argv = argv[2:]
@@ -249,6 +299,9 @@ def main(argv) -> int:
     data, data_f32 = inputs(), inputs(torch.float32)
     for i in harness.in_turns(len(passed)):
         measure(*passed[i], data, data_f32)
+    if parent:
+        harness.use(fx.SOURCE, built[0][0])
+        against_parent(parent, data, data_f32)
     h, w, bias, labels, _, _ = data
     lib_h, lib_w, lib_b = (t.detach().requires_grad_() for t in (h, w, bias))
     lib_out = torch.nn.functional.cross_entropy(

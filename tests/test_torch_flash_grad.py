@@ -347,12 +347,14 @@ def test_grads_match_jax_custom_vjp_at_the_wgmma_widths(causal, d):
     (torch.bfloat16, 32, "mma.sync"), (torch.bfloat16, 33, "wgmma"),
     (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 65, "scalar"), (torch.bfloat16, 256, "scalar"),
-    (torch.bfloat16, 257, "wide"), (torch.float32, 8, "scalar"),
-    (torch.float32, 64, "scalar"), (torch.float32, 320, "wide")])
+    (torch.bfloat16, 257, "wide"), (torch.float32, 8, "wgmma_tf32"),
+    (torch.float32, 64, "wgmma_tf32"), (torch.float32, 65, "scalar"),
+    (torch.float32, 320, "wide")])
 def test_bwd_design_by_dtype_and_head_dim(dtype, d, design):
     """Which design of the backward takes which (dtype, head dim): bf16
-    heads padded to 40-64 go to wgmma, up to 32 to mma.sync, f32 and bf16
-    65-256 to the scalar kernels, above 256 to the wide ones."""
+    heads padded to 40-64 go to wgmma, up to 32 to mma.sync, f32 heads up
+    to 64 to wgmma in 3xTF32, f32 and bf16 65-256 to the scalar kernels,
+    above 256 to the wide ones."""
     assert tfa.bwd_design(dtype, d) == design
 
 
@@ -468,3 +470,121 @@ def test_bwd_design_of_the_source_matches_bwd_design_on_card():
             width = tfa._kernel_head_dim(d, dtype, tfa.BWD_TC_MAX_HEAD_DIM)
             got = tfa.DESIGNS[fn(int(dtype == torch.bfloat16), width)]
             assert got == tfa.bwd_design(dtype, d), (dtype, d)
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` by bit operations."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000
+            ).view(torch.float32)
+
+
+def _parts(x):
+    """x's big and small tf32 parts, stacked: [2, *x.shape]."""
+    big = _tf32(x)
+    return torch.stack([big, _tf32(x - big)]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,d,causal", [
+    (384, 512, 512, 64, False), (384, 512, 512, 64, True),
+    (3, 77, 130, 64, False), (3, 77, 130, 64, True),
+    (3, 130, 77, 40, False), (3, 130, 77, 40, True),
+    (2, 200, 77, 33, True), (5, 61, 130, 1, True), (5, 130, 61, 8, False),
+    (2, 300, 3, 24, True), (2, 1, 300, 63, False), (7, 333, 333, 48, True),
+    (4, 100, 100, 56, False), (3, 64, 64, 32, True), (3, 33, 95, 16, False),
+    (70000, 8, 8, 16, False)])
+def test_tf32_bwd_matches_reference_on_card(bh, tq, tk, d, causal):
+    """The f32 design on wgmma in 3xTF32 (heads 1-64) against the plain
+    backward: the training shape, every kind of width the split pass pads
+    to a multiple of 8 and the TMA box zero-fills to 64, Tq != Tk ragged
+    under `causal`, BH past 65535; each gradient within 1e-4 of max(1,
+    max |ref|), and one launch of that design."""
+    _needs_card()
+    q, k, v, out, lse, g = _card_case(bh + d, bh, tq, tk, d, torch.float32,
+                                      causal)
+    before = dict(tfa.BWD_LAUNCHES)
+    got = flash_attention_bwd(q, k, v, out, lse, g, causal)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert torch.isfinite(a).all()
+        ref = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, ref)
+    assert tfa.BWD_LAUNCHES["wgmma_tf32"] == before["wgmma_tf32"] + 1
+    assert {n: c for n, c in tfa.BWD_LAUNCHES.items()
+            if n != "wgmma_tf32"} == \
+        {n: c for n, c in before.items() if n != "wgmma_tf32"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_tf32_bwd_repeats_bit_for_bit_on_card(causal):
+    """No atomics in the f32 design either: two calls on one input give
+    identical dq, dk and dv."""
+    _needs_card()
+    case = _card_case(12, 48, 512, 512, 64, torch.float32, causal)
+    first = flash_attention_bwd(*case[:5], case[5], causal)
+    second = flash_attention_bwd(*case[:5], case[5], causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tf32_bwd_takes_a_misaligned_view_on_card():
+    """f32 views 4 bytes past a 16-byte boundary give the plain version's
+    gradients."""
+    _needs_card()
+    q, k, v, out, lse, g = _card_case(6, 4, 100, 100, 64, torch.float32,
+                                      True)
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    got = flash_attention_bwd(*(shifted(x) for x in (q, k, v, out)), lse,
+                              shifted(g), True)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, True)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            1.0, b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [0, 1])
+def test_tf32_operand_form_matches_a_plain_matmul_on_card(form):
+    """Each 3xTF32 operand form of the f32 design alone, 64 x 64 x 64
+    through TMA's 128-byte swizzle: A and B K-major parts in shared memory
+    (C = A B^T, as S and dP), and A from registers in the order an
+    accumulator hands it on, B K-major with its depth in that order (as
+    dV, dK and dQ); within 2e-6 of max |ref| (f32: 3xTF32 keeps about its
+    accuracy), and one pass of tf32 would miss that."""
+    _needs_card()
+    import ctypes
+    from analytics_zoo_tpu_torch.ops import _build
+    gen = torch.Generator(device="cuda").manual_seed(form)
+    a, b = (torch.randn(64, 64, device="cuda", generator=gen)
+            for _ in range(2))
+    if form:  # position p of each group of 8 holds depth 2p, or 2(p-4)+1
+        j = torch.arange(64, device="cuda")
+        p = j % 8
+        src = (j - p) + torch.where(p < 4, 2 * p, 2 * (p - 4) + 1)
+        b_stored = b[:, src]
+    else:
+        b_stored = b
+    c = torch.empty(64, 64, device="cuda")
+    fn = _build.load(tfa.BWD).flash_attention_bwd_tf32_check
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    a_parts, b_parts = _parts(a), _parts(b_stored)
+    assert fn(a.data_ptr(), a_parts.data_ptr(), b_parts.data_ptr(),
+              c.data_ptr(), form, torch.cuda.current_stream().cuda_stream) == 0
+    want = a.double() @ b.double().T
+    torch.cuda.synchronize()
+    top = want.abs().max().item()
+    assert (c.double() - want).abs().max().item() <= 2e-6 * top
+    one_pass = (_tf32(a).double() @ _tf32(b).double().T - want).abs().max()
+    assert one_pass.item() > 2e-6 * top

@@ -232,14 +232,21 @@ def test_the_wrappers_take_the_plain_versions_on_the_cpu():
                        labels.to("meta"), 4)
 
 
-@pytest.mark.parametrize("chunk,d,k", [(512, 768, 30528), (4, 16, 56),
-                                       (2048, 64, 8), (128, 4096, 30528)])
-def test_dh_split_k_ranges_cover_the_vocabulary(chunk, d, k):
-    splits, length = tfx.dh_splits(chunk, d, k)
-    assert length % tfx.SPLIT_K_STEP == 0
-    assert (splits - 1) * length < k <= splits * length
-    if chunk == 512:  # the recipe's: 24 output tiles, 11 splits
-        assert (splits, length) == (11, 2784)
+@pytest.mark.parametrize("n,d,v", [(2048, 768, 30522), (129, 13, 30),
+                                   (300, 40, 777), (512, 768, 4099),
+                                   (5504, 64, 1000), (1, 1, 1)])
+def test_tf32_bwd_plan_covers_every_tile_and_the_vocabulary(n, d, v):
+    """The f32 design's grids: dh's splits cover round8(V) in whole
+    64-deep k slices, none empty, about eight waves of one block an SM."""
+    plan = tfx.bwd_plan(n, d, v, "wgmma_tf32")
+    assert plan.vp == -(-v // 8) * 8
+    assert plan.split_len % tfx.TF_BK == 0
+    assert (plan.splits - 1) * plan.split_len < plan.vp \
+        <= plan.splits * plan.split_len
+    blocks = plan.row_tiles * plan.d_tiles * plan.splits
+    assert blocks <= tfx.TF_TARGET_BLOCKS + plan.row_tiles * plan.d_tiles
+    if (n, d, v) == (2048, 768, 30522):  # the recipe's: 8 waves of 132
+        assert (plan.splits, plan.split_len, blocks) == (11, 2816, 1056)
 
 
 @pytest.mark.parametrize("n,d,v", [(2048, 768, 30522), (129, 13, 30),
@@ -263,7 +270,7 @@ def test_bwd_plan_covers_every_tile_and_the_vocabulary(n, d, v):
 
 
 @pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "wgmma"),
-                                          (torch.float32, "scalar")])
+                                          (torch.float32, "wgmma_tf32")])
 def test_bwd_design_names_the_backward_by_dtype(dtype, design):
     assert tfx.bwd_design(dtype) == design
     assert design in tfx.BWD_DESIGNS
@@ -438,3 +445,57 @@ def test_bwd_design_mirrors_the_source_on_card(dtype):
     dt = getattr(torch, dtype)
     assert tfx.BWD_DESIGNS[fn(int(dt == torch.bfloat16))] == \
         tfx.bwd_design(dt)
+
+
+# the f32 design's cases: (n, d, v, chunk, w dtype, h scale): the recipe's
+# head with f32 and bf16 W, at logits of 1e2 too (dl then needs the
+# forward's own summation order, which the scalar logits keep); the
+# ragged N, D and V of chip_smoke.py's XENT_EDGE (D 13 and 40: W's and h's
+# parts padded, boxes zero-filled)
+TF32_CASES = [(2048, 768, 30522, 512, "float32", 1.0),
+              (2048, 768, 30522, 512, "bfloat16", 1.0),
+              (2048, 768, 30522, 512, "float32", 100.0),
+              (512, 96, 3001, 128, "float32", 100.0),
+              (300, 40, 777, 100, "float32", 1.0),
+              (129, 13, 30, 43, "bfloat16", 1.0),
+              (256, 64, 1000, 128, "float32", 1.0),
+              (512, 768, 4099, 256, "float32", 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,v,chunk,w_dtype,scale", TF32_CASES)
+def test_tf32_backward_matches_the_plain_version_on_card(n, d, v, chunk,
+                                                         w_dtype, scale):
+    """The f32 backward (logits on f32 FMAs, dh and dW on wgmma in 3xTF32)
+    against the plain version: each gradient within 1e-5 of its max |ref|
+    (chip_smoke.py's TOL_XENT_F32), but a bf16 dW, rounded once on each
+    side, within 2 bf16 ulps of its max; one launch of each pass and of
+    the design."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(n + d + v)
+    h, w, bias, labels = _card_case(gen, n, d, v, torch.float32,
+                                    getattr(torch, w_dtype), scale)
+    before = dict(tfx.KERNEL_LAUNCHES)
+    designs = dict(tfx.BWD_LAUNCHES)
+    _, errs = _bwd_errors(h, w, bias, labels, torch.tensor(1.3, device="cuda"),
+                          chunk)
+    for p in ("dl", "dh", "dw"):
+        assert tfx.KERNEL_LAUNCHES[f"{p}_f32"] == before[f"{p}_f32"] + 1
+    assert tfx.BWD_LAUNCHES["wgmma_tf32"] == designs["wgmma_tf32"] + 1
+    assert errs[0] <= 1e-5 and errs[2] <= 1e-5
+    assert errs[1] <= (1e-5 if w_dtype == "float32" else 2 * BF16_ULP)
+
+
+@pytest.mark.cuda
+def test_tf32_backward_repeats_bit_for_bit_at_the_recipe_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h, w, bias, labels = _card_case(gen, 2048, 768, 30522, torch.float32,
+                                    torch.float32, scale=100.0)
+    g = torch.tensor(1.0, device="cuda")
+    _, lse = fused_xent_fwd(h, w, bias, labels, 512)
+    first = fused_xent_bwd(h, w, bias, labels, lse, g, 512)
+    again = fused_xent_bwd(h, w, bias, labels, lse, g, 512)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
