@@ -92,6 +92,7 @@
 
 #include <type_traits>
 
+#include "flash_tf32.cuh"
 #include "hopper.cuh"
 #include "warp_mma.cuh"
 
@@ -1380,14 +1381,9 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // TMA ring; the shared memory (192 KB in dK/dV, 160 KB in dQ) allows one
 // block an SM.
 
-constexpr int kTfHeld = 64;   // keys (dK/dV) or q rows (dQ) of a block
-constexpr int kTfRows = 32;   // rows of a streamed tile
+// kTfHeld (64) keys (dK/dV) or q rows (dQ) a block, kTfRows (32) rows a
+// streamed tile, and the parts' layouts: flash_tf32.cuh.
 constexpr int kTfStages = 2;
-constexpr uint32_t kTfHeldAtom = kTfHeld * 128;   // 64 rows x 32 f32: 8 KB
-constexpr uint32_t kTfHeldPart = 2 * kTfHeldAtom; // 64 rows x d 0-63
-constexpr uint32_t kTfRowAtom = kTfRows * 128;    // 32 rows x 32 f32: 4 KB
-constexpr uint32_t kTfRowPart = 2 * kTfRowAtom;   // 32 rows x d 0-63
-constexpr uint32_t kTfColPart = kTfHeld * 128;    // d 0-63 x 32 columns
 
 // Shared memory of a pass, bytes from a 1024-aligned base: the held tiles'
 // parts (two operands x big, small), kTfStages stages of the streamed
@@ -1408,57 +1404,6 @@ struct TfSmem {
       kBar + (kTfStages + 1) * sizeof(uint64_t) + 1024;
 };
 static_assert(TfSmem<true>::kBytes <= 232448, "dK/dV shared memory");
-
-// One tensor of the split pass: src [bh][t][d] f32; nat [2 bh][t][dp] its
-// big (plane 2 b) and small (plane 2 b + 1) parts, columns past d zero; tr,
-// unless null, [2 bh][dp][tp] the parts transposed, each group of 8
-// positions holding rows 0, 2, 4, 6, 1, 3, 5, 7 of its group (hopper.cuh),
-// zeros past t.
-struct SplitJob {
-  const float* src;
-  float *nat, *tr;
-  int t, tp;
-};
-struct SplitJobs {
-  SplitJob job[4];
-};
-
-// blockIdx.x: 32 rows of one head (bh = blockIdx.x / tiles), blockIdx.y
-// the job.
-__global__ void __launch_bounds__(kThreads)
-bwd_split_tf32_kernel(const __grid_constant__ SplitJobs jobs, int tiles,
-                      int d, int dp) {
-  __shared__ float tile[kTfRows][kTfHeld + 1];
-  const SplitJob& J = jobs.job[blockIdx.y];
-  const int64_t bh = blockIdx.x / tiles;
-  const int t0 = (blockIdx.x % tiles) * kTfRows;
-  if (t0 >= J.tp) return;
-  for (int i = threadIdx.x; i < kTfRows * dp; i += kThreads) {
-    const int r = i / dp, c = i % dp;
-    const bool in = t0 + r < J.t;
-    const float x =
-        in && c < d ? J.src[(bh * J.t + t0 + r) * d + c] : 0.f;
-    tile[r][c] = x;
-    if (in) {
-      uint32_t big, small;
-      hopper::tf32_split(x, big, small);
-      J.nat[((2 * bh) * J.t + t0 + r) * dp + c] = __uint_as_float(big);
-      J.nat[((2 * bh + 1) * J.t + t0 + r) * dp + c] = __uint_as_float(small);
-    }
-  }
-  if (J.tr == nullptr) return;
-  __syncthreads();
-  for (int i = threadIdx.x; i < dp * kTfRows; i += kThreads) {
-    const int c = i / kTfRows, j = i % kTfRows;
-    if (t0 + j >= J.tp) continue;
-    // position j holds row p of its group of 8
-    const int p = (j & 7) < 4 ? 2 * (j & 7) : 2 * ((j & 7) - 4) + 1;
-    uint32_t big, small;
-    hopper::tf32_split(tile[(j & ~7) + p][c], big, small);
-    J.tr[((2 * bh) * dp + c) * J.tp + t0 + j] = __uint_as_float(big);
-    J.tr[((2 * bh + 1) * dp + c) * J.tp + t0 + j] = __uint_as_float(small);
-  }
-}
 
 // d = A B^T over a depth of 64 (8 k8 steps) in 3xTF32, A and B K-major
 // parts (big at a / b, small `part` bytes after) whose 32-wide atoms lie
@@ -1988,8 +1933,8 @@ cudaError_t launch_tf32(const Args& a) {
                          tkp},
                         {static_cast<const float*>(a.dout), nat_g, tr_g, a.tq,
                          tqp}}};
-  bwd_split_tf32_kernel<<<dim3(unsigned(bh * tiles), 4), kThreads, 0,
-                          a.stream>>>(jobs, tiles, a.d, dp);
+  split_tf32_kernel<<<dim3(unsigned(bh * tiles), 4), kTfSplitThreads, 0,
+                      a.stream>>>(jobs, tiles, a.d, dp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   float* delta = static_cast<float*>(a.delta);

@@ -2,7 +2,7 @@
 //
 // Replaces analytics_zoo_tpu/ops/flash_attention.py::_fwd_kernel (the Pallas
 // TPU kernel launched by _flash_fwd_pallas) for bfloat16 inputs; float32
-// inputs take the exact scalar kernel of flash_attention_fwd_f32.cu.  For
+// inputs take the kernels of flash_attention_fwd_f32.cu.  For
 // q, k, v laid out [BH, T, d] and contiguous:
 //   out[bh, i] = softmax_j(scale * q_i . k_j, masked) @ v      (bf16)
 //   lse[bh, i] = m_i + log(max(l_i, 1e-30))                    (f32)
@@ -670,13 +670,15 @@ cudaError_t launch_wgmma(const Args& a) {
 }
 
 // The forward's designs, as flash_attention.py's fwd_design names them
-// (flash_attention_fwd_f32.cu runs the scalar and wide ones).
-enum Design { kScalar = 0, kMmaSync = 1, kWgmma = 2, kWide = 3 };
+// (flash_attention_fwd_f32.cu runs the scalar, wide and wgmma_tf32 ones).
+enum Design {
+  kScalar = 0, kMmaSync = 1, kWgmma = 2, kWide = 3, kWgmmaTf32 = 4
+};
 
 // The design that takes a head of (padded) width d.
 Design design(bool is_bf16, int d) {
   if (d > 256) return kWide;
-  if (!is_bf16) return kScalar;
+  if (!is_bf16) return d <= 64 ? kWgmmaTf32 : kScalar;
   if (d > 32 && d <= 64) return kWgmma;
   return kMmaSync;
 }

@@ -18,11 +18,12 @@
 // the backward's bound is its logits at the FMAs' 67 TFLOP/s (1.43 ms) and
 // dh, dW in 3xTF32 at 495 (1.16 ms): 2.60 ms.
 //
-// Two designs of the backward (`bwd_design` below; ops/fused_xent.py's
-// bwd_design names it), and one of the forward:
+// Two designs of each direction (`fwd_design` and `bwd_design` below;
+// ops/fused_xent.py's fwd_design and bwd_design name them):
 //
-// wgmma, the bf16 backward (h bf16, W bf16 or f32): three products over
-// every token, one launch each, on wgmma m64n128k16 fed by a TMA ring.
+// wgmma, bf16 (h bf16, W bf16 or f32), both directions: the forward's
+// logits and the backward's three products over every token, one launch
+// each, on wgmma m64n128k16 fed by a TMA ring.
 //   * a block is two warpgroups (256 threads) owning a 128 x 128 output
 //     tile, each warpgroup 64 rows; 64-deep k slices of both operands
 //     arrive as four 64 x 64 boxes (8 KB, the 128-byte swizzle, 1024-byte
@@ -32,8 +33,14 @@
 //     group of products stays in flight across the barrier).  At 3 stages
 //     (96 KB) and at most 128 registers two blocks share an SM, so one
 //     block's epilogue overlaps the other's products;
-//   * the three products read their operands in the three forms wgmma
-//     takes: S = h W (h K-major, the packed W [D][round8(V)] MN-major),
+//   * the forward runs the dl pass's main loop (S = h W + b, K = D, the
+//     same k order, so the lse it saves is that of the S the backward
+//     recomputes) with the row statistics as its epilogue: per token and
+//     vocabulary tile the max, the sum of exp(S - max) and the label's
+//     logit, reduced over the 4 lanes that share a row with shuffles;
+//   * the backward's three products read their operands in the three
+//     forms wgmma takes: S = h W (h K-major, the packed W [D][round8(V)]
+//     MN-major),
 //     dh = dl W^T (dl and W both K-major: W read as [n = d][k = v]), dW =
 //     h^T dl (h and dl both MN-major: h is stored [token][d]);
 //   * the dl pass recomputes S per tile (K = D) and writes dl = the
@@ -52,6 +59,8 @@
 //   Workspace (the wrapper's): dl [N][round8(V)] bf16, dh's partials
 //   [splits][N][D] f32, db's [cdiv(N, 128)][V] f32, the packed W (f32 W or
 //   V not a multiple of 8) and h (D not a multiple of 8); they grow with N.
+//   The forward packs W the same way and hands its copy to the backward
+//   (`w_packed`), which then skips its own pack.
 //
 // wgmma_tf32, the f32 backward (h f32, W f32 or bf16): the dl pass over
 // every token on the scalar main loop below, then dh = dl W^T and dW = h^T
@@ -70,26 +79,21 @@
 // ring (192 KB: one block an SM).  Workspace: dl [N][round8(V)] f32 (250
 // MB at the recipe), W's parts (188 MB), h's (13 MB), dh's partials.
 //
-// scalar, the forward of both dtypes and the f32 backward's dl pass: 256
-// threads over 128 x 128 output tiles for bf16 operands (the forward's),
-// on mma.sync m16n8k16 (f32 accumulate; 8 warps as 2 x 4, 64 x 32 each),
-// their 32-deep k slices double-buffered in shared memory by 16-byte
-// cp.async copies that zero-fill the ragged edges; over 128 x 256 tiles
-// for f32 operands, on scalar f32 FMAs (exact products summed in k order,
-// as JAX's f32 dot and cuBLAS's), 8 x 16 outputs a thread, 8-deep k slices
-// double-buffered through registers.  Its epilogues: the forward's row
-// statistics (per token and vocabulary tile: the max, the sum of exp(S -
-// max) and the label's logit, from the same f32 S); and the f32 dl into a
-// [N][round8(V)] workspace with db's column sums.
+// scalar, the f32 forward and the f32 backward's dl pass: 256 threads
+// over 128 x 256 output tiles on scalar f32 FMAs (exact products summed in
+// k order, as JAX's f32 dot and cuBLAS's), 8 x 16 outputs a thread, 8-deep
+// k slices double-buffered through registers.  Its epilogues: the
+// forward's row statistics (as above, from the same f32 S); and the f32
+// dl into a [N][round8(V)] workspace with db's column sums.
 //
 // No atomics anywhere.  The forward writes per-tile partials that a
 // finalize kernel combines per token in tile order (online max rescaling),
 // then one block reduces the mean; dh's splits and db's tiles are summed in
 // order; each dW tile is owned by one block.  Two runs give identical bits.
 // What it leaves: a producer warp and persistent blocks that overlap a
-// tile's epilogue with the next tile's products, the forward on wgmma,
-// fusing the dh and dW products so that dl never leaves the chip, and a
-// faster f32 FMA main loop (the f32 logits must keep its k order).
+// tile's epilogue with the next tile's products, fusing the dh and dW
+// products so that dl never leaves the chip, and a faster f32 FMA main
+// loop (the f32 logits must keep its k order).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -107,7 +111,6 @@ using namespace warp_mma;
 
 constexpr int kTile = 128;     // output tile: rows and columns
 constexpr int kThreads = 256;
-constexpr int kBK = 32;        // tensor-core route: k per shared stage
 constexpr int kBKs = 8;        // scalar route: k per shared stage
 constexpr int kSlots = 16;     // threads that share one row (or column)
 constexpr int kSmemBytes = 40960;
@@ -122,126 +125,6 @@ template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
-
-// c += a * b for m tile mt and n tile nt of acc (see TensorCores)
-__device__ __forceinline__ void mma_at(float (&acc)[8][8], int mt, int nt,
-                                       const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(acc[2 * mt][2 * nt]), "+f"(acc[2 * mt][2 * nt + 1]),
-        "+f"(acc[2 * mt + 1][2 * nt]), "+f"(acc[2 * mt + 1][2 * nt + 1])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ROWS x COLS tile at (r0, c0) of a row-major matrix of `ld` elements a row
-// into shared rows of COLS + 8 (the 16-byte pad puts the eight row addresses
-// of every ldmatrix in distinct bank groups); rows >= r_lim and 8-element
-// chunks at columns >= c_lim are zero-filled, never read.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_async(bf16* s, const bf16* g, int ld,
-                                           int r0, int r_lim, int c0,
-                                           int c_lim) {
-  constexpr int kChunks = COLS / 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "tile shape");
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = r0 + r < r_lim && c0 + col < c_lim;
-    const bf16* src = ok ? g + size_t(r0 + r) * ld + c0 + col : g;
-    cp_async_16(s + r * (COLS + 8) + col, src, ok);
-  }
-}
-
-// bf16 operands on the tensor cores (the forward's).  acc[i][j] is element
-// (row(i), col(j)) of the block's tile: warp w = 4 wm + wn holds rows
-// [64 wm, 64 wm + 64) and columns [32 wn, 32 wn + 32) as 4 x 4 m16n8 tiles,
-// whose C fragments (warp_mma.cuh) put rows g and g + 8, columns 2t and
-// 2t + 1 in each lane.
-struct TensorCores {
-  static constexpr int kN = 8;           // columns a thread
-  static constexpr int kTileN = kTile;   // columns a block
-  __device__ static int row(int i) {
-    return (threadIdx.x >> 7) * 64 + (i >> 1) * 16 + (i & 1) * 8 +
-           ((threadIdx.x & 31) >> 2);
-  }
-  __device__ static int col(int j) {
-    return ((threadIdx.x >> 5) & 3) * 32 + (j >> 1) * 8 +
-           2 * (threadIdx.x & 3) + (j & 1);
-  }
-  // this thread's place among the 16 that share each of its rows
-  __device__ static int row_slot() {
-    return ((threadIdx.x >> 5) & 3) * 4 + (threadIdx.x & 3);
-  }
-
-  // acc = A[m0.., k0..k1) B[k0..k1), n0..]: A stored [m][k], B stored
-  // [k][n]; rows/columns of m >= m_lim, n >= n_lim and k >= k1 read as
-  // zero.
-  template <bool kAT, bool kBT, typename TA, typename TB>
-  __device__ static void mainloop(float (&acc)[8][8], const TA* A, int lda,
-                                  int m0, int m_lim, const TB* B, int ldb,
-                                  int n0, int n_lim, int k0, int k1,
-                                  unsigned char* smem_raw) {
-    static_assert(!kAT && !kBT, "the forward's operand forms only");
-    constexpr int SA = kBK + 8;
-    constexpr int SB = kTile + 8;
-    constexpr int kStage = kTile * (kBK + 8);  // >= kBK * (kTile + 8)
-    static_assert(4 * kStage * sizeof(bf16) <= kSmemBytes, "shared memory");
-    bf16* As = reinterpret_cast<bf16*>(smem_raw);  // two stages
-    bf16* Bs = As + 2 * kStage;                    // two stages
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int wm = warp >> 2, wn = warp & 3;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    auto load = [&](int st, int k) {
-      bf16* as = As + st * kStage;
-      bf16* bs = Bs + st * kStage;
-      load_async<kTile, kBK>(as, A, lda, m0, m_lim, k, k1);
-      load_async<kBK, kTile>(bs, B, ldb, k, k1, n0, n_lim);
-      cp_async_commit();
-    };
-
-    const int nk = k1 > k0 ? (k1 - k0 + kBK - 1) / kBK : 0;
-    if (nk > 0) load(0, k0);
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk) {
-        load((kt + 1) & 1, k0 + (kt + 1) * kBK);
-        cp_async_wait<1>();  // everything but slice kt + 1 has landed
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();  // ... for every thread's copies
-      const bf16* as = As + (kt & 1) * kStage;
-      const bf16* bs = Bs + (kt & 1) * kStage;
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        uint32_t a[4][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          ldmatrix_x4(a[mt], as + (wm * 64 + mt * 16 + (lane & 15)) * SA +
-                                 ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int nb = 0; nb < 2; ++nb) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(
-              b, bs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SB +
-                     wn * 32 + nb * 16 + (lane >> 4) * 8);
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            mma_at(acc, mt, 2 * nb, a[mt], b[0], b[1]);
-            mma_at(acc, mt, 2 * nb + 1, a[mt], b[2], b[3]);
-          }
-        }
-      }
-      __syncthreads();  // stage kt & 1 fully read before it is refilled
-    }
-  }
-};
 
 // f32 (or bf16, read as f32) operands on scalar FMAs: a 128 x 256 tile,
 // thread (ty, tx) holding rows 4 ty + r and 64 + 4 ty + r and columns
@@ -783,6 +666,79 @@ xent_wg_dl(const __grid_constant__ CUtensorMap h_map,
   }
 }
 
+// The bf16 forward: blockIdx.x a token tile, blockIdx.y a vocabulary
+// tile.  S = h W over the (padded) width dp on the dl pass's main loop (so
+// the forward's logits are the ones the backward recomputes, bit for bit),
+// then per token the tile's max of S + b, the sum of exp(S + b - max) and,
+// where the label falls in the tile, its logit (else 0), each reduced over
+// the 4 lanes that share a row, as part[q][tile][token] for q = 0, 1, 2.
+// The logits never leave the chip.  exp by __expf (2^x on the SFU: within
+// 15 ulp of expf where exp(x) > 1e-5, so the sum within about 1e-6
+// relative and the lse within 1e-6 of 1e-5 allowed): expf's longer
+// sequence took a fifth of the kernel's time (PERF.md).
+__global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
+xent_wg_fwd(const __grid_constant__ CUtensorMap h_map,
+            const __grid_constant__ CUtensorMap w_map, int dp,
+            const float* __restrict__ bias,
+            const int64_t* __restrict__ labels, int n, int v,
+            float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wg_base(smem_raw);
+  const int m0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  float acc[64];
+  wg_mainloop<false, true>(acc, &h_map, &w_map, m0, n0, 0,
+                           (dp + kWgBK - 1) / kWgBK, base);
+  const WgPos p;
+  int64_t lab[2];
+  float mx[2] = {-INFINITY, -INFINITY}, lab_logit[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = m0 + p.row + 8 * h;
+    lab[h] = r < n ? labels[r] : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = n0 + 8 * i + p.col + u;
+      if (c >= v) continue;
+      const float bc = bias[c];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float x = acc[4 * i + 2 * h + u] + bc;
+        acc[4 * i + 2 * h + u] = x;
+        mx[h] = fmaxf(mx[h], x);
+        if (c == lab[h]) lab_logit[h] = x;
+      }
+    }
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        if (n0 + 8 * i + p.col + u < v)
+          sum += __expf(acc[4 * i + 2 * h + u] - mx[h]);
+    float lg = lab_logit[h];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      lg += __shfl_xor_sync(0xffffffffu, lg, o);
+    }
+    const int r = m0 + p.row + 8 * h;
+    if ((lane & 3) == 0 && r < n) {
+      const size_t tiles = gridDim.y, t = blockIdx.y;
+      part[(0 * tiles + t) * n + r] = mx[h];
+      part[(1 * tiles + t) * n + r] = sum;
+      part[(2 * tiles + t) * n + r] = lg;
+    }
+  }
+}
+
 // The dh pass: blockIdx.x a d tile, blockIdx.y a token tile, blockIdx.z a
 // split of the vocabulary [z split_len, (z + 1) split_len) within vp:
 // part[z][n][d] = dl W^T over the split, in f32.
@@ -1071,9 +1027,10 @@ struct Operands {
   const void* w;
   int ldw, w_lim;  // w_lim: likewise for W
 
+  // w_packed: wp already holds W packed (by the forward of the same W).
   static cudaError_t make(Operands* o, int tc, int w_bf16, const void* h,
-                          void* hp, const void* w, void* wp, int n, int d,
-                          int v, cudaStream_t s) {
+                          void* hp, const void* w, void* wp, int w_packed,
+                          int n, int d, int v, cudaStream_t s) {
     *o = {h, d, d, w, v, v};
     if (!tc) return cudaSuccess;
     if (hp) {
@@ -1082,9 +1039,11 @@ struct Operands {
       o->h = hp;
     }
     if (wp) {
-      const cudaError_t e = w_bf16 ? pack<bf16>(w, d, v, wp, round8(v), s)
-                                   : pack<float>(w, d, v, wp, round8(v), s);
-      if (e != cudaSuccess) return e;
+      if (!w_packed) {
+        const cudaError_t e = w_bf16 ? pack<bf16>(w, d, v, wp, round8(v), s)
+                                     : pack<float>(w, d, v, wp, round8(v), s);
+        if (e != cudaSuccess) return e;
+      }
       o->w = wp;
     }
     o->ldh = o->h_lim = round8(d);
@@ -1093,21 +1052,56 @@ struct Operands {
   }
 };
 
-template <class E, typename TH, typename TW>
-cudaError_t run_fwd(const Operands& o, const float* bias,
-                    const int64_t* labels, int n, int d, int v, float* part,
-                    float* lse, float* loss_tok, float* loss,
-                    cudaStream_t s) {
-  const dim3 grid(cdiv(n, kTile), cdiv(v, E::kTileN));
-  xent_fwd_tiles<E, TH, TW><<<grid, kThreads, 0, s>>>(
-      static_cast<const TH*>(o.h), o.ldh, static_cast<const TW*>(o.w), o.ldw,
-      o.w_lim, bias, labels, n, d, v, part);
-  XENT_CHECK();
-  xent_fwd_finalize<<<cdiv(n, 32), kThreads, 0, s>>>(part, grid.y, n, lse,
+// The per-token lse and loss from the tiles' partials, then their mean.
+cudaError_t finish_fwd(const float* part, int tiles, int n, float* lse,
+                       float* loss_tok, float* loss, cudaStream_t s) {
+  xent_fwd_finalize<<<cdiv(n, 32), kThreads, 0, s>>>(part, tiles, n, lse,
                                                      loss_tok);
   XENT_CHECK();
   xent_mean<<<1, 1024, 0, s>>>(loss_tok, n, loss);
   return cudaGetLastError();
+}
+
+// The f32 forward: the tiles on the scalar main loop, then finish_fwd.
+template <typename TW>
+cudaError_t run_fwd_scalar(const Operands& o, const float* bias,
+                           const int64_t* labels, int n, int d, int v,
+                           float* part, float* lse, float* loss_tok,
+                           float* loss, cudaStream_t s) {
+  const dim3 grid(cdiv(n, kTile), cdiv(v, ScalarF32::kTileN));
+  xent_fwd_tiles<ScalarF32, float, TW><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(o.h), o.ldh, static_cast<const TW*>(o.w),
+      o.ldw, o.w_lim, bias, labels, n, d, v, part);
+  XENT_CHECK();
+  return finish_fwd(part, grid.y, n, lse, loss_tok, loss, s);
+}
+
+// The bf16 forward on wgmma (the backward's dl main loop): the tiles, then
+// finish_fwd.  TMA reads h [n][dp] and the packed W [d][vp] as the dl
+// pass does.
+cudaError_t run_fwd_wgmma(const Operands& o, const float* bias,
+                          const int64_t* labels, int n, int d, int v,
+                          float* part, float* lse, float* loss_tok,
+                          float* loss, cudaStream_t s) {
+  const int dp = o.ldh, vp = o.ldw;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(o.h) |
+                         reinterpret_cast<uintptr_t>(o.w);
+  if (addr % 16 || dp % 8 || vp % 8) return cudaErrorInvalidValue;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  CUtensorMap hm, wm;
+  if ((err = hopper::tile_map(&hm, o.h, 1, n, dp)) != cudaSuccess ||
+      (err = hopper::tile_map(&wm, o.w, 1, d, vp)) != cudaSuccess)
+    return err;
+  static hopper::SmemLimit limit;
+  if ((err = limit.raise(xent_wg_fwd, dev, kWgSmemBytes)) != cudaSuccess)
+    return err;
+  const dim3 grid(cdiv(n, kTile), cdiv(v, kTile));
+  xent_wg_fwd<<<grid, kWgThreads, kWgSmemBytes, s>>>(hm, wm, dp, bias, labels,
+                                                     n, v, part);
+  XENT_CHECK();
+  return finish_fwd(part, grid.y, n, lse, loss_tok, loss, s);
 }
 
 // The bf16 backward on wgmma: the dl, dh (with its reduce) and dW passes
@@ -1224,16 +1218,20 @@ bool bad_shape(int n, int d, int v) {
   return n < 1 || d < 1 || v < 1 || cdiv(v, kTile) > 65535;
 }
 
-// The backward's designs, as fused_xent.py's bwd_design names them.
+// The designs of each direction, as fused_xent.py's fwd_design and
+// bwd_design name them.
+enum FwdDesign { kFwdWgmma = 0, kFwdScalar = 1 };
 enum BwdDesign { kBwdWgmma = 0, kBwdWgmmaTf32 = 1 };
 
+FwdDesign fwd_design(int tc) { return tc ? kFwdWgmma : kFwdScalar; }
 BwdDesign bwd_design(int tc) { return tc ? kBwdWgmma : kBwdWgmmaTf32; }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  `tc`: bf16 activations on the
-// tensor cores (else f32: the forward and the backward's logits on scalar
-// FMAs, its dh and dW on wgmma in 3xTF32); `w_bf16`: W's dtype (else f32).
+// tensor cores, wgmma both ways (else f32: the forward and the backward's
+// logits on scalar FMAs, its dh and dW on wgmma in 3xTF32); `w_bf16`: W's
+// dtype (else f32).
 // hp / wp: where to pack h / W for the tensor cores (null: used as given,
 // which needs bf16 rows of a whole number of 16 bytes).  They launch on
 // `stream`, do not synchronise, allocate nothing, and return the first
@@ -1246,7 +1244,8 @@ extern "C" int fused_xent_fwd(int tc, int w_bf16, const void* h, void* hp,
   if (bad_shape(n, d, v)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Operands o;
-  cudaError_t e = Operands::make(&o, tc, w_bf16, h, hp, w, wp, n, d, v, s);
+  cudaError_t e =
+      Operands::make(&o, tc, w_bf16, h, hp, w, wp, 0, n, d, v, s);
   if (e != cudaSuccess) return e;
   const float* b = static_cast<const float*>(bias);
   const int64_t* lab = static_cast<const int64_t*>(labels);
@@ -1254,14 +1253,10 @@ extern "C" int fused_xent_fwd(int tc, int w_bf16, const void* h, void* hp,
   float* ls = static_cast<float*>(lse);
   float* lt = static_cast<float*>(loss_tok);
   float* lo = static_cast<float*>(loss);
-  if (tc)
-    return run_fwd<TensorCores, bf16, bf16>(o, b, lab, n, d, v, pt, ls, lt,
-                                            lo, s);
+  if (tc) return run_fwd_wgmma(o, b, lab, n, d, v, pt, ls, lt, lo, s);
   if (w_bf16)
-    return run_fwd<ScalarF32, float, bf16>(o, b, lab, n, d, v, pt, ls, lt, lo,
-                                           s);
-  return run_fwd<ScalarF32, float, float>(o, b, lab, n, d, v, pt, ls, lt, lo,
-                                          s);
+    return run_fwd_scalar<bf16>(o, b, lab, n, d, v, pt, ls, lt, lo, s);
+  return run_fwd_scalar<float>(o, b, lab, n, d, v, pt, ls, lt, lo, s);
 }
 
 // Both designs run over every token at once: dl [N][round8(V)] (bf16 for
@@ -1269,9 +1264,11 @@ extern "C" int fused_xent_fwd(int tc, int w_bf16, const void* h, void* hp,
 // the vocabulary split into ranges of split_len (a multiple of 64) that
 // cover round8(V) exactly.  f32 only: wp W's tf32 parts
 // [2][D][round8(V)], ht h's transposed [2][D][round8(N)] (f32, 16-byte
-// aligned, as dl).
+// aligned, as dl).  bf16 only: w_packed != 0 says wp already holds W as
+// the forward packed it, so the backward reads it without packing again.
 extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
-                              const void* w, void* wp, const void* bias,
+                              const void* w, void* wp, int w_packed,
+                              const void* bias,
                               const void* labels, const void* lse,
                               const void* g, int n, int d, int v, int splits,
                               int split_len, void* dl, void* dbp,
@@ -1286,7 +1283,8 @@ extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Operands o;
-  cudaError_t e = Operands::make(&o, tc, w_bf16, h, hp, w, wp, n, d, v, s);
+  cudaError_t e =
+      Operands::make(&o, tc, w_bf16, h, hp, w, wp, w_packed, n, d, v, s);
   if (e != cudaSuccess) return e;
   const float* b = static_cast<const float*>(bias);
   const int64_t* lab = static_cast<const int64_t*>(labels);
@@ -1319,7 +1317,9 @@ extern "C" int fused_xent_bwd(int tc, int w_bf16, const void* h, void* hp,
                              static_cast<float*>(dw), dbf, s);
 }
 
-// The design (BwdDesign above) the bf16 (tc != 0) or f32 backward takes.
+// The design (FwdDesign, BwdDesign above) the bf16 (tc != 0) or f32
+// forward and backward take.
+extern "C" int fused_xent_fwd_design(int tc) { return fwd_design(tc); }
 extern "C" int fused_xent_bwd_design(int tc) { return bwd_design(tc); }
 
 extern "C" const char* fused_xent_error_string(int err) {

@@ -269,14 +269,30 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t a,
   }
 }
 
-// d (+)= A B, m64nNk8 (N 64 or 128), tf32: A (four registers, the fragment
-// above) from registers, B K-major in shared memory; without kAccumulate
-// (N 128) d is only written, as in wgmma_ss.
+// d (+)= A B, m64nNk8 (N 32, 64 or 128), tf32: A (four registers, the
+// fragment above) from registers, B K-major in shared memory; without
+// kAccumulate (N 32 or 128) d is only written, as in wgmma_ss.
 template <int N, bool kAccumulate = true>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    if constexpr (kAccumulate) {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+          HOPPER_D16_REGS ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+          : HOPPER_D16("+f")
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    } else {
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+          HOPPER_D16_REGS ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+          : HOPPER_D16("=f")
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+    }
+  } else if constexpr (N == 64) {
     static_assert(kAccumulate, "m64n64: accumulate only");
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -439,6 +455,20 @@ inline EncodeTiledFn tensor_map_encoder() {
   return fn;
 }
 
+// Makes the current device's primary context current in the calling
+// thread, once a thread.  cuTensorMapEncodeTiled checks the tensor's
+// address against the thread's current context, and a thread whose first
+// CUDA call is an encoding has none (autograd's backward thread, when the
+// allocations before it all came from PyTorch's cache): the encoding then
+// failed with an invalid value (H100, CUDA 12.8).
+inline cudaError_t bind_context() {
+  thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  const cudaError_t err = cudaFree(nullptr);
+  bound = err == cudaSuccess;
+  return err;
+}
+
 // A 3-D map over a contiguous bf16 [bh, t, d] tensor, boxes of 1 x 64 x
 // 64 with the 128-byte swizzle: rows >= t and columns >= d of a box read
 // zeros, never the next head.  d must be a multiple of 8 (16-byte rows).
@@ -446,6 +476,8 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* ptr, int bh, int t,
                             int d) {
   const EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const cudaError_t err = bind_context();
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(t), cuuint64_t(bh)};
   const cuuint64_t strides[2] = {cuuint64_t(d) * sizeof(__nv_bfloat16),
                                  cuuint64_t(t) * d * sizeof(__nv_bfloat16)};
@@ -468,6 +500,8 @@ inline cudaError_t tile_map_f32(CUtensorMap* map, const void* ptr,
                                 int box_rows) {
   const EncodeTiledFn encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const cudaError_t err = bind_context();
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
                               cuuint64_t(planes)};
   const cuuint64_t strides[2] = {cuuint64_t(cols) * sizeof(float),

@@ -8,10 +8,11 @@ tensor on the card:
 
 - ``flash_attention_fwd`` launches the bfloat16 tensor-core kernel
   (``csrc/flash_attention_fwd.cu``: heads of 33-64 on ``wgmma`` fed by a
-  TMA ring, other heads up to 256 on ``mma.sync``) or the float32 kernel
-  (``csrc/flash_attention_fwd_f32.cu``, which also takes bfloat16 heads
-  wider than 256 and computes them in f32); ``fwd_design`` names the
-  design;
+  TMA ring, other heads up to 256 on ``mma.sync``) or the float32 kernels
+  (``csrc/flash_attention_fwd_f32.cu``: heads up to 64 on ``wgmma`` in
+  3xTF32 after a split pass, up to 256 on scalar FMAs, wider heads, and
+  bfloat16 heads wider than 256, in f32 on the wide kernel);
+  ``fwd_design`` names the design;
 - ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``: bf16
   heads of 33-64 on ``wgmma`` fed by a TMA ring, up to 32 on ``mma.sync``,
   f32 heads up to 64 on ``wgmma`` in 3xTF32 (three tf32 products per f32
@@ -52,6 +53,8 @@ DESIGNS = ("scalar", "mma.sync", "wgmma", "wide", "wgmma_tf32")
 FWD_BF16 = "flash_attention_fwd"      # csrc/<source>.cu
 FWD_F32 = "flash_attention_fwd_f32"
 BWD = "flash_attention_bwd"
+# the f32 forward's C entry point, the one that takes a workspace
+_FWD_F32_ENTRY = "flash_attention_fwd_f32"
 _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
 # launches of each kernel, by source; flash_attention_fwd.launches and
@@ -70,7 +73,7 @@ def fwd_kernel(dtype: torch.dtype, d: int) -> Tuple[str, str]:
         if d <= TC_MAX_HEAD_DIM:
             return FWD_BF16, "flash_attention_fwd_bf16"
         return FWD_F32, "flash_attention_fwd_wide_bf16"
-    return FWD_F32, "flash_attention_fwd_f32"
+    return FWD_F32, _FWD_F32_ENTRY
 
 
 def fwd_design(dtype: torch.dtype, d: int) -> str:
@@ -78,8 +81,9 @@ def fwd_design(dtype: torch.dtype, d: int) -> str:
     (after the wrapper's padding of bf16 tensor-core heads to a multiple
     of 8): one of ``DESIGNS``.  bf16 heads of 33-64 run on ``wgmma``,
     other bf16 heads up to 256 on ``mma.sync`` (both in
-    ``csrc/flash_attention_fwd.cu``); f32 heads up to 256 on the scalar
-    kernel and heads above 256 on the wide one (both in
+    ``csrc/flash_attention_fwd.cu``); f32 heads up to 64 on ``wgmma`` in
+    3xTF32 (``wgmma_tf32``), up to 256 on the scalar kernel and heads
+    above 256 on the wide one (all in
     ``csrc/flash_attention_fwd_f32.cu``).  The rule depends on nothing
     but the dtype and the width: at BERT's shapes the ``wgmma`` design is
     faster than ``mma.sync`` at every BH, 12 included (``PERF.md``).
@@ -89,7 +93,7 @@ def fwd_design(dtype: torch.dtype, d: int) -> str:
     if width > TC_MAX_HEAD_DIM:
         return "wide"
     if dtype != torch.bfloat16:
-        return "scalar"
+        return "wgmma_tf32" if width <= 64 else "scalar"
     if 32 < width <= 64:
         return "wgmma"
     return "mma.sync"
@@ -273,24 +277,44 @@ def _count(fn, source: str, by_design: dict, design: str) -> None:
         by_design[design] += 1
 
 
+def _fwd_work_floats(lib, bh: int, tk: int, d: int) -> int:
+    """The f32 workspace the f32 forward's design needs at these sizes
+    (the 3xTF32 design's split parts of k and v: 2 x BH x (Tk +
+    round8(Tk)) x round8(d) floats, 0 for the others), as the source
+    counts it."""
+    fn = lib.flash_attention_fwd_f32_work_floats
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+    return int(fn(bh, tk, d))
+
+
 def _run_kernel(q3, k3, v3, causal, scale):
     """Launch the forward kernel for the dtype and width of ``[BH, T,
     width]`` tensors with the softmax ``scale`` of the true head dim;
-    counts the launch, and one of its design."""
+    counts the launch, and one of its design.  The f32 kernels take a
+    workspace (the 3xTF32 design's split parts), allocated here."""
     source, entry = fwd_kernel(q3.dtype, q3.shape[-1])
-    lib, fn = _entry(source, entry, 5, 5)
-    # the bf16 kernel copies 16-byte pieces (cp.async, TMA): a view at an
-    # odd offset is copied to fresh (aligned) storage first
+    with_work = entry == _FWD_F32_ENTRY
+    lib, fn = _entry(source, entry, 5 + with_work, 5)
+    # the tensor-core kernels copy 16-byte pieces (cp.async, TMA): a view at
+    # an odd offset is copied to fresh (aligned) storage first
     q3, k3, v3 = (x if x.data_ptr() % 16 == 0 else x.clone()
                   for x in (q3, k3, v3))
     bh, tq, d = q3.shape
+    tk = k3.shape[1]
     out = torch.empty_like(q3)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q3.device)
+    ptrs = [q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
+            lse.data_ptr()]
+    if with_work:
+        floats = _fwd_work_floats(lib, bh, tk, d)
+        work = torch.empty(floats, dtype=torch.float32, device=q3.device) \
+            if floats else None
+        ptrs.append(0 if work is None else work.data_ptr())
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), bh, tq, k3.shape[1], d, int(bool(causal)),
-                 scale, stream)
+        err = fn(*ptrs, bh, tq, tk, d, int(bool(causal)), scale, stream)
     _raise_on_error(lib, entry, err)
     _count(flash_attention_fwd, source, FWD_LAUNCHES, fwd_design(q3.dtype, d))
     return out, lse

@@ -12,7 +12,9 @@ sums db from the f32 values.  Here, for a tensor on the card:
 
 - ``fused_xent_fwd`` launches ``csrc/fused_xent.cu``'s forward (the logit
   tiles' max, sum of exponentials and label logit, combined per token into
-  the logsumexp and the mean loss; the logits are never written);
+  the logsumexp and the mean loss; the logits are never written): bf16
+  activations on ``wgmma`` (the backward's dl main loop), f32 on scalar
+  FMAs; ``fwd_design`` names the design;
 - ``fused_xent_bwd`` launches its backward over every token: the ``dl``
   pass into a ``[tokens, vocab]`` workspace, ``dh`` split over the
   vocabulary, ``dW`` with its f32 sum kept on chip from the first token to
@@ -23,13 +25,15 @@ sums db from the f32 values.  Here, for a tensor on the card:
   in 3xTF32 (three tf32 products per f32 product);
 - ``fused_softmax_xent`` ties them together in a
   ``torch.autograd.Function`` whose residuals are ``(h, w, bias, labels,
-  lse)``, as the ``custom_vjp``'s are.
+  lse)``, as the ``custom_vjp``'s are, plus the forward's bf16 copy of W
+  where it made one, which the backward then reads instead of packing W
+  again.
 
-bf16 activations run on the tensor cores (the forward on ``mma.sync``,
-the backward on ``wgmma`` fed by TMA); f32 activations' forward and
-logits on scalar f32 FMAs (exact f32 products, as JAX's f32 dot), their
-dh and dW on ``wgmma`` in 3xTF32; ``bwd_design`` names the backward's
-design.  For a tensor on the CPU the wrappers use
+bf16 activations run on the tensor cores (both directions on ``wgmma``
+fed by TMA); f32 activations' forward and logits on scalar f32 FMAs
+(exact f32 products, as JAX's f32 dot), their dh and dW on ``wgmma`` in
+3xTF32; ``fwd_design`` and ``bwd_design`` name the designs.  For a
+tensor on the CPU the wrappers use
 ``fused_xent_reference`` and ``fused_xent_bwd_reference``, which repeat
 the JAX op's chunked math step by step.  There is no fallback from the card to the plain versions: a
 kernel that fails to build or launch raises.
@@ -53,8 +57,11 @@ PASSES = ("fwd", "dl", "dh", "dw")
 KERNEL_LAUNCHES = {f"{p}_{s}": 0 for s in _SUFFIX.values() for p in PASSES}
 _count_lock = threading.Lock()
 TILE = 128            # the kernels' output tile, rows and columns
-# the backward's designs, in the order of the source's BwdDesign;
-# BWD_LAUNCHES counts the backward's entry calls by design
+# each direction's designs, in the order of the source's FwdDesign and
+# BwdDesign; FWD_LAUNCHES and BWD_LAUNCHES count each direction's entry
+# calls by design
+FWD_DESIGNS = ("wgmma", "scalar")
+FWD_LAUNCHES = dict.fromkeys(FWD_DESIGNS, 0)
 BWD_DESIGNS = ("wgmma", "wgmma_tf32")
 BWD_LAUNCHES = dict.fromkeys(BWD_DESIGNS, 0)
 WG_BK = 64            # the wgmma design's k slice: its dh splits' step
@@ -210,6 +217,14 @@ def bwd_plan(n: int, d: int, v: int, design: str = "wgmma") -> BwdPlan:
                    -(-steps // per_split), per_split * step)
 
 
+def fwd_design(dtype: torch.dtype) -> str:
+    """The design of ``csrc/fused_xent.cu``'s forward for activations in
+    ``dtype``: one of ``FWD_DESIGNS`` (bf16 ``wgmma``, f32 ``scalar``).
+    Mirrors the source's ``fwd_design``; a ``cuda`` test holds the two
+    together."""
+    return "wgmma" if dtype == torch.bfloat16 else "scalar"
+
+
 def bwd_design(dtype: torch.dtype) -> str:
     """The design of ``csrc/fused_xent.cu``'s backward for activations in
     ``dtype``: one of ``BWD_DESIGNS`` (bf16 ``wgmma``, f32
@@ -224,17 +239,19 @@ def _aligned(t: torch.Tensor) -> bool:
 
 class _Operands:
     """The products' operands on the card.  The bf16 tensor-core route
-    copies its operands with 16-byte ``cp.async`` or TMA and wants each row
-    a whole number of 16 bytes: ``w`` in f32, or with a width V that is not
-    a multiple of 8, is cast into a bf16 ``[D, round8(V)]`` copy by the
-    pack kernel (one pass per call); ``h`` likewise when D is not a
-    multiple of 8.  The f32 route's scalar loops read any width and any
-    dtype of ``w``; its backward's split passes write ``wp``, W's tf32
-    parts ``[2, D, round8(V)]``, and ``ht``, h's transposed ``[2, D,
-    round8(N)]`` (``with_parts``)."""
+    copies its operands with TMA and wants each row a whole number of 16
+    bytes: ``w`` in f32, or with a width V that is not a multiple of 8, is
+    cast into a bf16 ``[D, round8(V)]`` copy ``wp`` by the pack kernel (one
+    pass per call, unless ``w_packed``, the forward's copy of the same W,
+    is given: then ``wp`` is that copy and ``packed`` says so); ``h``
+    likewise when D is not a multiple of 8.  The f32 route's scalar loops
+    read any width and any dtype of ``w``; its backward's split passes
+    write ``wp``, W's tf32 parts ``[2, D, round8(V)]``, and ``ht``, h's
+    transposed ``[2, D, round8(N)]`` (``with_parts``)."""
 
     def __init__(self, h2: torch.Tensor, w: torch.Tensor,
-                 with_parts: bool = False):
+                 with_parts: bool = False,
+                 w_packed: Optional[torch.Tensor] = None):
         n, d = h2.shape
         v = w.shape[1]
         self.tc = h2.dtype == torch.bfloat16
@@ -247,9 +264,12 @@ class _Operands:
             self.ht = torch.empty(2, d, _round8(n), dtype=torch.float32,
                                   device=h2.device)
         self.dp, self.vp = (_round8(d), _round8(v)) if self.tc else (d, v)
+        self.packed = False
         if self.tc:
-            if not (self.w.dtype == torch.bfloat16 and v % 8 == 0
-                    and _aligned(self.w)):
+            if w_packed is not None:
+                self.wp, self.packed = w_packed, True
+            elif not (self.w.dtype == torch.bfloat16 and v % 8 == 0
+                      and _aligned(self.w)):
                 self.wp = torch.empty(d, self.vp, dtype=torch.bfloat16,
                                       device=h2.device)
             if not (d % 8 == 0 and _aligned(self.h)):
@@ -273,9 +293,11 @@ def _entry(name: str):
             # tc, w_bf16; h, hp, w, wp, bias, labels; n, d, v;
             # part, lse, loss_tok, loss; stream
             "fwd": [i, i] + [p] * 6 + [i] * 3 + [p] * 4 + [p],
-            # tc, w_bf16; h, hp, w, wp, bias, labels, lse, g; n, d, v,
-            # splits, split_len; dl, dbp, dh_part, ht, dh, dw, db; stream
-            "bwd": [i, i] + [p] * 8 + [i] * 5 + [p] * 7 + [p],
+            # tc, w_bf16; h, hp, w, wp; w_packed; bias, labels, lse, g; n,
+            # d, v, splits, split_len; dl, dbp, dh_part, ht, dh, dw, db;
+            # stream
+            "bwd": [i, i] + [p] * 4 + [i] + [p] * 4 + [i] * 5 + [p] * 7
+            + [p],
         }[name]
         fn.restype = ctypes.c_int
     return lib, fn
@@ -289,13 +311,12 @@ def _raise_on_error(lib, entry: str, err: int) -> None:
                            f"({es(err).decode()})")
 
 
-def _count(fn, *names: str, design: Optional[str] = None) -> None:
+def _count(fn, by_design: dict, design: str, *names: str) -> None:
     with _count_lock:
         fn.launches += 1
         for name in names:
             KERNEL_LAUNCHES[name] += 1
-        if design is not None:
-            BWD_LAUNCHES[design] += 1
+        by_design[design] += 1
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -306,7 +327,8 @@ def _labels(labels: torch.Tensor) -> torch.Tensor:
     return labels.reshape(-1).long().contiguous()
 
 
-def _launch_fwd(h2, w, bias, labels, chunk):
+def _launch_fwd(h2, w, bias, labels):
+    """(loss, lse, the bf16 copy of W the forward packed, or None)."""
     _check_launch(h2, w, bias, labels)
     n, d = h2.shape
     v = w.shape[1]
@@ -326,15 +348,16 @@ def _launch_fwd(h2, w, bias, labels, chunk):
                  v, part.data_ptr(), lse.data_ptr(), loss_tok.data_ptr(),
                  loss.data_ptr(), stream)
     _raise_on_error(lib, "fused_xent forward", err)
-    _count(fused_xent_fwd, f"fwd_{_SUFFIX[h2.dtype]}")
-    return loss, lse
+    _count(fused_xent_fwd, FWD_LAUNCHES, fwd_design(h2.dtype),
+           f"fwd_{_SUFFIX[h2.dtype]}")
+    return loss, lse, ops.wp if ops.tc else None
 
 
-def _launch_bwd(h2, w, bias, labels, lse, g):
+def _launch_bwd(h2, w, bias, labels, lse, g, w_packed=None):
     _check_launch(h2, w, bias, labels, lse, g)
     n, d = h2.shape
     v = w.shape[1]
-    ops = _Operands(h2, w, with_parts=True)
+    ops = _Operands(h2, w, with_parts=True, w_packed=w_packed)
     dev = h2.device
     design = bwd_design(h2.dtype)
     plan = bwd_plan(n, d, v, design)
@@ -352,15 +375,15 @@ def _launch_bwd(h2, w, bias, labels, lse, g):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(int(ops.tc), int(ops.w.dtype == torch.bfloat16),
                  ops.h.data_ptr(), ops.ptr(ops.hp), ops.w.data_ptr(),
-                 ops.ptr(ops.wp), bias_f.data_ptr(), labels.data_ptr(),
-                 lse.data_ptr(), g.data_ptr(), n, d, v, plan.splits,
-                 plan.split_len, dl.data_ptr(), dbp.data_ptr(),
+                 ops.ptr(ops.wp), int(ops.packed), bias_f.data_ptr(),
+                 labels.data_ptr(), lse.data_ptr(), g.data_ptr(), n, d, v,
+                 plan.splits, plan.split_len, dl.data_ptr(), dbp.data_ptr(),
                  dh_part.data_ptr(), ops.ptr(ops.ht), dh.data_ptr(),
                  dw.data_ptr(), db.data_ptr(), stream)
     _raise_on_error(lib, "fused_xent backward", err)
     sfx = _SUFFIX[h2.dtype]
-    _count(fused_xent_bwd, f"dl_{sfx}", f"dh_{sfx}", f"dw_{sfx}",
-           design=design)
+    _count(fused_xent_bwd, BWD_LAUNCHES, design, f"dl_{sfx}", f"dh_{sfx}",
+           f"dw_{sfx}")
     return dh, dw, db.to(bias.dtype)
 
 
@@ -374,12 +397,20 @@ def fused_xent_fwd(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     A CUDA tensor goes to ``csrc/fused_xent.cu`` (bf16 on the tensor cores,
     f32 on scalar FMAs; any token count, width and vocabulary), anything
     else raises; a CPU tensor takes the plain version.
-    ``fused_xent_fwd.launches`` counts calls that launched the kernels."""
+    ``fused_xent_fwd.launches`` counts calls that launched the kernels,
+    ``FWD_LAUNCHES`` calls by design."""
+    return _fwd(h, w, bias, labels, chunk)[:2]
+
+
+def _fwd(h, w, bias, labels, chunk):
+    """``fused_xent_fwd``'s ``(loss, lse)`` and the bf16 copy of W its
+    kernels packed (None on the CPU, for f32 activations and where W was
+    read as given), which ``fused_xent_bwd`` takes as ``w_packed``."""
     _check(h, w, bias, labels, chunk)
     if _on_cpu(h, "fused_xent_fwd"):
-        return fused_xent_reference(h, w, bias, labels, chunk)
+        return fused_xent_reference(h, w, bias, labels, chunk) + (None,)
     hf, lf = _flatten(h, labels)
-    return _launch_fwd(hf, w, bias, lf, chunk)
+    return _launch_fwd(hf, w, bias, lf)
 
 
 fused_xent_fwd.launches = 0
@@ -387,9 +418,12 @@ fused_xent_fwd.launches = 0
 
 def fused_xent_bwd(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    labels: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
-                   chunk: int) -> Tuple[torch.Tensor, ...]:
+                   chunk: int, w_packed: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, ...]:
     """``(dh in h's dtype and shape, dw in w's dtype, db in bias's dtype)``
-    from the forward's ``lse`` and the loss's cotangent ``g``.
+    from the forward's ``lse`` and the loss's cotangent ``g``; ``w_packed``,
+    the bf16 copy of this W that the forward's kernels packed (``_fwd``),
+    spares the backward its own pack of W (the same bits either way).
 
     A CUDA tensor goes to ``csrc/fused_xent.cu``, anything else raises; a
     CPU tensor takes the plain version.  ``fused_xent_bwd.launches`` counts
@@ -402,13 +436,14 @@ def fused_xent_bwd(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     69 MB bf16, 38 MB f32), db's per-tile sums; bf16 (``wgmma``): a bf16
     copy of W when W is f32 or V is not a multiple of 8 (47 MB); f32
     (``wgmma_tf32``): W's tf32 parts (188 MB) and h's transposed (13 MB).
+    The bf16 copy of W is ``w_packed`` where one is given.
     ``chunk`` shapes none of it (only dW's f32 summation order differs
     from the plain version's).  ``BWD_LAUNCHES`` counts calls by design."""
     _check(h, w, bias, labels, chunk)
     if _on_cpu(h, "fused_xent_bwd"):
         return fused_xent_bwd_reference(h, w, bias, labels, lse, g, chunk)
     hf, lf = _flatten(h, labels)
-    dh, dw, db = _launch_bwd(hf, w, bias, lf, lse, g)
+    dh, dw, db = _launch_bwd(hf, w, bias, lf, lse, g, w_packed)
     return dh.reshape(h.shape), dw, db
 
 
@@ -417,11 +452,13 @@ fused_xent_bwd.launches = 0
 
 class _FusedXent(torch.autograd.Function):
     """``fused_xent_fwd`` with ``fused_xent_bwd`` as its gradient; residuals
-    ``(h, w, bias, labels, lse)``, as the JAX package's ``custom_vjp``."""
+    ``(h, w, bias, labels, lse)``, as the JAX package's ``custom_vjp``, and
+    the forward's bf16 copy of W (``w_packed``), which the backward reads
+    and then drops."""
 
     @staticmethod
     def forward(ctx, h, w, bias, labels, chunk):
-        loss, lse = fused_xent_fwd(h, w, bias, labels, chunk)
+        loss, lse, ctx.w_packed = _fwd(h, w, bias, labels, chunk)
         ctx.save_for_backward(h, w, bias, labels, lse)
         ctx.chunk = chunk
         return loss
@@ -430,7 +467,9 @@ class _FusedXent(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         h, w, bias, labels, lse = ctx.saved_tensors
-        dh, dw, db = fused_xent_bwd(h, w, bias, labels, lse, g, ctx.chunk)
+        w_packed, ctx.w_packed = ctx.w_packed, None
+        dh, dw, db = fused_xent_bwd(h, w, bias, labels, lse, g, ctx.chunk,
+                                    w_packed)
         return dh, dw, db, None, None
 
 
@@ -456,12 +495,12 @@ def reset_launches() -> None:
     """Set every launch count of this module to 0."""
     with _count_lock:
         fused_xent_fwd.launches = fused_xent_bwd.launches = 0
-        for counts in (KERNEL_LAUNCHES, BWD_LAUNCHES):
+        for counts in (KERNEL_LAUNCHES, FWD_LAUNCHES, BWD_LAUNCHES):
             for name in counts:
                 counts[name] = 0
 
 
 __all__ = ["fused_softmax_xent", "fused_xent_fwd", "fused_xent_bwd",
            "fused_xent_reference", "fused_xent_bwd_reference",
-           "KERNEL_LAUNCHES", "BWD_LAUNCHES", "reset_launches", "bwd_design",
-           "bwd_plan"]
+           "KERNEL_LAUNCHES", "FWD_LAUNCHES", "BWD_LAUNCHES",
+           "reset_launches", "fwd_design", "bwd_design", "bwd_plan"]

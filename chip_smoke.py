@@ -11,8 +11,9 @@ JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
    cores: ``wgmma`` fed by TMA for heads 33-64, ``mma.sync`` for the
-   others up to 256; f32 scalar, and the f32 source's wide kernel for head
-   dims above 256 in both dtypes) and ``flash_attention_bwd``'s kernel
+   others up to 256; f32 on ``wgmma`` in 3xTF32 for heads up to 64,
+   scalar up to 256, and the f32 source's wide kernel for head dims above
+   256 in both dtypes) and ``flash_attention_bwd``'s kernel
    (f32 and bf16:
    ``wgmma`` fed by TMA for bf16 heads 33-64, ``mma.sync`` up to 32, and
    ``wgmma`` in 3xTF32 for f32 heads up to 64)
@@ -22,7 +23,8 @@ JSON line:
    backward calls on one input must give the same bits, in both dtypes;
    then
    their times at those shapes (forward: bf16 at BH 12, 48, 192, 768 and
-   the training shape, BH 384, and causal at BH 768, f32 at BH 192;
+   the training shape, BH 384, and causal at BH 768, f32 at BH 192 and
+   96;
    backward: both dtypes at the training shape, BH 384; the
    wide kernels at D 320 and 1024) beside the bound, the plain version's
    time and PyTorch's ``F.scaled_dot_product_attention`` (forward, and its
@@ -49,7 +51,8 @@ JSON line:
    kernel's 0), and the logits must
    match the same model served in f32 with the plain attention; the model
    served in f32 with flash must launch the f32 kernel 12 times per
-   forward (its scalar design) and match too.
+   forward (its ``wgmma_tf32`` design) and match too; one profiled call of
+   its largest bucket gives the card's busy time and the flash share.
 4. ``bert_train``: BERT-base ``BERTSQuAD`` fine-tuned through
    ``Estimator.from_keras(loss=squad_span_loss, optimizer="adamw",
    learning_rate=1e-4)`` from the same kind of random weights.  (a) f32,
@@ -59,8 +62,9 @@ JSON line:
    (b) bf16, dropout 0.1, global batch 32, 64 fixed examples, 10 epochs
    (20 steps): the loss must fall, every step must launch the bf16 forward
    and the backward 12 times each (both on their ``wgmma`` design) and no
-   f32 kernel ((a)'s fit the f32 ones: the forward on its scalar design,
-   the backward on ``wgmma_tf32``), and a second fit with
+   f32 kernel ((a)'s fit the f32 ones: the forward and the backward on
+   their ``wgmma_tf32`` designs; one more (a) step is profiled), and a
+   second fit with
    the same seed must repeat the loss history; step time, tokens/s, model
    TFLOP/s and one profiled step's idle share; then ``evaluate`` and
    ``predict`` on the card.
@@ -81,8 +85,8 @@ JSON line:
    share.
 6. ``fused_xent``: the fused softmax cross-entropy kernels
    (``csrc/fused_xent.cu``: forward, and the dl, dh and dW backward passes;
-   bf16 on the tensor cores, its backward on ``wgmma``; f32's forward and
-   logits on scalar FMAs, its dh and dW on ``wgmma`` in 3xTF32) against
+   bf16 on the tensor cores, both directions on ``wgmma``; f32's forward
+   and logits on scalar FMAs, its dh and dW on ``wgmma`` in 3xTF32) against
    their plain versions (loss, lse, dh, dW, db) at the
    recipe's head shape (2,048 tokens, D 768, V 30,522, chunk 512; W f32,
    and bf16 too) and ragged N, D and V, with labels at
@@ -101,8 +105,9 @@ JSON line:
    head through ``fused_softmax_xent`` (a loss callable), 20 steps a fit,
    two fits each in turns (plain, fused, fused, plain): every fit's loss
    must fall, every (c) fit must launch the forward and each backward pass
-   8 times a step (the backward on ``wgmma``; (a)'s fused fit 6 times in
-   all, on ``wgmma_tf32``) and (b) none; step time, tokens/s, model
+   8 times a step (both directions on ``wgmma``; (a)'s fused fit 6 times
+   in all, the forward on scalar FMAs, the backward on ``wgmma_tf32``) and
+   (b) none; step time, tokens/s, model
    TFLOP/s, one
    profiled step's idle share and the head's and loss's share of the card's
    time.
@@ -455,9 +460,11 @@ def phase_kernel(fa) -> dict:
     b, h, t, d = (TIMED_SHAPE[x] for x in "bhtd")
     cases += [(h * n, t, t, d, dt, False) for n in BUCKETS for dt in dtypes]
     # and the shape every training step gives it (both bert_train runs'
-    # dtypes; (a) runs f32 at batch CHECK_BATCH, checked end to end there)
+    # dtypes), and bert_train (a)'s f32 one at batch CHECK_BATCH
     tb, th, tt, td = (TRAIN_SHAPE[x] for x in "bhtd")
     cases += [(tb * th, tt, tt, td, dt, False) for dt in dtypes]
+    cases += [(CHECK_BATCH * th, tt, tt, td, torch.float32, c)
+              for c in (False, True)]
     # the bf16 wgmma design (heads 33-64): the largest bucket and the
     # training shape under `causal`, the widths the TMA box zero-fills (36
     # padded to 40 first) with ragged Tq != Tk, and one query row against
@@ -535,8 +542,10 @@ def phase_kernel(fa) -> dict:
         del q, k, v, g, out, lse, first, second
 
     # times at every serving shape and the training shape (bf16), the
-    # largest bucket under `causal`, and the timed shape in f32; each shape
-    # checked again on the inputs it is timed on.  ms, plain_ms
+    # largest bucket under `causal`, and in f32 the timed shape (BH 192,
+    # bert_serve f32's bucket 16) and bert_train (a)'s BH 96 (both on the
+    # wgmma_tf32 design), with the 3xTF32 bound and the f32 FMAs' beside;
+    # each shape checked again on the inputs it is timed on.  ms, plain_ms
     # and library_ms are CUDA-event times per call, host launch included
     # (cuda_ms); the *device_ms keys are the card's kernel time per call
     # alone (device_ms), which differ where a call is shorter than its
@@ -545,7 +554,8 @@ def phase_kernel(fa) -> dict:
     for bh, dtype, causal in [(h * n, torch.bfloat16, False)
                               for n in BUCKETS] + [
             (tb * th, torch.bfloat16, False), (h * 64, torch.bfloat16, True),
-            (b * h, torch.float32, False)]:
+            (b * h, torch.float32, False),
+            (CHECK_BATCH * h, torch.float32, False)]:
         q, k, v, err = check(bh, t, t, d, dtype, causal)
         q4, k4, v4 = (x.view(bh // h, h, t, d) for x in (q, k, v))
 
@@ -926,8 +936,10 @@ def phase_bert_serve(fa) -> dict:
     f32_forwards = sum(-(-n // f32_im.batch_buckets[-1]) for n in batches)
     f32_launches = read_counts(fa, "bert_serve f32",
                                **{F32_KERNEL: f32_forwards})
-    f32_fwd_designs = read_fwd_designs(fa, "bert_serve f32", "scalar",
+    f32_fwd_designs = read_fwd_designs(fa, "bert_serve f32", "wgmma_tf32",
                                        f32_forwards)
+    f32_breakdown = profile_call(lambda: f32_im.predict(batches[64]), {
+        "flash": ("flash_fwd_", "split_tf32")})
     del f32_im
     for name, got, tol in (("bf16_flash_vs_f32_dense", outs, TOL_SERVE_BF16),
                            ("f32_flash_vs_f32_dense", f32_outs,
@@ -950,8 +962,9 @@ def phase_bert_serve(fa) -> dict:
            "fwd_launches_by_design": fwd_designs,
            "f32_forwards": f32_forwards, "f32_flash_launches": f32_launches,
            "f32_fwd_launches_by_design": f32_fwd_designs,
-           "setup_s": setup_s, "warm_s": warm_s, "latency": latency,
-           "breakdown": breakdown, "errors": errors}
+           "f32_breakdown_64": f32_breakdown, "setup_s": setup_s,
+           "warm_s": warm_s, "latency": latency, "breakdown": breakdown,
+           "errors": errors}
     emit(res)
     return res
 
@@ -1045,6 +1058,7 @@ def phase_bert_train(fa) -> dict:
         est = Estimator.from_keras(model(use_flash), loss=squad_span_loss,
                                    optimizer="adamw", learning_rate=TRAIN_LR,
                                    seed=SEED)
+        inner = est._train_step
         hist[use_flash], _ = record_steps(est)
         reset_counts(fa)
         est.fit((x3, y3), epochs=1, batch_size=CHECK_BATCH, verbose=False)
@@ -1052,10 +1066,18 @@ def phase_bert_train(fa) -> dict:
             f32_launches = read_counts(fa, "bert_train f32", **{
                 F32_KERNEL: CHECK_STEPS, BWD_KERNEL: CHECK_STEPS})
             f32_fwd_designs = read_fwd_designs(fa, "bert_train f32",
-                                               "scalar", CHECK_STEPS)
+                                               "wgmma_tf32", CHECK_STEPS)
             f32_bwd_designs = read_bwd_designs(fa, "bert_train f32",
                                                "wgmma_tf32", CHECK_STEPS)
-        del est
+            # one more step, profiled: the card's busy time and the flash
+            # kernels' share (both directions' split passes included)
+            batch = next(as_feed((x3, y3), CHECK_BATCH, seed=SEED).epoch(
+                est.device, 0))
+            f32_profiled = profile_call(lambda: inner(batch), {
+                "flash_fwd": ("flash_fwd_",),
+                "flash_bwd": ("bwd_dkdv", "bwd_dq", "bwd_delta"),
+                "flash_split": ("split_tf32",)})
+        del est, inner
     loss_err = max(abs(a - b) / max(1.0, abs(b))
                    for a, b in zip(hist[True], hist[False]))
     if loss_err > TOL_TRAIN_LOSS or not all(map(math.isfinite, hist[True])):
@@ -1069,7 +1091,8 @@ def phase_bert_train(fa) -> dict:
                  "loss_dense": hist[False], "loss_worst_rel": loss_err,
                  "loss_tol": TOL_TRAIN_LOSS, "launches": f32_launches,
                  "fwd_launches_by_design": f32_fwd_designs,
-                 "bwd_launches_by_design": f32_bwd_designs}
+                 "bwd_launches_by_design": f32_bwd_designs,
+                 "profiled_step": f32_profiled}
 
     # (b) the bf16 run: dropout 0.1, global batch 32, 20 steps
     x, y = squad_examples(rng, TRAIN_EXAMPLES)
@@ -1766,7 +1789,8 @@ def phase_fused_xent(fx) -> dict:
                                 fma=True)[0] if dt == torch.float32 else None
             timings.append({
                 "kernel": XENT_KERNEL, "direction": direction, "n": n,
-                "design": fx.bwd_design(dt) if direction == "bwd" else None,
+                "design": fx.bwd_design(dt) if direction == "bwd"
+                else fx.fwd_design(dt),
                 "d": d, "v": v, "chunk": MLM_CHUNK,
                 "dtype": str(dt).replace("torch.", ""),
                 "w_dtype": str(w.dtype).replace("torch.", ""),
@@ -1858,16 +1882,22 @@ def read_xent_counts(fx, what, **per_dtype) -> dict:
     return counts
 
 
-def read_xent_designs(fx, what, design=None, calls=0) -> dict:
-    """The fused_xent backward's calls by design since ``reset_launches``:
-    ``calls`` of ``design``, none of another."""
-    want = dict.fromkeys(fx.BWD_DESIGNS, 0)
-    if design is not None:
-        want[design] = calls
-    if fx.BWD_LAUNCHES != want:
-        raise AssertionError(f"{what}: fused_xent backward calls by design "
-                             f"{fx.BWD_LAUNCHES}; want {want}")
-    return dict(fx.BWD_LAUNCHES)
+def read_xent_designs(fx, what, fwd=None, bwd=None, calls=0) -> tuple:
+    """The fused_xent calls of each direction by design since
+    ``reset_launches``, (forward's, backward's): ``calls`` of ``fwd`` and
+    of ``bwd``, none of another design."""
+    got = []
+    for direction, counts, designs, design in (
+            ("forward", fx.FWD_LAUNCHES, fx.FWD_DESIGNS, fwd),
+            ("backward", fx.BWD_LAUNCHES, fx.BWD_DESIGNS, bwd)):
+        want = dict.fromkeys(designs, 0)
+        if design is not None:
+            want[design] = calls
+        if counts != want:
+            raise AssertionError(f"{what}: fused_xent {direction} calls by "
+                                 f"design {counts}; want {want}")
+        got.append(dict(counts))
+    return tuple(got)
 
 
 def phase_bert_mlm_train(fa, fx) -> dict:
@@ -1942,8 +1972,9 @@ def phase_bert_mlm_train(fa, fx) -> dict:
         counts = read_xent_counts(fx, "bert_mlm_train f32",
                                   **({"f32": calls} if fused else {}))
         designs = read_xent_designs(
-            fx, "bert_mlm_train f32", *(("wgmma_tf32", calls) if fused
-                                        else ()))
+            fx, "bert_mlm_train f32",
+            **(dict(fwd="scalar", bwd="wgmma_tf32", calls=calls) if fused
+               else {}))
         if fused:
             f32_launches, f32_designs = counts, designs
         del est
@@ -1960,7 +1991,8 @@ def phase_bert_mlm_train(fa, fx) -> dict:
                  "grad_tol": TOL_TRAIN_GRAD, "loss_plain": hist[False],
                  "loss_fused": hist[True], "loss_worst_rel": loss_err,
                  "loss_tol": TOL_TRAIN_LOSS, "launches": f32_launches,
-                 "bwd_launches_by_design": f32_designs}
+                 "fwd_launches_by_design": f32_designs[0],
+                 "bwd_launches_by_design": f32_designs[1]}
     torch.cuda.empty_cache()
 
     # (b) plain head and (c) fused head: bench.py's recipe, bf16, 12
@@ -1989,7 +2021,8 @@ def phase_bert_mlm_train(fa, fx) -> dict:
             **({"bf16": MLM_ACCUM * MLM_STEPS} if fused else {}))
         designs = read_xent_designs(
             fx, f"bert_mlm_train {name}",
-            *(("wgmma", MLM_ACCUM * MLM_STEPS) if fused else ()))
+            **(dict(fwd="wgmma", bwd="wgmma", calls=MLM_ACCUM * MLM_STEPS)
+               if fused else {}))
         read_counts(fa, "bert_mlm_train (dense attention)")
         if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
             raise AssertionError(f"bert_mlm_train {name}: loss {losses} did "
@@ -2032,7 +2065,8 @@ def phase_bert_mlm_train(fa, fx) -> dict:
         head_ms = device_ms(head_and_loss, iters=5)
         runs[name] = {
             "fits": [fit], "launches": launches,
-            "bwd_launches_by_design": designs, "profiled_step": profiled,
+            "fwd_launches_by_design": designs[0],
+            "bwd_launches_by_design": designs[1], "profiled_step": profiled,
             "head_and_loss_device_ms_per_micro": head_ms,
             "head_and_loss_share_of_busy":
                 MLM_ACCUM * head_ms / profiled["device_busy_ms"]}
@@ -2144,9 +2178,15 @@ def main(argv) -> int:
              "the other heads up to 256",
              serve["flash_launches"][BF16_KERNEL], "bert_serve bf16",
              fwd_src),
-            (F32_KERNEL, F32_KERNEL, "f32, scalar FMAs (exact)",
-             serve["f32_flash_launches"][F32_KERNEL], "bert_serve f32",
-             fwd_src),
+            (F32_KERNEL, F32_KERNEL,
+             "f32: wgmma in 3xTF32 (big and small tf32 parts, three "
+             "products per f32 product) after a split pass (q's and k's "
+             "parts as they are, v's transposed), one warpgroup a block of "
+             "64 q rows streaming 32-key tiles through a 2-stage TMA ring, "
+             "two blocks an SM, P split in registers into the A fragments "
+             "of P V (d <= 64); scalar FMAs for d 65-256, the wide kernel "
+             "above", serve["f32_flash_launches"][F32_KERNEL],
+             "bert_serve f32", fwd_src),
             (BWD_KERNEL, (BWD_KERNEL, "bfloat16"),
              "bf16: wgmma fed by a 2-stage TMA ring, one warpgroup a "
              "block (d 33-64); mma.sync with a cp.async ring for d <= 32, "
@@ -2170,6 +2210,15 @@ def main(argv) -> int:
     entries[0]["launches_by_design_bert_train_bf16"] = \
         train["fwd_launches_by_design"]
     entries[1]["launches_by_design"] = serve["f32_fwd_launches_by_design"]
+    entries[1]["launches_by_design_bert_train_f32"] = \
+        train["f32_check"]["fwd_launches_by_design"]
+    entries[1]["at_bert_train_f32"] = {
+        k: x[k] for x in kern["timings"]
+        if x["dtype"] == "float32"
+        and x["bh"] == CHECK_BATCH * TRAIN_SHAPE["h"]
+        for k in ("bh", "ms", "plain_ms", "library_ms", "device_ms",
+                  "plain_device_ms", "library_device_ms", "bound_ms",
+                  "fma_bound_ms", "max_abs_err")}
     entries[2]["launches_by_design"] = train["bwd_launches_by_design"]
     entries[3]["launches_by_design"] = \
         train["f32_check"]["bwd_launches_by_design"]
@@ -2234,8 +2283,12 @@ def main(argv) -> int:
                  "bert_mlm_train f32 (fused head)")):
             x = xent_times[(direction, dtype)]
             if direction == "fwd":
-                design = ("bf16, mma.sync tensor cores, cp.async double "
-                          "buffer" if sfx == "bf16" else "f32, scalar FMAs")
+                design = x["design"] + (
+                    ": bf16, the bf16 backward's dl main loop (wgmma "
+                    "m64n128k16 fed by a 3-stage TMA ring, two warpgroups a "
+                    "128 x 128 tile, two blocks an SM; W packed once and "
+                    "handed to the backward)" if sfx == "bf16"
+                    else ": f32, scalar FMAs, 128 x 256 tiles")
                 design += ("; fwd: logit tiles' max / sum-exp / label "
                            "logit, per-token finalize, mean; logits never "
                            "written")
@@ -2246,10 +2299,9 @@ def main(argv) -> int:
                 counts[f"{passes[0]}_{sfx}"], path, xent_src, x)
             entry["launches_by_pass"] = {p: counts[f"{p}_{sfx}"]
                                          for p in passes}
-            if direction == "bwd":
-                entry["launches_by_design"] = (
-                    mlm["fused"] if sfx == "bf16" else mlm["f32_check"]
-                )["bwd_launches_by_design"]
+            entry["launches_by_design"] = (
+                mlm["fused"] if sfx == "bf16" else mlm["f32_check"]
+            )[f"{direction}_launches_by_design"]
             entry["shape"] = {k: x[k] for k in ("n", "d", "v", "chunk",
                                                 "dtype", "w_dtype")}
             entries.append(entry)

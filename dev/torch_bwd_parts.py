@@ -20,7 +20,7 @@ process.  For
 each build and for ``causal`` False and True it prints one JSON line: the
 largest error against ``flash_attention_bwd_reference`` relative to
 max |ref|, the CUDA-event time per call, and the card's kernel time per
-call from ``torch.profiler`` in all and by pass (``bwd_split`` (the f32
+call from ``torch.profiler`` in all and by pass (``split`` (the f32
 design's), ``bwd_delta``, ``bwd_dkdv``, ``bwd_dq``), with counted TFLOP/s
 (10 BH T^2 D, the causal half when masked).  Then, as a yardstick the port never calls, the
 backward of ``F.scaled_dot_product_attention`` on the same inputs, and
@@ -40,7 +40,7 @@ from parts_harness import smoke
 from torch_xent_parts import ptxas_report
 
 fa = importlib.import_module("analytics_zoo_tpu_torch.ops.flash_attention")
-PASSES = ("bwd_split", "bwd_delta", "bwd_dkdv", "bwd_dq")
+PASSES = ("split", "bwd_delta", "bwd_dkdv", "bwd_dq")
 
 
 def by_pass(fn, iters: int = 10) -> dict:
@@ -92,7 +92,7 @@ def main(argv) -> int:
     built = harness.build_variants(fa.BWD, builds, ("-Xptxas", "-v"))
     for label, (_, log) in zip(builds, built):
         print(json.dumps({"build": label,
-                          "ptxas": ptxas_report(log, "bwd_")}), flush=True)
+                          "ptxas": ptxas_report(log, "_")}), flush=True)
     sides = [(label, fa, path) for label, (path, _) in zip(builds, built)]
     if parent:
         sides.append(("parent", harness.parent_ops(

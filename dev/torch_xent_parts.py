@@ -22,8 +22,9 @@ default) in one process.  For each it prints one JSON line: the errors of
 dh, dW and db relative to max |ref|, the CUDA-event time per call, the
 card's kernel time per call from whole ``torch.profiler`` windows in all
 and by pass (pack, dl, dh, dh_reduce, dw, db) and the counted TFLOP/s
-(6 N D V); beside them the card's time of the bf16 forward and of the
-f32 forward and backward (f32 h) on the same build.  Then, as a yardstick the port never calls, ``autograd.grad``
+(6 N D V); beside them the card's time of the bf16 forward (in all and
+by kernel) and of the f32 forward and backward (f32 h) on the same
+build.  Then, as a yardstick the port never calls, ``autograd.grad``
 of ``F.cross_entropy`` over the materialised logits, and the card's name
 and power limit.
 
@@ -35,8 +36,9 @@ by pass too, and says whether each forward's loss and lse equal this
 checkout's bit for bit.
 
 ``--sass DIR`` also compiles ``flash_attention_fwd.cu``,
-``flash_attention_bwd.cu`` and ``fused_xent.cu`` from ``DIR`` (an earlier
-commit's ``csrc``) and from this checkout, and prints for each source the
+``flash_attention_fwd_f32.cu``, ``flash_attention_bwd.cu``, ``fused_bn.cu``
+and ``fused_xent.cu`` from ``DIR`` (an earlier commit's ``csrc``) and from
+this checkout, and prints for each source the
 kernels whose ``cuobjdump -sass`` is identical, differs or exists on one
 side only, and each side's registers.
 """
@@ -146,6 +148,17 @@ def by_pass(fn, iters: int = 10) -> dict:
     return out
 
 
+def fwd_by_kernel(fn, iters: int = 10) -> dict:
+    """Kernel time per call of a forward ``fn`` by kernel (pack, tiles,
+    finalize, mean), from one whole profiler window."""
+    out = {}
+    for name, (_, us) in smoke.device_windows(fn, iters, runs=1)[0].items():
+        m = re.search(r"xent_(\w+?)[<(]", name)
+        key = m.group(1) if m else name
+        out[key] = out.get(key, 0.0) + us / 1e3 / iters
+    return out
+
+
 def measure(label: str, path: str, data, data_f32) -> None:
     harness.use(fx.SOURCE, path)
 
@@ -157,6 +170,9 @@ def measure(label: str, path: str, data, data_f32) -> None:
         h, w, bias, labels, lse, g = dt
         others[f"{name}fwd_device_ms"] = smoke.device_ms(
             lambda: fx.fused_xent_fwd(h, w, bias, labels, CHUNK), iters=10)
+    h, w, bias, labels = data[:4]
+    others["fwd_device_ms_by_kernel"] = fwd_by_kernel(
+        lambda: fx.fused_xent_fwd(h, w, bias, labels, CHUNK))
     others["f32_bwd_device_ms"] = smoke.device_ms(
         lambda: fx.fused_xent_bwd(*data_f32, CHUNK), iters=10)
     print(json.dumps({
@@ -183,6 +199,8 @@ def against_parent(parent: str, data, data_f32) -> None:
             fwd_ms = smoke.device_ms(
                 lambda: mod.fused_xent_fwd(h, w, bias, labels, CHUNK),
                 iters=10)
+            fwd_kernels = fwd_by_kernel(
+                lambda: mod.fused_xent_fwd(h, w, bias, labels, CHUNK))
             got = mod.fused_xent_bwd(*dt, CHUNK)
             ref = fx.fused_xent_bwd_reference(*dt, CHUNK)
             err = max((a.float() - b.float()).abs().max().item()
@@ -201,6 +219,7 @@ def against_parent(parent: str, data, data_f32) -> None:
                 **harness.timing(kernel, 6.0 * N * D * V, iters=10),
                 "device_ms_by_pass": by_pass(kernel),
                 "fwd_device_ms": fwd_ms,
+                "fwd_device_ms_by_kernel": fwd_kernels,
                 "fwd_bitwise_equal_to_this": fwd_same,
                 "bound_ms": smoke.xent_bound(N, D, V, size, 4, "bwd")[0],
                 "fma_bound_ms": smoke.xent_bound(N, D, V, size, 4, "bwd",
@@ -225,8 +244,8 @@ def _functions(sass: str) -> dict:
 
 
 def sass_check(parent: str) -> None:
-    """The kernels' SASS and registers in ``flash_attention_fwd.cu``,
-    ``flash_attention_bwd.cu`` and ``fused_xent.cu`` as built from
+    """The kernels' SASS and registers in the flash, batch-norm and
+    cross-entropy sources as built from
     ``parent`` (an earlier commit's csrc) and from this checkout: for each
     source, the kernels whose SASS is identical, differs, or exists on one
     side only."""
@@ -237,7 +256,9 @@ def sass_check(parent: str) -> None:
     flags = [f for f in _build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     for src, match in (("flash_attention_fwd.cu", "flash"),
-                       ("flash_attention_bwd.cu", "flash"),
+                       ("flash_attention_fwd_f32.cu", "_"),
+                       ("flash_attention_bwd.cu", "_"),
+                       ("fused_bn.cu", "bn"),
                        ("fused_xent.cu", "xent")):
         result, sides = {"source": src}, []
         for tag, root in (("parent", Path(parent)), ("this", _build.CSRC)):

@@ -1,15 +1,16 @@
-"""The port's bf16 flash-attention forward by design: which design takes
-which (dtype, head dim) and, on the card, the ``wgmma`` design (bf16 heads
-of 33-64) against the plain version.
+"""The port's flash-attention forward by design: which design takes which
+(dtype, head dim) and, on the card, the ``wgmma`` design (bf16 heads of
+33-64) and the ``wgmma_tf32`` design (f32 heads up to 64) against the
+plain version.
 
 The CPU tests hold the dispatch rule and the plain forward against the
 JAX package's ``_blocked_fwd_jax`` at the widths the ``wgmma`` design
 takes (2e-5, as tests/test_torch_ops.py); tests/test_torch_flash_shapes.py
 holds the wrapper's padding and scale at those widths.
-The ``cuda`` tests hold the kernel to its plain version at chip_smoke.py's
-tolerances (bf16 out 2% of max |ref|: one rounding of each output on both
-sides and P rounded to bf16 before P V; lse 5e-5) and skip without a
-card.
+The ``cuda`` tests hold the kernels to their plain version at
+chip_smoke.py's tolerances (bf16 out 2% of max |ref|: one rounding of
+each output on both sides and P rounded to bf16 before P V; f32 out 2e-5;
+lse 5e-5) and skip without a card.
 """
 
 import ctypes
@@ -53,13 +54,15 @@ def _qkv3(seed, bh, tq, tk, d):
     (torch.bfloat16, 36, "wgmma"), (torch.bfloat16, 57, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 65, "mma.sync"),
     (torch.bfloat16, 256, "mma.sync"), (torch.bfloat16, 257, "wide"),
-    (torch.float32, 8, "scalar"), (torch.float32, 64, "scalar"),
+    (torch.float32, 1, "wgmma_tf32"), (torch.float32, 8, "wgmma_tf32"),
+    (torch.float32, 33, "wgmma_tf32"), (torch.float32, 64, "wgmma_tf32"),
+    (torch.float32, 65, "scalar"), (torch.float32, 128, "scalar"),
     (torch.float32, 256, "scalar"), (torch.float32, 320, "wide")])
 def test_fwd_design_by_dtype_and_head_dim(dtype, d, design):
     """Which design of the forward takes which (dtype, head dim): bf16
     heads padded to 40-64 go to wgmma, other bf16 heads up to 256 to
-    mma.sync, f32 heads up to 256 to the scalar kernel, above 256 to the
-    wide one."""
+    mma.sync, f32 heads up to 64 to wgmma in 3xTF32, 65-256 to the scalar
+    kernel, above 256 to the wide one."""
     assert tfa.fwd_design(dtype, d) == design
 
 
@@ -86,12 +89,11 @@ def _needs_card():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
-def _card_qkv(seed, bh, tq, tk, d):
+def _card_qkv(seed, bh, tq, tk, d, dtype=torch.bfloat16):
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def r(t):
-        return torch.randn(bh, t, d, device="cuda", generator=gen
-                           ).to(torch.bfloat16)
+        return torch.randn(bh, t, d, device="cuda", generator=gen).to(dtype)
 
     return r(tq), r(tk), r(tk)
 
@@ -175,3 +177,79 @@ def test_fwd_design_of_the_source_matches_fwd_design_on_card():
             width = tfa._kernel_head_dim(d, dtype, tfa.TC_MAX_HEAD_DIM)
             got = tfa.DESIGNS[fn(int(dtype == torch.bfloat16), width)]
             assert got == tfa.fwd_design(dtype, d), (dtype, d)
+
+
+def _hold_f32_to_reference(q, k, v, causal, design):
+    """The f32 forward kernel against its plain version (out within 2e-5,
+    lse within 5e-5); the call launches ``design`` once and no other.
+    Returns the kernel's (out, lse)."""
+    before = dict(tfa.FWD_LAUNCHES)
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    ref, ref_lse = flash_attention_fwd_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert lse.dtype == torch.float32 and lse.shape == ref_lse.shape
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= TOL
+    assert (lse - ref_lse).abs().max().item() <= TOL_LSE
+    want = dict(before)
+    want[design] += 1
+    assert tfa.FWD_LAUNCHES == want
+    return out, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,d,causal", [
+    (192, 512, 512, 64, False), (192, 512, 512, 64, True),
+    (96, 512, 512, 64, False),
+    *[(3, tq, tk, d, c) for d in (1, 8, 24, 40, 64)
+      for tq, tk in ((77, 130), (130, 77)) for c in (False, True)],
+    (3, 1000, 1000, 64, True), (3, 1, 300, 64, False),
+    (70000, 8, 8, 64, True)])
+def test_wgmma_tf32_fwd_matches_reference_on_card(bh, tq, tk, d, causal):
+    """The f32 wgmma_tf32 design against the plain forward: BERT's f32
+    serving (BH 192) and training (BH 96) shapes, head dims 1-64 (the
+    split pass pads them to a multiple of 8, TMA zero-fills the rest of
+    64), Tq != Tk ragged both ways under `causal`, one query row against
+    300 keys, and BH 70000 (blocks whose rows lie mostly past Tq 8)."""
+    _needs_card()
+    q, k, v = _card_qkv(bh + d + tq, bh, tq, tk, d, torch.float32)
+    _hold_f32_to_reference(q, k, v, causal, "wgmma_tf32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [65, 128])
+def test_scalar_fwd_keeps_f32_heads_of_65_to_256_on_card(d):
+    _needs_card()
+    q, k, v = _card_qkv(d, 3, 77, 130, d, torch.float32)
+    _hold_f32_to_reference(q, k, v, True, "scalar")
+
+
+@pytest.mark.cuda
+def test_wgmma_tf32_fwd_takes_a_misaligned_view_on_card():
+    """f32 views 4 bytes past a 16-byte boundary give the plain version's
+    out and lse."""
+    _needs_card()
+    q, k, v = _card_qkv(9, 4, 100, 100, 64, torch.float32)
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    _hold_f32_to_reference(*(shifted(x) for x in (q, k, v)), True,
+                           "wgmma_tf32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_tf32_fwd_repeats_bit_for_bit_on_card(causal):
+    """Two calls on one input give identical out and lse."""
+    _needs_card()
+    q, k, v = _card_qkv(14, 192, 512, 512, 64, torch.float32)
+    first = flash_attention_fwd(q, k, v, causal)
+    second = flash_attention_fwd(q, k, v, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

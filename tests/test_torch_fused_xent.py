@@ -13,16 +13,19 @@ ulp (2^-8 relative, taken of max |ref|) of JAX's: the f32 logits of bf16
 products are the same sums on both sides, and each side rounds ``dl`` and
 ``dh`` to bf16 once.
 
-On the card (``cuda`` tests): f32 runs scalar f32 FMAs, so the loss and lse
-are held to 1e-5 relative and each gradient to 1e-5 of its max |ref|; bf16
-runs the tensor cores with f32 sums, so the loss and lse to 1e-5 relative,
-dh (rounded to bf16 once on each side) to 2 bf16 ulps of its max, and dW
-and db (f32 sums of bf16-rounded terms) to 1e-3 of their max (2 bf16 ulps
-where dW comes back in bf16).  The same input twice gives identical bits.
+On the card (``cuda`` tests): f32 runs scalar f32 FMAs in its forward,
+so the loss and lse are held to 1e-5 relative and each gradient to 1e-5
+of its max |ref|; bf16 runs the tensor cores with f32 sums, so the loss
+and lse to 1e-5 relative, dh (rounded to bf16 once on each side) to 2
+bf16 ulps of its max, and dW and db (f32 sums of bf16-rounded terms) to
+1e-3 of their max (2 bf16 ulps where dW comes back in bf16).  The same
+input twice gives identical bits, and so does the bf16 backward with the
+forward's copy of W and without.
 """
 
 import ctypes
 import importlib
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -276,6 +279,23 @@ def test_bwd_design_names_the_backward_by_dtype(dtype, design):
     assert design in tfx.BWD_DESIGNS
 
 
+@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "wgmma"),
+                                          (torch.float32, "scalar")])
+def test_fwd_design_names_the_forward_by_dtype(dtype, design):
+    assert tfx.fwd_design(dtype) == design
+    assert design in tfx.FWD_DESIGNS
+
+
+def test_the_cpu_forward_hands_on_no_packed_w():
+    """On the CPU the forward packs nothing, so the autograd Function's
+    backward gets no copy of W to read."""
+    h, w, bias, labels = (torch.from_numpy(a) for a in _case(6, 2, 8, 16, 50))
+    loss, lse, w_packed = tfx._fwd(h.to(torch.bfloat16), w, bias, labels, 4)
+    assert w_packed is None
+    want = fused_xent_reference(h.to(torch.bfloat16), w, bias, labels, 4)
+    assert torch.equal(loss, want[0]) and torch.equal(lse, want[1])
+
+
 # -- on the card --------------------------------------------------------------
 
 def _card_case(gen, n, d, v, dtype, w_dtype, scale=1.0):
@@ -499,3 +519,127 @@ def test_tf32_backward_repeats_bit_for_bit_at_the_recipe_on_card():
     first = fused_xent_bwd(h, w, bias, labels, lse, g, 512)
     again = fused_xent_bwd(h, w, bias, labels, lse, g, 512)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# the bf16 forward's (wgmma) cases: (n, d, v, chunk, w dtype, h scale,
+# flat row): the recipe's head with f32 and bf16 W and at logits of 1e2;
+# ragged N, D (h packed) and V (the last tile mostly past V); a row of
+# equal logits
+WGMMA_FWD_CASES = [(2048, 768, 30522, 512, "float32", 1.0, False),
+                   (2048, 768, 30522, 512, "bfloat16", 1.0, False),
+                   (2048, 768, 30522, 512, "float32", 100.0, False),
+                   (300, 40, 777, 100, "float32", 1.0, False),
+                   (129, 13, 30, 43, "bfloat16", 1.0, False),
+                   (512, 768, 4099, 256, "float32", 1.0, False),
+                   (512, 96, 3001, 128, "float32", 1.0, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,v,chunk,w_dtype,scale,flat", WGMMA_FWD_CASES)
+def test_wgmma_forward_matches_the_plain_version_on_card(n, d, v, chunk,
+                                                         w_dtype, scale,
+                                                         flat):
+    """The bf16 forward on wgmma against the plain version: loss and lse
+    within 1e-5 relative (chip_smoke.py's TOL_XENT_LOSS), labels at 0 and
+    V-1; one launch, of the wgmma design."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(n + d + v)
+    h, w, bias, labels = _card_case(gen, n, d, v, torch.bfloat16,
+                                    getattr(torch, w_dtype), scale)
+    if flat:
+        h[1] = 0.0
+        bias.zero_()
+    before = dict(tfx.FWD_LAUNCHES)
+    loss, lse = fused_xent_fwd(h, w, bias, labels, chunk)
+    rloss, rlse = fused_xent_reference(h, w, bias, labels, chunk)
+    torch.cuda.synchronize()
+    want = dict(before)
+    want["wgmma"] += 1
+    assert tfx.FWD_LAUNCHES == want
+    assert loss.shape == () and lse.shape == (n,)
+    assert torch.isfinite(lse).all()
+    assert abs(loss.item() - rloss.item()) <= 1e-5 * max(1.0,
+                                                         abs(rloss.item()))
+    assert ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_wgmma_forward_repeats_bit_for_bit_at_the_recipe_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    h, w, bias, labels = _card_case(gen, 2048, 768, 30522, torch.bfloat16,
+                                    torch.float32, scale=100.0)
+    first = fused_xent_fwd(h, w, bias, labels, 512)
+    again = fused_xent_fwd(h, w, bias, labels, 512)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fwd_design_mirrors_the_source_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from analytics_zoo_tpu_torch.ops import _build
+    fn = _build.load(tfx.SOURCE).fused_xent_fwd_design
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    dt = getattr(torch, dtype)
+    assert tfx.FWD_DESIGNS[fn(int(dt == torch.bfloat16))] == \
+        tfx.fwd_design(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,v,w_dtype", [(2048, 768, 30522, "float32"),
+                                           (2048, 768, 30522, "bfloat16"),
+                                           (129, 13, 30, "float32")])
+def test_the_forwards_w_pack_gives_the_backward_bit_for_bit_on_card(
+        n, d, v, w_dtype):
+    """The bf16 backward reading the forward's copy of W (as the autograd
+    Function hands it on) gives the same bits as the backward that packs W
+    itself, and so does ``fused_softmax_xent``'s gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    h, w, bias, labels = _card_case(gen, n, d, v, torch.bfloat16,
+                                    getattr(torch, w_dtype))
+    g = torch.tensor(1.0, device="cuda")
+    loss, lse, w_packed = tfx._fwd(h, w, bias, labels, n)
+    assert w_packed is not None and w_packed.dtype == torch.bfloat16
+    own = fused_xent_bwd(h, w, bias, labels, lse, g, n)
+    shared = fused_xent_bwd(h, w, bias, labels, lse, g, n, w_packed)
+    assert all(torch.equal(a, b) for a, b in zip(own, shared))
+    hh, ww, bb = (t.detach().requires_grad_() for t in (h, w, bias))
+    grads = torch.autograd.grad(
+        fused_softmax_xent(hh, ww, labels, n, bias=bb), (hh, ww, bb))
+    assert all(torch.equal(a, b) for a, b in zip(own, grads))
+
+
+@pytest.mark.cuda
+def test_the_shared_w_pack_runs_from_a_fresh_thread_on_card():
+    """A thread whose first CUDA call is the backward's (every allocation
+    from PyTorch's cache, no pack to launch first, as autograd's backward
+    thread can be) encodes its tensor maps all the same and gives the main
+    thread's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    h, w, bias, labels = _card_case(gen, 1024, 768, 30522, torch.bfloat16,
+                                    torch.float32)
+    g = torch.tensor(1.0, device="cuda")
+    _, lse, w_packed = tfx._fwd(h, w, bias, labels, 1024)
+    want = fused_xent_bwd(h, w, bias, labels, lse, g, 1024)
+
+    def in_thread(packed):
+        out = []
+        t = threading.Thread(target=lambda: out.append(fused_xent_bwd(
+            h, w, bias, labels, lse, g, 1024, packed)))
+        t.start()
+        t.join()
+        assert out, "the backward raised in its thread"
+        return out[0]
+
+    in_thread(None)  # its workspace stays in PyTorch's cache
+    got = in_thread(w_packed)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(want, got))

@@ -1,8 +1,9 @@
-"""The arithmetic of the f32 tensor-core backward designs, emulated on the
-CPU: 3xTF32 against the JAX package's f32 functions.
+"""The arithmetic of the f32 tensor-core designs, emulated on the CPU:
+3xTF32 against the JAX package's f32 functions.
 
-On the card the f32 flash-attention backward (heads up to 64) and the
-f32 ``fused_xent`` backward's dh and dW run their products on ``wgmma`` in
+On the card the f32 flash-attention forward and backward (heads up to 64)
+and the f32 ``fused_xent`` backward's dh and dW run their products on
+``wgmma`` in
 TF32, three products per f32 product: each operand x is split into big =
 tf32(x) (``cvt.rna.tf32.f32``: round to nearest, ties away, to 10 mantissa
 bits) and small = tf32(x - big), and a . b is big.small + small.big +
@@ -18,8 +19,9 @@ both halves of that.
 
 Tolerances are the ones the card is held to (``chip_smoke.py``):
 ``TOL_XENT_F32`` 1e-5 of each gradient's max |ref|, ``TOL_BWD_F32`` 1e-4
-of max(1, max |ref|).  One-pass TF32 misses the first by far, which is
-why the designs take three passes.
+of max(1, max |ref|), the forward's ``TOL_F32`` 2e-5 on out and
+``TOL_LSE`` 5e-5 on lse (absolute).  One-pass TF32 misses the first by
+far, which is why the designs take three passes.
 """
 
 import importlib
@@ -37,6 +39,8 @@ jfa = importlib.import_module("analytics_zoo_tpu.ops.flash_attention")
 
 TOL_XENT_F32 = 1e-5
 TOL_BWD_F32 = 1e-4
+TOL_F32 = 2e-5
+TOL_LSE = 5e-5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -245,3 +249,92 @@ def test_3xtf32_flash_backward_meets_the_f32_tolerance(bh, tq, tk, d,
         b = np.asarray(b)
         assert np.abs(a - b).max() <= TOL_BWD_F32 * max(1.0,
                                                         np.abs(b).max())
+
+
+# -- the flash-attention forward ---------------------------------------------
+
+def _emulated_flash_fwd(q, k, v, causal, mm, block_k=32):
+    """The design's forward: per tile of ``block_k`` keys, S = Q K^T in
+    ``mm`` times the scale, masked to -1e30 (keys >= Tk; under ``causal``
+    q < k), the online softmax in f32 (running max m and sum l, the
+    accumulator rescaled by exp(m_old - m_new)), then acc += P V in
+    ``mm``; out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30))."""
+    q, k, v = (torch.from_numpy(np.asarray(x)) for x in (q, k, v))
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    scale = np.float32(1.0 / np.sqrt(d))
+    qpos = torch.arange(tq)[:, None]
+    m = torch.full((bh, tq, 1), -1e30)
+    l = torch.zeros((bh, tq, 1))
+    acc = torch.zeros((bh, tq, d))
+    for k0 in range(0, tk, block_k):
+        kj, vj = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        s = torch.stack([mm(qi, ki.T) for qi, ki in zip(q, kj)]) * scale
+        if causal:
+            kpos = k0 + torch.arange(kj.shape[1])[None, :]
+            s = torch.where(qpos >= kpos, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.stack([mm(a, b) for a, b in zip(p, vj)])
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    return (acc / l).numpy(), (m + torch.log(l))[..., 0].numpy()
+
+
+def _flash_fwd_case(bh, tq, tk, d, causal, q_scale=1.0):
+    """Inputs made from a seed with numpy, and the live JAX package's f32
+    forward (``_blocked_fwd_jax``) on them."""
+    rng = np.random.default_rng(bh * tq + tk + d)
+    q = (rng.normal(size=(bh, tq, d)) * q_scale).astype(np.float32)
+    k, v = (rng.normal(size=(bh, tk, d)).astype(np.float32)
+            for _ in range(2))
+    out, lse = jfa._blocked_fwd_jax(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), 1.0 / np.sqrt(d),
+                                    causal, 128)
+    return q, k, v, np.asarray(out), np.asarray(lse)
+
+
+FLASH_FWD_SHAPES = [(3, 77, 130, 64, False), (3, 130, 77, 64, True),
+                    (2, 100, 100, 40, True), (2, 64, 64, 8, False),
+                    (2, 33, 33, 1, True),
+                    (2, 512, 512, 64, False)]  # the last: one full-width block
+
+
+@pytest.mark.parametrize("bh,tq,tk,d,causal", FLASH_FWD_SHAPES)
+def test_3xtf32_flash_forward_meets_the_f32_tolerance(bh, tq, tk, d,
+                                                      causal):
+    """S and P V in 3xTF32 with the online softmax over 32-key tiles hold
+    the JAX f32 forward's out to 2e-5 and lse to 5e-5: ragged Tk, Tq !=
+    Tk both ways, causal, heads of 1-64, one full-width block."""
+    q, k, v, want_out, want_lse = _flash_fwd_case(bh, tq, tk, d, causal)
+    out, lse = _emulated_flash_fwd(q, k, v, causal, mm3)
+    assert np.abs(out - want_out).max() <= TOL_F32
+    assert np.abs(lse - want_lse).max() <= TOL_LSE
+
+
+def test_3xtf32_flash_forward_at_logits_of_1e2():
+    """q scaled so that the logits reach about 1e2 (softmax rows near one
+    key): 3xTF32 misses the tolerance there (out 3.9e-5, lse 6.1e-5 on
+    this input: the dropped small x small term of each product is 2^-22
+    of |q_c k_c|, which the scale carries into S), while plain f32 in
+    another summation order still holds it.  BERT's logits at its
+    shapes stay near 1e0-1e1, where 3xTF32 holds the tolerance with room
+    (the cases above)."""
+    q, k, v, want_out, want_lse = _flash_fwd_case(2, 256, 256, 64, False,
+                                                  q_scale=30.0)
+    top = np.abs(np.einsum("bqd,bkd->bqk", q, k)).max() / 8.0
+    assert 60.0 < top < 300.0
+    out, lse = _emulated_flash_fwd(q, k, v, False, mm3)
+    assert np.abs(out - want_out).max() > TOL_F32
+    assert np.abs(lse - want_lse).max() > TOL_LSE
+    out, lse = _emulated_flash_fwd(q, k, v, False, torch.matmul)
+    assert np.abs(out - want_out).max() <= TOL_F32
+    assert np.abs(lse - want_lse).max() <= TOL_LSE
+
+
+def test_one_pass_tf32_misses_the_flash_forward_tolerance():
+    q, k, v, want_out, _ = _flash_fwd_case(2, 512, 512, 64, False)
+    out, _ = _emulated_flash_fwd(q, k, v, False, mm1)
+    assert np.abs(out - want_out).max() > 10 * TOL_F32
