@@ -8,6 +8,12 @@ norm's running ``mean``/``var``) the key of a buffer.  Dense kernels keep
 JAX's ``(in, out)`` layout in the port, so loading them is a plain copy.
 Conv kernels are the one layout change: a 4-D leaf named ``kernel`` is
 JAX's HWIO and the port's OIHW, transposed here and only here.
+
+An int8 weight of the JAX package's serving path is the dict
+``{"__int8_weight__", "q", "scale"}``; each of its three leaves maps to one
+key like any other (``kernel.q``, ``kernel.scale``, ``kernel.__int8_weight__``;
+``nn.quant.Int8Weight`` holds them), and a conv kernel's ``q`` and
+``scale`` are transposed with it.
 """
 
 from __future__ import annotations
@@ -18,35 +24,33 @@ import numpy as np
 import torch
 from torch import nn
 
-# the JAX package's marker key of an int8-quantized weight
-_INT8_MARKER = "__int8_weight__"
-
-
 def _to_tensor(leaf: Any) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().clone()
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: no numpy-native twin
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def _is_conv_kernel(leaf: str, t: Any) -> bool:
-    return leaf == "kernel" and len(t.shape) == 4
+def _is_conv_kernel(path: tuple, t: Any) -> bool:
+    """A 4-D conv kernel, or the ``q`` or ``scale`` of an int8 one."""
+    if len(t.shape) != 4:
+        return False
+    return path[-1] == "kernel" or (
+        len(path) > 1 and path[-2] == "kernel" and path[-1] in ("q", "scale"))
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flatten a JAX ``{"params", "state"}`` tree (numpy or JAX arrays) into
     a ``state_dict``; every leaf becomes exactly one key (conv kernels
     transposed HWIO -> OIHW).  Empty subtrees (parameter-free children such
-    as dropout) produce no key.  An int8-quantized weight raises
-    ``NotImplementedError``."""
+    as dropout) produce no key.  An int8 weight's three leaves become three
+    keys."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Any, path: tuple) -> None:
         if isinstance(node, Mapping):
-            if _INT8_MARKER in node:
-                raise NotImplementedError(
-                    f"int8 weight at {'/'.join(path)}: the int8 serving "
-                    "path is not ported yet (ROADMAP Queue 1 item 1)")
             for name, child in node.items():
                 walk(child, path + (str(name),))
             return
@@ -55,7 +59,7 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"two leaves map to the key {key!r}")
         t = _to_tensor(node)
         out[key] = t.permute(3, 2, 0, 1).contiguous() \
-            if _is_conv_kernel(path[-1], t) else t
+            if _is_conv_kernel(path, t) else t
 
     for part in ("params", "state"):
         walk(variables.get(part, {}), ())
@@ -68,8 +72,9 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
     ``{"params", "state"}`` tree of numpy arrays (keys split at ``.``).
     Keys in ``state_keys`` (a model's :func:`buffer_names`) go under
     ``"state"``, every other under ``"params"``; conv kernels go back to
-    HWIO.  numpy has no bfloat16, so bf16 tensors come back as float32
-    arrays (exact: every bf16 value is an f32 value)."""
+    HWIO (an int8 one's ``q`` and ``scale`` too).  numpy has no bfloat16,
+    so bf16 tensors come back as float32 arrays (exact: every bf16 value
+    is an f32 value)."""
     state_keys = set(state_keys)
     out: Dict[str, Any] = {"params": {}, "state": {}}
     for key, t in state_dict.items():
@@ -84,7 +89,7 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
                 raise ValueError(f"key {key!r} nests under a leaf")
         if leaf in node:
             raise ValueError(f"two keys map to the leaf {key!r}")
-        if _is_conv_kernel(leaf, t):
+        if _is_conv_kernel((*path, leaf), t):
             t = t.permute(2, 3, 1, 0)
         node[leaf] = t.numpy().copy()
     return out

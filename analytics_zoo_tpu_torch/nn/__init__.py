@@ -1,7 +1,7 @@
 """Layers of the port (``torch.nn.Module``s with the JAX package's names
 and parameter layouts), its losses and its metrics."""
 
-from . import activations, initializers, losses, metrics
+from . import activations, initializers, losses, metrics, quant
 from .attention import (FLASH_AUTO_MIN_SEQ, MultiHeadAttention,
                         TransformerLayer, causal_mask, dot_product_attention)
 from .layers import (AveragePooling2D, BatchNormalization, Conv2D, Dense,
@@ -10,7 +10,8 @@ from .layers import (AveragePooling2D, BatchNormalization, Conv2D, Dense,
                      Remat, ScaledWSConv2D, Sequential, ZeroPadding2D,
                      scaled_ws_kernel, seed_dropout)
 
-__all__ = ["activations", "initializers", "losses", "metrics", "Dense",
+__all__ = ["activations", "initializers", "losses", "metrics", "quant",
+           "Dense",
            "Dropout", "Embedding", "LayerNormalization", "Remat",
            "AveragePooling2D", "BatchNormalization", "Conv2D", "Flatten",
            "GlobalAveragePooling2D", "GlobalMaxPooling2D", "MaxPooling2D",

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from . import activations, initializers
+from . import activations, initializers, quant
 
 
 class Dense(nn.Module):
@@ -42,6 +42,8 @@ class Dense(nn.Module):
                  kernel_init: Union[str, Callable] = "glorot_uniform",
                  bias_init: Union[str, Callable] = "zeros"):
         super().__init__()
+        self.in_features = in_features
+        self.units = units
         self.activation = activations.get(activation)
         self.use_bias = use_bias
         self.kernel_init = initializers.get(kernel_init)
@@ -55,8 +57,16 @@ class Dense(nn.Module):
         if self.bias is not None:
             self.bias_init(self.bias, generator)
 
+    def extra_repr(self) -> str:
+        act = getattr(self.activation, "__name__", repr(self.activation))
+        return (f"in_features={self.in_features}, units={self.units}, "
+                f"activation={act}, use_bias={self.use_bias}")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel.to(x.dtype)
+        # an int8 serving context may observe x or take the int8 product
+        y = quant.dense(self, x)
+        if y is None:
+            y = x @ self.kernel.to(x.dtype)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return self.activation(y)
@@ -355,8 +365,14 @@ class Conv2D(nn.Module):
         """The kernel the conv consumes (a subclass may transform it)."""
         return self.kernel
 
+    # plain Conv2D takes part in calibrated int8 serving; a subclass that
+    # transforms its kernel (ScaledWSConv2D) opts out
+    _act_quant = True
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self._float_conv(x, self._kernel())
+        y = quant.conv(self, x)
+        if y is None:
+            y = self._float_conv(x, self._kernel())
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return self.activation(y)
@@ -396,6 +412,8 @@ class ScaledWSConv2D(Conv2D):
     folds a zero-initialised scalar ``skip_gain`` (times ``branch_scale``)
     into the gain: a conv is linear in its weights, so this is the SkipInit
     residual scale with its gradient taken in weight space."""
+
+    _act_quant = False  # weight standardization needs the float kernel
 
     def __init__(self, *args: Any, skip_init: bool = False,
                  branch_scale: float = 1.0, **kwargs: Any):

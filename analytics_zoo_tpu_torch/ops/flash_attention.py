@@ -38,6 +38,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import _launches
+
 _NEG_INF = -1e30
 # the bf16 tensor-core forward's widest head; wider bf16 heads take the f32
 # source's wide kernel
@@ -271,6 +273,8 @@ def _raise_on_error(lib, entry: str, err: int) -> None:
 
 
 def _count(fn, source: str, by_design: dict, design: str) -> None:
+    if _launches.deferred(_count, fn, source, by_design, design):
+        return  # a CUDA graph capture: each replay counts it
     with _count_lock:
         fn.launches += 1
         KERNEL_LAUNCHES[source] += 1

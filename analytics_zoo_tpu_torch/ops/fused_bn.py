@@ -37,6 +37,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from . import _launches
+
 SOURCE = "fused_bn"  # csrc/<source>.cu
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 PASSES = ("fwd", "bwd")
@@ -246,6 +248,8 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _count(fn, *names: str) -> None:
+    if _launches.deferred(_count, fn, *names):
+        return  # a CUDA graph capture: each replay counts it
     with _count_lock:
         fn.launches += 1
         for name in names:

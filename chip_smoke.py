@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs eight phases, each printing one
+``nvcc`` per source, all at once), then runs nine phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
@@ -53,6 +53,21 @@ JSON line:
    served in f32 with flash must launch the f32 kernel 12 times per
    forward (its ``wgmma_tf32`` design) and match too; one profiled call of
    its largest bucket gives the card's busy time and the flash share.
+   ``InferenceModel`` serves from one CUDA graph per batch bucket (the
+   flash launches counted from the replays); the same model served
+   eagerly gives the graphs' logits (equal bits expected; at worst within
+   ``TOL_SERVE_BF16``) and its p50 per bucket beside theirs.
+3b. ``int8_serve``: the same BERT-base served in int8 from the graphs,
+   weight-only and calibrated on 16 seeded sequences (``warm``, then
+   ``predict`` at batches 1, 3, 16, 64, 70): 12 bf16 flash launches a
+   forward (all ``wgmma``) and, calibrated, 25 int8 products
+   (``torch._int_mm``) a forward; logits against the f32 dense model; p50
+   per bucket; the parameters' bytes on the card in f32, bf16 and int8;
+   ``_int_mm`` at every calibrated shape bit for bit against a float64
+   product, timed beside its bound and the weight-only and bf16 GEMMs;
+   ResNet-50 (``norm="batch"``, 7x7 stem) calibrated at batch 16, 224 x
+   224: each of its 53 int8 convs bit for bit against float64, the
+   logits against its bf16 serving.
 4. ``bert_train``: BERT-base ``BERTSQuAD`` fine-tuned through
    ``Estimator.from_keras(loss=squad_span_loss, optimizer="adamw",
    learning_rate=1e-4)`` from the same kind of random weights.  (a) f32,
@@ -234,6 +249,22 @@ TOL_BN_BF16_REL = 2e-2
 TOL_BN_STATS = 1e-4
 BN_EDGE = [(1001, 3), (333, 6), (4097, 7), (777, 1000), (1, 8)]
 XENT_KERNEL = "fused_xent"
+# int8_serve: InferenceModel's int8 paths at BERT-base, weight-only and
+# calibrated on INT8_CALIB seeded sequences, against the f32 dense model;
+# ResNet-50 (norm="batch", its 7x7 stem conv) calibrated on
+# RESNET_SERVE_BATCH seeded images, against its bf16 serving
+INT8_CALIB = 16
+RESNET_SERVE_BATCH = 16
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+# int8 logits vs f32 dense, of max(1, max |ref|): a 12-layer width-256
+# BERT on the CPU gave 1.8e-2 (weight-only) and 2.1e-2 (calibrated), its
+# bf16 serving 1.2e-2 (dev/torch_int8_cpu_error.py)
+TOL_INT8_SERVE = 0.1
+# ResNet-50 calibrated int8 vs its bf16 serving, of max(1, max |ref|):
+# width 16 at 64 x 64 on the CPU gave 3.2e-2 (random-weight logits reach
+# 8e2; the same script); the share of images whose top-1 class agrees is
+# reported beside
+TOL_INT8_RESNET = 0.15
 # bench.py's BERT vocab-head recipe (bench_bert): a BERT-base-width post-LN
 # encoder (token embedding plus a learned pos, 12 TransformerLayers with
 # remat_attention=True, dense attention) under a Dense(30522) vocab head,
@@ -676,6 +707,30 @@ def phase_kernel(fa) -> dict:
                 "library_device_ms": device_ms(library, iters=10),
                 "bound_ms": bnd[0], "bound_by": bnd[1]})
         del q4, k4, v4, out4
+    # the f32 forward's scalar design (heads 65-256; no main path has them)
+    # at BH 384 x T 512, D 128, checked on the inputs it is timed on,
+    # beside its 3xTF32 and FMA bounds, its plain version and SDPA
+    bh, od = tb * th, 128
+    q, k, v, err = check(bh, tt, tt, od, torch.float32, False)
+    q4, k4, v4 = (x.view(tb, th, tt, od) for x in (q, k, v))
+    bnd = attention_bound(bh, tt, tt, od, 4, False)
+    kernel, plain, library = (
+        lambda: fa.flash_attention_fwd(q, k, v, False),
+        lambda: fa.flash_attention_fwd_reference(q, k, v, False),
+        lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4))
+    other_timings.append({
+        "kernel": fa.fwd_kernel(torch.float32, od)[0], "direction": "fwd",
+        "design": fa.fwd_design(torch.float32, od), "bh": bh, "t": tt,
+        "d": od, "dtype": "float32", "max_abs_err": err,
+        "ms": cuda_ms(kernel, iters=10), "plain_ms": cuda_ms(plain, iters=5),
+        "library_ms": cuda_ms(library, iters=10),
+        "device_ms": device_ms(kernel, iters=10),
+        "plain_device_ms": device_ms(plain, iters=5),
+        "library_device_ms": device_ms(library, iters=10),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "fma_bound_ms": attention_bound(bh, tt, tt, od, 4, False,
+                                        fma=True)[0]})
+    del q, k, v, q4, k4, v4
     # the wide kernels (head dims above 256) at D 320 and 1024, both
     # directions and dtypes; SDPA's yardstick is whichever of its
     # memory-efficient and math backends takes the head dim
@@ -874,14 +929,34 @@ def read_counts(fa, what: str, **runs: int) -> dict:
     return counts
 
 
+def served_latency(im, x, seq: int = 0) -> dict:
+    """Host-clock ``predict`` latency of ``im`` on ``x`` (LATENCY_CALLS
+    calls, each ending in the device -> host copy): p50, p90, min, rows/s
+    and, for BERT-base rows of ``seq`` tokens, tokens/s and model TFLOP/s
+    at the p50."""
+    times = []
+    for _ in range(LATENCY_CALLS):
+        t0 = time.perf_counter()
+        im.predict(x)
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50, b = float(np.median(times)), len(x)
+    res = {"p50_ms": p50, "min_ms": min(times), "calls": LATENCY_CALLS,
+           "p90_ms": float(np.percentile(times, 90)),
+           "rows_per_s": b / (p50 / 1e3)}
+    if seq:
+        res["tokens_per_s"] = b * seq / (p50 / 1e3)
+        res["model_tflop_per_s"] = b * seq * bert_flops_per_token() / p50 / 1e9
+    return res
+
+
 def phase_bert_serve(fa) -> dict:
     from analytics_zoo_tpu_torch.models import BERTClassifier
     from analytics_zoo_tpu_torch.serving import InferenceModel
 
-    def served(use_flash, dtype=None):
+    def served(use_flash, dtype=None, cuda_graphs=True):
         model = BERTClassifier(2, use_flash=use_flash, **BERT_BASE)
-        return InferenceModel(device="cuda").load(model, variables,
-                                                  dtype=dtype)
+        return InferenceModel(device="cuda", cuda_graphs=cuda_graphs).load(
+            model, variables, dtype=dtype)
 
     t0 = time.perf_counter()
     variables = random_bert_variables(
@@ -897,33 +972,38 @@ def phase_bert_serve(fa) -> dict:
     # bucket and chunking beyond it); the kernels' counts read right after
     reset_counts(fa)
     t0 = time.perf_counter()
-    n_warm = im.warm([(SEQ,)], dtype=np.int32)
+    im.warm([(SEQ,)], dtype=np.int32)
     warm_s = time.perf_counter() - t0
     outs = {n: im.predict(x) for n, x in batches.items()}
-    forwards = n_warm + sum(-(-n // top) for n in batches)
+    forwards = im.compile_count + sum(-(-n // top) for n in batches)
     launches = read_counts(fa, "bert_serve bf16",
                            **{BF16_KERNEL: forwards})
     fwd_designs = read_fwd_designs(fa, "bert_serve bf16", "wgmma", forwards)
 
+    # the same model served eagerly (no CUDA graphs): its logits against
+    # the graphs' (the same kernels on the same inputs: equal bits
+    # expected) and its latency beside theirs, in turns
+    eager = served(True, torch.bfloat16, cuda_graphs=False)
+    eager.warm([(SEQ,)], dtype=np.int32)
+    eager_outs = {n: eager.predict(x) for n, x in batches.items()}
+    graph_vs_eager = max(
+        float(np.abs(outs[n] - y).max()) / max(1.0, float(np.abs(y).max()))
+        for n, y in eager_outs.items())
+    if graph_vs_eager > TOL_SERVE_BF16:
+        raise AssertionError(f"bert_serve: graph and eager logits differ by "
+                             f"{graph_vs_eager} > {TOL_SERVE_BF16}")
     latency = {}
     for b in im.batch_buckets:
-        x = batches[64][:b]
-        times = []
-        for _ in range(LATENCY_CALLS):
-            t0 = time.perf_counter()
-            im.predict(x)
-            times.append((time.perf_counter() - t0) * 1e3)
-        p50 = float(np.median(times))
-        latency[str(b)] = {"p50_ms": p50, "min_ms": min(times),
-                           "calls": LATENCY_CALLS,
-                           "p90_ms": float(np.percentile(times, 90)),
-                           "tokens_per_s": b * SEQ / (p50 / 1e3),
-                           "model_tflop_per_s":
-                               b * SEQ * bert_flops_per_token() / p50 / 1e9}
+        latency[str(b)] = served_latency(im, batches[64][:b], SEQ)
+        latency[str(b)]["eager_p50_ms"] = served_latency(
+            eager, batches[64][:b], SEQ)["p50_ms"]
     breakdown = {str(b): profile_call(
         lambda: im.predict(batches[64][:b]), {"flash": ("flash_fwd_",)})
         for b in (1, 64)}
-    del im
+    eager_breakdown = {str(b): profile_call(
+        lambda: eager.predict(batches[64][:b]), {"flash": ("flash_fwd_",)})
+        for b in (1, 64)}
+    del im, eager
 
     errors = {}
     ref_im = served(False)
@@ -933,7 +1013,9 @@ def phase_bert_serve(fa) -> dict:
     f32_im = served(True)
     reset_counts(fa)
     f32_outs = {n: f32_im.predict(x) for n, x in batches.items()}
-    f32_forwards = sum(-(-n // f32_im.batch_buckets[-1]) for n in batches)
+    # each key's first predict runs one eager forward before its capture
+    f32_forwards = sum(-(-n // f32_im.batch_buckets[-1]) for n in batches) \
+        + f32_im.compile_count
     f32_launches = read_counts(fa, "bert_serve f32",
                                **{F32_KERNEL: f32_forwards})
     f32_fwd_designs = read_fwd_designs(fa, "bert_serve f32", "wgmma_tf32",
@@ -963,8 +1045,236 @@ def phase_bert_serve(fa) -> dict:
            "f32_forwards": f32_forwards, "f32_flash_launches": f32_launches,
            "f32_fwd_launches_by_design": f32_fwd_designs,
            "f32_breakdown_64": f32_breakdown, "setup_s": setup_s,
-           "warm_s": warm_s, "latency": latency, "breakdown": breakdown,
+           "warm_s": warm_s, "cuda_graphs": True, "latency": latency,
+           "breakdown": breakdown, "eager_breakdown": eager_breakdown,
+           "graph_vs_eager_max_err_rel_to_max": graph_vs_eager,
            "errors": errors}
+    emit(res)
+    return res
+
+
+def int8_gemm_shapes() -> list:
+    """(layer, M, K, N, launches per forward) of the int8 products of a
+    calibrated BERT-base forward at each bucket: ffn1 and ffn2 in each of
+    the 12 layers over bucket x SEQ rows, the pooler over the bucket's CLS
+    rows.  The head (768 x 2: 1,536 elements, under the 4,096 of
+    ``_Q_MIN_SIZE``) keeps a bf16 kernel and so runs no int8 product (0 a
+    forward); its shape is timed all the same, as the N = 2 padding case.
+    The attention projections stay weight-only."""
+    h = BERT_BASE["hidden_size"]
+    ffn, n = h * BERT_BASE["intermediate_mult"], BERT_BASE["n_layers"]
+    shapes = []
+    for b in BUCKETS:
+        shapes += [("ffn1", b * SEQ, h, ffn, n), ("ffn2", b * SEQ, ffn, h, n),
+                   ("pooler", b, h, h, 1), ("head", b, h, 2, 0)]
+    return shapes
+
+
+def int8_gemm_timings(quant) -> list:
+    """``quant.int_mm`` (``torch._int_mm``, zero-padded where the card
+    wants it) at every calibrated BERT-base shape: bit for bit against a
+    float64 product on the card, its time (events; device) beside its
+    bound (int8's dense peak, the bytes at 3.35e12), and beside it the
+    whole int8 Dense (quantize, product, rescale), the weight-only form
+    (bf16 dequantization, then a bf16 GEMM: the W8A16 yardstick) and a
+    bf16 GEMM alone."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    for layer, m, k, n, per_fwd in int8_gemm_shapes():
+        a = torch.randint(-127, 128, (m, k), device="cuda", generator=gen,
+                          dtype=torch.int8)
+        # K-major, as a Dense's Int8Weight keeps it
+        w = torch.randint(-127, 128, (n, k), device="cuda", generator=gen,
+                          dtype=torch.int8).t()
+        if not torch.equal(quant.int_mm(a, w).double(),
+                           a.double() @ w.double()):
+            raise AssertionError(f"int_mm {layer} {m}x{k}x{n} is not the "
+                                 f"exact product")
+        x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+        scale = torch.rand(1, n, device="cuda", generator=gen) * 1e-2
+        wb = (w.to(torch.bfloat16) * scale.to(torch.bfloat16))
+        ctx = quant.QuantApply({"x": 4.0})
+        fns = {"int_mm": lambda: quant.int_mm(a, w),
+               "int8_dense": lambda: quant.dense_quantized(
+                   ctx, "x", x, w, scale, torch.bfloat16),
+               "weight_only": lambda: x @ (w.to(torch.bfloat16)
+                                           * scale.to(torch.bfloat16)),
+               "bf16_gemm": lambda: x @ wb}
+        t_ops = 2.0 * m * k * n / PEAK_INT8_OPS
+        t_bytes = (m * k + k * n + 4 * m * n) / PEAK_BYTES
+        row = {"layer": layer, "m": m, "k": k, "n": n,
+               "launches_per_forward": per_fwd, "exact": True,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        for name, fn in fns.items():
+            row[f"{name}_ms"] = cuda_ms(fn)
+            row[f"{name}_device_ms"] = device_ms(fn)
+        rows.append(row)
+        del a, w, x, wb
+    return rows
+
+
+def phase_int8_serve(fa) -> dict:
+    """BERT-base served in int8 through ``InferenceModel`` from CUDA graphs
+    (weight-only, then calibrated on INT8_CALIB seeded sequences): warm,
+    predict at batches 1, 3, 16, 64 and 70; the bf16 flash forward's 12
+    launches a forward (all ``wgmma``) and, calibrated, 25 int8 products a
+    forward (``int8_gemm_shapes``), each counted from the graphs' replays; logits against the f32
+    dense model; p50 per bucket; the parameters' bytes on the card.  Then
+    ``int_mm`` at every calibrated shape, and ResNet-50 (``norm="batch"``)
+    calibrated at batch 16, 224 x 224: every int8 conv bit for bit against
+    float64, logits against its bf16 serving."""
+    from analytics_zoo_tpu_torch.models import BERTClassifier, ResNet
+    from analytics_zoo_tpu_torch.nn import quant
+    from analytics_zoo_tpu_torch.nn.layers import Conv2D, conv2d_nhwc
+    from analytics_zoo_tpu_torch.serving import InferenceModel
+
+    def served(dtype=None, use_flash=True, calibrate=None):
+        model = BERTClassifier(2, use_flash=use_flash, **BERT_BASE)
+        return InferenceModel(device="cuda").load(model, variables,
+                                                  dtype=dtype,
+                                                  calibrate=calibrate)
+
+    variables = random_bert_variables(
+        BERTClassifier(2, use_flash=True, **BERT_BASE), SEED)
+    rng = np.random.default_rng(SEED + 1)
+    vocab = BERT_BASE["vocab_size"]
+    batches = {n: rng.integers(0, vocab, (n, SEQ)).astype(np.int32)
+               for n in (1, 3, 16, 64, 70)}
+    calib = np.random.default_rng(SEED + 2).integers(
+        0, vocab, (INT8_CALIB, SEQ)).astype(np.int32)
+    ref_im = served(use_flash=False)
+    refs = {n: ref_im.predict(x) for n, x in batches.items()}
+    param_bytes = {"float32": ref_im.parameter_bytes()}
+    del ref_im
+    bf16_im = served(torch.bfloat16)
+    param_bytes["bfloat16"] = bf16_im.parameter_bytes()
+    del bf16_im
+    bert = {}
+    for mode, cal in (("weight_only", None), ("calibrated", calib)):
+        t0 = time.perf_counter()
+        im = served("int8", calibrate=cal)
+        load_s = time.perf_counter() - t0
+        top = im.batch_buckets[-1]
+        # the main path: warm (an eager forward and a capture per bucket),
+        # then predict from the graphs; the counts read right after
+        reset_counts(fa)
+        mm0 = quant.int_mm.launches
+        t0 = time.perf_counter()
+        im.warm([(SEQ,)], dtype=np.int32)
+        warm_s = time.perf_counter() - t0
+        outs = {n: im.predict(x) for n, x in batches.items()}
+        forwards = im.compile_count + sum(-(-n // top) for n in batches)
+        what = f"int8_serve {mode}"
+        launches = read_counts(fa, what, **{BF16_KERNEL: forwards})
+        designs = read_fwd_designs(fa, what, "wgmma", forwards)
+        mm = quant.int_mm.launches - mm0
+        per_fwd = sum(x[4] for x in int8_gemm_shapes()
+                      if x[1] in (top, top * SEQ))
+        want_mm = forwards * per_fwd if cal is not None else 0
+        if mm != want_mm:
+            raise AssertionError(f"{what}: {mm} int8 products; want "
+                                 f"{want_mm} ({per_fwd} a forward)")
+        worst = 0.0
+        for n, ref in refs.items():
+            y = outs[n]
+            if y.shape != (n, 2) or not np.isfinite(y).all():
+                raise AssertionError(f"{what}: batch {n} gave {y.shape} or "
+                                     f"non-finite logits")
+            worst = max(worst, float(np.abs(y - ref).max())
+                        / max(1.0, float(np.abs(ref).max())))
+        if worst > TOL_INT8_SERVE:
+            raise AssertionError(f"{what}: logits differ from f32 dense by "
+                                 f"{worst} of max(1, |ref|) > "
+                                 f"{TOL_INT8_SERVE}")
+        param_bytes[f"int8_{mode}"] = im.parameter_bytes()
+        bert[mode] = {
+            "load_s": load_s, "warm_s": warm_s, "forwards": forwards,
+            "flash_launches": launches, "fwd_launches_by_design": designs,
+            "int_mm_launches": mm, "int_mm_per_forward":
+                per_fwd if cal is not None else 0,
+            "calibrated_layers": len(im._quant_ctx.amax)
+            if im._quant_ctx else 0,
+            "max_err_rel_to_max_vs_f32_dense": worst,
+            "latency": {str(b): served_latency(im, batches[64][:b], SEQ)
+                        for b in im.batch_buckets},
+            "breakdown_64": profile_call(
+                lambda: im.predict(batches[64]), {"flash": ("flash_fwd_",),
+                                                  "int8": ("s8", "imma",
+                                                           "igemm")})}
+        del im
+        torch.cuda.empty_cache()
+    gemms = int8_gemm_timings(quant)
+
+    # ResNet-50, norm="batch", calibrated int8 against its bf16 serving
+    def resnet():
+        return ResNet(depth=50, class_num=1000, norm="batch")
+
+    rvars = random_resnet_variables(resnet(), SEED)
+    irng = np.random.default_rng(SEED + 3)
+    shape = (RESNET_SERVE_BATCH, IMAGE, IMAGE, 3)
+    images = irng.normal(size=shape).astype(np.float32)
+    calib_images = irng.normal(size=shape).astype(np.float32)
+    buckets = (RESNET_SERVE_BATCH,)
+    ref_im = InferenceModel(batch_buckets=buckets, device="cuda").load(
+        resnet(), rvars, dtype=torch.bfloat16)
+    ref = ref_im.predict(images)
+    resnet_res = {"bf16_latency": served_latency(ref_im, images),
+                  "param_bytes": {"bfloat16": ref_im.parameter_bytes()}}
+    del ref_im
+    im = InferenceModel(batch_buckets=buckets, device="cuda").load(
+        resnet(), rvars, dtype="int8", calibrate=calib_images)
+    convs = [m for m in im._model.modules()
+             if isinstance(m, Conv2D) and m._act_quant]
+    mm0 = quant.int_mm.launches
+    n_warm = im.warm([shape[1:]])
+    out = im.predict(images)
+    mm = quant.int_mm.launches - mm0
+    if mm != (n_warm + 1) * (len(convs) + 1):
+        raise AssertionError(f"int8_serve resnet: {mm} int8 products; want "
+                             f"{(n_warm + 1) * (len(convs) + 1)}")
+    err = float(np.abs(out - ref).max()) / max(1.0, float(np.abs(ref).max()))
+    agree = float(np.mean(out.argmax(1) == ref.argmax(1)))
+    if out.shape != (RESNET_SERVE_BATCH, 1000) or not np.isfinite(out).all() \
+            or err > TOL_INT8_RESNET:
+        raise AssertionError(f"int8_serve resnet: logits {out.shape} differ "
+                             f"from bf16 by {err} of max(1, |ref|) (> "
+                             f"{TOL_INT8_RESNET}?) or are not finite")
+    # every int8 conv on its own input of one eager forward, against a
+    # float64 conv of the same int8 values on the card
+    exact = []
+
+    def check(layer, args):
+        key = im._paths[id(layer)]
+        s_in, xq = quant._quantize_activation(im._quant_ctx, key, args[0])
+        w = layer._modules["kernel"].q
+        y = quant.conv_int8(xq, w, layer.strides, layer.padding,
+                            layer.dilation, layer.groups)
+        want = conv2d_nhwc(xq.double(), w.double(), layer.strides,
+                           layer.padding, layer.dilation, layer.groups)
+        exact.append(bool(torch.equal(y.double(), want)))
+
+    hooks = [c.register_forward_pre_hook(check) for c in convs]
+    im._forward(torch.from_numpy(images).cuda())
+    for h in hooks:
+        h.remove()
+    if len(exact) != len(convs) or not all(exact):
+        raise AssertionError(f"int8_serve resnet: {exact.count(False)} of "
+                             f"{len(convs)} int8 convs differ from float64")
+    resnet_res.update({
+        "batch": RESNET_SERVE_BATCH, "image": IMAGE, "stem": "conv",
+        "int8_convs": len(convs), "convs_exact_vs_float64": len(exact),
+        "int_mm_launches": mm, "calibrated_layers": len(im._quant_ctx.amax),
+        "max_err_rel_to_max_vs_bf16": err, "top1_agree_vs_bf16": agree,
+        "int8_latency": served_latency(im, images)})
+    resnet_res["param_bytes"]["int8_calibrated"] = im.parameter_bytes()
+    del im
+    res = {"phase": "int8_serve", "config": BERT_BASE, "seq": SEQ,
+           "batches": sorted(batches), "calibration_rows": INT8_CALIB,
+           "tol_vs_f32_dense": TOL_INT8_SERVE, "bert": bert,
+           "param_bytes": param_bytes, "int_mm_timings": gemms,
+           "resnet50": resnet_res,
+           "tol_resnet_vs_bf16": TOL_INT8_RESNET}
     emit(res)
     return res
 
@@ -2147,6 +2457,7 @@ def main(argv) -> int:
         phases = {"kernel": lambda: phase_kernel(fa),
                   "fused_bn": lambda: phase_fused_bn(bn),
                   "bert_serve": lambda: phase_bert_serve(fa),
+                  "int8_serve": lambda: phase_int8_serve(fa),
                   "bert_train": lambda: phase_bert_train(fa),
                   "resnet_train": lambda: phase_resnet_train(bn),
                   "fused_xent": lambda: phase_fused_xent(fx),
@@ -2157,6 +2468,7 @@ def main(argv) -> int:
     kern = phase_kernel(fa)
     bn_kern = phase_fused_bn(bn)
     serve = phase_bert_serve(fa)
+    int8 = phase_int8_serve(fa)
     train = phase_bert_train(fa)
     resnet = phase_resnet_train(bn)
     xent_kern = phase_fused_xent(fx)
@@ -2206,6 +2518,9 @@ def main(argv) -> int:
         entry["shape"] = {k: x[k] for k in ("bh", "t", "d", "dtype")}
         entries.append(entry)
     entries[0]["launches_bert_train_bf16"] = train["launches"][BF16_KERNEL]
+    for mode, run in int8["bert"].items():
+        entries[0][f"launches_int8_serve_{mode}"] = \
+            run["flash_launches"][BF16_KERNEL]
     entries[0]["launches_by_design"] = serve["fwd_launches_by_design"]
     entries[0]["launches_by_design_bert_train_bf16"] = \
         train["fwd_launches_by_design"]

@@ -188,12 +188,17 @@ def test_bf16_load_casts_floating_params_once_and_keeps_ids_integer():
 
 
 def test_warm_runs_every_bucket_and_never_compiles():
+    """``warm`` prepares each bucket's key once (on the CPU, one eager
+    forward: ``compile_count`` counts the keys prepared, as the JAX
+    package counts its compiles); a second warm of a resident key
+    prepares nothing again."""
     _, variables = _jax_model(True)
     im = InferenceModel(batch_buckets=(1, 4), device="cpu").load(
         BERTClassifier(3, use_flash=True, **CFG), variables)
     assert im.warm([(SEQ,)], dtype=np.int32) == 2
     assert im.warm([(SEQ,)], dtype=np.int32, buckets=[4]) == 1
-    assert im.compile_count == 0
+    assert im.compile_count == 2
+    assert set(im._compiled) == {((1, SEQ), "int32"), ((4, SEQ), "int32")}
 
 
 def test_predict_before_load_raises():
@@ -258,7 +263,10 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.ops.fused_xent",
                 "analytics_zoo_tpu_torch.models.image",
                 "analytics_zoo_tpu_torch.data.augment",
-                "analytics_zoo_tpu_torch.nn.layers"]
+                "analytics_zoo_tpu_torch.nn.layers",
+                "analytics_zoo_tpu_torch.nn.quant",
+                "analytics_zoo_tpu_torch.ops._launches",
+                "analytics_zoo_tpu_torch.serving.inference_model"]
 
 
 def test_port_imports_without_jax():

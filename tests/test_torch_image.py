@@ -594,11 +594,21 @@ def test_conv_kernels_cross_as_hwio_and_state_under_state():
 
 
 def test_int8_weights_are_refused_with_the_roadmap_item():
+    """The roadmap item (Queue 1 item 1, the int8 serving path) is done, so
+    the converter no longer refuses an int8 conv kernel: its three leaves
+    map to three keys, ``q`` and ``scale`` transposed HWIO -> OIHW with the
+    kernel, the values kept."""
+    q = np.arange(18, dtype=np.int8).reshape(3, 3, 1, 2)
     tree = {"params": {"conv": {"kernel": {
-        "__int8_weight__": np.int8(1), "q": np.zeros((3, 3, 1, 2), np.int8),
-        "scale": np.ones((1, 1, 1, 2), np.float32)}}}}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        from_jax_variables(tree)
+        "__int8_weight__": np.int8(1), "q": q,
+        "scale": np.full((1, 1, 1, 2), 0.5, np.float32)}}}}
+    state = from_jax_variables(tree)
+    assert set(state) == {"conv.kernel.__int8_weight__", "conv.kernel.q",
+                          "conv.kernel.scale"}
+    assert state["conv.kernel.q"].dtype == torch.int8
+    assert torch.equal(state["conv.kernel.q"],
+                       torch.from_numpy(q).permute(3, 2, 0, 1))
+    assert state["conv.kernel.scale"].shape == (2, 1, 1, 1)
 
 
 def test_optimizer_takes_a_gradient_in_another_layout():
