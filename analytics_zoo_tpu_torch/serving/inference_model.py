@@ -23,8 +23,10 @@ workspace made), then captures the forward, reading a static input buffer
 fed from pinned host staging and writing a static output; ``predict``
 replays it, and once a key has a graph nothing of it runs eagerly.  Every
 graph of an instance replays on one serving stream, so they share one
-memory pool; a per-key lock guards each graph's buffers around copy-in,
-replay and copy-out, and captures (on their own stream) are serialised.
+memory pool and never replay at the same time; a per-key lock guards each
+graph's buffers around copy-in, replay and copy-out, and the caller waits
+on an event recorded after its own copy-out (not on the whole stream).
+Captures (on their own stream) are serialised.
 A capture that fails raises.  ``load`` drops every graph (they hold the
 parameters' addresses).  A kernel wrapper's launch count is recorded at
 capture and added at each replay (``ops._launches``).  On the CPU, and on
@@ -160,7 +162,9 @@ def _class_code(cls: type) -> bytes:
 class _Graph:
     """One key's captured forward: pinned host staging -> static input ->
     graph -> static output -> pinned host output, under the key's lock, on
-    the serving stream."""
+    the serving stream; the caller waits on an event recorded after its
+    output copy, so threads replaying other keys do not wait for each
+    other's later replays."""
 
     def __init__(self, im: "InferenceModel", shape: Tuple[int, ...],
                  dtype: torch.dtype):
@@ -181,6 +185,7 @@ class _Graph:
         self.host_out = torch.empty(self.static_out.shape,
                                     dtype=self.static_out.dtype,
                                     pin_memory=True)
+        self.done = torch.cuda.Event()
 
     def __call__(self, xp: np.ndarray) -> np.ndarray:
         with self.lock:
@@ -189,7 +194,10 @@ class _Graph:
                 self.static_in.copy_(self.staging, non_blocking=True)
                 self.graph.replay()
                 self.host_out.copy_(self.static_out, non_blocking=True)
-            self.stream.synchronize()
+                self.done.record(self.stream)
+            # this replay and what was queued before it; not the replays
+            # other threads queued on the stream since
+            self.done.synchronize()
             _launches.replay(self.launches)
             return self.host_out.numpy().copy()
 

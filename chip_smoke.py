@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs nine phases, each printing one
+``nvcc`` per source, all at once), then runs ten phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
@@ -68,6 +68,21 @@ JSON line:
    ResNet-50 (``norm="batch"``, 7x7 stem) calibrated at batch 16, 224 x
    224: each of its 53 int8 convs bit for bit against float64, the
    logits against its bf16 serving.
+3c. ``cluster_serve``: the same bf16 BERT-base from CUDA graphs (warmed
+   before the port opens) behind the port's ``ClusterServing``
+   (``batch_size=64``, two inference workers): 1, 16 and 64 closed-loop
+   TCP clients under the window and the continuous scheduler, at least
+   256 requests a level (p50, p99, requests/s, tokens/s, mean batch,
+   queue depth); every reply against direct ``predict``, the server's
+   books (requests = replies + errors + pending, no error), the C++
+   queue, and 12 flash launches per device batch and preparation forward;
+   one profiled c = 64 window; the workers waiting on their own replay's
+   event and on the whole stream, in turns; the eager model served cold
+   (the kernel's first launch on a worker thread); a hot swap to another
+   version under 16 clients (no failure, replies flip, the new model
+   captures nothing after its warm, peak memory); and the HTTP frontend
+   over two replicas under 16 clients while one is killed and restarted
+   and the other drained and restarted (no failure).
 4. ``bert_train``: BERT-base ``BERTSQuAD`` fine-tuned through
    ``Estimator.from_keras(loss=squad_span_loss, optimizer="adamw",
    learning_rate=1e-4)`` from the same kind of random weights.  (a) f32,
@@ -141,6 +156,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1049,6 +1065,512 @@ def phase_bert_serve(fa) -> dict:
            "breakdown": breakdown, "eager_breakdown": eager_breakdown,
            "graph_vs_eager_max_err_rel_to_max": graph_vs_eager,
            "errors": errors}
+    emit(res)
+    return res
+
+
+# ClusterServing over the port (cluster_serve): BERT-base bf16 from CUDA
+# graphs behind the port's server, its scheduler, registry, router and
+# HTTP frontend
+CS_BATCH = 64            # ClusterServing(batch_size=)
+CS_WORKERS = 2           # ClusterServing(inference_workers=)
+CS_LEVELS = (1, 16, 64)  # closed-loop TCP clients
+CS_MIN_REQUESTS = 256    # per level (and 8 a client at least)
+CS_POOL = 512            # distinct seeded rows the requests cycle through
+CS_LOAD_CLIENTS = 16     # during the hot swap and the replica kill
+CS_PHASE_REPLIES = 64    # replies each stage of those runs waits for
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def stream_wide_call(self, xp):
+    """``_Graph.__call__`` with the wait it had before the per-replay
+    event: the caller waits for the whole serving stream (every replay any
+    thread queued there), not for its own replay's event.  Timed beside
+    the event wait."""
+    from analytics_zoo_tpu_torch.ops import _launches
+    with self.lock:
+        self.staging.numpy()[...] = xp
+        with torch.cuda.stream(self.stream):
+            self.static_in.copy_(self.staging, non_blocking=True)
+            self.graph.replay()
+            self.host_out.copy_(self.static_out, non_blocking=True)
+        self.stream.synchronize()
+        _launches.replay(self.launches)
+        return self.host_out.numpy().copy()
+
+
+def cluster_level(srv, pool, clients: int, requests: int) -> dict:
+    """``clients`` closed-loop clients, each over its own
+    ``InputQueue``/``OutputQueue`` on loopback, send one row each and wait
+    for its reply, ``requests`` in all (request k sends pool row k);
+    connections are made before the clock starts.  Returns the per-request
+    latencies (ms), the wall time and the (row, reply) pairs."""
+    from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
+    per = -(-requests // clients)
+    barrier = threading.Barrier(clients + 1)
+    results, errors = [[] for _ in range(clients)], []
+
+    def run(c):
+        iq = InputQueue(srv.host, srv.port)
+        oq = OutputQueue(input_queue=iq)
+        try:
+            barrier.wait()
+            for j in range(per):
+                row = (c * per + j) % len(pool)
+                t0 = time.perf_counter()
+                out = oq.query(iq.enqueue(f"c{c}", t=pool[row]),
+                               timeout=120.0)
+                ms = (time.perf_counter() - t0) * 1e3
+                if out is None:
+                    errors.append(f"client {c}: timeout")
+                    return
+                results[c].append((row, out, ms))
+        except Exception as e:  # noqa: BLE001 - recorded, raised below
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+        finally:
+            iq.close()
+
+    threads = [threading.Thread(target=run, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"cluster_serve: {clients} clients: "
+                             f"{errors[:3] or 'a client hung'}")
+    done = [r for rs in results for r in rs]
+    return {"latency_ms": [r[2] for r in done], "wall_s": wall,
+            "replies": [(r[0], r[1]) for r in done]}
+
+
+def _level_in_a_process(host, port, pool, clients, requests, out) -> None:
+    """``cluster_level`` from a process of its own (spawned): the clients
+    then share no interpreter lock with the server."""
+    from types import SimpleNamespace
+    run = cluster_level(SimpleNamespace(host=host, port=port), pool,
+                        clients, requests)
+    out.put(run)
+
+
+def cluster_level_in_a_process(srv, pool, clients: int,
+                               requests: int) -> dict:
+    """``cluster_level`` with the clients in a spawned process."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    proc = ctx.Process(target=_level_in_a_process,
+                       args=(srv.host, srv.port, pool, clients, requests,
+                             out))
+    proc.start()
+    try:
+        run = out.get(timeout=600)
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+    return run
+
+
+def stage_p50s(srv) -> dict:
+    """The server's own p50 of each pipeline stage (ms): queue wait,
+    assembly, the model call, the reply write."""
+    from analytics_zoo_tpu_torch.core.metrics import quantile_from_snapshot
+    snap = srv._metrics.snapshot()
+    return {stage: quantile_from_snapshot(snap[f"server.{stage}_ms"], 0.5)
+            for stage in ("queue_wait", "assembly", "inference", "reply")}
+
+
+def latency_summary(lat_ms, wall_s) -> dict:
+    n = len(lat_ms)
+    return {"requests": n, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "requests_per_s": n / wall_s,
+            "tokens_per_s": n * SEQ / wall_s, "wall_s": wall_s}
+
+
+def check_served(st: dict, what: str, requests: int) -> None:
+    """The server's books: every request answered, none failed."""
+    if st["requests"] != st["replies"] + st["errors"] + st["pending"] \
+            or st["errors"] or st["pending"] or st["requests"] != requests:
+        raise AssertionError(f"{what}: stats {st}; want {requests} "
+                             "requests, all replied")
+
+
+def check_replies(replies, refs: dict, what: str) -> dict:
+    """Each reply against its row's logits from each reference (direct
+    ``predict``): it must match exactly one, within TOL_SERVE_BF16 of
+    max(1, |ref|) (a served row's batch differs from the reference's).
+    Returns how many matched each and the worst error."""
+    hits = dict.fromkeys(refs, 0)
+    worst = 0.0
+    for row, out in replies:
+        errs = {name: float(np.abs(out - ref[row]).max())
+                / max(1.0, float(np.abs(ref[row]).max()))
+                for name, ref in refs.items()}
+        match = [name for name, e in errs.items() if e <= TOL_SERVE_BF16]
+        if out.shape != (2,) or not np.isfinite(out).all() \
+                or len(match) != 1:
+            raise AssertionError(f"{what}: row {row} gave {out}, errors "
+                                 f"{errs} (tolerance {TOL_SERVE_BF16})")
+        hits[match[0]] += 1
+        worst = max(worst, errs[match[0]])
+    return {"matched": hits, "max_err_rel_to_max": worst,
+            "tol": TOL_SERVE_BF16}
+
+
+def phase_cluster_serve(fa) -> dict:
+    import urllib.request
+    from analytics_zoo_tpu_torch.core.metrics import MetricsRegistry
+    from analytics_zoo_tpu_torch.models import BERTClassifier
+    from analytics_zoo_tpu_torch.serving import (ClusterServing,
+                                                 HTTPFrontend,
+                                                 InferenceModel,
+                                                 ReplicaSet, RetryPolicy)
+    from analytics_zoo_tpu_torch.serving import inference_model as im_lib
+
+    card = nvidia_smi()
+
+    def served(variables, cuda_graphs=True):
+        return InferenceModel(device="cuda", cuda_graphs=cuda_graphs).load(
+            BERTClassifier(2, use_flash=True, **BERT_BASE), variables,
+            dtype=torch.bfloat16)
+
+    def server(model, scheduler="window", port=0):
+        return ClusterServing(model, port=port, batch_size=CS_BATCH,
+                              inference_workers=CS_WORKERS,
+                              scheduler=scheduler,
+                              metrics=MetricsRegistry()).start()
+
+    def refs_of(model):
+        return np.concatenate([model.predict(pool[i:i + CS_BATCH])
+                               for i in range(0, CS_POOL, CS_BATCH)])
+
+    t0 = time.perf_counter()
+    variables = random_bert_variables(
+        BERTClassifier(2, use_flash=True, **BERT_BASE), SEED)
+    pool = np.random.default_rng(SEED + 2).integers(
+        0, BERT_BASE["vocab_size"], (CS_POOL, SEQ)).astype(np.int32)
+    setup_s = time.perf_counter() - t0
+
+    # the main path: the model warmed (every bucket's graph captured)
+    # before the port opens, then each level under each scheduler, each
+    # on a fresh server over the same model; the counts read right after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    im = served(variables)
+    im.warm([(SEQ,)], dtype=np.int32)
+    levels, replies, batches, native = {}, [], 0, set()
+    for scheduler in ("window", "continuous"):
+        for c in CS_LEVELS:
+            n = max(CS_MIN_REQUESTS, 8 * c)
+            srv = server(im, scheduler)
+            try:
+                native.add(srv._queue.is_native)
+                run = cluster_level(srv, pool, c, n)
+            finally:
+                srv.stop()
+            st = srv.stats()
+            stages = stage_p50s(srv)
+            check_served(st, f"cluster_serve {scheduler} c={c}", n)
+            batches += st["batches"]
+            replies += run["replies"]
+            levels[f"{scheduler}_c{c}"] = dict(
+                latency_summary(run["latency_ms"], run["wall_s"]),
+                clients=c, batches=st["batches"],
+                mean_batch_size=st["mean_batch_size"],
+                queue_depth_max=st["queue_depth_max"],
+                server_stage_p50_ms=stages)
+    forwards = im.compile_count + batches
+    launches = read_counts(fa, "cluster_serve", **{BF16_KERNEL: forwards})
+    fwd_designs = read_fwd_designs(fa, "cluster_serve", "wgmma", forwards)
+    peak_main = torch.cuda.max_memory_allocated()
+    if native != {True}:
+        raise AssertionError("cluster_serve: the server's queue is not the "
+                             "C++ one (NativeQueue.is_native)")
+    compiled = im.compile_count
+    ref = refs_of(im)
+    if im.compile_count != compiled:
+        raise AssertionError("cluster_serve: a reference predict captured")
+    agree = check_replies(replies, {"direct": ref}, "cluster_serve")
+
+    # one profiled window of the c = 64 level: the card's busy time
+    srv = server(im)
+    try:
+        busy = profile_call(
+            lambda: cluster_level(srv, pool, CS_LEVELS[-1], CS_MIN_REQUESTS),
+            {"flash": ("flash_fwd_",)})
+    finally:
+        srv.stop()
+
+    # the c = 64 level with the clients in a process of their own: how
+    # much of the time the clients' threads took from the server's
+    c = CS_LEVELS[-1]
+    srv = server(im)
+    try:
+        run = cluster_level_in_a_process(srv, pool, c, max(
+            CS_MIN_REQUESTS, 8 * c))
+    finally:
+        srv.stop()
+    st = srv.stats()
+    check_served(st, "cluster_serve clients in a process", len(
+        run["replies"]))
+    check_replies(run["replies"], {"direct": ref}, "clients in a process")
+    levels[f"window_c{c}_clients_in_a_process"] = dict(
+        latency_summary(run["latency_ms"], run["wall_s"]), clients=c,
+        batches=st["batches"], mean_batch_size=st["mean_batch_size"],
+        queue_depth_max=st["queue_depth_max"],
+        server_stage_p50_ms=stage_p50s(srv))
+
+    # two workers, waiting on their own replay's event and on the whole
+    # serving stream (the wait before the event), in turns at c = 64
+    waits = {"event": [], "stream": []}
+    event_call = im_lib._Graph.__call__
+    for mode in ("event", "stream", "stream", "event"):
+        im_lib._Graph.__call__ = stream_wide_call if mode == "stream" \
+            else event_call
+        srv = server(im)
+        try:
+            run = cluster_level(srv, pool, CS_LEVELS[-1], CS_MIN_REQUESTS)
+        finally:
+            srv.stop()
+            im_lib._Graph.__call__ = event_call
+        check_replies(run["replies"], {"direct": ref}, f"{mode} wait")
+        waits[mode].append(float(np.percentile(run["latency_ms"], 50)))
+
+    # the eager yardstick through the server, unwarmed: the flash kernel's
+    # first launch (its TMA encoding) happens on a worker thread
+    eager = served(variables, cuda_graphs=False)
+    reset_counts(fa)
+    srv = server(eager)
+    try:
+        run = cluster_level(srv, pool, CS_LOAD_CLIENTS, CS_MIN_REQUESTS)
+    finally:
+        srv.stop()
+    st = srv.stats()
+    check_served(st, "cluster_serve eager", CS_MIN_REQUESTS)
+    eager_forwards = eager.compile_count + st["batches"]
+    eager_launches = read_counts(fa, "cluster_serve eager",
+                                 **{BF16_KERNEL: eager_forwards})
+    eager_res = dict(latency_summary(run["latency_ms"], run["wall_s"]),
+                     mean_batch_size=st["mean_batch_size"],
+                     forwards=eager_forwards, flash_launches=eager_launches,
+                     vs_graphs=check_replies(run["replies"],
+                                             {"direct": ref}, "eager"))
+    del eager, srv
+    torch.cuda.empty_cache()
+
+    # hot swap under load: update_model to another version (other seed)
+    # while 16 clients run; the incoming model captures its graphs on this
+    # thread (warm_from) while the old one's replay on the workers
+    new_vars = random_bert_variables(
+        BERTClassifier(2, use_flash=True, **BERT_BASE), SEED + 1)
+    swap_replies, failures = [], []
+    stop = threading.Event()
+
+    def load(srv_ref, c):
+        from analytics_zoo_tpu_torch.serving import InputQueue, OutputQueue
+        iq = InputQueue(srv_ref.host, srv_ref.port)
+        oq = OutputQueue(input_queue=iq)
+        k = c
+        try:
+            while not stop.is_set():
+                row = k % CS_POOL
+                out = oq.query(iq.enqueue(f"c{c}", t=pool[row]), 120.0)
+                if out is None:
+                    failures.append("timeout")
+                else:
+                    swap_replies.append((row, out))
+                k += CS_LOAD_CLIENTS
+        except Exception as e:  # noqa: BLE001 - recorded, raised below
+            failures.append(f"{type(e).__name__}: {e}")
+        finally:
+            iq.close()
+
+    def wait_replies(got, n, what, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while len(got) < n and not failures:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"cluster_serve: {what}: {len(got)} "
+                                     f"of {n} replies")
+            time.sleep(0.01)
+
+    reset_counts(fa)
+    srv = server(im)
+    threads = [threading.Thread(target=load, args=(srv, c))
+               for c in range(CS_LOAD_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        wait_replies(swap_replies, CS_PHASE_REPLIES, "before the swap")
+        torch.cuda.reset_peak_memory_stats()
+        new = served(new_vars)
+        t0 = time.perf_counter()
+        srv.update_model(new)  # warm_from, the flip, old version unloaded
+        swap_s = time.perf_counter() - t0
+        after_warm = new.compile_count
+        n_swap = len(swap_replies)
+        wait_replies(swap_replies, n_swap + 4 * CS_PHASE_REPLIES,
+                     "after the swap")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        srv.stop()
+    peak_swap = torch.cuda.max_memory_allocated()
+    if failures or any(t.is_alive() for t in threads):
+        raise AssertionError(f"cluster_serve swap: {failures[:3]}")
+    st = srv.stats()
+    check_served(st, "cluster_serve swap", st["requests"])
+    swap_forwards = new.compile_count + st["batches"]
+    swap_launches = read_counts(fa, "cluster_serve swap",
+                                **{BF16_KERNEL: swap_forwards})
+    if new.compile_count != after_warm or after_warm != len(im._compiled):
+        raise AssertionError(
+            f"cluster_serve swap: the new model prepared {new.compile_count}"
+            f" keys, {after_warm} by warm_from; want {len(im._compiled)}")
+    ref_new = refs_of(new)
+    swap_agree = check_replies(swap_replies, {"old": ref, "new": ref_new},
+                               "cluster_serve swap")
+    tail = check_replies(swap_replies[-CS_PHASE_REPLIES:],
+                         {"old": ref, "new": ref_new}, "swap tail")
+    if swap_agree["matched"]["new"] == 0 or tail["matched"]["old"]:
+        raise AssertionError(f"cluster_serve swap: replies never flipped "
+                             f"({swap_agree['matched']}, last "
+                             f"{CS_PHASE_REPLIES}: {tail['matched']})")
+    swap = {"update_model_s": swap_s, "compile_count_new": new.compile_count,
+            "replies": len(swap_replies), "failures": 0,
+            "batches": st["batches"], "forwards": swap_forwards,
+            "flash_launches": swap_launches, "agree": swap_agree,
+            "peak_memory_bytes": peak_swap}
+    del new
+    torch.cuda.empty_cache()
+
+    # the router and the HTTP frontend over two in-process replicas, each
+    # with its own model; 16 HTTP clients; kill replica 0, restart it on
+    # its port, then drain replica 1 and restart it
+    reset_counts(fa)
+    models = [im, served(variables)]
+    models[1].warm([(SEQ,)], dtype=np.int32)
+    servers = [server(m) for m in models]
+    every = list(servers)
+    ports = [s.port for s in servers]
+    names = [f"{s.host}:{s.port}" for s in servers]
+    rs = ReplicaSet([(s.host, s.port) for s in servers],
+                    retry=RetryPolicy(max_attempts=4, base_delay=0.02,
+                                      max_delay=0.1, seed=SEED),
+                    health_interval=0.1, health_timeout=1.0,
+                    breaker_threshold=3, breaker_reset_s=0.2)
+    fe = HTTPFrontend(router=rs).start()
+    http_replies, http_ms, failures[:] = [], [], []
+    stop.clear()
+
+    def http_load(c):
+        k = c
+        while not stop.is_set():
+            row = k % CS_POOL
+            body = json.dumps({"instances": pool[row].tolist(),
+                               "dtype": "int32"}).encode()
+            req = urllib.request.Request(
+                f"http://{fe.host}:{fe.port}/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    out = np.asarray(json.load(r)["predictions"],
+                                     np.float32)
+            except Exception as e:  # noqa: BLE001 - recorded, raised below
+                failures.append(f"{type(e).__name__}: {e}")
+                continue
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+            http_replies.append((row, out))
+            k += CS_LOAD_CLIENTS
+
+    def restart(i):
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                return server(models[i], port=ports[i])
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.05)
+
+    def wait_state(i, available, what):
+        deadline = time.monotonic() + 60
+        while True:
+            rep = rs.healthz()["replicas"][names[i]]
+            if rep["available"] == available and (
+                    not available or rep["breaker"] == "closed"):
+                return
+            if time.monotonic() > deadline:
+                raise AssertionError(f"cluster_serve router: {what}: {rep}")
+            time.sleep(0.02)
+
+    threads = [threading.Thread(target=http_load, args=(c,))
+               for c in range(CS_LOAD_CLIENTS)]
+    for t in threads:
+        t.start()
+    try:
+        wait_replies(http_replies, CS_PHASE_REPLIES, "steady")
+        servers[0].kill()
+        wait_state(0, False, "killed replica still available")
+        wait_replies(http_replies, len(http_replies) + CS_PHASE_REPLIES,
+                     "one replica")
+        servers[0] = restart(0)
+        every.append(servers[0])
+        wait_state(0, True, "replica 0 never re-admitted")
+        if not servers[1].drain(timeout=60.0):
+            raise AssertionError("cluster_serve router: drain never "
+                                 "settled")
+        servers[1].stop()
+        servers[1] = restart(1)
+        every.append(servers[1])
+        wait_state(1, True, "replica 1 never returned")
+        wait_replies(http_replies, len(http_replies) + CS_PHASE_REPLIES,
+                     "after the restarts")
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        fe.stop()
+        for s in servers:
+            s.stop()
+    if failures or any(t.is_alive() for t in threads):
+        raise AssertionError(f"cluster_serve router: {failures[:3]}")
+    router_batches = sum(s.stats()["batches"] for s in every)
+    router_forwards = models[1].compile_count + router_batches
+    router_launches = read_counts(fa, "cluster_serve router",
+                                  **{BF16_KERNEL: router_forwards})
+    router = {"clients": CS_LOAD_CLIENTS, "requests": len(http_ms),
+              "p50_ms": float(np.percentile(http_ms, 50)),
+              "p99_ms": float(np.percentile(http_ms, 99)), "failures": 0,
+              "replies_by_server": [s.stats()["replies"] for s in every],
+              "forwards": router_forwards,
+              "flash_launches": router_launches,
+              "agree": check_replies(http_replies, {"direct": ref},
+                                     "router")}
+
+    res = {"phase": "cluster_serve", "card": card, "config": BERT_BASE,
+           "seq": SEQ, "dtype": "bfloat16", "batch_size": CS_BATCH,
+           "inference_workers": CS_WORKERS, "buckets": im.batch_buckets,
+           "setup_s": setup_s, "levels": levels, "forwards": forwards,
+           "compile_count": im.compile_count, "flash_launches": launches,
+           "fwd_launches_by_design": fwd_designs, "native_queue": True,
+           "agree": agree, "profiled_c64": busy,
+           "p50_ms_c64_by_wait": waits, "eager_c16": eager_res,
+           "swap": swap, "router": router,
+           "peak_memory_bytes_main_path": peak_main}
     emit(res)
     return res
 
@@ -2458,6 +2980,7 @@ def main(argv) -> int:
                   "fused_bn": lambda: phase_fused_bn(bn),
                   "bert_serve": lambda: phase_bert_serve(fa),
                   "int8_serve": lambda: phase_int8_serve(fa),
+                  "cluster_serve": lambda: phase_cluster_serve(fa),
                   "bert_train": lambda: phase_bert_train(fa),
                   "resnet_train": lambda: phase_resnet_train(bn),
                   "fused_xent": lambda: phase_fused_xent(fx),
@@ -2469,6 +2992,7 @@ def main(argv) -> int:
     bn_kern = phase_fused_bn(bn)
     serve = phase_bert_serve(fa)
     int8 = phase_int8_serve(fa)
+    cluster = phase_cluster_serve(fa)
     train = phase_bert_train(fa)
     resnet = phase_resnet_train(bn)
     xent_kern = phase_fused_xent(fx)
@@ -2521,6 +3045,10 @@ def main(argv) -> int:
     for mode, run in int8["bert"].items():
         entries[0][f"launches_int8_serve_{mode}"] = \
             run["flash_launches"][BF16_KERNEL]
+    entries[0]["launches_cluster_serve"] = \
+        cluster["flash_launches"][BF16_KERNEL]
+    entries[0]["launches_by_design_cluster_serve"] = \
+        cluster["fwd_launches_by_design"]
     entries[0]["launches_by_design"] = serve["fwd_launches_by_design"]
     entries[0]["launches_by_design_bert_train_bf16"] = \
         train["fwd_launches_by_design"]

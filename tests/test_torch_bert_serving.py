@@ -266,7 +266,23 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.nn.layers",
                 "analytics_zoo_tpu_torch.nn.quant",
                 "analytics_zoo_tpu_torch.ops._launches",
-                "analytics_zoo_tpu_torch.serving.inference_model"]
+                "analytics_zoo_tpu_torch.serving.inference_model",
+                "analytics_zoo_tpu_torch.core",
+                "analytics_zoo_tpu_torch.core.metrics",
+                "analytics_zoo_tpu_torch.core.trace",
+                "analytics_zoo_tpu_torch.core.faults",
+                "analytics_zoo_tpu_torch.core.flightrec",
+                "analytics_zoo_tpu_torch.core.config",
+                "analytics_zoo_tpu_torch.native",
+                "analytics_zoo_tpu_torch.serving.protocol",
+                "analytics_zoo_tpu_torch.serving.client",
+                "analytics_zoo_tpu_torch.serving.scheduler",
+                "analytics_zoo_tpu_torch.serving.model_registry",
+                "analytics_zoo_tpu_torch.serving.server",
+                "analytics_zoo_tpu_torch.serving.router",
+                "analytics_zoo_tpu_torch.serving.http_frontend",
+                "analytics_zoo_tpu_torch.serving.controller",
+                "analytics_zoo_tpu_torch.serving.batch"]
 
 
 def test_port_imports_without_jax():
