@@ -110,9 +110,12 @@ class MultiHeadAttention(nn.Module):
                 cm = causal_mask(x.shape[1], kv.shape[1], device=x.device)
                 mask = cm if mask is None else (mask.bool() & cm)
             if self.remat and torch.is_grad_enabled():
+                # the core draws no random numbers, so no generator state
+                # is kept for the recompute (reading the card's generator
+                # state is refused inside a CUDA graph capture)
                 ctx = torch.utils.checkpoint.checkpoint(
                     dot_product_attention, q, k, v, mask,
-                    use_reentrant=False)
+                    use_reentrant=False, preserve_rng_state=False)
             else:
                 ctx = dot_product_attention(q, k, v, mask)
         out = ctx.reshape(x.shape[:-1] + (-1,)) @ self.wo.to(x.dtype)

@@ -21,6 +21,23 @@ f32 buffers made once, are divided by ``k``, and one update is applied;
 the step's loss is the mean of the micro losses, and batch norm normalizes
 each micro-batch by its own statistics and updates its running ones once
 per micro-batch.  A batch that ``k`` does not divide raises.
+On the card each train step is a replay of a CUDA graph, the counterpart
+of the JAX package's compiled ``_train_step`` (``jax.jit``): the first
+step of a (batch shapes, dtypes) key runs eagerly on a side stream as a
+real step (it builds the kernels and cuBLAS's workspace, the optimizer's
+state and the ``grad_accum`` buffers), then the step is captured into one
+graph over static input buffers, with the dropout and augment generators
+registered so that a replay draws the masks the eager step would; later
+steps copy their batch into the static inputs and replay.  A captured
+``fit`` gives the eager ``fit``'s step losses.  Nothing of the step lives
+on the host: the optimizer's count and learning rate are device tensors
+(``optimizers.py``), and the Python step count moves outside the graph.
+A capture that fails raises, naming the last op it reached; nothing falls
+back to eager.  ``cuda_graphs=False`` runs the card eagerly (a yardstick);
+on the CPU the same entry points run the eager step.  ``_multi_step`` and
+``_multi_step_data`` (K steps over one batch, or over a leading-K chunk
+placed in one copy) are K of ``_train_step``: on the card K replays of the
+one step graph, each after a copy of its batch into the static inputs.
 ``evaluate`` and ``predict`` run in eval mode (running statistics,
 buffers fixed).  Dropout draws its masks from one generator on the
 device, seeded from ``seed``, so two runs with one seed repeat their
@@ -38,9 +55,11 @@ checkpoint format (ROADMAP Queue 1 item 6).
 
 from __future__ import annotations
 
-import itertools
+import inspect
 import logging
-from typing import Any, Callable, Dict, List, Optional, Sequence
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,10 +67,16 @@ from torch import nn
 
 from ... import DeviceLike, resolve_device
 from ...convert import buffer_names, to_jax_variables
-from ...data.feed import DataFeed, nrows, as_feed, to_device, tree_map
+from ...core import metrics as telemetry
+from ...core import trace as trace_lib
+from ...core.config import ZooConfig
+from ...data.feed import (FeedBase, PrefetchIterator, as_feed,
+                          device_placer, leaves, nrows, to_device, tree_map)
+from ...data.stream import make_placer
 from ...nn import losses as losses_lib
 from ...nn import metrics as metrics_lib
-from ...nn.layers import _indexed, seed_dropout
+from ...nn.layers import Dropout, _indexed, seed_dropout
+from ...ops import _launches
 from . import optimizers as opt_lib
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -88,7 +113,6 @@ _UNPORTED_FIT_ARGS = {
     "auto_resume": (False, f"{_Q1} 6 (state plane)"),
     "feature_cols": (None, f"{_Q1} 5 (XShards inputs)"),
     "label_cols": (None, f"{_Q1} 5 (XShards inputs)"),
-    "prefetch": (None, f"{_Q1} 5 (prefetch)"),
 }
 
 
@@ -131,7 +155,8 @@ class ZooEstimator:
                  metrics: Optional[Sequence[Any]] = None,
                  grad_clip_norm: Optional[float] = None, seed: int = 0,
                  device: DeviceLike = None, augment: Any = None,
-                 grad_accum: int = 1, **knobs: Any):
+                 grad_accum: int = 1, cuda_graphs: bool = True,
+                 **knobs: Any):
         _refuse_unported("ZooEstimator", knobs, _UNPORTED_KNOBS)
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -152,6 +177,14 @@ class ZooEstimator:
         self._opt_state: Any = None
         self._epoch = 0
         self._py_step = 0
+        # False trains the card eagerly too (a yardstick for the graphs)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        self._graphs: Dict[tuple, _StepGraph] = {}
+        self._pool = None  # one memory pool for this estimator's graphs
+        self._placer = None  # _multi_step_data's copies to the card
+        # captures made: the counterpart of the JAX package's executable
+        # cache probe (_jit_cache_size); one per (batch shapes, dtypes) key
+        self.capture_count = 0
 
     # -- steps ----------------------------------------------------------------
 
@@ -197,11 +230,9 @@ class ZooEstimator:
                 grads.append(s if s.dtype == p.dtype else s.to(p.dtype))
         return torch.stack(losses).mean(), grads
 
-    def _train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """One optimizer step on ``batch``; returns the loss (on the
-        device, not synchronised)."""
-        if self._opt_state is None:
-            self._opt_state = self.optimizer.init(self._params)
+    def _step(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """One optimizer step on ``batch`` (what a graph captures): the
+        loss, on the device."""
         self.model.train()
         if self.grad_accum > 1:
             loss, grads = self._accumulated(batch)
@@ -214,8 +245,71 @@ class ZooEstimator:
                      for g, p in zip(grads, self._params)]
             self._opt_state = self.optimizer.step(self._params, grads,
                                                   self._opt_state)
-        self._py_step += 1
         return loss.detach()
+
+    def _graph_for(self, batch: Dict[str, Any]) -> Tuple[
+            "_StepGraph", List[torch.Tensor], Optional[torch.Tensor]]:
+        """The step graph of ``batch``'s key and the batch's leaves; a new
+        key runs its first step eagerly (the third item, its loss) and is
+        captured."""
+        if self._opt_state is None:
+            self._opt_state = self.optimizer.init(self._params)
+        flat = [to_device(a, self.device) if not isinstance(a, torch.Tensor)
+                else a for a in leaves(batch)]
+        key = (_structure(batch),
+               tuple((tuple(t.shape), t.dtype) for t in flat))
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph, flat, None
+        graph = _StepGraph(self, batch, flat)
+        self._graphs[key] = graph
+        self.capture_count += 1
+        return graph, flat, graph.first_loss
+
+    def _train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """One optimizer step on ``batch``; returns the loss (on the
+        device, not synchronised).  On the card: a replay of the key's
+        graph."""
+        if not self.cuda_graphs:
+            if self._opt_state is None:
+                self._opt_state = self.optimizer.init(self._params)
+            loss = self._step(batch)
+        else:
+            graph, flat, loss = self._graph_for(batch)
+            if loss is None:
+                graph.load(flat)
+                loss = graph.replay().clone()
+        self._py_step += 1
+        return loss
+
+    def _multi_step(self, batch: Dict[str, Any], k: int) -> torch.Tensor:
+        """``k`` optimizer steps on one ``batch`` (the JAX package's
+        ``lax.scan`` over ``_train_step``): ``k`` of ``_train_step``, on the
+        card ``k`` replays of the key's graph.  Returns the ``k`` losses as
+        one device tensor, not synchronised."""
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        return torch.stack([self._train_step(batch) for _ in range(k)])
+
+    def _multi_step_data(self, batches: Dict[str, Any]) -> torch.Tensor:
+        """``K`` optimizer steps over ``K`` distinct batches, the leading
+        axis of every leaf of ``batches`` (host arrays or device tensors),
+        step ``i`` on slice ``i``: the infeed-chunk pattern, the chunk
+        placed in one host-to-device copy a leaf.  On the card a host
+        chunk is staged in pinned memory and copied on a side stream,
+        which the steps wait for; so the copy overlaps the steps already
+        queued.  Returns the ``K`` losses as one device tensor."""
+        if self.device.type == "cuda" and not any(
+                isinstance(a, torch.Tensor) for a in leaves(batches)):
+            if self._placer is None:
+                self._placer = device_placer(self.device)
+            chunk = self._placer(batches).wait()
+        else:
+            chunk = tree_map(lambda a: a.to(self.device)
+                             if isinstance(a, torch.Tensor)
+                             else to_device(a, self.device), batches)
+        return torch.stack([self._train_step(tree_map(lambda a: a[i], chunk))
+                            for i in range(nrows(chunk["x"]))])
 
     def _forward_eval(self, x: Any) -> Any:
         if self.augment is not None:
@@ -234,34 +328,119 @@ class ZooEstimator:
     # -- training -------------------------------------------------------------
 
     def fit(self, data: Any, epochs: int = 1, batch_size: int = 32,
-            validation_data: Any = None, verbose: bool = True,
+            validation_data: Any = None, prefetch: Optional[int] = None,
+            verbose: bool = True,
             **unported: Any) -> Dict[str, List[float]]:
         """Train; returns ``{"loss": [...], "val_<metric>": [...]}``.
 
-        ``data``: a DataFeed, an ``(x, y)`` tuple or an ``{"x", "y"}``
-        dict; ``batch_size`` is the global batch.  Only full batches train
-        (a feed's padded last batch is skipped, so padding never enters
-        batch statistics).  The loss is read back once per epoch, not per
-        step."""
+        ``data``: a feed (``DataFeed``, ``StreamingDataFeed``), an ``(x,
+        y)`` tuple or an ``{"x", "y"}`` dict; ``batch_size`` is the global
+        batch.  Only full batches train (a feed's padded last batch is
+        skipped, so padding never enters batch statistics).  The loss is
+        read back once per epoch, not per step.
+
+        ``prefetch``: the feed's lookahead depth (default
+        ``ZooConfig.prefetch``, 2): a producer thread runs the feed's epoch
+        (for a streaming feed, its host batches and their placement: on the
+        card pinned staging and a copy on a side stream, which the step's
+        stream waits for) while the card runs the step, so
+        ``train.data_wait_ms`` measures only time the loop waited on the
+        feed.  ``prefetch=0`` iterates the feed inline on this thread.
+        Every step records ``train.steps``, ``train.samples``,
+        ``train.step_ms`` and ``train.data_wait_ms`` (and the gauge
+        ``train.prefetch_depth``) in ``core/metrics.py``'s registry, and a
+        ``train.step`` span under its epoch's ``train.epoch`` span."""
         _refuse_unported("fit", unported, _UNPORTED_FIT_ARGS)
+        if prefetch is None:
+            prefetch = ZooConfig.prefetch
         feed = as_feed(data, batch_size, seed=self.seed)
+        # a feed that pads its last batch trains on its full batches only
+        full = feed.steps_per_epoch() if feed.drop_remainder \
+            else feed.num_rows // feed._local_batch
+        reg = telemetry.get_registry()
+        m_step = reg.histogram("train.step_ms")
+        m_wait = reg.histogram("train.data_wait_ms")
+        m_steps = reg.counter("train.steps")
+        m_samples = reg.counter("train.samples")
+        m_prefetch = reg.gauge("train.prefetch_depth")
+        record_spans = trace_lib.enabled and reg.enabled
+        fit_tid = trace_lib.new_trace_id() if record_spans else None
+        fit_sid = trace_lib.new_span_id() if record_spans else None
+        self.trace_id = fit_tid
         history: Dict[str, List[float]] = {"loss": []}
         for _ in range(epochs):
-            batches = feed.epoch(self.device, self._epoch)
-            if not feed.drop_remainder:
-                batches = itertools.islice(
-                    batches, feed.num_rows // feed._local_batch)
-            losses = [self._train_step(batch) for batch in batches]
+            epoch_sid = trace_lib.new_span_id() if record_spans else None
+            t0 = time.monotonic()
+            losses: List[torch.Tensor] = []
+            epoch_wait = 0.0
+            if prefetch and prefetch > 0 and _supports_host_epoch(feed):
+                # stream feeds: host batches, placed in the producer
+                batch_iter = PrefetchIterator(
+                    feed.epoch(self.device, self._epoch, place=False),
+                    depth=prefetch, gauge=m_prefetch,
+                    place=make_placer(self.device))
+            elif prefetch and prefetch > 0:
+                batch_iter = PrefetchIterator(
+                    iter(feed.epoch(self.device, self._epoch)),
+                    depth=prefetch, gauge=m_prefetch)
+            else:
+                batch_iter = iter(feed.epoch(self.device, self._epoch))
+            try:
+                while True:
+                    t_fetch = time.monotonic()
+                    batch = next(batch_iter, None)
+                    if batch is None:
+                        break
+                    wait = time.monotonic() - t_fetch
+                    epoch_wait += wait
+                    m_wait.observe(wait * 1000.0)
+                    if "mask" in batch:  # a padded batch: never trained on
+                        continue
+                    if len(losses) == full:  # the padded last batch
+                        break
+                    losses.append(self._train_step(batch))
+                    step_ms = (time.monotonic() - t_fetch) * 1000.0
+                    m_step.observe(step_ms)
+                    if record_spans:
+                        trace_lib.record(
+                            fit_tid, "train.step",
+                            {"step": self._py_step,
+                             "step_ms": round(step_ms, 3),
+                             "data_wait_ms": round(wait * 1000.0, 3)},
+                            parent=epoch_sid, dur_ms=step_ms)
+                    m_steps.inc()
+                    m_samples.inc(feed.global_batch)
+            finally:
+                # a mid-epoch exit must not leak the producer thread
+                if isinstance(batch_iter, PrefetchIterator):
+                    batch_iter.close()
+                else:
+                    close = getattr(batch_iter, "close", None)
+                    if close is not None:
+                        close()
             if not losses:
                 raise ValueError(
                     "fit got no full batches (dataset smaller than one "
                     "batch after dropping the padded tail); reduce "
                     "batch_size")
             self._epoch += 1
+            # one host synchronisation an epoch
             epoch_loss = float(torch.stack(losses).float().mean())
             history["loss"].append(epoch_loss)
+            dt = time.monotonic() - t0
+            if record_spans:
+                trace_lib.record(
+                    fit_tid, "train.epoch",
+                    {"epoch": self._epoch, "loss": round(epoch_loss, 6),
+                     "steps": len(losses),
+                     "step_ms": round(1000.0 * dt / len(losses), 3),
+                     "data_wait_ms": round(
+                         1000.0 * epoch_wait / len(losses), 3)},
+                    span_id=epoch_sid, parent=fit_sid, dur_ms=dt * 1000.0)
             if verbose:
-                logger.info("epoch %d: loss=%.4f", self._epoch, epoch_loss)
+                logger.info("epoch %d: loss=%.4f (%.1f examples/s)",
+                            self._epoch, epoch_loss,
+                            len(losses) * feed.global_batch / dt)
             if validation_data is not None:
                 for k, v in self.evaluate(validation_data,
                                           batch_size).items():
@@ -345,6 +524,111 @@ class ZooEstimator:
             "format comes with the state plane)")
 
 
+def _structure(tree: Any) -> Any:
+    """The nesting of a batch without its leaves: part of a graph's key."""
+    if isinstance(tree, dict):
+        return tuple((k, _structure(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__,) + tuple(_structure(v) for v in tree)
+    return None
+
+
+def _rebuild(tree: Any, flat: List[Any]) -> Any:
+    """``tree``'s nesting with the leaves of ``flat``, in ``leaves``'
+    order."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), tree)
+
+
+def _failed_at(err: BaseException) -> str:
+    """Where a capture failed and why: the first error of the chain (an op
+    the capture refused; ending the capture then fails too), at the
+    innermost call of its traceback outside torch itself, as ``file:line
+    (function): code: error``."""
+    while err.__context__ is not None:
+        err = err.__context__
+    frames = traceback.extract_tb(err.__traceback__)
+    ours = [f for f in frames if "/torch/" not in f.filename] or frames
+    f = ours[-1]
+    return f"{f.filename}:{f.lineno} ({f.name}): {f.line}: {err}"
+
+
+class _StepGraph:
+    """One (batch shapes, dtypes) key's captured train step: static input
+    buffers, the step's graph in the estimator's memory pool, its loss as
+    a static output, and the kernel launches its capture recorded
+    (``ops._launches``), made again at each replay.
+
+    Made from the key's first batch: the batch is copied into the static
+    inputs, the step runs once eagerly on a side stream as a real step
+    (``first_loss``), and the same step is captured on that stream with
+    the model's dropout generator and the augment generator registered, so
+    that each replay draws the random numbers the next eager step would."""
+
+    def __init__(self, est: "ZooEstimator", batch: Dict[str, Any],
+                 flat: List[torch.Tensor]):
+        device = est.device
+        current = torch.cuda.current_stream(device)
+        self.static = [torch.empty(t.shape, dtype=t.dtype, device=device)
+                       for t in flat]
+        self.load(flat)
+        static_batch = _rebuild(batch, self.static)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            first = est._step(static_batch).clone()
+        first.record_stream(current)
+        self.first_loss = first
+        if est._pool is None:
+            est._pool = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        for gen in _generators(est):
+            self.graph.register_generator_state(gen)
+        try:
+            with _launches.recording(side) as self.launches:
+                with torch.cuda.graph(self.graph, pool=est._pool,
+                                      stream=side,
+                                      capture_error_mode="thread_local"):
+                    self.loss = est._step(static_batch)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA graph capture of the train step failed at "
+                f"{_failed_at(e)}") from e
+        current.wait_stream(side)
+
+    def load(self, flat: List[torch.Tensor]) -> None:
+        """Copy a batch's leaves into the static inputs (on the current
+        stream)."""
+        for s, t in zip(self.static, flat):
+            s.copy_(t, non_blocking=True)
+
+    def replay(self) -> torch.Tensor:
+        """One step on what the static inputs hold; returns the static
+        loss, which the next replay overwrites."""
+        self.graph.replay()
+        _launches.replay(self.launches)
+        return self.loss
+
+
+def _generators(est: "ZooEstimator") -> List[torch.Generator]:
+    """The card's generators a step draws from besides the default one:
+    the model's dropout generators and the augment generator."""
+    gens = {id(m.generator): m.generator for m in est.model.modules()
+            if isinstance(m, Dropout) and m.generator is not None}
+    if est.augment is not None:
+        gens[id(est._aug_gen)] = est._aug_gen
+    return [g for g in gens.values() if g.device.type == "cuda"]
+
+
+def _supports_host_epoch(feed: Any) -> bool:
+    """Can this feed yield host batches (``epoch(..., place=False)``)?
+    True for ``StreamingDataFeed``; in-memory feeds place their own."""
+    try:
+        return "place" in inspect.signature(feed.epoch).parameters
+    except (TypeError, ValueError):
+        return False
+
+
 def _per_example_loss(loss_fn: Callable, out: Any, y: Any) -> torch.Tensor:
     """``[batch]`` losses from a mean-reducing loss: each example through
     the loss with a singleton batch dim (``torch.func.vmap``)."""
@@ -355,7 +639,7 @@ def _per_example_loss(loss_fn: Callable, out: Any, y: Any) -> torch.Tensor:
     return torch.func.vmap(one)(out, y)
 
 
-def _pad_remainder(rem: Dict[str, Any], feed: DataFeed):
+def _pad_remainder(rem: Dict[str, Any], feed: FeedBase):
     """Remainder rows as one full batch (the last row repeated) and its
     mask."""
     r = nrows(rem["x"])

@@ -15,8 +15,12 @@ parameters.
 Learning rates are a float or a schedule (a callable of the update count,
 0 for the first update, as in optax), or a dict spec resolved by
 ``resolve_learning_rate``, e.g. ``{"schedule": "warmup_cosine", "peak":
-1e-3, "warmup_steps": 100, "decay_steps": 1000}``.  LARS and LAMB are not
-ported yet.
+1e-3, "warmup_steps": 100, "decay_steps": 1000}``.  As optax does inside
+``jit``, every optimizer keeps its update count as an int32 tensor on the
+parameters' device, and a schedule maps that tensor to an f32 learning
+rate there: a step reads nothing from the device and writes no host
+state, so a CUDA graph of it replays (``estimator.py``) and the CPU runs
+the same formulation.  LARS and LAMB are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 Tensors = List[torch.Tensor]
-Schedule = Callable[[int], float]
+Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 
 class GradientTransformation(NamedTuple):
@@ -39,16 +43,35 @@ class GradientTransformation(NamedTuple):
 
 
 # -- schedules ----------------------------------------------------------------
+#
+# optax's schedules, op for op on an int32 count tensor: f32 arithmetic,
+# Python constants rounded to f32 as JAX's weak types are.
+
+def _count(count: Any) -> torch.Tensor:
+    """``count`` as an int32 tensor (a host int is made one)."""
+    if isinstance(count, torch.Tensor):
+        return count
+    return torch.tensor(count, dtype=torch.int32)
+
+
+def constant_schedule(value: float) -> Schedule:
+    def schedule(count):
+        count = _count(count)
+        return torch.full(count.shape, value, dtype=torch.float32,
+                          device=count.device)
+    return schedule
+
 
 def polynomial_schedule(init_value: float, end_value: float, power: float,
                         transition_steps: int,
                         transition_begin: int = 0) -> Schedule:
     if transition_steps <= 0:
-        return lambda count: init_value
+        return constant_schedule(init_value)
     transition_begin = max(0, transition_begin)
 
-    def schedule(count: int) -> float:
-        c = min(max(count - transition_begin, 0), transition_steps)
+    def schedule(count):
+        c = torch.clamp(_count(count) - transition_begin, 0,
+                        transition_steps)
         frac = 1 - c / transition_steps
         return (init_value - end_value) * frac ** power + end_value
     return schedule
@@ -66,17 +89,19 @@ def exponential_decay(init_value: float, transition_steps: int,
                       staircase: bool = False,
                       end_value: Optional[float] = None) -> Schedule:
     if transition_steps <= 0 or decay_rate == 0:
-        return lambda count: init_value
+        return constant_schedule(init_value)
     transition_begin = max(0, transition_begin)
 
-    def schedule(count: int) -> float:
-        dec = count - transition_begin
+    def schedule(count):
+        dec = _count(count) - transition_begin
         p = dec / transition_steps
         if staircase:
-            p = math.floor(p)
-        value = init_value if dec <= 0 else init_value * decay_rate ** p
+            p = torch.floor(p)
+        value = torch.where(dec <= 0, init_value,
+                            init_value * torch.pow(decay_rate, p))
         if end_value is not None:
-            value = (max if decay_rate < 1.0 else min)(value, end_value)
+            value = (torch.clamp(value, min=end_value) if decay_rate < 1.0
+                     else torch.clamp(value, max=end_value))
         return value
     return schedule
 
@@ -87,10 +112,11 @@ def cosine_decay_schedule(init_value: float, decay_steps: int,
     if not decay_steps > 0:
         raise ValueError(f"cosine_decay_schedule needs positive decay_steps, "
                          f"got {decay_steps}")
+    decay_steps = float(decay_steps)
 
-    def schedule(count: int) -> float:
-        c = min(count, decay_steps)
-        cosine = 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+    def schedule(count):
+        c = torch.clamp(_count(count), max=decay_steps)
+        cosine = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
         return init_value * ((1 - alpha) * cosine ** exponent + alpha)
     return schedule
 
@@ -104,9 +130,10 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
                                   alpha, exponent)
 
-    def schedule(count: int) -> float:
-        return warm(count) if count < warmup_steps else \
-            decay(count - warmup_steps)
+    def schedule(count):  # optax.join_schedules: both sides evaluated
+        count = _count(count)
+        return torch.where(count < warmup_steps, warm(count),
+                           decay(count - warmup_steps))
     return schedule
 
 
@@ -125,7 +152,7 @@ _SCHEDULES = {
         linear_schedule(0.0, lr, warmup_steps, **kw),
     "cosine": lambda lr, decay_steps, **kw:
         cosine_decay_schedule(lr, decay_steps, **kw),
-    "constant": lambda lr, **kw: (lambda count: lr),
+    "constant": lambda lr, **kw: constant_schedule(lr),
 }
 
 
@@ -155,17 +182,24 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def _new_count(params: Tensors) -> torch.Tensor:
+    """An update count of 0 on the parameters' device."""
+    return torch.zeros((), dtype=torch.int32, device=params[0].device)
+
+
 def scale_by_learning_rate(learning_rate: Any) -> GradientTransformation:
-    """Multiply by ``-learning_rate`` (at the update count, from 0, for a
-    schedule)."""
+    """Multiply by ``-learning_rate`` (a schedule at the update count, from
+    0).  The count is a device tensor, advanced in place."""
     def init(params):
-        return {"count": 0}
+        return {"count": _new_count(params)}
 
     def update(grads, state, params=None):
-        lr = learning_rate(state["count"]) if callable(learning_rate) \
-            else learning_rate
-        return torch._foreach_mul(grads, -_f32(lr)), \
-            {"count": state["count"] + 1}
+        if callable(learning_rate):
+            updates = torch._foreach_mul(grads, -learning_rate(state["count"]))
+        else:
+            updates = torch._foreach_mul(grads, -_f32(learning_rate))
+        state["count"].add_(1)
+        return updates, state
 
     return GradientTransformation(init, update)
 
@@ -300,26 +334,33 @@ class Transformed(Optimizer):
 
 class TorchOptim(Optimizer):
     """A ``torch.optim`` optimizer configured to optax's formula, fused on
-    the card.  Its learning rate is set before each step from the schedule
-    at the update count (0 for the first update, as in optax)."""
+    the card.  A schedule's learning rate is an f32 tensor on the device,
+    written before each step from the schedule at the update count (0 for
+    the first update, as in optax) and read by the step where it lies;
+    Adam and AdamW are ``capturable`` on the card (their step counts on
+    the device too), so the whole update replays in a CUDA graph.  A
+    constant float learning rate stays a float."""
 
     def __init__(self, cls: type, learning_rate: Any, **options: Any):
         self.cls, self.learning_rate, self.options = \
             cls, learning_rate, options
 
-    def _lr(self, count: int) -> float:
-        lr = self.learning_rate
-        return float(lr(count) if callable(lr) else lr)
-
     def init(self, params):
         fused = all(p.is_cuda for p in params)
-        return {"count": 0, "optim": self.cls(
-            params, lr=self._lr(0), fused=fused or None, **self.options)}
+        lr = self.learning_rate
+        if callable(lr):
+            lr = torch.zeros((), dtype=torch.float32,
+                             device=params[0].device)
+        options = dict(self.options)
+        if fused and self.cls is not torch.optim.SGD:
+            options["capturable"] = True
+        return {"count": _new_count(params), "lr": lr, "optim": self.cls(
+            params, lr=lr, fused=fused or None, **options)}
 
     def step(self, params, grads, state):
-        optim, count = state["optim"], state["count"]
-        for group in optim.param_groups:
-            group["lr"] = self._lr(count)
+        optim = state["optim"]
+        if callable(self.learning_rate):
+            state["lr"].copy_(self.learning_rate(state["count"]))
         for p, g in zip(params, grads):
             # the fused step wants each gradient in its parameter's layout;
             # a conv kernel's gradient comes back channels_last
@@ -328,7 +369,8 @@ class TorchOptim(Optimizer):
         optim.step()
         for p in params:
             p.grad = None
-        return {"count": count + 1, "optim": optim}
+        state["count"].add_(1)
+        return state
 
 
 class Clipped(Optimizer):

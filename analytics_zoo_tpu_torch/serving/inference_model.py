@@ -178,7 +178,7 @@ class _Graph:
             im._forward(self.static_in)  # kernels built, workspaces made
         capture.synchronize()
         self.graph = torch.cuda.CUDAGraph()
-        with _launches.recording() as self.launches:
+        with _launches.recording(capture) as self.launches:
             with torch.cuda.graph(self.graph, pool=im._pool, stream=capture,
                                   capture_error_mode="thread_local"):
                 self.static_out = im._forward(self.static_in)

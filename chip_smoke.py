@@ -97,7 +97,15 @@ JSON line:
    second fit with
    the same seed must repeat the loss history; step time, tokens/s, model
    TFLOP/s and one profiled step's idle share; then ``evaluate`` and
-   ``predict`` on the card.
+   ``predict`` on the card.  (a)-(c) run eagerly (``cuda_graphs=False``).
+   (d) the (b) fit from CUDA graphs (the Estimator's default on the card:
+   one captured step a batch key, replayed) through ``fit(prefetch=2)``:
+   its step losses against (b)'s (equal bits expected, at worst within
+   ``TOL_TRAIN_LOSS``), 12 + 12 flash launches a step counted from the
+   replays, one capture; a window of 20 steps beside the eager step's,
+   tokens/s, model TFLOP/s, a profiled fit's card busy and idle share,
+   peak memory; and a step that reads a value back to the host must fail
+   its capture and raise, in a process of its own.
 5. ``resnet_train``: bench.py's ResNet-50 recipe (space-to-depth stem,
    uint8 224 x 224 images normalised on the card, sgd at 0.1) through the
    ``Estimator`` from random weights in the JAX tree layout.  (a) f32,
@@ -112,7 +120,17 @@ JSON line:
    model TFLOP/s and one profiled step's idle share and batch norm's share
    of the card's time; then ``evaluate`` and ``predict`` (the eval batch
    norm).  (c) ``norm="nf"`` (no batch norm, no launch): images/s and idle
-   share.
+   share.  (d) bench.py's ``bench_resnet50`` from CUDA graphs, both
+   norms: ``_multi_step(b0, 5)``'s losses against the eager step's under
+   cuDNN's deterministic algorithms; the eager window of 20 steps, then
+   the captured ``_multi_step(b0, 20)`` after a warm call, three times,
+   53 launches of each batch-norm kernel a step (``norm="batch"``) from
+   the replays, one capture, a profiled window, peak memory; the streaming
+   phase (worker processes forked after the CUDA context, bench.py's
+   seeded pool with random flips, ``_multi_step_data`` over 4 chunks of 5
+   after one, then 8 chunks on a fresh feed) beside the resident step; a
+   probe that the forked workers
+   are marked as such and never touch the card.
 6. ``fused_xent``: the fused softmax cross-entropy kernels
    (``csrc/fused_xent.cu``: forward, and the dl, dh and dW backward passes;
    bf16 on the tensor cores, both directions on ``wgmma``; f32's forward
@@ -140,7 +158,13 @@ JSON line:
    (b) none; step time, tokens/s, model
    TFLOP/s, one
    profiled step's idle share and the head's and loss's share of the card's
-   time.
+   time.  (a)-(c) run eagerly.  (d) the fused recipe from CUDA graphs,
+   bench.py's phases: the eager window of 10 steps on the seeded batch
+   (its losses) and a warm one (its time), then ``_multi_step(batch, 50)`` once (its first 10 losses against the
+   eager ones) and three times timed, 8 launches of each ``fused_xent``
+   pass a step from the replays, one capture, a profiled window, peak
+   memory; the streaming phase (8 worker threads, ``_multi_step_data``
+   over 3 chunks of 10 after one) beside the resident step.
 8. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Then a ``kernels`` line (one entry per kernel and path) and, last,
@@ -154,6 +178,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -306,6 +331,25 @@ TOL_XENT_BF16_SUM = 1e-3
 # ragged (N, D, V, chunk) cases beside the recipe's (2048, 768, 30522, 512)
 XENT_EDGE = [(300, 40, 777, 100), (129, 13, 30, 43), (256, 64, 1000, 128),
              (512, 768, 4099, 256)]
+# the (d) variants: bench.py's training phases from CUDA graphs (one
+# captured step a batch key, replayed K times by Estimator._multi_step and
+# _multi_step_data).  bench_bert: `steps, repeats = 50, 3` after one warm
+# call, streaming `chunk_steps, n_chunks = 10, 3` from 8 worker threads
+# with 4 batches of prefetch; bench_resnet50: 20 x 3, streaming 5 x 4 from
+# max(4, min(16, cores)) worker processes with 4 of prefetch
+MLM_RESIDENT = (50, 3)
+MLM_STREAM = (10, 3)
+MLM_STREAM_WORKERS = 8
+RESNET_RESIDENT = (20, 3)
+RESNET_STREAM = (5, 4)
+STREAM_PREFETCH = 4
+# steps of the eager step the captured one must repeat bit for bit (an
+# eager MLM step takes 0.5-0.9 s; a ResNet step under cuDNN's
+# deterministic algorithms, which the comparison needs, is slower too)
+MLM_CMP_STEPS = 10
+RESNET_CMP_STEPS = 5
+# bench.py's acceptance for a streaming phase: within 15% of resident
+STREAM_WITHIN = 0.15
 
 
 def emit(obj) -> None:
@@ -1801,6 +1845,168 @@ def phase_int8_serve(fa) -> dict:
     return res
 
 
+def window_ms(fn, steps: int) -> tuple:
+    """(ms a step, losses): ``fn()`` enqueues ``steps`` train steps and
+    returns their losses on the card; the window synchronises only at its
+    ends (the last loss read back)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = fn()
+    float(losses[-1])
+    return (time.perf_counter() - t0) * 1e3 / steps, losses
+
+
+def losses_against_eager(got, want, what: str) -> dict:
+    """A captured run's step losses against the eager step's on the same
+    inputs: equal bits expected (the same kernels, inputs and generator
+    offsets); a difference is reported and held to TOL_TRAIN_LOSS of
+    max(1, |loss|), bert_train (a)'s bound."""
+    got, want = [float(v) for v in got], [float(v) for v in want]
+    if len(got) != len(want) or not all(map(math.isfinite, got)):
+        raise AssertionError(f"{what}: captured losses {got}, eager {want}")
+    worst = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
+    if worst > TOL_TRAIN_LOSS:
+        raise AssertionError(f"{what}: captured step losses {got} differ "
+                             f"from the eager step's {want} by {worst} of "
+                             f"max(1, |loss|)")
+    return {"steps": len(got), "bitwise_equal": got == want,
+            "worst_rel": worst, "tol": TOL_TRAIN_LOSS, "captured": got,
+            "eager": want}
+
+
+def captures(est, what: str) -> dict:
+    """``est``'s captures: one per batch key."""
+    keys = len(est._graphs)
+    if est.capture_count != keys:
+        raise AssertionError(f"{what}: {est.capture_count} captures for "
+                             f"{keys} batch keys")
+    return {"capture_count": est.capture_count, "keys": keys}
+
+
+def profiled_window(fn, steps: int, shares: dict) -> dict:
+    """``profile_call`` over a window of ``steps`` steps, with the card's
+    busy time a step."""
+    res = profile_call(fn, shares)
+    res["device_busy_ms_per_step"] = (res["device_busy_ms"] / steps
+                                      if res["device_busy_ms"] else None)
+    return res
+
+
+def idle_of(profiled: dict, step_ms: float) -> None:
+    """The card's idle share of an unprofiled window's step: 1 - busy a
+    step / step ms (None where the profiler saw no kernel)."""
+    busy = profiled["device_busy_ms_per_step"]
+    profiled["idle_share_of_window_step"] = \
+        None if busy is None else 1.0 - busy / step_ms
+
+
+def stream_chunks(est, feed, chunk_steps: int, n_chunks: int) -> dict:
+    """bench.py's ``_stream_train`` on the port: ``chunk_steps`` host
+    batches of the feed stacked into one chunk, one copy to the card a
+    leaf and ``chunk_steps`` replays (``_multi_step_data``); one chunk to
+    warm, then ``n_chunks`` timed with a synchronisation at the end only.
+    The feed's decode workers are joined before it returns."""
+    it = feed.epoch(est.device, 0, place=False)
+
+    def next_chunk():
+        host = [next(it) for _ in range(chunk_steps)]
+        chunk = {k: np.stack([h[k] for h in host]) for k in host[0]}
+        for h in host:  # a process backend's slots go back to its pool
+            getattr(h, "release", lambda: None)()
+        return chunk
+
+    prep, dispatch = [], []  # host ms a chunk: the feed, the call
+    try:
+        float(est._multi_step_data(next_chunk())[-1])
+        t0 = time.perf_counter()
+        for _ in range(n_chunks):
+            t1 = time.perf_counter()
+            chunk = next_chunk()
+            t2 = time.perf_counter()
+            losses = est._multi_step_data(chunk)
+            prep.append((t2 - t1) * 1e3)
+            dispatch.append((time.perf_counter() - t2) * 1e3)
+        float(losses[-1])
+        dt = time.perf_counter() - t0
+    finally:
+        it.close()
+    steps = chunk_steps * n_chunks
+    return {"chunk_steps": chunk_steps, "chunks": n_chunks, "steps": steps,
+            "step_ms": dt * 1e3 / steps, "host_feed_ms_per_chunk": prep,
+            "host_call_ms_per_chunk": dispatch, "backend": feed.workers,
+            "workers": feed.num_workers,
+            "prefetch_batches": feed.prefetch_batches,
+            "last_losses": [float(v) for v in losses]}
+
+
+def fork_probe() -> dict:
+    """A forked decode worker of the streaming feed, after this process
+    made its CUDA context: torch marks the child as forked from a CUDA
+    process (a CUDA call there would raise), and the child ran the loader
+    on numpy only."""
+    from analytics_zoo_tpu_torch.data import StreamingDataFeed
+
+    def load(i, rng=None):
+        time.sleep(0.01)  # so that both workers take batches
+        return {"bad_fork": np.int32(torch.cuda._is_in_bad_fork()),
+                "pid": np.int64(os.getpid())}
+
+    feed = StreamingDataFeed(8, load, batch_size=2, shuffle=False,
+                             num_workers=2, workers="process")
+    rows = []
+    for b in feed.epoch(torch.device("cuda"), 0, place=False):
+        rows.append({k: np.asarray(v).copy() for k, v in b.items()})
+        b.release()
+    pids = {int(p) for r in rows for p in r["pid"]}
+    flags = {int(f) for r in rows for f in r["bad_fork"]}
+    if os.getpid() in pids or flags != {1}:
+        raise AssertionError(f"fork probe: worker pids {pids} (parent "
+                             f"{os.getpid()}), bad-fork flags {flags}")
+    return {"worker_pids": len(pids), "children_marked_bad_fork": True,
+            "parent_has_cuda_context": torch.cuda.is_initialized()}
+
+
+def failed_capture_check() -> dict:
+    """In a process of its own (a failed capture may leave the context in
+    no state to go on): a step that reads a value back to the host cannot
+    be captured, and the Estimator raises, naming the call; it does not
+    fall back to eager."""
+    code = (
+        "import numpy as np, torch\n"
+        "from analytics_zoo_tpu_torch import nn as tnn\n"
+        "from analytics_zoo_tpu_torch.orca.learn import Estimator\n"
+        "class HostRead(torch.nn.Module):\n"
+        "    def __init__(self):\n"
+        "        super().__init__(); self.dense = tnn.Dense(2, 2)\n"
+        "    def forward(self, x):\n"
+        "        return self.dense(x) * float(x.abs().max())\n"
+        "est = Estimator.from_keras(HostRead(), loss='mse', optimizer='sgd',"
+        " learning_rate=0.1)\n"
+        "x = np.ones((4, 2), np.float32)\n"
+        "try:\n"
+        "    est.fit((x, x), epochs=1, batch_size=4, verbose=False)\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', str(e).splitlines()[0][:400])\n"
+        "else:\n"
+        "    print('RAN', est.capture_count)\n")
+    import tempfile
+    # from a file, so that the traceback the error names has its source
+    with tempfile.NamedTemporaryFile("w", suffix=".py") as f:
+        f.write(code)
+        f.flush()
+        out = subprocess.run([sys.executable, f.name], capture_output=True,
+                             text=True, timeout=300,
+                             env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                                 os.path.abspath(__file__))))
+    line = next((ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("RAISED", "RAN"))), "")
+    if not (line.startswith("RAISED") and "capture of the train step" in line
+            and "float(" in line):
+        raise AssertionError(f"a capture with a host read: {line!r} "
+                             f"{out.stderr[-2000:]}")
+    return {"raised": True, "message": line[len("RAISED "):]}
+
+
 def squad_examples(rng: np.random.Generator, n: int) -> tuple:
     """n SQuAD-shaped examples at SEQ: random token ids and a random answer
     span (start < end) each, labels int [n, 2].  Nothing in the input marks
@@ -1889,7 +2095,7 @@ def phase_bert_train(fa) -> dict:
     for use_flash in (True, False):
         est = Estimator.from_keras(model(use_flash), loss=squad_span_loss,
                                    optimizer="adamw", learning_rate=TRAIN_LR,
-                                   seed=SEED)
+                                   seed=SEED, cuda_graphs=False)
         inner = est._train_step
         hist[use_flash], _ = record_steps(est)
         reset_counts(fa)
@@ -1930,7 +2136,8 @@ def phase_bert_train(fa) -> dict:
     x, y = squad_examples(rng, TRAIN_EXAMPLES)
     est = Estimator.from_keras(model(True, dropout=0.1, dtype=torch.bfloat16),
                                loss=squad_span_loss, optimizer="adamw",
-                               learning_rate=TRAIN_LR, seed=SEED)
+                               learning_rate=TRAIN_LR, seed=SEED,
+                               cuda_graphs=False)
     inner = est._train_step
     step_losses, step_ms = record_steps(est)
     steps = TRAIN_EPOCHS * (TRAIN_EXAMPLES // TRAIN_BATCH)
@@ -1970,7 +2177,8 @@ def phase_bert_train(fa) -> dict:
     # one seed, one loss history: the same fit again from the same weights
     again = Estimator.from_keras(
         model(True, dropout=0.1, dtype=torch.bfloat16), loss=squad_span_loss,
-        optimizer="adamw", learning_rate=TRAIN_LR, seed=SEED)
+        optimizer="adamw", learning_rate=TRAIN_LR, seed=SEED,
+        cuda_graphs=False)
     repeat_losses, _ = record_steps(again)
     again.fit((x, y), epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
               verbose=False)
@@ -1979,6 +2187,7 @@ def phase_bert_train(fa) -> dict:
         raise AssertionError(f"bert_train bf16: a second fit with seed "
                              f"{SEED} gave step losses {repeat_losses}, the "
                              f"first {step_losses}")
+    captured = bert_train_captured(fa, model, x, y, step_losses, steps, rng)
     res = {"phase": "bert_train", "config": dict(BERT_BASE, dropout=0.1),
            "seq": SEQ, "dtype": "bfloat16", "optimizer": "adamw",
            "learning_rate": TRAIN_LR, "global_batch": TRAIN_BATCH,
@@ -1999,9 +2208,84 @@ def phase_bert_train(fa) -> dict:
            "profiled_step": profiled,
            "evaluate": evaluated, "predict_rows": int(pred.shape[0]),
            "span_hit_rate": hits, "repeat_fit_identical": True,
-           "f32_check": f32_check}
+           "f32_check": f32_check, "captured": captured}
     emit(res)
     return res
+
+
+def bert_train_captured(fa, model, x, y, eager_losses, steps, rng) -> dict:
+    """bert_train (d): the (b) fine-tune from CUDA graphs through
+    ``fit(prefetch=2)``: the eager (b) fit's step losses (dropout 0.1, its
+    masks from the generator registered with the graph), 12 + 12 flash
+    launches a step counted from the replays, one capture; then a window
+    of 20 steps (one epoch of 640 fresh examples, synchronised at its
+    ends) beside the eager step's same window, a profiled fit, peak
+    memory, and a capture that must fail, in a process of its own."""
+    from analytics_zoo_tpu_torch.models import squad_span_loss
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    def make(graphs):
+        return Estimator.from_keras(
+            model(True, dropout=0.1, dtype=torch.bfloat16),
+            loss=squad_span_loss, optimizer="adamw", learning_rate=TRAIN_LR,
+            seed=SEED, cuda_graphs=graphs)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    est = make(True)
+    got, inner = [], est._train_step
+
+    def keep(batch):  # each step's loss, read after the fit
+        loss = inner(batch)
+        got.append(loss)
+        return loss
+
+    est._train_step = keep
+    reset_counts(fa)
+    est.fit((x, y), epochs=TRAIN_EPOCHS, batch_size=TRAIN_BATCH,
+            verbose=False, prefetch=2)
+    launches = read_counts(fa, "bert_train (d)",
+                           **{BF16_KERNEL: steps, BWD_KERNEL: steps})
+    fwd_designs = read_fwd_designs(fa, "bert_train (d)", "wgmma", steps)
+    bwd_designs = read_bwd_designs(fa, "bert_train (d)", "wgmma", steps)
+    against = losses_against_eager(got, eager_losses, "bert_train (d)")
+    est._train_step = inner
+    window = 20
+    xw, yw = squad_examples(rng, TRAIN_BATCH * window)
+    ms = {}
+    for graphs in (True, False):
+        run = est if graphs else make(False)
+        if not graphs:  # warm: the optimizer's state, cuBLAS's workspace
+            run.fit((x, y), epochs=1, batch_size=TRAIN_BATCH, verbose=False,
+                    prefetch=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.fit((xw, yw), epochs=1, batch_size=TRAIN_BATCH, verbose=False,
+                prefetch=2)  # the epoch's loss read back: synchronised
+        ms[graphs] = (time.perf_counter() - t0) * 1e3 / window
+        if not graphs:
+            del run
+    profiled = profiled_window(
+        lambda: est.fit((x, y), epochs=1, batch_size=TRAIN_BATCH,
+                        verbose=False, prefetch=2),
+        TRAIN_EXAMPLES // TRAIN_BATCH,
+        {"flash_fwd": ("flash_fwd_",),
+         "flash_bwd": ("bwd_dkdv", "bwd_dq", "bwd_delta")})
+    idle_of(profiled, ms[True])
+    caps = captures(est, "bert_train (d)")
+    peak = torch.cuda.max_memory_allocated()
+    del est
+    torch.cuda.empty_cache()
+    tokens_per_s = TRAIN_BATCH * SEQ / (ms[True] / 1e3)
+    return {"path": "fit(prefetch=2) from CUDA graphs", "steps": steps,
+            "losses_against_eager": against, "launches": launches,
+            "fwd_launches_by_design": fwd_designs,
+            "bwd_launches_by_design": bwd_designs,
+            "window_steps": window, "step_ms": ms[True],
+            "eager_step_ms": ms[False], "tokens_per_s": tokens_per_s,
+            "model_tflop_per_s": tokens_per_s * 3 * bert_flops_per_token()
+            / 1e12, "profiled": profiled, "peak_memory_bytes": peak,
+            "failed_capture": failed_capture_check(), **caps}
 
 
 class TrainNet(torch.nn.Module):
@@ -2302,9 +2586,10 @@ def phase_resnet_train(bn) -> dict:
 
     loss_name = "sparse_categorical_crossentropy"
 
-    def estimator(m):
+    def estimator(m, graphs=False):
         return Estimator.from_keras(m, loss=loss_name, optimizer="sgd",
-                                    learning_rate=RESNET_LR, seed=SEED)
+                                    learning_rate=RESNET_LR, seed=SEED,
+                                    cuda_graphs=graphs)
 
     # (a) f32, batch 8: the fused kernels and the plain batch norm, each in
     # an f32 model on the card, against a float64 model (textbook batch
@@ -2365,7 +2650,8 @@ def phase_resnet_train(bn) -> dict:
     for plain in (False, True):
         est = Estimator.from_keras(model(plain=plain, dtype="float32"),
                                    loss=loss_name, optimizer="sgd",
-                                   learning_rate=RESNET_CHECK_LR, seed=SEED)
+                                   learning_rate=RESNET_CHECK_LR, seed=SEED,
+                                   cuda_graphs=False)
         hist[plain], _ = record_steps(est)
         bn.reset_launches()
         est.fit((x3, y3), epochs=1, batch_size=RESNET_CHECK_BATCH,
@@ -2470,6 +2756,7 @@ def phase_resnet_train(bn) -> dict:
             runs[norm]["default_vs_deterministic_worst_rel"] = max(
                 abs(a - b) / max(abs(b), 1e-30)
                 for a, b in zip(step_losses, repeats[0]))
+    captured = resnet_captured(bn, model, estimator, x, y, runs)
     res = {"phase": "resnet_train", "config": RESNET, "image": IMAGE,
            "dtype": "bfloat16", "optimizer": "sgd",
            "learning_rate": RESNET_LR, "global_batch": RESNET_BATCH,
@@ -2480,9 +2767,115 @@ def phase_resnet_train(bn) -> dict:
                               "in; the space-to-depth stem as its 7x7 "
                               "conv); batch norm, relu, pooling, loss and "
                               "optimizer not counted",
-           "batch": runs["batch"], "nf": runs["nf"], "f32_check": f32_check}
+           "batch": runs["batch"], "nf": runs["nf"], "f32_check": f32_check,
+           "captured": captured}
     emit(res)
     return res
+
+
+def resnet_captured(bn, model, estimator, pool, labels, runs) -> dict:
+    """resnet_train (d): bench.py's ``bench_resnet50`` from CUDA graphs,
+    both norms.  The step losses of ``_multi_step(b0, 5)`` against the
+    eager step's under cuDNN's deterministic algorithms (its default
+    weight-gradient algorithms may sum in another order from run to run);
+    then, with the default algorithms, the eager window of 20 steps and
+    the captured one after a warm call, three times (bench.py's 20 x 3),
+    53 launches of each batch-norm kernel a step counted from the
+    replays, a profiled window, peak memory; and the streaming phase:
+    worker processes (forked after this process made its CUDA context)
+    decode the seeded pool with random flips into shared-memory slots,
+    ``_multi_step_data`` over 4 chunks of 5, then over 8 on a fresh
+    feed."""
+    from analytics_zoo_tpu_torch.data import StreamingDataFeed, as_feed
+
+    b0 = next(as_feed((pool[:RESNET_BATCH], labels[:RESNET_BATCH]),
+                      RESNET_BATCH, shuffle=False).epoch(
+                          torch.device("cuda"), 0))
+    steps, repeats = RESNET_RESIDENT
+    chunk_steps, n_chunks = RESNET_STREAM
+    n_workers = max(4, min(16, os.cpu_count() or 8))
+
+    def load_sample(i, rng=None):  # bench_resnet50's loader
+        r = rng if rng is not None else np.random.default_rng(i)
+        j = int(r.integers(0, len(pool)))
+        img = pool[j]
+        if r.integers(0, 2):
+            img = img[:, ::-1]  # horizontal flip
+        return {"x": np.ascontiguousarray(img), "y": np.int32(labels[j])}
+
+    out = {"fork": fork_probe()}
+    for norm in ("batch", "nf"):
+        per_step = {"bf16": 1} if norm == "batch" else {}
+        torch.backends.cudnn.deterministic = True
+        cmp = {}
+        for graphs in (False, True):
+            e = estimator(model(norm, dtype="bfloat16"), graphs)
+            cmp[graphs] = e._multi_step(b0, RESNET_CMP_STEPS).tolist()
+            del e
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        against = losses_against_eager(cmp[True], cmp[False],
+                                       f"resnet_train (d) {norm}")
+        e = estimator(model(norm, dtype="bfloat16"))
+        float(e._multi_step(b0, 1)[-1])  # warm: state, cuDNN's plans
+        eager_ms, _ = window_ms(lambda: e._multi_step(b0, steps), steps)
+        del e
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        est = estimator(model(norm, dtype="bfloat16"), True)
+        warm_ms, _ = window_ms(lambda: est._multi_step(b0, steps), steps)
+        bn.reset_launches()
+        windows = [window_ms(lambda: est._multi_step(b0, steps), steps)[0]
+                   for _ in range(repeats)]
+        launches = read_bn_counts(
+            bn, f"resnet_train (d) {norm}",
+            **{k: v * steps * repeats for k, v in per_step.items()})
+        profiled = profiled_window(
+            lambda: est._multi_step(b0, 5), 5,
+            {"batch_norm": ("bn_fwd_kernel", "bn_bwd_kernel")})
+        peak = torch.cuda.max_memory_allocated()
+        bn.reset_launches()
+        feed = StreamingDataFeed(
+            num_samples=(n_chunks + 2) * chunk_steps * RESNET_BATCH,
+            load_sample=load_sample, batch_size=RESNET_BATCH, shuffle=False,
+            num_workers=n_workers, prefetch_batches=STREAM_PREFETCH,
+            workers="process")
+        stream = stream_chunks(est, feed, chunk_steps, n_chunks)
+        stream["launches"] = read_bn_counts(
+            bn, f"resnet_train (d) {norm} streaming",
+            **{k: v * chunk_steps * (n_chunks + 1)
+               for k, v in per_step.items()})
+        # twice the chunks on a fresh feed: do the chunks after the
+        # decoders' first pass keep the card's pace?
+        long = stream_chunks(est, StreamingDataFeed(
+            num_samples=(2 * n_chunks + 2) * chunk_steps * RESNET_BATCH,
+            load_sample=load_sample, batch_size=RESNET_BATCH, shuffle=False,
+            num_workers=n_workers, prefetch_batches=STREAM_PREFETCH,
+            workers="process"), chunk_steps, 2 * n_chunks)
+        stream["long_window"] = {
+            k: long[k] for k in ("chunks", "step_ms", "host_feed_ms_per_chunk",
+                                 "host_call_ms_per_chunk")}
+        caps = captures(est, f"resnet_train (d) {norm}")
+        del est
+        torch.cuda.empty_cache()
+        ms = float(np.median(windows))
+        idle_of(profiled, ms)
+        flops = runs[norm]["forward_gflop_per_image"] * 1e9
+        stream["vs_resident"] = stream["step_ms"] / ms
+        stream["long_window"]["vs_resident"] = \
+            stream["long_window"]["step_ms"] / ms
+        stream["within_bench_acceptance"] = \
+            stream["step_ms"] <= (1 + STREAM_WITHIN) * ms
+        out[norm] = {
+            "losses_against_eager": against, "warm_window_step_ms": warm_ms,
+            "window_step_ms": windows, "step_ms": ms,
+            "eager_step_ms": eager_ms,
+            "eager_step_ms_p50_b": runs[norm]["step_ms_p50"],
+            "images_per_s": RESNET_BATCH / (ms / 1e3),
+            "model_tflop_per_s": 3 * flops * RESNET_BATCH / ms / 1e9,
+            "launches": launches, "profiled": profiled,
+            "peak_memory_bytes": peak, "streaming": stream, **caps}
+    return out
 
 
 def xent_inputs(gen, n, d, v, dtype, w_dtype=torch.float32, scale=1.0,
@@ -2750,10 +3143,10 @@ def phase_bert_mlm_train(fa, fx) -> dict:
         m.load_state_dict(states[layers], strict=True)
         return m.cuda()
 
-    def estimator(m, fused, accum):
+    def estimator(m, fused, accum, graphs=False):
         return Estimator.from_keras(m, loss=mlm_loss(fused), optimizer="adamw",
                                     learning_rate=TRAIN_LR, seed=SEED,
-                                    grad_accum=accum)
+                                    grad_accum=accum, cuda_graphs=graphs)
 
     def tokens(rows):
         return (rng.integers(0, vocab, (rows, SEQ)).astype(np.int32),
@@ -2904,6 +3297,10 @@ def phase_bert_mlm_train(fa, fx) -> dict:
                 MLM_ACCUM * head_ms / profiled["device_busy_ms"]}
         del est, inner, h, head
         torch.cuda.empty_cache()
+    captured = mlm_captured(
+        fa, fx, lambda graphs: estimator(
+            model(MLM["layers"], torch.bfloat16, True), True, MLM_ACCUM,
+            graphs), x, y, fwd_flops, runs["fused"])
     res = {"phase": "bert_mlm_train", "config": dict(MLM, seq=SEQ),
            "dtype": "bfloat16", "optimizer": "adamw",
            "learning_rate": TRAIN_LR, "global_batch": MLM_BATCH,
@@ -2919,9 +3316,90 @@ def phase_bert_mlm_train(fa, fx) -> dict:
            "plain": runs["plain"], "fused": runs["fused"],
            "fused_vs_plain_step_p50": runs["fused"]["step_ms_p50"]
            / runs["plain"]["step_ms_p50"],
-           "f32_check": f32_check}
+           "f32_check": f32_check, "captured": captured}
     emit(res)
     return res
+
+
+def mlm_captured(fa, fx, make, x, y, fwd_flops, eager_run) -> dict:
+    """bert_mlm_train (d): bench.py's ``bench_bert`` (the fused head) from
+    CUDA graphs.  The eager step's window of 10 steps on the seeded batch
+    (its losses the yardstick) and a second, warm one (its time), then ``_multi_step(batch, 50)`` once to
+    warm (its first 10 losses against the eager ones) and three times
+    timed, 8 launches of each ``fused_xent`` pass a step counted from the
+    replays, a profiled window, peak memory; then bench.py's streaming
+    phase: 8 worker threads decode token batches, ``_multi_step_data``
+    over chunks of 10."""
+    from analytics_zoo_tpu_torch.data import StreamingDataFeed
+
+    batch = {"x": torch.from_numpy(x).cuda(), "y": torch.from_numpy(y).cuda()}
+    steps, repeats = MLM_RESIDENT
+    chunk_steps, n_chunks = MLM_STREAM
+    vocab = MLM["vocab"]
+    torch.cuda.empty_cache()
+    eager = make(False)
+    # the first window's losses are the yardstick; its time includes the
+    # first step's costs (Adam's state, the allocator's growth), so the
+    # eager step is timed over a second, warm window
+    eager_cold_ms, eager_losses = window_ms(
+        lambda: eager._multi_step(batch, MLM_CMP_STEPS), MLM_CMP_STEPS)
+    eager_ms, _ = window_ms(
+        lambda: eager._multi_step(batch, MLM_CMP_STEPS), MLM_CMP_STEPS)
+    del eager
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    est = make(True)
+    fx.reset_launches()
+    reset_counts(fa)
+    warm_ms, warm = window_ms(lambda: est._multi_step(batch, steps), steps)
+    against = losses_against_eager(warm[:MLM_CMP_STEPS], eager_losses,
+                                   "bert_mlm_train (d)")
+    read_xent_counts(fx, "bert_mlm_train (d) warm",
+                     bf16=MLM_ACCUM * steps)
+    fx.reset_launches()
+    windows = [window_ms(lambda: est._multi_step(batch, steps), steps)[0]
+               for _ in range(repeats)]
+    calls = MLM_ACCUM * steps * repeats
+    launches = read_xent_counts(fx, "bert_mlm_train (d)", bf16=calls)
+    designs = read_xent_designs(fx, "bert_mlm_train (d)", fwd="wgmma",
+                                bwd="wgmma", calls=calls)
+    read_counts(fa, "bert_mlm_train (d) (dense attention)")
+    profiled = profiled_window(lambda: est._multi_step(batch, 5), 5,
+                               {"xent": ("xent_",)})
+    peak = torch.cuda.max_memory_allocated()
+
+    def load_sample(i, rng=None):  # bench_bert's loader, int32 tokens
+        r = np.random.default_rng(i)
+        return {"x": r.integers(0, vocab, (SEQ,)).astype(np.int32),
+                "y": r.integers(0, vocab, (SEQ,)).astype(np.int32)}
+
+    feed = StreamingDataFeed(
+        num_samples=(n_chunks + 2) * chunk_steps * MLM_BATCH,
+        load_sample=load_sample, batch_size=MLM_BATCH, shuffle=False,
+        num_workers=MLM_STREAM_WORKERS, prefetch_batches=STREAM_PREFETCH)
+    fx.reset_launches()
+    stream = stream_chunks(est, feed, chunk_steps, n_chunks)
+    stream["launches"] = read_xent_counts(
+        fx, "bert_mlm_train (d) streaming",
+        bf16=MLM_ACCUM * chunk_steps * (n_chunks + 1))
+    caps = captures(est, "bert_mlm_train (d)")
+    del est
+    torch.cuda.empty_cache()
+    ms = float(np.median(windows))
+    idle_of(profiled, ms)
+    stream["vs_resident"] = stream["step_ms"] / ms
+    stream["within_bench_acceptance"] = \
+        stream["step_ms"] <= (1 + STREAM_WITHIN) * ms
+    tokens_per_s = MLM_BATCH * SEQ / (ms / 1e3)
+    return {"losses_against_eager": against, "warm_window_step_ms": warm_ms,
+            "window_step_ms": windows, "step_ms": ms,
+            "eager_step_ms": eager_ms, "eager_cold_step_ms": eager_cold_ms,
+            "eager_step_ms_p50_c": eager_run["step_ms_p50"],
+            "tokens_per_s": tokens_per_s,
+            "model_tflop_per_s": 3 * fwd_flops * tokens_per_s / 1e12,
+            "launches": launches, "fwd_launches_by_design": designs[0],
+            "bwd_launches_by_design": designs[1], "profiled": profiled,
+            "peak_memory_bytes": peak, "streaming": stream, **caps}
 
 
 def phase_devices() -> str:
@@ -3042,6 +3520,10 @@ def main(argv) -> int:
         entry["shape"] = {k: x[k] for k in ("bh", "t", "d", "dtype")}
         entries.append(entry)
     entries[0]["launches_bert_train_bf16"] = train["launches"][BF16_KERNEL]
+    entries[0]["launches_bert_train_captured"] = \
+        train["captured"]["launches"][BF16_KERNEL]
+    entries[2]["launches_bert_train_captured"] = \
+        train["captured"]["launches"][BWD_KERNEL]
     for mode, run in int8["bert"].items():
         entries[0][f"launches_int8_serve_{mode}"] = \
             run["flash_launches"][BF16_KERNEL]
@@ -3090,6 +3572,9 @@ def main(argv) -> int:
                 bn_src, x)
             entry["launches_by_pass"] = {p: counts[f"{p}_{sfx}"]
                                          for p in passes}
+            if sfx == "bf16":  # resnet_train (d), norm="batch"
+                entry["launches_resnet_train_captured"] = resnet[
+                    "captured"]["batch"]["launches"][f"{passes[0]}_{sfx}"]
             entry["shape"] = {"rows": x["rows"], "c": x["c"],
                               "dtype": dtype}
             for label in ("most_norms", "stage3"):
@@ -3145,6 +3630,10 @@ def main(argv) -> int:
             entry["launches_by_design"] = (
                 mlm["fused"] if sfx == "bf16" else mlm["f32_check"]
             )[f"{direction}_launches_by_design"]
+            if sfx == "bf16":  # bert_mlm_train (d)
+                entry["launches_bert_mlm_train_captured"] = {
+                    p: mlm["captured"]["launches"][f"{p}_{sfx}"]
+                    for p in passes}
             entry["shape"] = {k: x[k] for k in ("n", "d", "v", "chunk",
                                                 "dtype", "w_dtype")}
             entries.append(entry)

@@ -263,6 +263,9 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.ops.fused_xent",
                 "analytics_zoo_tpu_torch.models.image",
                 "analytics_zoo_tpu_torch.data.augment",
+                "analytics_zoo_tpu_torch.data.feed",
+                "analytics_zoo_tpu_torch.data.stream",
+                "analytics_zoo_tpu_torch.data.shm_pool",
                 "analytics_zoo_tpu_torch.nn.layers",
                 "analytics_zoo_tpu_torch.nn.quant",
                 "analytics_zoo_tpu_torch.ops._launches",

@@ -18,6 +18,7 @@ import os
 import subprocess
 import sys
 import threading
+import types
 from pathlib import Path
 
 import jax
@@ -277,11 +278,15 @@ def test_enable_aot_cache_moves_the_kernel_build_dir(tmp_path):
         _build.BUILD_DIR = before
 
 
-def test_counts_are_deferred_at_capture_and_added_per_replay():
-    """Inside ``_launches.recording()`` (a graph's capture) a wrapper's
-    count call is recorded, not made; each replay makes it again."""
+def test_counts_are_deferred_at_capture_and_added_per_replay(monkeypatch):
+    """Inside ``_launches.recording(stream)`` (a graph's capture) a
+    wrapper's count call made on that stream is recorded, not made; each
+    replay makes it again.  (The stream is a stand-in handle here: the
+    rule reads only the calling thread's current stream.)"""
     before = dict(fa.KERNEL_LAUNCHES), fa.flash_attention_fwd.launches
-    with _launches.recording() as rec:
+    capture = types.SimpleNamespace(cuda_stream=7)
+    monkeypatch.setattr(_launches, "_current_stream", lambda: 7)
+    with _launches.recording(capture) as rec:
         fa._count(fa.flash_attention_fwd, fa.FWD_BF16, fa.FWD_LAUNCHES,
                   "wgmma")
         quant._count_int_mm()
@@ -298,6 +303,11 @@ def test_counts_are_deferred_at_capture_and_added_per_replay():
         fa.FWD_LAUNCHES["wgmma"] -= 3
         fa.flash_attention_fwd.launches -= 3
     quant.int_mm.launches -= 3
+    # a count made on another stream meanwhile is made at once
+    with _launches.recording(capture) as rec:
+        monkeypatch.setattr(_launches, "_current_stream", lambda: 8)
+        assert not _launches.deferred(quant._count_int_mm)
+    assert rec == [] and not _launches._streams
 
 
 def test_concurrent_int8_predicts_agree_with_serial():
