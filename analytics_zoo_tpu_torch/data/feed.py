@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core import metrics as _metrics_lib
+from .shards import XShards
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -219,6 +220,15 @@ class DataFeed(FeedBase):
             data["y"] = y
         return DataFeed(data, batch_size, **kw)
 
+    @staticmethod
+    def from_shards(shards: XShards, batch_size: int = 32,
+                    **kw: Any) -> "DataFeed":
+        """Numpy-dict XShards (``{"x": ..., "y": ...}``) as one feed."""
+        data = shards.concatenated()
+        if not isinstance(data, dict):
+            data = {"x": data}
+        return DataFeed(data, batch_size, **kw)
+
     def remainder(self) -> Optional[Dict[str, np.ndarray]]:
         """The tail rows a drop_remainder epoch skips (unshuffled order),
         or None."""
@@ -390,10 +400,12 @@ class PrefetchIterator:
 
 def as_feed(data: Any, batch_size: int, **kw: Any) -> FeedBase:
     """The estimator's accepted data forms as a feed: a feed (``DataFeed``,
-    ``StreamingDataFeed``: as is), a dict ``{"x": ..., "y": ...}``, an
-    ``(x, y)`` tuple, or a bare array (no labels)."""
+    ``StreamingDataFeed``: as is), XShards of numpy dicts, a dict ``{"x":
+    ..., "y": ...}``, an ``(x, y)`` tuple, or a bare array (no labels)."""
     if isinstance(data, FeedBase):
         return data
+    if isinstance(data, XShards):
+        return DataFeed.from_shards(data, batch_size, **kw)
     if isinstance(data, dict):
         return DataFeed(data, batch_size, **kw)
     if isinstance(data, tuple) and len(data) == 2:

@@ -1,9 +1,14 @@
-"""Model zoo of the port (the BERT family, ResNet, ImageClassifier and the
-LeNet smoke config so far)."""
+"""Model zoo of the port (the BERT family, ResNet, ImageClassifier, the
+LeNet smoke config and the recommenders so far)."""
 
 from .bert import BERT, BERTClassifier, BERTNER, BERTSQuAD, squad_span_loss
 from .common import ZooModel
 from .image import ImageClassifier, ResNet, lenet
+from .recommendation import (NCFTail, NeuralCF, SessionRecommender,
+                             UserItemFeature, UserItemPrediction,
+                             WideAndDeep)
 
 __all__ = ["ZooModel", "BERT", "BERTClassifier", "BERTNER", "BERTSQuAD",
-           "squad_span_loss", "ResNet", "ImageClassifier", "lenet"]
+           "squad_span_loss", "ResNet", "ImageClassifier", "lenet",
+           "NeuralCF", "NCFTail", "WideAndDeep", "SessionRecommender",
+           "UserItemFeature", "UserItemPrediction"]

@@ -35,14 +35,46 @@ def causal_mask(tq: int, tk: Optional[int] = None,
             >= torch.arange(tk, device=device)[None, :])[None, None]
 
 
+class _HalfLogits(torch.autograd.Function):
+    """``q @ k^T`` of bf16 (or f16) ``[BH, Tq, D]`` and ``[BH, Tk, D]``
+    operands into f32 logits on the tensor cores (``aten::bmm.dtype``),
+    the reference's ``preferred_element_type=jnp.float32``; the op has no
+    autograd formula, so the backward is written here as JAX's autodiff
+    of that einsum computes it: the f32 cotangent times the other operand
+    with f32 out, rounded to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, k)
+        return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        q, k = ctx.saved_tensors
+        dq = torch.bmm(g, k.float()).to(q.dtype)
+        dk = torch.bmm(g.transpose(1, 2), q.float()).to(k.dtype)
+        return dq, dk
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Plain attention: q, k, v ``[B, T, H, D]`` -> ``[B, T, H, D]``; logits
     in f32.  ``mask`` broadcasts to ``[B, H, Tq, Tk]``: 1 attends, 0 masks
-    (with -1e30)."""
+    (with -1e30).  On the card, bf16 or f16 q and k go into f32 logits on
+    the tensor cores (``_HalfLogits``); on the CPU they are upcast first,
+    which gives the same products (a bf16 x bf16 product is exact in
+    f32)."""
     d = q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if q.is_cuda and q.dtype in (torch.bfloat16, torch.float16) \
+            and k.dtype == q.dtype:
+        b, tq, h, _ = q.shape
+        tk = k.shape[1]
+        logits = _HalfLogits.apply(
+            q.permute(0, 2, 1, 3).reshape(b * h, tq, d),
+            k.permute(0, 2, 1, 3).reshape(b * h, tk, d)).view(b, h, tq, tk)
+    else:
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     logits = logits / math.sqrt(d)
     if mask is not None:
         logits = torch.where(mask.bool(), logits, -1e30)

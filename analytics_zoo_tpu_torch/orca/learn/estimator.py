@@ -4,7 +4,9 @@
 Same contract as the JAX package's ``ZooEstimator``:
 
 - ``fit`` runs shuffled epochs of fixed-size batches (the remainder
-  dropped) and returns ``{"loss": [per-epoch mean], "val_<metric>": ...}``;
+  dropped, or with a ``DataFeed(drop_remainder=False)`` wrap-padded into
+  the last batch, which trains) and returns ``{"loss": [per-epoch mean],
+  "val_<metric>": ...}``;
 - ``evaluate`` scores every row: the last partial batch is padded and its
   padding weighted out by a mask, the loss summed per example;
 - ``predict`` returns exactly one output row per input row.
@@ -47,6 +49,16 @@ generator seeded from ``seed``, and deterministically
 (``training=False``) on the batches of ``evaluate``/``predict``.  The model runs on ``device``
 (``None``: the card).
 
+A model with ``parallel.ShardedEmbedding`` tables trains them on the sparse
+path (the JAX package's): the dense optimizer never sees a table; the
+forward runs under ``embedding.inject_taps``, the gradient is taken over
+the dense parameters and each lookup's gathered unique rows, and each
+table gets ``index_add_`` of ``-embedding_lr`` times its rows' gradient on
+the unique ids, inside the same step (and the same CUDA graph).
+``sharding=embedding_row_rules()`` is taken (one card holds every table
+whole).  ``fit``/``evaluate``/``predict`` take ``XShards`` (of DataFrames
+with ``feature_cols``/``label_cols``).
+
 Constructor knobs of the JAX estimator that are not ported yet raise
 ``NotImplementedError`` (naming the ROADMAP item) when set to anything but
 their default; they are never ignored.  ``save``/``load`` wait for the
@@ -72,11 +84,13 @@ from ...core import trace as trace_lib
 from ...core.config import ZooConfig
 from ...data.feed import (FeedBase, PrefetchIterator, as_feed,
                           device_placer, leaves, nrows, to_device, tree_map)
+from ...data.shards import XShards
 from ...data.stream import make_placer
 from ...nn import losses as losses_lib
 from ...nn import metrics as metrics_lib
 from ...nn.layers import Dropout, _indexed, seed_dropout
 from ...ops import _launches
+from ...parallel import embedding as emb_lib
 from . import optimizers as opt_lib
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -85,7 +99,6 @@ _Q1 = "ROADMAP Queue 1 item"
 # the JAX estimator's knobs that the port does not take yet: name ->
 # (default, where it is scheduled)
 _UNPORTED_KNOBS = {
-    "sharding": ("dp", f"{_Q1} 7 (sharding)"),
     "nan_policy": (None, f"{_Q1} 7 (nan_policy)"),
     "nan_max_rollbacks": (3, f"{_Q1} 7 (nan_policy)"),
     "grad_compression": (None, f"{_Q1} 7 (grad_compression)"),
@@ -96,7 +109,6 @@ _UNPORTED_KNOBS = {
     "log_dir": (None, f"{_Q1} 7 (summaries)"),
     "app_name": ("train", f"{_Q1} 7 (summaries)"),
     "aux_loss_weight": (0.01, f"{_Q1} 9 (MoE auxiliary losses)"),
-    "embedding_lr": (None, f"{_Q1} 8 (sharded embeddings)"),
     "model_dir": (None, f"{_Q1} 6 (state plane)"),
     "preemption_checkpoint": (False, f"{_Q1} 6 (state plane)"),
     "preemption_sync_every": (10, f"{_Q1} 6 (state plane)"),
@@ -111,8 +123,6 @@ _UNPORTED_KNOBS = {
 _UNPORTED_FIT_ARGS = {
     "checkpoint_trigger": (None, f"{_Q1} 6 (state plane)"),
     "auto_resume": (False, f"{_Q1} 6 (state plane)"),
-    "feature_cols": (None, f"{_Q1} 5 (XShards inputs)"),
-    "label_cols": (None, f"{_Q1} 5 (XShards inputs)"),
 }
 
 
@@ -156,10 +166,24 @@ class ZooEstimator:
                  grad_clip_norm: Optional[float] = None, seed: int = 0,
                  device: DeviceLike = None, augment: Any = None,
                  grad_accum: int = 1, cuda_graphs: bool = True,
+                 embedding_lr: Optional[float] = None, sharding: Any = "dp",
                  **knobs: Any):
-        _refuse_unported("ZooEstimator", knobs, _UNPORTED_KNOBS)
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        # ShardedEmbedding tables: updated by the sparse path, never by
+        # the dense optimizer
+        self._sparse = emb_lib.sparse_parameters(model)
+        _check_sparse_support(self._sparse, grad_accum,
+                              knobs.get("frozen"))
+        _refuse_unported("ZooEstimator", knobs, _UNPORTED_KNOBS)
+        if not (sharding == "dp" or emb_lib.is_row_rules(sharding)):
+            raise NotImplementedError(
+                f"ZooEstimator(sharding={sharding!r}) is not ported yet "
+                f"({_Q1} 7 (sharding)); only 'dp' and "
+                "embedding_row_rules() (one card: every table whole on the "
+                "card) are taken")
+        self.embedding_lr = embedding_lr
+        self._learning_rate = learning_rate
         self.grad_accum = int(grad_accum)
         self._grad_sum: Optional[List[torch.Tensor]] = None
         self.device = resolve_device(device)
@@ -173,7 +197,9 @@ class ZooEstimator:
         seed_dropout(self.model, seed, self.device)
         self._aug_gen = torch.Generator(
             device=_indexed(self.device)).manual_seed(int(seed))
-        self._params: List[nn.Parameter] = list(self.model.parameters())
+        sparse = {id(p) for p in self._sparse.values()}
+        self._params: List[nn.Parameter] = [
+            p for p in self.model.parameters() if id(p) not in sparse]
         self._opt_state: Any = None
         self._epoch = 0
         self._py_step = 0
@@ -188,14 +214,30 @@ class ZooEstimator:
 
     # -- steps ----------------------------------------------------------------
 
+    def _embed_lr(self) -> float:
+        """The sparse tables' learning rate: ``embedding_lr``, else a
+        constant ``learning_rate``, else 1e-3 (the JAX package's rule)."""
+        if self.embedding_lr is not None:
+            return float(self.embedding_lr)
+        if isinstance(self._learning_rate, (int, float)):
+            return float(self._learning_rate)
+        return 1e-3
+
     def _loss_and_grads(self, x: Any, y: Any) -> tuple:
-        """One forward in training mode and the gradient of its loss over
-        the parameters (None where the loss does not reach one)."""
+        """One forward in training mode; returns its loss, the gradient of
+        the loss over the dense parameters (None where the loss does not
+        reach one) and the row gradients ``[(tap, g)]``.  The forward runs
+        under ``inject_taps``, so the gradient is also taken over each
+        ShardedEmbedding lookup's gathered unique rows, never over a table
+        (a model without such tables has no taps)."""
         if self.augment is not None:
             x = self.augment(x, self._aug_gen, training=True)
-        loss = self.loss_fn(self.model(x), y)
-        return loss, torch.autograd.grad(loss, self._params,
-                                         allow_unused=True)
+        with emb_lib.inject_taps() as taps:
+            loss = self.loss_fn(self.model(x), y)
+        n = len(self._params)
+        grads = torch.autograd.grad(
+            loss, self._params + [t.rows for t in taps], allow_unused=True)
+        return loss, grads[:n], list(zip(taps, grads[n:]))
 
     def _accumulated(self, batch: Dict[str, Any]) -> tuple:
         """``grad_accum`` micro-batches of ``batch`` (views, no copy), each
@@ -217,7 +259,7 @@ class ZooEstimator:
         losses = []
         for i in range(accum):
             micro = tree_map(lambda a: a[i * m:(i + 1) * m], batch)
-            loss, grads = self._loss_and_grads(micro["x"], micro["y"])
+            loss, grads, _ = self._loss_and_grads(micro["x"], micro["y"])
             with torch.no_grad():
                 for s, g in zip(self._grad_sum, grads):
                     if g is not None:
@@ -234,10 +276,11 @@ class ZooEstimator:
         """One optimizer step on ``batch`` (what a graph captures): the
         loss, on the device."""
         self.model.train()
+        rows = []  # no sparse table with grad_accum > 1 (refused at init)
         if self.grad_accum > 1:
             loss, grads = self._accumulated(batch)
         else:
-            loss, grads = self._loss_and_grads(batch["x"], batch["y"])
+            loss, grads, rows = self._loss_and_grads(batch["x"], batch["y"])
         with torch.no_grad():
             # a parameter the loss does not reach has a zero gradient, as
             # in JAX
@@ -245,6 +288,12 @@ class ZooEstimator:
                      for g, p in zip(grads, self._params)]
             self._opt_state = self.optimizer.step(self._params, grads,
                                                   self._opt_state)
+            # the tables: -embedding_lr x each lookup's row gradient added
+            # on its unique ids (the JAX package's scatter-add)
+            for tap, g in rows:
+                if g is not None:
+                    tap.table.index_add_(0, tap.uniq, g.to(tap.table.dtype),
+                                         alpha=-self._embed_lr())
         return loss.detach()
 
     def _graph_for(self, batch: Dict[str, Any]) -> Tuple[
@@ -330,14 +379,20 @@ class ZooEstimator:
     def fit(self, data: Any, epochs: int = 1, batch_size: int = 32,
             validation_data: Any = None, prefetch: Optional[int] = None,
             verbose: bool = True,
+            feature_cols: Optional[Sequence[str]] = None,
+            label_cols: Optional[Sequence[str]] = None,
             **unported: Any) -> Dict[str, List[float]]:
         """Train; returns ``{"loss": [...], "val_<metric>": [...]}``.
 
         ``data``: a feed (``DataFeed``, ``StreamingDataFeed``), an ``(x,
-        y)`` tuple or an ``{"x", "y"}`` dict; ``batch_size`` is the global
-        batch.  Only full batches train (a feed's padded last batch is
-        skipped, so padding never enters batch statistics).  The loss is
-        read back once per epoch, not per step.
+        y)`` tuple, an ``{"x", "y"}`` dict or an ``XShards`` (of numpy
+        dicts, or of DataFrames with ``feature_cols``/``label_cols``);
+        ``batch_size`` is the global batch.  As in the JAX package, a
+        ``DataFeed(drop_remainder=False)`` trains on its last batch padded
+        by wrapping to the first rows (the same shape, so the same graph);
+        only a batch that carries a ``"mask"`` (a streaming feed's padded
+        tail) is skipped.  The loss is read back once per epoch, not per
+        step.
 
         ``prefetch``: the feed's lookahead depth (default
         ``ZooConfig.prefetch``, 2): a producer thread runs the feed's epoch
@@ -353,10 +408,8 @@ class ZooEstimator:
         _refuse_unported("fit", unported, _UNPORTED_FIT_ARGS)
         if prefetch is None:
             prefetch = ZooConfig.prefetch
+        data = _maybe_select_cols(data, feature_cols, label_cols)
         feed = as_feed(data, batch_size, seed=self.seed)
-        # a feed that pads its last batch trains on its full batches only
-        full = feed.steps_per_epoch() if feed.drop_remainder \
-            else feed.num_rows // feed._local_batch
         reg = telemetry.get_registry()
         m_step = reg.histogram("train.step_ms")
         m_wait = reg.histogram("train.data_wait_ms")
@@ -394,10 +447,8 @@ class ZooEstimator:
                     wait = time.monotonic() - t_fetch
                     epoch_wait += wait
                     m_wait.observe(wait * 1000.0)
-                    if "mask" in batch:  # a padded batch: never trained on
+                    if "mask" in batch:  # a stream's padded batch: skipped
                         continue
-                    if len(losses) == full:  # the padded last batch
-                        break
                     losses.append(self._train_step(batch))
                     step_ms = (time.monotonic() - t_fetch) * 1000.0
                     m_step.observe(step_ms)
@@ -420,9 +471,8 @@ class ZooEstimator:
                         close()
             if not losses:
                 raise ValueError(
-                    "fit got no full batches (dataset smaller than one "
-                    "batch after dropping the padded tail); reduce "
-                    "batch_size")
+                    "fit got no batches to train on (every batch was a "
+                    "masked, padded one); reduce batch_size")
             self._epoch += 1
             # one host synchronisation an epoch
             epoch_loss = float(torch.stack(losses).float().mean())
@@ -449,9 +499,13 @@ class ZooEstimator:
 
     # -- evaluation -----------------------------------------------------------
 
-    def evaluate(self, data: Any, batch_size: int = 32) -> Dict[str, float]:
+    def evaluate(self, data: Any, batch_size: int = 32,
+                 feature_cols: Optional[Sequence[str]] = None,
+                 label_cols: Optional[Sequence[str]] = None
+                 ) -> Dict[str, float]:
         """Exact metrics over every row: the last partial batch is padded
         to the batch shape and its padding weighted out by a mask."""
+        data = _maybe_select_cols(data, feature_cols, label_cols)
         feed = as_feed(data, batch_size, shuffle=False, seed=self.seed,
                        drop_remainder=False)
         totals: Optional[List[torch.Tensor]] = None
@@ -484,9 +538,11 @@ class ZooEstimator:
 
     # -- inference ------------------------------------------------------------
 
-    def predict(self, data: Any, batch_size: int = 32) -> np.ndarray:
+    def predict(self, data: Any, batch_size: int = 32,
+                feature_cols: Optional[Sequence[str]] = None) -> np.ndarray:
         """Forward over all rows, in order: exactly one output row per
         input row (the last batch padded, then trimmed)."""
+        data = _maybe_select_cols(data, feature_cols, None)
         feed = as_feed(data, batch_size, shuffle=False, drop_remainder=False)
         if feed.shuffle:
             raise ValueError("predict needs row order preserved: construct "
@@ -522,6 +578,44 @@ class ZooEstimator:
         raise NotImplementedError(
             f"Estimator.load is not ported yet ({_Q1} 6: the checkpoint "
             "format comes with the state plane)")
+
+
+def _check_sparse_support(tables: Dict[str, nn.Parameter], grad_accum: int,
+                          frozen: Any) -> None:
+    """The JAX package's guardrails for ShardedEmbedding models, raised as
+    it raises them: ``grad_accum > 1`` and ``frozen=`` on a table."""
+    if not tables:
+        return
+    if grad_accum > 1:
+        raise ValueError(
+            "grad_accum > 1 is not supported with ShardedEmbedding "
+            f"tables (found {list(tables)}): the accumulation would need a "
+            "dense [rows, dim] gradient carry, defeating the sparse "
+            "update.  Use grad_accum=1 (the deduped gather already keeps "
+            "the per-step embedding traffic small).")
+    if frozen is not None:
+        pred = (frozen if callable(frozen)
+                else lambda p, pre=tuple(frozen):
+                any(p == x or p.startswith(x + "/") for x in pre))
+        hit = [p for p in tables if pred(p)]
+        if hit:
+            raise ValueError(
+                f"frozen= matches a ShardedEmbedding table ({hit}); sparse "
+                "tables bypass the optimizer's freeze machinery - remove "
+                "them from frozen= (they can be excluded from updates by "
+                "setting embedding_lr=0.0).")
+
+
+def _maybe_select_cols(data: Any, feature_cols: Optional[Sequence[str]],
+                       label_cols: Optional[Sequence[str]]) -> Any:
+    """XShards of DataFrames with feature/label columns -> numpy-dict
+    XShards (the JAX package's rule); anything else as it is."""
+    if feature_cols is None or not isinstance(data, XShards):
+        return data
+    first = data.collect()[0]
+    if hasattr(first, "iloc"):
+        return data.to_numpy_dict(feature_cols, label_cols)
+    return data
 
 
 def _structure(tree: Any) -> Any:

@@ -1,9 +1,9 @@
 """Serving of the port: ``InferenceModel`` (float, bf16 and int8 serving,
 one CUDA graph per batch key on the card) and ``ClusterServing``, the
 always-on service around it, with its scheduler, model registry, TCP
-client, replica router, HTTP frontend, controller and batch scorer (the
-JAX package's names; ``EmbedCache`` and ``CachedEmbeddingModel`` wait
-for the recsys slice)."""
+client, replica router, HTTP frontend, controller and batch scorer, and
+the recsys path's host hot-row ``EmbedCache`` with ``CachedEmbeddingModel``
+(the JAX package's names)."""
 
 from .inference_model import InferenceModel, enable_aot_cache
 from .model_registry import ModelRegistry
@@ -17,6 +17,7 @@ from .controller import (HysteresisPolicy, InProcessReplicaFactory,
                          ServingController, SubprocessReplicaFactory)
 from .batch import (BatchJobError, BatchJobReport, BatchScorer,
                     ShadowDeltas, read_output)
+from .embed_cache import CachedEmbeddingModel, EmbedCache
 
 __all__ = ["InferenceModel", "enable_aot_cache", "ClusterServing",
            "InputQueue", "OutputQueue", "RetryPolicy",
@@ -27,4 +28,5 @@ __all__ = ["InferenceModel", "enable_aot_cache", "ClusterServing",
            "ReplicaFactory", "ReplicaHandle", "InProcessReplicaFactory",
            "SubprocessReplicaFactory",
            "BatchScorer", "BatchJobReport", "BatchJobError",
-           "ShadowDeltas", "read_output"]
+           "ShadowDeltas", "read_output", "EmbedCache",
+           "CachedEmbeddingModel"]

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs ten phases, each printing one
+``nvcc`` per source, all at once), then runs twelve phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
@@ -165,7 +165,25 @@ JSON line:
    pass a step from the replays, one capture, a profiled window, peak
    memory; the streaming phase (8 worker threads, ``_multi_step_data``
    over 3 chunks of 10 after one) beside the resident step.
-8. ``devices``: the card as ``nvidia-smi`` reports it.
+8. ``ncf_train``: bench.py's ``bench_ncf`` uncut (200,000 string events
+   encoded and negatively sampled by ``friesian.FeatureTable``,
+   ``NeuralCF(2001, 1501)``, adam 1e-3, batch 2,048): one epoch eagerly,
+   three from CUDA graphs from one seeded init; the first captured
+   epoch's step losses against the eager ones, one capture, step ms and
+   examples/s of a warm epoch each way, a profiled epoch's card busy and
+   idle share, peak memory, the feature pipeline's seconds; the captured
+   loss must fall.  No kernel of ``csrc/`` lies on this path.
+9. ``recsys``: bench.py's ``bench_recsys`` uncut (60,000 events, 5,000
+   users, 2,000 items): a ShardedEmbedding ``NeuralCF`` one epoch on the
+   sparse path under ``embedding_row_rules()`` from CUDA graphs (its first
+   step allocates nothing of a table's size, no table gets ``.grad``),
+   then its tail in ``InferenceModel`` behind ``CachedEmbeddingModel`` and
+   ``ClusterServing`` with the fitted ``FeaturePipeline``, 4 closed-loop
+   clients for 2.5 s over a zipf(1.5) trace of 20 candidates: requests/s,
+   p99, the cache hit rate and the gather-bytes ratio (4 or more, as
+   bench.py's bar); every reply equal to the eager adapter's ranking of
+   its row.
+10. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Then a ``kernels`` line (one entry per kernel and path) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
@@ -3402,6 +3420,325 @@ def mlm_captured(fa, fx, make, x, y, fwd_flops, eager_run) -> dict:
             "peak_memory_bytes": peak, "streaming": stream, **caps}
 
 
+# the recommenders (bench.py's bench_ncf and bench_recsys, uncut):
+# string events through the Friesian pipeline, NeuralCF through the
+# Estimator from CUDA graphs (adam 1e-3, batch 2,048)
+NCF_EVENTS = (200_000, 2000, 1500)   # rows, users, items (bench_ncf)
+NCF_BATCH = 2048
+NCF_EPOCHS = 3                       # the captured fit; its loss must fall
+RECSYS_EVENTS = (60_000, 5000, 2000)  # bench_recsys
+RECSYS_K = 20                        # candidates a request
+RECSYS_TRACE = 512                   # zipf(1.5) requests, cycled
+RECSYS_CLIENTS = 4
+RECSYS_SECONDS = 2.5
+RECSYS_MIN_GATHER_RATIO = 4.0        # bench_recsys: naive / deduped bytes
+
+
+def record_losses(est) -> list:
+    """Make ``est``'s train step keep each step's loss (a device clone)."""
+    losses, inner = [], est._train_step
+
+    def step(batch):
+        loss = inner(batch)
+        losses.append(loss.clone())
+        return loss
+
+    est._train_step = step
+    return losses
+
+
+def ncf_estimator(model_cls, kw, state, graphs, **ekw):
+    """A NeuralCF of ``kw`` holding ``state`` under an Estimator on the
+    card (adam 1e-3, bench.py's), from CUDA graphs or eager."""
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    model = model_cls(**kw)
+    model.load_state_dict(state)
+    return Estimator.from_keras(model, loss="sparse_categorical_crossentropy",
+                                optimizer="adam", learning_rate=1e-3,
+                                cuda_graphs=graphs, seed=SEED, **ekw)
+
+
+def fit_epoch(est, xy, batch) -> tuple:
+    """(ms a step, the epoch's mean loss) of one ``fit`` epoch: host clock
+    from the call to its end (``fit`` reads the epoch's loss back once)."""
+    steps = len(xy[1]) // batch
+    t0 = time.perf_counter()
+    hist = est.fit(xy, epochs=1, batch_size=batch, verbose=False)
+    return (time.perf_counter() - t0) * 1e3 / steps, hist["loss"][0]
+
+
+def phase_ncf_train() -> dict:
+    """bench.py's ``bench_ncf`` uncut: 200,000 string events, encoded and
+    negatively sampled (2 a row) by ``FeatureTable``, ``NeuralCF(2001,
+    1501)`` through the Estimator at batch 2,048, one epoch eagerly and
+    three from CUDA graphs from one seeded init: the captured step losses
+    of the first epoch against the eager ones, one capture, step ms and
+    examples/s of a warm epoch each way, a profiled epoch's card busy and
+    idle share, peak memory; the captured fit's loss must fall."""
+    import pandas as pd
+
+    from analytics_zoo_tpu_torch.friesian import FeatureTable
+    from analytics_zoo_tpu_torch.models import NeuralCF
+
+    t_phase = time.perf_counter()
+    n_rows, n_users, n_items = NCF_EVENTS
+    rng = np.random.default_rng(SEED)
+    users = rng.integers(0, n_users, n_rows)
+    half = n_items // 2
+    items = np.where(users % 2 == 0, rng.integers(0, half, n_rows),
+                     rng.integers(half, n_items, n_rows))
+    df = pd.DataFrame({"user": [f"u{u}" for u in users],
+                       "item": [f"i{i}" for i in items]})
+    t_feat = time.perf_counter()
+    tbl = FeatureTable.from_pandas(df)
+    tbl, _ = tbl.encode_string("user")
+    tbl, _ = tbl.encode_string("item")
+    tbl = tbl.negative_sample(n_items, item_col="item", neg_num=2)
+    feat_s = time.perf_counter() - t_feat
+    pdf = tbl.to_pandas()
+    xy = (np.stack([pdf["user"].to_numpy(), pdf["item"].to_numpy()], 1)
+          .astype(np.int32), pdf["label"].to_numpy().astype(np.int32))
+    kw = dict(user_count=n_users + 1, item_count=n_items + 1, class_num=2)
+    state = NeuralCF(**kw).init_weights(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    steps = len(xy[1]) // NCF_BATCH
+
+    eager = ncf_estimator(NeuralCF, kw, state, False)
+    eager_losses = record_losses(eager)
+    eager.fit(xy, epochs=1, batch_size=NCF_BATCH, verbose=False)
+    eager_losses = [float(v) for v in eager_losses]
+    del eager._train_step  # the class's step again
+    eager_ms, _ = fit_epoch(eager, xy, NCF_BATCH)
+    del eager
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    est = ncf_estimator(NeuralCF, kw, state, True)
+    cap_losses = record_losses(est)
+    first = est.fit(xy, epochs=1, batch_size=NCF_BATCH, verbose=False)
+    against = losses_against_eager(cap_losses, eager_losses, "ncf_train")
+    against = {k: v for k, v in against.items()
+               if k not in ("captured", "eager")}
+    del est._train_step
+    ms, second = fit_epoch(est, xy, NCF_BATCH)
+    profiled = profiled_window(
+        lambda: est.fit(xy, epochs=1, batch_size=NCF_BATCH, verbose=False),
+        steps, {"embedding": ("embedding", "index"),
+                "gemm": ("gemm", "nvjet", "cutlass")})
+    idle_of(profiled, ms)
+    epoch_losses = [first["loss"][0], second,
+                    float(est.fit(xy, epochs=1, batch_size=NCF_BATCH,
+                                  verbose=False)["loss"][0])]
+    peak = torch.cuda.max_memory_allocated()
+    caps = captures(est, "ncf_train")
+    if not epoch_losses[-1] < epoch_losses[0]:
+        raise AssertionError(f"ncf_train: the loss did not fall over "
+                             f"{NCF_EPOCHS} captured epochs: "
+                             f"{epoch_losses}")
+    res = {"phase": "ncf_train", "rows_after_negative_sampling": len(xy[1]),
+           "feature_pipeline_s": feat_s, "batch": NCF_BATCH,
+           "steps_an_epoch": steps, "step_ms": ms, "eager_step_ms": eager_ms,
+           "examples_per_s": NCF_BATCH / (ms / 1e3),
+           "eager_examples_per_s": NCF_BATCH / (eager_ms / 1e3),
+           "losses_against_eager": against,
+           "epoch_losses_captured": epoch_losses[:NCF_EPOCHS],
+           "profiled": profiled, "peak_memory_bytes": peak, **caps,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+def _zipf_trace(rng, n_users, n_items) -> np.ndarray:
+    """bench_recsys's request trace: a zipf(1.5) user and RECSYS_K zipf
+    items a request, as raw string events."""
+    zu = np.minimum(rng.zipf(1.5, RECSYS_TRACE), n_users) - 1
+    zi = np.minimum(rng.zipf(1.5, (RECSYS_TRACE, RECSYS_K)), n_items) - 1
+    return np.array([[f"u{u}"] + [f"i{i}" for i in row]
+                     for u, row in zip(zu, zi)], dtype="<U8")
+
+
+def table_allocations(est, batch, tables) -> list:
+    """The allocations of ``est``'s first train step on ``batch`` (its
+    eager run and its capture) whose size is a table's ``rows x dim`` f32
+    bytes (up to the allocator's 512-byte rounding): none is expected."""
+    sizes = [(p.numel() * 4, -(-p.numel() * 4 // 512) * 512)
+             for p in tables]
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=200_000)
+    try:
+        est._train_step(batch)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    allocs = [e["size"] for trace in snap["device_traces"] for e in trace
+              if e["action"] == "alloc"]
+    if not allocs:
+        raise AssertionError("recsys: the memory history recorded no "
+                             "allocation of the first step")
+    return [a for a in allocs if any(lo <= a <= hi for lo, hi in sizes)]
+
+
+def phase_recsys() -> dict:
+    """bench.py's ``bench_recsys`` uncut: 60,000 string events through
+    ``FeatureTable`` (``gen_string_idx``, ``encode_string``,
+    ``negative_sample``), a ShardedEmbedding ``NeuralCF`` (16-wide tables,
+    MLP 32/16) trained one epoch on the sparse path under
+    ``embedding_row_rules()`` from CUDA graphs and one more profiled (the
+    card's busy time a step, its idle share, the top kernels); its first
+    step's allocations (none of a table's bytes) and each table's
+    ``.grad`` (None); then ``serving_split``, the tail in ``InferenceModel``, and
+    ``CachedEmbeddingModel(EmbedCache(200_000))`` behind
+    ``ClusterServing(batch_size=8, batch_timeout_ms=2,
+    inference_workers=2)`` with the fitted ``FeaturePipeline``: 4
+    closed-loop clients for 2.5 s over a zipf(1.5) trace of k = 20
+    candidates.  Every reply must equal the eager adapter's ranking of
+    its row (the tail served eagerly, no cache)."""
+    import pandas as pd
+
+    from analytics_zoo_tpu_torch.core import metrics as metrics_lib
+    from analytics_zoo_tpu_torch.friesian import (FeaturePipeline,
+                                                  FeatureTable)
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.parallel import embedding_row_rules
+    from analytics_zoo_tpu_torch.serving import (CachedEmbeddingModel,
+                                                 ClusterServing, EmbedCache,
+                                                 InferenceModel, InputQueue,
+                                                 OutputQueue)
+
+    t_phase = time.perf_counter()
+    n_rows, n_users, n_items = RECSYS_EVENTS
+    rng = np.random.default_rng(SEED)
+    df = pd.DataFrame({
+        "user": [f"u{u}" for u in rng.integers(0, n_users, n_rows)],
+        "item": [f"i{i}" for i in rng.integers(0, n_items, n_rows)]})
+    t_feat = time.perf_counter()
+    tbl = FeatureTable.from_pandas(df)
+    user_idx, item_idx = tbl.gen_string_idx(["user", "item"])
+    tbl, _ = tbl.encode_string(["user", "item"], [user_idx, item_idx])
+    tbl = tbl.negative_sample(item_idx.size, item_col="item", neg_num=2)
+    feat_s = time.perf_counter() - t_feat
+    pdf = tbl.to_pandas()
+    xy = (np.stack([pdf["user"].to_numpy(), pdf["item"].to_numpy()], 1)
+          .astype(np.int32), pdf["label"].to_numpy().astype(np.int32))
+    kw = dict(user_count=user_idx.size, item_count=item_idx.size,
+              class_num=2, user_embed=16, item_embed=16,
+              hidden_layers=(32, 16), mf_embed=16, sharded_embeddings=True)
+    state = NeuralCF(**kw).init_weights(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    est = ncf_estimator(NeuralCF, kw, state, True,
+                        sharding=embedding_row_rules())
+    tables = list(est._sparse.values())
+    first = {"x": torch.from_numpy(xy[0][:NCF_BATCH]).cuda(),
+             "y": torch.from_numpy(xy[1][:NCF_BATCH]).cuda()}
+    table_allocs = table_allocations(est, first, tables)
+    steps = len(xy[1]) // NCF_BATCH
+    ms, loss = fit_epoch(est, xy, NCF_BATCH)
+    profiled = profiled_window(
+        lambda: est.fit(xy, epochs=1, batch_size=NCF_BATCH, verbose=False),
+        steps, {"sort": ("sort", "radix"), "gemm": ("gemm", "nvjet",
+                                                    "cutlass")})
+    idle_of(profiled, ms)
+    grads = [p.grad for p in tables]
+    if table_allocs or any(g is not None for g in grads):
+        raise AssertionError(f"recsys: a table gradient: allocations of a "
+                             f"table's bytes {table_allocs}, .grad "
+                             f"{[g is not None for g in grads]}")
+    caps = captures(est, "recsys")
+
+    variables = est.get_model()
+    tab, tail, tail_vars = est.model.serving_split(variables)
+    im = InferenceModel().load(tail, tail_vars)
+    im.warm([(tail.input_dim(),)], dtype=np.float32)
+    eager_im = InferenceModel(cuda_graphs=False).load(
+        est.model.serving_split(variables)[1], tail_vars)
+    reg = metrics_lib.get_registry()
+    reg.reset()
+    adapter = CachedEmbeddingModel(tab, est.model.embedding_columns(), im,
+                                   cache=EmbedCache(capacity=200_000))
+    eager_adapter = CachedEmbeddingModel(
+        tab, est.model.embedding_columns(), eager_im,
+        metrics=metrics_lib.MetricsRegistry())
+    pipe = (FeaturePipeline().encode_string(user_idx)
+            .encode_string(item_idx))
+    tf = pipe.as_server_transform(["user"] + ["item"] * RECSYS_K,
+                                  dtype=np.int64)
+    trace = _zipf_trace(rng, n_users, n_items)
+    lat, replies, errors = [], [], []
+    with ClusterServing(models={"recsys": adapter},
+                        pipelines={"recsys": tf}, batch_size=8,
+                        batch_timeout_ms=2, inference_workers=2) as srv:
+        barrier = threading.Barrier(RECSYS_CLIENTS + 1)
+
+        def client(c: int) -> None:
+            iq = InputQueue(srv.host, srv.port)
+            oq = OutputQueue(input_queue=iq)
+            try:
+                barrier.wait()
+                i = 0
+                while time.monotonic() < deadline:
+                    row = (c * 131 + i) % RECSYS_TRACE
+                    t1 = time.perf_counter()
+                    out = oq.query(iq.enqueue(f"c{c}-{i}", model="recsys",
+                                              t=trace[row]), timeout=60.0)
+                    if out is None:
+                        errors.append(f"client {c}: request {i} timed out")
+                        return
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    replies.append((row, out))
+                    i += 1
+            except Exception as e:  # noqa: BLE001 - recorded, raised below
+                errors.append(f"client {c}: {type(e).__name__}: {e}")
+            finally:
+                iq.close()
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(RECSYS_CLIENTS)]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + RECSYS_SECONDS
+        barrier.wait()
+        t0 = time.monotonic()
+        for t in threads:
+            t.join(timeout=120)
+        wall = time.monotonic() - t0
+        st = srv.stats()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"recsys: {errors[:3] or 'a client hung'}")
+    check_served(st, "recsys", len(lat))
+    snap = reg.snapshot()
+    hits, misses = snap["embed.cache_hits"], snap["embed.cache_misses"]
+    want = eager_adapter.predict(tf(trace))
+    wrong = [row for row, out in replies
+             if not np.array_equal(out, want[row])]
+    if wrong:
+        raise AssertionError(f"recsys: {len(wrong)} of {len(replies)} "
+                             f"replies differ from the eager adapter's "
+                             f"ranking (rows {wrong[:5]})")
+    ratio = (snap["embed.gather_bytes_naive"]
+             / max(1, snap["embed.gather_bytes"]))
+    if ratio < RECSYS_MIN_GATHER_RATIO:
+        raise AssertionError(f"recsys: gather-bytes ratio {ratio:.3f} < "
+                             f"{RECSYS_MIN_GATHER_RATIO} (bench.py's bar): "
+                             f"the dedup saves less than it should")
+    res = {"phase": "recsys", "rows_after_negative_sampling": len(xy[1]),
+           "feature_pipeline_s": feat_s,
+           "table_rows": {"user": user_idx.size, "item": item_idx.size},
+           "sparse_step_ms": ms, "steps": steps, "epoch_loss": loss,
+           "profiled": profiled,
+           "table_allocations_in_step": len(table_allocs),
+           "table_grads": [g is not None for g in grads], **caps,
+           **latency_summary(lat, wall), "clients": RECSYS_CLIENTS,
+           "candidates_per_request": RECSYS_K,
+           "cache_hit_rate": hits / max(1, hits + misses),
+           "gather_bytes_ratio": ratio,
+           "replies_equal_eager": len(replies),
+           "tail_compile_count": im.compile_count,
+           "seconds": time.perf_counter() - t_phase}
+    res.pop("tokens_per_s")
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3462,7 +3799,9 @@ def main(argv) -> int:
                   "bert_train": lambda: phase_bert_train(fa),
                   "resnet_train": lambda: phase_resnet_train(bn),
                   "fused_xent": lambda: phase_fused_xent(fx),
-                  "bert_mlm_train": lambda: phase_bert_mlm_train(fa, fx)}
+                  "bert_mlm_train": lambda: phase_bert_mlm_train(fa, fx),
+                  "ncf_train": phase_ncf_train,
+                  "recsys": phase_recsys}
         for name in only:
             phases[name]()
         return 0
@@ -3475,6 +3814,8 @@ def main(argv) -> int:
     resnet = phase_resnet_train(bn)
     xent_kern = phase_fused_xent(fx)
     mlm = phase_bert_mlm_train(fa, fx)
+    phase_ncf_train()
+    phase_recsys()
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]

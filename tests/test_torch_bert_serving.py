@@ -285,7 +285,16 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.serving.router",
                 "analytics_zoo_tpu_torch.serving.http_frontend",
                 "analytics_zoo_tpu_torch.serving.controller",
-                "analytics_zoo_tpu_torch.serving.batch"]
+                "analytics_zoo_tpu_torch.serving.batch",
+                "analytics_zoo_tpu_torch.serving.embed_cache",
+                "analytics_zoo_tpu_torch.data.shards",
+                "analytics_zoo_tpu_torch.friesian",
+                "analytics_zoo_tpu_torch.friesian.table",
+                "analytics_zoo_tpu_torch.friesian.pipeline",
+                "analytics_zoo_tpu_torch.models.common",
+                "analytics_zoo_tpu_torch.models.recommendation",
+                "analytics_zoo_tpu_torch.parallel",
+                "analytics_zoo_tpu_torch.parallel.embedding"]
 
 
 def test_port_imports_without_jax():

@@ -460,23 +460,47 @@ def test_evaluate_and_predict_leave_buffers_fixed(resnet_step):
         assert torch.equal(b, state[k]), k
 
 
-def test_fit_skips_a_padded_last_batch():
-    """A feed that pads its last batch still trains on full batches only:
-    padding never enters batch statistics."""
+def test_fit_trains_on_a_padded_last_batch_as_jax():
+    """A ``DataFeed(drop_remainder=False)`` trains on its wrap-padded last
+    batch, as the JAX Estimator does: 200 rows at batch 64 over 2 epochs
+    are 8 steps, with the JAX loss history (1e-5 of max(1, |loss|)) and
+    running statistics (1e-5 absolute).  A batch that carries a
+    ``"mask"`` (a streaming feed's padded tail) is still skipped."""
+    from analytics_zoo_tpu.data import DataFeed as JaxDataFeed
     from analytics_zoo_tpu_torch.data import DataFeed
-    x = np.random.default_rng(7).normal(size=(10, 4)).astype(np.float32)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(200, 4)).astype(np.float32) * 2 + 1
+    y = rng.normal(size=(200, 2)).astype(np.float32)
+    kw = dict(loss="mse", optimizer="adam", learning_rate=1e-2)
+    jest = JaxEstimator.from_keras(
+        jnn.Sequential([jnn.BatchNormalization(), jnn.Dense(2)]), **kw)
+    jest._ensure_initialized(jnp.asarray(x[:64]))
     model = tnn.Sequential([tnn.BatchNormalization(4), tnn.Dense(4, 2)])
-    est = Estimator.from_keras(model, loss="mse", optimizer="sgd",
-                               learning_rate=0.0, device="cpu")
-    seen = []
-    model.register_forward_hook(lambda m, i, o: seen.append(len(i[0])))
-    feed = DataFeed({"x": x, "y": np.zeros((10, 2), np.float32)}, 4,
-                    shuffle=False, drop_remainder=False)
-    est.fit(feed, epochs=1, verbose=False)
-    assert seen == [4, 4]
-    np.testing.assert_allclose(
-        model.get_submodule("00_layer0").mean.numpy(),
-        0.01 * (x[:4].mean(0) * 0.99 + x[4:8].mean(0)), rtol=1e-5)
+    model.load_state_dict(from_jax_variables(jest.get_model()), strict=True)
+    est = Estimator.from_keras(model, device="cpu", **kw)
+    feed = dict(batch_size=64, shuffle=True, seed=0, drop_remainder=False)
+    hist_j = jest.fit(JaxDataFeed({"x": x, "y": y}, **feed), epochs=2,
+                      verbose=False)
+    hist_t = est.fit(DataFeed({"x": x, "y": y}, **feed), epochs=2,
+                     verbose=False)
+    assert jest._py_step == est._py_step == 8
+    np.testing.assert_allclose(hist_t["loss"], hist_j["loss"], rtol=1e-5,
+                               atol=1e-5)
+    want = jest.get_model()["state"]["00_layer0"]
+    bn = model.get_submodule("00_layer0")
+    for name in ("mean", "var"):
+        np.testing.assert_allclose(getattr(bn, name).numpy(), want[name],
+                                   rtol=0, atol=1e-5, err_msg=name)
+
+    class Masked(DataFeed):  # a stream's last batch, padded and masked
+        def epoch(self, device, epoch_idx=0):
+            for step, batch in enumerate(super().epoch(device, epoch_idx)):
+                if step == self.steps_per_epoch() - 1:
+                    batch = dict(batch, mask=torch.zeros(64))
+                yield batch
+
+    est.fit(Masked({"x": x, "y": y}, **feed), epochs=1, verbose=False)
+    assert est._py_step == 8 + 3
 
 
 def test_lenet_loss_history_matches_jax_estimator():

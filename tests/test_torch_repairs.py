@@ -5,7 +5,8 @@ and ``jnp.maximum`` split the gradient 0.5 / 0.5, ``torch.clamp`` does
 not), an absolute value at 0 (``jnp.abs`` has gradient 1 there,
 ``torch.abs`` 0), ties among top-k scores (``jax.lax.top_k`` puts the lower
 index first) and the kinks of the activations.  Also a ``Dense`` with no
-bias loaded through ``convert``.
+bias loaded through ``convert``, and the dense attention core on bf16
+operands (its own tolerance, in the test).
 
 Tolerances: values and gradients 1e-6 relative and absolute (the same f32
 arithmetic); top-k statistics exactly.
@@ -273,3 +274,37 @@ def test_dense_takes_initializers_by_name_and_callable():
     assert torch.all(d.kernel == 0.25) and torch.all(d.bias == 1.0)
     d = tnn.Dense(6, 3, kernel_init="zeros", activation=lambda y: y + 1)
     assert torch.all(d(torch.ones(2, 6)) == 1.0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_dense_attention_matches_jax(masked):
+    """The dense attention core on bf16 q, k, v against the JAX package's
+    (``preferred_element_type=jnp.float32`` logits): the output and the
+    q, k, v gradients under one bf16 cotangent.  Both round to bf16 at the
+    same places (the weights, the output, each gradient) from f32 values
+    that differ only in summation order, so a value may land one bf16 step
+    (2^-8 of its size) away: held to 2^-7 of each tensor's max |ref|."""
+    from analytics_zoo_tpu.nn.attention import \
+        dot_product_attention as jattn
+    from analytics_zoo_tpu_torch.nn import dot_product_attention
+    rng = _rng(21)
+    q, k, v, g = (rng.normal(size=(2, 7, 3, 8)).astype(F32)
+                  for _ in range(4))
+    mask = (rng.random((2, 1, 7, 7)) < 0.7) if masked else None
+    mask_j = None if mask is None else jnp.asarray(mask)
+    mask_t = None if mask is None else torch.from_numpy(mask)
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    want, vjp = jax.vjp(lambda a, b, c: jattn(a, b, c, mask_j), jq, jk, jv)
+    want_grads = vjp(jg)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16().requires_grad_()
+                  for a in (q, k, v))
+    got = dot_product_attention(tq, tk, tv, mask_t)
+    got.backward(torch.from_numpy(g).bfloat16())
+    assert got.dtype == torch.bfloat16
+    for name, t, j in (("out", got, want), ("dq", tq.grad, want_grads[0]),
+                       ("dk", tk.grad, want_grads[1]),
+                       ("dv", tv.grad, want_grads[2])):
+        ref = np.asarray(j.astype(jnp.float32))
+        np.testing.assert_allclose(t.detach().float().numpy(), ref, rtol=0,
+                                   atol=2.0 ** -7 * np.abs(ref).max(),
+                                   err_msg=name)

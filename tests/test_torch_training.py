@@ -469,7 +469,7 @@ def test_estimator_asks_for_the_card_by_default(monkeypatch):
     ("grad_compression", "int8"), ("frozen", ["bert"]),
     ("aux_loss_weight", 0.5), ("profile", True),
     ("model_dir", "ckpt"), ("checkpoint_async", True),
-    ("preemption_checkpoint", True), ("embedding_lr", 0.1),
+    ("preemption_checkpoint", True), ("checkpoint_retries", 5),
     ("log_dir", "logs")])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
