@@ -75,23 +75,42 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
     HWIO (an int8 one's ``q`` and ``scale`` too).  numpy has no bfloat16,
     so bf16 tensors come back as float32 arrays (exact: every bf16 value
     is an f32 value)."""
+    def host(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    return host(jax_variables(state_dict, state_keys))
+
+
+def jax_variables(state_dict: Mapping[str, torch.Tensor],
+                  state_keys: Iterable[str] = ()) -> Dict[str, Any]:
+    """:func:`to_jax_variables`'s tree over the tensors themselves (conv
+    kernels as HWIO views, dtypes kept): what a checkpoint snapshots."""
     state_keys = set(state_keys)
-    out: Dict[str, Any] = {"params": {}, "state": {}}
-    for key, t in state_dict.items():
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
+    return {part: jax_tree((k, v) for k, v in state_dict.items()
+                           if (k in state_keys) == (part == "state"))
+            for part in ("params", "state")}
+
+
+def jax_tree(named: Iterable[Any]) -> Dict[str, Any]:
+    """``(state_dict key, tensor)`` pairs as the JAX tree they form (keys
+    split at ``.``), each leaf the tensor itself or, for a conv kernel, its
+    HWIO view: no copy, so ``copy_`` into a leaf writes the tensor (how an
+    optimizer's state in optax's layout is loaded in place)."""
+    out: Dict[str, Any] = {}
+    for key, t in named:
         *path, leaf = key.split(".")
-        node = out["state" if key in state_keys else "params"]
+        node = out
         for name in path:
             node = node.setdefault(name, {})
             if not isinstance(node, dict):
                 raise ValueError(f"key {key!r} nests under a leaf")
         if leaf in node:
             raise ValueError(f"two keys map to the leaf {key!r}")
-        if _is_conv_kernel((*path, leaf), t):
-            t = t.permute(2, 3, 1, 0)
-        node[leaf] = t.numpy().copy()
+        node[leaf] = t.permute(2, 3, 1, 0) \
+            if _is_conv_kernel((*path, leaf), t) else t
     return out
 
 
@@ -101,4 +120,5 @@ def buffer_names(model: nn.Module) -> List[str]:
     return [name for name, _ in model.named_buffers() if name in keys]
 
 
-__all__ = ["buffer_names", "from_jax_variables", "to_jax_variables"]
+__all__ = ["buffer_names", "from_jax_variables", "jax_tree",
+           "jax_variables", "to_jax_variables"]

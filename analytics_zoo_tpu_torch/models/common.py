@@ -5,12 +5,21 @@ A ZooModel is an ``nn.Module`` that records its constructor arguments in
 ``_config`` and registers its class by name, so a saved config can rebuild
 it.  ``compile`` attaches the Estimator (``orca.learn``), so that
 ``fit``/``evaluate``/``predict``/``predict_classes`` run through it, as
-in the JAX package; ``save_model``/``load_model`` arrive with the state
-plane (ROADMAP Queue 1 item 6).
+in the JAX package.  ``save_model``/``load_model`` round-trip the weights
+(``core/checkpoint.py``'s format, the JAX ``{"params", "state"}`` tree)
+and the constructor config (``config.json``: class name and config) in
+one directory, the JAX package's layout, so a directory saved by either
+package loads in the other (a torch dtype in the config is written as its
+name, ``"bfloat16"``, and listed under ``torch_dtypes``, a key the JAX
+package does not read).  ``load_model`` puts the weights
+into the rebuilt module and keeps the tree as ``_loaded_variables``; a
+``compile`` after it trains from them.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -89,3 +98,41 @@ class ZooModel(nn.Module):
         if out.ndim > 1 and out.shape[-1] > 1:
             return np.argmax(out, axis=-1)
         return (out.reshape(len(out), -1)[:, 0] > 0).astype(np.int64)
+
+    # -- persistence ----------------------------------------------------------
+
+    def save_model(self, path: str) -> str:
+        """Weights (``weights/``, the JAX ``{"params", "state"}`` tree as
+        this module holds it now) and ``config.json`` in one directory."""
+        from ..convert import buffer_names, to_jax_variables
+        from ..core import checkpoint as ckpt_io
+        os.makedirs(path, exist_ok=True)
+        ckpt_io.save(os.path.join(path, "weights"),
+                     to_jax_variables(self.state_dict(), buffer_names(self)))
+        dtypes = sorted(k for k, v in self._config.items()
+                        if isinstance(v, torch.dtype))
+        config = {k: str(v).replace("torch.", "") if k in dtypes else v
+                  for k, v in self._config.items()}
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump({"class": type(self).__name__, "config": config,
+                       "torch_dtypes": dtypes}, f)
+        return path
+
+    @staticmethod
+    def load_model(path: str) -> "ZooModel":
+        """Rebuild from a ``save_model`` directory of either package
+        (class, config and weights); the weights are loaded and kept as
+        ``_loaded_variables``."""
+        from ..convert import from_jax_variables
+        from ..core import checkpoint as ckpt_io
+        with open(os.path.join(path, "config.json")) as f:
+            meta = json.load(f)
+        config = dict(meta["config"])
+        for k in meta.get("torch_dtypes") or ():
+            config[k] = getattr(torch, config[k])
+        model = ZooModel.from_config(meta["class"], config)
+        variables = ckpt_io.restore(os.path.join(path, "weights"))
+        model.load_state_dict(from_jax_variables(variables), strict=True)
+        model._loaded_variables = variables
+        return model
+

@@ -1,7 +1,9 @@
-"""The Estimator and its optimizers (port of ``analytics_zoo_tpu.orca.learn``,
-single-device core)."""
+"""The Estimator, its optimizers and checkpoint triggers (port of
+``analytics_zoo_tpu.orca.learn``, single-device core)."""
 
 from . import optimizers
 from .estimator import Estimator, ZooEstimator
+from .trigger import EveryEpoch, SeveralIteration, Trigger
 
-__all__ = ["Estimator", "ZooEstimator", "optimizers"]
+__all__ = ["Estimator", "ZooEstimator", "EveryEpoch", "SeveralIteration",
+           "Trigger", "optimizers"]

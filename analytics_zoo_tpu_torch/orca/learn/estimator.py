@@ -61,8 +61,26 @@ with ``feature_cols``/``label_cols``).
 
 Constructor knobs of the JAX estimator that are not ported yet raise
 ``NotImplementedError`` (naming the ROADMAP item) when set to anything but
-their default; they are never ignored.  ``save``/``load`` wait for the
-checkpoint format (ROADMAP Queue 1 item 6).
+their default; they are never ignored.
+
+The state plane is the JAX package's: ``save``/``load`` write and read
+``core/checkpoint.py``'s format (the JAX estimator's tree: ``params`` and
+``state`` in the JAX layout, ``opt_state`` in optax's layout, ``step``,
+``rng``, ``bad_steps``, ``extra={"epoch"}``; a checkpoint of either
+package loads in the other), ``fit(checkpoint_trigger=)`` saves on a
+``Trigger``, ``checkpoint_async=True`` routes saves through
+``core/ckpt_manager.py`` (snapshots written by a background thread, delta
+generations of the ShardedEmbedding rows touched since the last accepted
+save), ``preemption_checkpoint=True`` checkpoints on SIGTERM/SIGINT and
+raises ``Preempted``, and ``fit(auto_resume=True)`` resumes from
+``model_dir`` with ``epochs`` the total target.  A load copies into the
+live tensors (parameters, buffers, the optimizer's moments, ``step`` and
+count tensors, the touched-row masks) and sets the generators' states
+through the generators themselves, so the captured graphs go on replaying
+against the loaded state.  The port's dropout and augment generators ride
+the checkpoint under ``torch_generators``, a key the JAX estimator does
+not read (its ``rng`` is the JAX key of ``seed``, which a JAX step never
+advances); a checkpoint without it reseeds them from ``seed``.
 """
 
 from __future__ import annotations
@@ -78,7 +96,9 @@ import torch
 from torch import nn
 
 from ... import DeviceLike, resolve_device
-from ...convert import buffer_names, to_jax_variables
+from ...convert import buffer_names, from_jax_variables, jax_tree, \
+    jax_variables, to_jax_variables
+from ...core import checkpoint as ckpt_io
 from ...core import metrics as telemetry
 from ...core import trace as trace_lib
 from ...core.config import ZooConfig
@@ -92,6 +112,7 @@ from ...nn.layers import Dropout, _indexed, seed_dropout
 from ...ops import _launches
 from ...parallel import embedding as emb_lib
 from . import optimizers as opt_lib
+from .trigger import Trigger
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -109,21 +130,10 @@ _UNPORTED_KNOBS = {
     "log_dir": (None, f"{_Q1} 7 (summaries)"),
     "app_name": ("train", f"{_Q1} 7 (summaries)"),
     "aux_loss_weight": (0.01, f"{_Q1} 9 (MoE auxiliary losses)"),
-    "model_dir": (None, f"{_Q1} 6 (state plane)"),
-    "preemption_checkpoint": (False, f"{_Q1} 6 (state plane)"),
-    "preemption_sync_every": (10, f"{_Q1} 6 (state plane)"),
-    "checkpoint_retries": (3, f"{_Q1} 6 (state plane)"),
-    "checkpoint_async": (False, f"{_Q1} 6 (state plane)"),
-    "checkpoint_inflight": ("latest-wins", f"{_Q1} 6 (state plane)"),
-    "checkpoint_keep_last": (3, f"{_Q1} 6 (state plane)"),
-    "checkpoint_anchor_every": (0, f"{_Q1} 6 (state plane)"),
-    "checkpoint_delta": (True, f"{_Q1} 6 (state plane)"),
-    "checkpoint_compact_every": (8, f"{_Q1} 6 (state plane)"),
 }
-_UNPORTED_FIT_ARGS = {
-    "checkpoint_trigger": (None, f"{_Q1} 6 (state plane)"),
-    "auto_resume": (False, f"{_Q1} 6 (state plane)"),
-}
+# the tree key of the port's own generators (dropout, augment), which the
+# JAX estimator's load does not read
+_GENERATORS = "torch_generators"
 
 
 def _refuse_unported(what: str, given: Dict[str, Any],
@@ -167,6 +177,16 @@ class ZooEstimator:
                  device: DeviceLike = None, augment: Any = None,
                  grad_accum: int = 1, cuda_graphs: bool = True,
                  embedding_lr: Optional[float] = None, sharding: Any = "dp",
+                 model_dir: Optional[str] = None,
+                 preemption_checkpoint: bool = False,
+                 preemption_sync_every: int = 10,
+                 checkpoint_retries: int = 3,
+                 checkpoint_async: bool = False,
+                 checkpoint_inflight: str = "latest-wins",
+                 checkpoint_keep_last: int = 3,
+                 checkpoint_anchor_every: int = 0,
+                 checkpoint_delta: bool = True,
+                 checkpoint_compact_every: int = 8,
                  **knobs: Any):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -211,6 +231,51 @@ class ZooEstimator:
         # captures made: the counterpart of the JAX package's executable
         # cache probe (_jit_cache_size); one per (batch shapes, dtypes) key
         self.capture_count = 0
+        self._dense_names = [n for n, p in self.model.named_parameters()
+                             if id(p) not in sparse]
+        self._table_path = {id(p): tp for tp, p in self._sparse.items()}
+        self._init_state_plane(model_dir, preemption_checkpoint,
+                               preemption_sync_every, checkpoint_retries,
+                               checkpoint_async, checkpoint_inflight,
+                               checkpoint_keep_last, checkpoint_anchor_every,
+                               checkpoint_delta, checkpoint_compact_every)
+
+    def _init_state_plane(self, model_dir, preemption_checkpoint,
+                          sync_every, retries, use_async, inflight,
+                          keep_last, anchor_every, delta,
+                          compact_every) -> None:
+        """The JAX estimator's checkpoint knobs: the preemption guard, the
+        async manager on ``model_dir`` and the touched-row masks."""
+        self.model_dir = model_dir
+        # transient write failures are retried with backoff before a save
+        # gives up (the preemption window has no second chance)
+        self.checkpoint_retries = max(1, retries)
+        self._preempt = None
+        if preemption_checkpoint:
+            if model_dir is None:
+                raise ValueError(
+                    "preemption_checkpoint=True needs model_dir")
+            from ...core.failover import PreemptionGuard
+            self._preempt = PreemptionGuard(sync_every).install()
+        self._ckpt_mgr = None
+        if use_async:
+            if model_dir is None:
+                raise ValueError("checkpoint_async=True needs model_dir")
+            from ...core.ckpt_manager import CheckpointManager
+            self._ckpt_mgr = CheckpointManager(
+                model_dir, keep_last=keep_last, anchor_every=anchor_every,
+                inflight=inflight, compact_every=compact_every,
+                retries=self.checkpoint_retries, delta=delta)
+        # delta checkpoints: one bool mask a ShardedEmbedding table of the
+        # rows touched since the last accepted save, marked inside the
+        # step (in its graph); one slot past the table takes the lookups'
+        # padding.  Made here, so every capture sees them.
+        self._touched: Dict[str, torch.Tensor] = {}
+        if use_async and delta:
+            self._touched = {
+                tp: torch.zeros(t.shape[0] + 1, dtype=torch.bool,
+                                device=self.device)
+                for tp, t in self._sparse.items()}
 
     # -- steps ----------------------------------------------------------------
 
@@ -294,6 +359,11 @@ class ZooEstimator:
                 if g is not None:
                     tap.table.index_add_(0, tap.uniq, g.to(tap.table.dtype),
                                          alpha=-self._embed_lr())
+                    mask = self._touched.get(self._table_path[id(tap.table)])
+                    if mask is not None:
+                        # the padded slots land on the spare last slot
+                        mask.index_fill_(0, torch.where(
+                            tap.valid, tap.uniq, mask.shape[0] - 1), True)
         return loss.detach()
 
     def _graph_for(self, batch: Dict[str, Any]) -> Tuple[
@@ -381,7 +451,8 @@ class ZooEstimator:
             verbose: bool = True,
             feature_cols: Optional[Sequence[str]] = None,
             label_cols: Optional[Sequence[str]] = None,
-            **unported: Any) -> Dict[str, List[float]]:
+            checkpoint_trigger: Any = None, auto_resume: bool = False
+            ) -> Dict[str, List[float]]:
         """Train; returns ``{"loss": [...], "val_<metric>": [...]}``.
 
         ``data``: a feed (``DataFeed``, ``StreamingDataFeed``), an ``(x,
@@ -404,98 +475,163 @@ class ZooEstimator:
         Every step records ``train.steps``, ``train.samples``,
         ``train.step_ms`` and ``train.data_wait_ms`` (and the gauge
         ``train.prefetch_depth``) in ``core/metrics.py``'s registry, and a
-        ``train.step`` span under its epoch's ``train.epoch`` span."""
-        _refuse_unported("fit", unported, _UNPORTED_FIT_ARGS)
+        ``train.step`` span under its epoch's ``train.epoch`` span.
+
+        ``checkpoint_trigger``: a ``Trigger`` (or ``"every_epoch"``) that
+        saves into ``model_dir`` after the steps and epoch ends it fires
+        on (through the async manager with ``checkpoint_async=True``).
+        ``auto_resume``: load ``model_dir``'s checkpoint first if there is
+        one and this estimator has not trained yet; ``epochs`` is then the
+        total target, and the next epoch's shuffle is the one the
+        interrupted run would have drawn.  A mid-epoch checkpoint resumes
+        by running its epoch again from the start, the step count carried
+        on (the JAX package's semantics).  With
+        ``preemption_checkpoint=True`` a SIGTERM or SIGINT during ``fit``
+        checkpoints at the next ``preemption_sync_every``-th step and
+        raises ``core.failover.Preempted``."""
         if prefetch is None:
             prefetch = ZooConfig.prefetch
+        if (auto_resume and self._opt_state is None and self.model_dir
+                and self._ckpt_exists(self.model_dir)):
+            self.load(self.model_dir)
+            logger.info("auto-resumed from %s at step %d (epoch %d)",
+                        self.model_dir, self._py_step, self._epoch)
+            epochs = max(0, epochs - self._epoch)
+        trigger = Trigger.get(checkpoint_trigger)
         data = _maybe_select_cols(data, feature_cols, label_cols)
         feed = as_feed(data, batch_size, seed=self.seed)
         reg = telemetry.get_registry()
-        m_step = reg.histogram("train.step_ms")
-        m_wait = reg.histogram("train.data_wait_ms")
-        m_steps = reg.counter("train.steps")
-        m_samples = reg.counter("train.samples")
-        m_prefetch = reg.gauge("train.prefetch_depth")
         record_spans = trace_lib.enabled and reg.enabled
         fit_tid = trace_lib.new_trace_id() if record_spans else None
         fit_sid = trace_lib.new_span_id() if record_spans else None
         self.trace_id = fit_tid
         history: Dict[str, List[float]] = {"loss": []}
-        for _ in range(epochs):
-            epoch_sid = trace_lib.new_span_id() if record_spans else None
-            t0 = time.monotonic()
-            losses: List[torch.Tensor] = []
-            epoch_wait = 0.0
-            if prefetch and prefetch > 0 and _supports_host_epoch(feed):
-                # stream feeds: host batches, placed in the producer
-                batch_iter = PrefetchIterator(
-                    feed.epoch(self.device, self._epoch, place=False),
-                    depth=prefetch, gauge=m_prefetch,
-                    place=make_placer(self.device))
-            elif prefetch and prefetch > 0:
-                batch_iter = PrefetchIterator(
-                    iter(feed.epoch(self.device, self._epoch)),
-                    depth=prefetch, gauge=m_prefetch)
-            else:
-                batch_iter = iter(feed.epoch(self.device, self._epoch))
-            try:
-                while True:
-                    t_fetch = time.monotonic()
-                    batch = next(batch_iter, None)
-                    if batch is None:
-                        break
-                    wait = time.monotonic() - t_fetch
-                    epoch_wait += wait
-                    m_wait.observe(wait * 1000.0)
-                    if "mask" in batch:  # a stream's padded batch: skipped
-                        continue
-                    losses.append(self._train_step(batch))
-                    step_ms = (time.monotonic() - t_fetch) * 1000.0
-                    m_step.observe(step_ms)
-                    if record_spans:
-                        trace_lib.record(
-                            fit_tid, "train.step",
-                            {"step": self._py_step,
-                             "step_ms": round(step_ms, 3),
-                             "data_wait_ms": round(wait * 1000.0, 3)},
-                            parent=epoch_sid, dur_ms=step_ms)
-                    m_steps.inc()
-                    m_samples.inc(feed.global_batch)
-            finally:
-                # a mid-epoch exit must not leak the producer thread
-                if isinstance(batch_iter, PrefetchIterator):
-                    batch_iter.close()
-                else:
-                    close = getattr(batch_iter, "close", None)
-                    if close is not None:
-                        close()
-            if not losses:
-                raise ValueError(
-                    "fit got no batches to train on (every batch was a "
-                    "masked, padded one); reduce batch_size")
-            self._epoch += 1
-            # one host synchronisation an epoch
-            epoch_loss = float(torch.stack(losses).float().mean())
-            history["loss"].append(epoch_loss)
-            dt = time.monotonic() - t0
-            if record_spans:
-                trace_lib.record(
-                    fit_tid, "train.epoch",
-                    {"epoch": self._epoch, "loss": round(epoch_loss, 6),
-                     "steps": len(losses),
-                     "step_ms": round(1000.0 * dt / len(losses), 3),
-                     "data_wait_ms": round(
-                         1000.0 * epoch_wait / len(losses), 3)},
-                    span_id=epoch_sid, parent=fit_sid, dur_ms=dt * 1000.0)
-            if verbose:
-                logger.info("epoch %d: loss=%.4f (%.1f examples/s)",
-                            self._epoch, epoch_loss,
-                            len(losses) * feed.global_batch / dt)
-            if validation_data is not None:
-                for k, v in self.evaluate(validation_data,
-                                          batch_size).items():
-                    history.setdefault(f"val_{k}", []).append(v)
+        if self._preempt is not None:
+            self._preempt.active = True
+        try:
+            for _ in range(epochs):
+                self._fit_epoch(feed, prefetch, trigger, history, reg,
+                                record_spans, fit_tid, fit_sid, verbose,
+                                validation_data, batch_size)
+        finally:
+            if self._preempt is not None:
+                self._preempt.active = False
+            if self._ckpt_mgr is not None:
+                # fit returning means every accepted generation is
+                # durable; a writer error was logged, counted
+                # (ckpt.write_errors) and forced the next save full
+                self._ckpt_mgr.flush(raise_error=False)
         return history
+
+    def _fit_epoch(self, feed, prefetch, trigger, history, reg,
+                   record_spans, fit_tid, fit_sid, verbose,
+                   validation_data, batch_size) -> None:
+        """One epoch of ``fit``: its steps, the preemption check and the
+        trigger after each, then the epoch's loss, telemetry, validation
+        and the epoch-end trigger."""
+        m_step = reg.histogram("train.step_ms")
+        m_wait = reg.histogram("train.data_wait_ms")
+        m_steps = reg.counter("train.steps")
+        m_samples = reg.counter("train.samples")
+        m_prefetch = reg.gauge("train.prefetch_depth")
+        epoch_sid = trace_lib.new_span_id() if record_spans else None
+        t0 = time.monotonic()
+        losses: List[torch.Tensor] = []
+        epoch_wait = 0.0
+        if prefetch and prefetch > 0 and _supports_host_epoch(feed):
+            # stream feeds: host batches, placed in the producer
+            batch_iter = PrefetchIterator(
+                feed.epoch(self.device, self._epoch, place=False),
+                depth=prefetch, gauge=m_prefetch,
+                place=make_placer(self.device))
+        elif prefetch and prefetch > 0:
+            batch_iter = PrefetchIterator(
+                iter(feed.epoch(self.device, self._epoch)),
+                depth=prefetch, gauge=m_prefetch)
+        else:
+            batch_iter = iter(feed.epoch(self.device, self._epoch))
+        try:
+            while True:
+                t_fetch = time.monotonic()
+                batch = next(batch_iter, None)
+                if batch is None:
+                    break
+                wait = time.monotonic() - t_fetch
+                epoch_wait += wait
+                m_wait.observe(wait * 1000.0)
+                if "mask" in batch:  # a stream's padded batch: skipped
+                    continue
+                losses.append(self._train_step(batch))
+                step_ms = (time.monotonic() - t_fetch) * 1000.0
+                m_step.observe(step_ms)
+                if record_spans:
+                    trace_lib.record(
+                        fit_tid, "train.step",
+                        {"step": self._py_step,
+                         "step_ms": round(step_ms, 3),
+                         "data_wait_ms": round(wait * 1000.0, 3)},
+                        parent=epoch_sid, dur_ms=step_ms)
+                m_steps.inc()
+                m_samples.inc(feed.global_batch)
+                self._after_step(trigger)
+        finally:
+            # a mid-epoch exit must not leak the producer thread
+            if isinstance(batch_iter, PrefetchIterator):
+                batch_iter.close()
+            else:
+                close = getattr(batch_iter, "close", None)
+                if close is not None:
+                    close()
+        if not losses:
+            raise ValueError(
+                "fit got no batches to train on (every batch was a "
+                "masked, padded one); reduce batch_size")
+        self._epoch += 1
+        # one host synchronisation an epoch
+        epoch_loss = float(torch.stack(losses).float().mean())
+        history["loss"].append(epoch_loss)
+        dt = time.monotonic() - t0
+        if record_spans:
+            trace_lib.record(
+                fit_tid, "train.epoch",
+                {"epoch": self._epoch, "loss": round(epoch_loss, 6),
+                 "steps": len(losses),
+                 "step_ms": round(1000.0 * dt / len(losses), 3),
+                 "data_wait_ms": round(
+                     1000.0 * epoch_wait / len(losses), 3)},
+                span_id=epoch_sid, parent=fit_sid, dur_ms=dt * 1000.0)
+        if verbose:
+            logger.info("epoch %d: loss=%.4f (%.1f examples/s)",
+                        self._epoch, epoch_loss,
+                        len(losses) * feed.global_batch / dt)
+        if validation_data is not None:
+            for k, v in self.evaluate(validation_data,
+                                      batch_size).items():
+                history.setdefault(f"val_{k}", []).append(v)
+        if trigger and self.model_dir and trigger.fires(
+                step=self._py_step, epoch_end=True):
+            self._trigger_save()
+
+    def _after_step(self, trigger: Optional[Trigger]) -> None:
+        """After each step: a preemption checkpoint and ``Preempted`` when
+        the guard was signalled, else the trigger's mid-epoch save."""
+        if (self._preempt is not None
+                and self._preempt.should_checkpoint(self._py_step)):
+            from ...core.failover import Preempted, checkpoint_for_exit
+            if self._ckpt_mgr is not None:
+                # bounded time to exit: an in-flight snapshot is reused
+                saved = checkpoint_for_exit(
+                    self._ckpt_mgr, self._save_tree(), self._py_step,
+                    extra={"epoch": int(self._epoch)},
+                    touched=self._collect_touched())
+                raise Preempted(saved if saved is not None
+                                else self._py_step, self.model_dir,
+                                durable=saved is not None)
+            path = self.save(self.model_dir)
+            raise Preempted(self._py_step, path)
+        if trigger and self.model_dir and trigger.fires(
+                step=self._py_step, epoch_end=False):
+            self._trigger_save()
 
     # -- evaluation -----------------------------------------------------------
 
@@ -569,15 +705,155 @@ class ZooEstimator:
         return to_jax_variables(self.model.state_dict(),
                                 buffer_names(self.model))
 
+    def _optax_state(self) -> Any:
+        """The optimizer's state in optax's layout over the dense
+        parameters (made first if no step ran yet), leaves live."""
+        if self._opt_state is None:
+            self._opt_state = self.optimizer.init(self._params)
+        return self.optimizer.optax_state(
+            self._params, self._opt_state,
+            lambda ts: jax_tree(zip(self._dense_names, ts)))
+
+    def _generators_list(self) -> List[torch.Generator]:
+        """The dropout generators (each once, in module order)."""
+        gens = {id(m.generator): m.generator for m in self.model.modules()
+                if isinstance(m, Dropout) and m.generator is not None}
+        return list(gens.values())
+
+    def _save_tree(self) -> Dict[str, Any]:
+        """The checkpointable train state, the JAX estimator's tree (live
+        tensors; the touched-row masks are not part of it) plus the port's
+        generator states under a key the JAX estimator ignores."""
+        seed = int(self.seed) & 0xFFFFFFFFFFFFFFFF
+        return {
+            **jax_variables(self.model.state_dict(),
+                            buffer_names(self.model)),
+            "opt_state": opt_lib.snapshot(self._optax_state()),
+            "step": np.asarray(self._py_step, np.int32),
+            # jax.random.PRNGKey(seed): a JAX step folds the step into it
+            # and never advances it
+            "rng": np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32),
+            "bad_steps": np.asarray(0, np.int32),
+            _GENERATORS: {
+                "dropout": [g.get_state() for g in self._generators_list()],
+                "augment": self._aug_gen.get_state()},
+        }
+
+    def _ckpt_exists(self, path: str) -> bool:
+        """A resumable checkpoint at ``path``: the sync layout, or an async
+        manager's manifest with a visible generation."""
+        if ckpt_io.exists(path):
+            return True
+        from ...core import ckpt_manager as ckpt_mgr_lib
+        return ckpt_mgr_lib.has_manifest(path)
+
+    def _collect_touched(self) -> Optional[Dict[str, np.ndarray]]:
+        """The touched-row ids of each table since the last accepted save,
+        keyed by the full tree's path (``params/...``); reads the masks
+        back to the host."""
+        if not self._touched:
+            return None
+        return {"params/" + tp: np.nonzero(m[:-1].cpu().numpy())[0]
+                for tp, m in self._touched.items()}
+
+    def _reset_touched(self) -> None:
+        for m in self._touched.values():
+            m.zero_()  # in place: the captured step marks these tensors
+
+    def _trigger_save(self) -> None:
+        """One trigger firing: async through the manager (the touched rows
+        reset only when the snapshot was accepted: one the ``skip`` policy
+        drops keeps them for the next save), else the inline save."""
+        if self._ckpt_mgr is None:
+            self.save(self.model_dir)
+            return
+        accepted = self._ckpt_mgr.save_async(
+            self._save_tree(), step=self._py_step,
+            extra={"epoch": int(self._epoch)},
+            touched=self._collect_touched())
+        if accepted:
+            self._reset_touched()
+
     def save(self, path: Optional[str] = None) -> str:
-        raise NotImplementedError(
-            f"Estimator.save is not ported yet ({_Q1} 6: the checkpoint "
-            "format comes with the state plane)")
+        """Write the train state to ``path`` (default ``model_dir``) in
+        ``core/checkpoint.py``'s format; with ``checkpoint_async=True`` and
+        ``path == model_dir`` a blocking full generation of the manager.
+        Returns the directory."""
+        path = path or self.model_dir
+        if path is None:
+            raise ValueError("no path given and no model_dir configured")
+        if self._ckpt_mgr is not None and path == self.model_dir:
+            # the manager owns model_dir: MANIFEST.jsonl stays the one
+            # source of truth
+            self._ckpt_mgr.save(self._save_tree(), step=self._py_step,
+                                extra={"epoch": int(self._epoch)},
+                                touched=self._collect_touched())
+            self._reset_touched()
+            return path
+        return ckpt_io.save(path, self._save_tree(), step=self._py_step,
+                            extra={"epoch": int(self._epoch)},
+                            retries=self.checkpoint_retries)
 
     def load(self, path: Optional[str] = None) -> None:
-        raise NotImplementedError(
-            f"Estimator.load is not ported yet ({_Q1} 6: the checkpoint "
-            "format comes with the state plane)")
+        """Load a checkpoint of either package (``save``'s format, or the
+        newest restorable generation of a manager directory) into this
+        estimator, in place: parameters and buffers, the optimizer's state
+        (made first if no step ran; a layout that does not fit raises,
+        naming the leaf), the step and epoch, the generators' states."""
+        path = path or self.model_dir
+        if path is None:
+            raise ValueError("no path given and no model_dir configured")
+        if self._ckpt_mgr is not None and path == self.model_dir:
+            from ...core import ckpt_manager as ckpt_mgr_lib
+            if (not ckpt_mgr_lib.has_manifest(path)
+                    and ckpt_io.exists(path)):
+                # a sync checkpoint from before checkpoint_async was on:
+                # the next trigger save starts the manifest with a full
+                tree = ckpt_io.restore(path)
+                extra = ckpt_io.load_extra(path)
+            else:
+                tree = self._ckpt_mgr.restore()
+                extra = (self._ckpt_mgr.last_restored or {}).get(
+                    "extra") or {}
+        else:
+            tree = ckpt_io.restore(path)
+            extra = ckpt_io.load_extra(path)
+        # copy_ into the live tensors: a captured step replays on them
+        self.model.load_state_dict(from_jax_variables(
+            {"params": tree["params"], "state": tree.get("state") or {}}),
+            strict=True)
+        opt_lib.load_optax(self._optax_state(), tree["opt_state"])
+        self._py_step = int(np.asarray(tree["step"]))
+        self._epoch = int(extra.get("epoch", self._epoch))
+        self._load_generators(tree.get(_GENERATORS))
+        # fresh masks: rows diverge from the restored generation only once
+        # a step touches them again
+        self._reset_touched()
+
+    def _load_generators(self, saved: Optional[Dict[str, Any]]) -> None:
+        """Set the dropout and augment generators' states through the
+        generators themselves (a CUDA graph registered with a generator
+        reads its seed and offset at each replay); a checkpoint without
+        them (the JAX package's) reseeds them from ``seed``."""
+        gens = self._generators_list()
+        states = None
+        if saved is not None:
+            states = list(saved.get("dropout") or []) + [saved["augment"]]
+        targets = gens + [self._aug_gen]
+        if states is not None and len(states) == len(targets) and all(
+                np.asarray(st).size == g.get_state().numel()
+                for st, g in zip(states, targets)):
+            for g, st in zip(targets, states):
+                g.set_state(torch.from_numpy(
+                    np.ascontiguousarray(st, dtype=np.uint8)))
+            return
+        if states is not None:
+            logger.warning(
+                "the checkpoint's generator states do not fit this "
+                "estimator's generators (another device or model); "
+                "reseeding them from seed=%d", self.seed)
+        for g in targets:
+            g.manual_seed(int(self.seed))
 
 
 def _check_sparse_support(tables: Dict[str, nn.Parameter], grad_accum: int,
@@ -707,11 +983,9 @@ class _StepGraph:
 def _generators(est: "ZooEstimator") -> List[torch.Generator]:
     """The card's generators a step draws from besides the default one:
     the model's dropout generators and the augment generator."""
-    gens = {id(m.generator): m.generator for m in est.model.modules()
-            if isinstance(m, Dropout) and m.generator is not None}
-    if est.augment is not None:
-        gens[id(est._aug_gen)] = est._aug_gen
-    return [g for g in gens.values() if g.device.type == "cuda"]
+    gens = est._generators_list() + (
+        [est._aug_gen] if est.augment is not None else [])
+    return [g for g in gens if g.device.type == "cuda"]
 
 
 def _supports_host_epoch(feed: Any) -> bool:

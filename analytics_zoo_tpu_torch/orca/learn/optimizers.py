@@ -21,6 +21,19 @@ parameters' device, and a schedule maps that tensor to an f32 learning
 rate there: a step reads nothing from the device and writes no host
 state, so a CUDA graph of it replays (``estimator.py``) and the CPU runs
 the same formulation.  LARS and LAMB are not ported yet.
+
+Checkpoints hold the state in optax's layout, the tree the JAX package's
+``tx.init`` gives for the same name and options (``Optimizer.optax_state``:
+e.g. adam's ``((count, mu, nu), EmptyState | (count,))``, with ``mu`` and
+``nu`` trees shaped like the parameters).  Its leaves are the live state
+tensors themselves (views for conv kernels, whose layout differs), or a
+:class:`Tied` leaf where optax keeps one number and the port several
+(torch's per-parameter Adam ``step`` tensors and the port's update count):
+``snapshot`` reads it, ``load_optax`` copies a saved tree back into the
+tensors in place (a captured step keeps replaying against them) and
+raises, naming the leaf, where the saved layout differs.  torch.optim
+makes its state at the first ``step()``; ``optax_state`` makes it first
+as torch would, so a load before any step has somewhere to go.
 """
 
 from __future__ import annotations
@@ -305,10 +318,81 @@ def apply_updates(params: Tensors, updates: Tensors) -> None:
 
 # -- the optimizers -----------------------------------------------------------
 
+# -- optax's layout of the state -------------------------------------------------
+
+Layout = Callable[[Tensors], Any]  # per-parameter tensors -> the params tree
+
+
+class Tied:
+    """One leaf of optax's state held by several tensors of the port's:
+    read from the first (as ``dtype``), written to all."""
+
+    def __init__(self, tensors: Tensors, dtype: torch.dtype = torch.int32):
+        self.tensors, self.dtype = list(tensors), dtype
+
+    def read(self) -> torch.Tensor:
+        return self.tensors[0].detach().to(self.dtype)
+
+    def write(self, value: Any) -> None:
+        for t in self.tensors:
+            t.fill_(value.item() if hasattr(value, "item") else value)
+
+
+def snapshot(tree: Any) -> Any:
+    """An optax-layout tree with each :class:`Tied` leaf read into a tensor
+    (the rest as they are): what a checkpoint stores."""
+    if isinstance(tree, dict):
+        return {k: snapshot(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(snapshot(v) for v in tree)
+    return tree.read() if isinstance(tree, Tied) else tree
+
+
+def load_optax(live: Any, saved: Any) -> None:
+    """Copy ``saved`` (an optax-layout tree of arrays) into ``live``'s
+    tensors in place.  Raises ``ValueError`` naming the first leaf where
+    the two layouts differ (a missing or extra leaf, another shape): a
+    state that does not fit is never dropped quietly."""
+    from ...core import checkpoint as ckpt_io
+    # leaf paths, not the whole structure: the JAX package keeps an empty
+    # subtree where a ShardedEmbedding table left the dense tree
+    lp, sp = ckpt_io.leaf_paths(live), ckpt_io.leaf_paths(saved)
+    if lp != sp:
+        diff = next((f"{a!r} (saved) vs {b!r} (optimizer)"
+                     for a, b in zip(sp, lp) if a != b),
+                    f"{(sp + lp)[min(len(sp), len(lp))]!r}: the saved "
+                    f"state has {len(sp)} leaves, the optimizer {len(lp)}")
+        raise ValueError(
+            "optimizer state in the checkpoint does not match the "
+            f"configured optimizer's layout at leaf {diff}")
+    with torch.no_grad():
+        for path, dst, src in zip(lp, ckpt_io.flatten(live)[0],
+                                  ckpt_io.flatten(saved)[0]):
+            src = torch.as_tensor(np.asarray(src)) \
+                if not isinstance(src, torch.Tensor) else src
+            if isinstance(dst, Tied):
+                dst.write(src)
+                continue
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"optimizer state leaf {path!r}: the checkpoint's shape "
+                    f"{tuple(src.shape)} is not the optimizer's "
+                    f"{tuple(dst.shape)}")
+            dst.copy_(src.to(dst.dtype))
+
+
+def _schedule_state(learning_rate: Any, count: torch.Tensor) -> tuple:
+    """optax's ``scale_by_learning_rate`` state: ``(count,)`` under a
+    schedule, the empty state for a constant."""
+    return (Tied([count]),) if callable(learning_rate) else ()
+
+
 class Optimizer:
     """An update rule over a list of parameters: ``init(params)`` makes its
     state; ``step(params, grads, state)`` updates ``params`` in place (they
-    may be leaves that autograd tracks) and returns the new state."""
+    may be leaves that autograd tracks) and returns the new state;
+    ``optax_state(params, state, layout)`` gives the state in optax's
+    layout (see the module docstring)."""
 
     def init(self, params: Tensors) -> Any:
         raise NotImplementedError
@@ -316,12 +400,21 @@ class Optimizer:
     def step(self, params: Tensors, grads: Tensors, state: Any) -> Any:
         raise NotImplementedError
 
+    def optax_state(self, params: Tensors, state: Any,
+                    layout: Layout) -> Any:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no optax layout: only the named "
+            f"optimizers ({sorted(_FACTORIES)}) checkpoint their state")
+
 
 class Transformed(Optimizer):
-    """A ``GradientTransformation``, its updates added to the parameters."""
+    """A ``GradientTransformation``, its updates added to the parameters.
+    ``layout(state, layout)``, given by the named factories, maps its state
+    to optax's layout."""
 
-    def __init__(self, tx: GradientTransformation):
-        self.tx = tx
+    def __init__(self, tx: GradientTransformation,
+                 layout: Optional[Callable[[Any, Layout], Any]] = None):
+        self.tx, self._layout = tx, layout
 
     def init(self, params):
         return self.tx.init(params)
@@ -330,6 +423,11 @@ class Transformed(Optimizer):
         updates, state = self.tx.update(grads, state, params)
         apply_updates(params, updates)
         return state
+
+    def optax_state(self, params, state, layout):
+        if self._layout is None:
+            return super().optax_state(params, state, layout)
+        return self._layout(state, layout)
 
 
 class TorchOptim(Optimizer):
@@ -372,6 +470,42 @@ class TorchOptim(Optimizer):
         state["count"].add_(1)
         return state
 
+    def optax_state(self, params, state, layout):
+        optim = state["optim"]
+        group = optim.param_groups[0]
+        sched = _schedule_state(self.learning_rate, state["count"])
+        if self.cls is torch.optim.SGD:
+            if not group["momentum"]:
+                return ((), sched)  # optax.sgd: identity, then the lr
+            bufs = []
+            for p in params:
+                st = optim.state[p]
+                if st.get("momentum_buffer") is None:
+                    # torch's first step sets the buffer to the gradient,
+                    # as 0 * momentum + gradient does
+                    st["momentum_buffer"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                bufs.append(st["momentum_buffer"])
+            return ((layout(bufs),), sched)
+        on_device = group["capturable"] or group["fused"]
+        for p in params:  # torch.optim.Adam's lazy state, made now
+            st = optim.state[p]
+            if not st:
+                st["step"] = (torch.zeros((), dtype=torch.float32,
+                                          device=p.device) if on_device
+                              else torch.tensor(0.0, dtype=torch.float32))
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+        sts = [optim.state[p] for p in params]
+        adam = (Tied([st["step"] for st in sts] + [state["count"]]),
+                layout([st["exp_avg"] for st in sts]),
+                layout([st["exp_avg_sq"] for st in sts]))
+        if self.cls is torch.optim.AdamW:  # + add_decayed_weights' state
+            return (adam, (), sched)
+        return (adam, sched)
+
 
 class Clipped(Optimizer):
     """``inner`` after global-norm clipping of the gradients, which
@@ -386,6 +520,10 @@ class Clipped(Optimizer):
     def step(self, params, grads, state):
         grads, _ = self.clip.update(grads, {}, None)
         return self.inner.step(params, grads, state)
+
+    def optax_state(self, params, state, layout):
+        # optax.chain(clip_by_global_norm, tx): the clip's state is empty
+        return ((), self.inner.optax_state(params, state, layout))
 
 
 # sgd, momentum, adam and adamw are torch.optim's rules under optax's
@@ -416,14 +554,29 @@ def rmsprop(learning_rate: Any, decay: float = 0.9, eps: float = 1e-8,
             initial_scale: float = 0.0, momentum: Optional[float] = None,
             nesterov: bool = False) -> Optimizer:
     tail = [trace(momentum, nesterov)] if momentum is not None else []
+
+    def layout(state, tree):
+        # optax.rmsprop: (ScaleByRmsState(nu), lr state, TraceState(trace)
+        # or the identity's empty state)
+        traced = ((tree(state[2]["trace"]),) if momentum is not None
+                  else ())
+        return ((tree(state[0]["nu"]),),
+                _schedule_state(learning_rate, state[1]["count"]), traced)
+
     return Transformed(chain(scale_by_rms(decay, eps, initial_scale),
-                             scale_by_learning_rate(learning_rate), *tail))
+                             scale_by_learning_rate(learning_rate), *tail),
+                       layout)
 
 
 def adagrad(learning_rate: Any, initial_accumulator_value: float = 0.1,
             eps: float = 1e-7) -> Optimizer:
+    def layout(state, tree):
+        # optax.adagrad: (ScaleByRssState(sum_of_squares), lr state)
+        return ((tree(state[0]["sum"]),),
+                _schedule_state(learning_rate, state[1]["count"]))
+
     return Transformed(chain(scale_by_rss(initial_accumulator_value, eps),
-                             scale_by_learning_rate(learning_rate)))
+                             scale_by_learning_rate(learning_rate)), layout)
 
 
 _FACTORIES = {

@@ -81,11 +81,14 @@ def is_row_rules(sharding: Any) -> bool:
 
 class Tap(NamedTuple):
     """One lookup's application under ``inject_taps``: the table it read,
-    its unique ids (``[size]``, padded with 0) and its gathered unique rows
-    (``[size, dim]``, a leaf that requires grad)."""
+    its unique ids (``[size]``, padded with 0), its gathered unique rows
+    (``[size, dim]``, a leaf that requires grad) and which slots hold a
+    looked-up id (``[size]`` bool: the padding is False, so a touched-row
+    mask marks no row for it)."""
     table: nn.Parameter
     uniq: torch.Tensor
     rows: torch.Tensor
+    valid: Optional[torch.Tensor] = None
 
 
 class _SparseCtx(threading.local):
@@ -209,7 +212,11 @@ def dedup_lookup(table: torch.Tensor, ids: torch.Tensor,
     taps = _CTX.taps
     if taps is not None:
         rows = table.detach().index_select(0, uniq).requires_grad_(True)
-        taps.append(Tap(table, uniq, rows))
+        # the distinct values fill the first slots; the rest is padding
+        distinct = torch.zeros(size + 1, dtype=torch.bool,
+                               device=uniq.device)
+        distinct.index_fill_(0, inv.clamp(max=size), True)
+        taps.append(Tap(table, uniq, rows, distinct[:size]))
     else:
         rows = table.index_select(0, uniq)
     # a slot at or past ``size`` reads a NaN row (the reference's

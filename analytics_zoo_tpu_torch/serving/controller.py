@@ -40,9 +40,9 @@ Deterministic by construction: the loop thread only calls the public
 need to sleep through wall-clock intervals.
 
 Port: ``InProcessReplicaFactory`` serves port ``ClusterServing``
-instances as the JAX package's does; ``SubprocessReplicaFactory`` raises
-``NotImplementedError`` until saved models and the launcher are ported
-(ROADMAP Queue 1 item 6).
+instances as the JAX package's does; ``SubprocessReplicaFactory`` starts
+``python -m analytics_zoo_tpu_torch.serving.server`` children through the
+port's ``core/launcher.py``.
 """
 
 from __future__ import annotations
@@ -135,17 +135,37 @@ class InProcessReplicaFactory(ReplicaFactory):
 
 
 class SubprocessReplicaFactory(ReplicaFactory):
-    """Backends as ``zoo-serving`` child processes, the factory behind the
-    JAX package's ``--autoscale``.  Not ported yet: a child serves a saved
-    model directory and is launched through ``core/launcher``, both of
-    which come with the state plane (ROADMAP Queue 1 item 6).  Use
-    :class:`InProcessReplicaFactory` meanwhile."""
+    """Backends are ``zoo-serving`` child processes — the production
+    factory behind the CLI's ``--autoscale``.  ``extra_args`` is the
+    tail of the child's command line (model flags etc.); the factory
+    picks a free port, spawns the child via
+    :func:`~..core.launcher.launch_serving_replica`, and blocks until
+    the child accepts TCP connections (the CLI warms its model before
+    binding traffic threads, so ready implies warm)."""
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        raise NotImplementedError(
-            "SubprocessReplicaFactory is not ported yet (ROADMAP Queue 1 "
-            "item 6: zoo-serving replicas load saved models, which come "
-            "with the state plane); use InProcessReplicaFactory")
+    def __init__(self, extra_args: Optional[List[str]] = None,
+                 host: str = "127.0.0.1",
+                 startup_timeout: float = 60.0,
+                 grace: float = 10.0) -> None:
+        self.extra_args = list(extra_args or [])
+        self.host = host
+        self.startup_timeout = startup_timeout
+        self.grace = grace
+
+    def create(self) -> ReplicaHandle:
+        from ..core import launcher
+        proc, port = launcher.launch_serving_replica(
+            self.extra_args, host=self.host)
+        if not launcher.wait_serving_ready(self.host, port, proc=proc,
+                                           timeout=self.startup_timeout):
+            launcher._terminate_gang([proc], self.grace)
+            raise OSError(f"serving replica on port {port} did not become "
+                          f"ready within {self.startup_timeout:.0f}s")
+        return ReplicaHandle(self.host, port, obj=proc)
+
+    def retire(self, handle: ReplicaHandle) -> None:
+        from ..core import launcher
+        launcher._terminate_gang([handle.obj], self.grace)
 
 
 # -- scaling policies ----------------------------------------------------------

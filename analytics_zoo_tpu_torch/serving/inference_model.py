@@ -273,9 +273,10 @@ class InferenceModel:
 
     def load_zoo_model(self, path: str, dtype: Any = None
                        ) -> "InferenceModel":
-        raise NotImplementedError(
-            "load_zoo_model is not ported yet (ROADMAP Queue 1 item 6: "
-            "ZooModel.save_model/load_model come with the state plane)")
+        """Load a ``ZooModel.save_model`` directory of either package."""
+        from ..models import ZooModel
+        m = ZooModel.load_model(path)
+        return self.load(m, m._loaded_variables, dtype=dtype)
 
     def load_estimator(self, est: Any, dtype: Any = None
                        ) -> "InferenceModel":

@@ -39,8 +39,9 @@ Port: ``swap(warm=True)`` calls the port's ``InferenceModel.warm_from``,
 which captures the incoming version's CUDA graphs (one a key) on the
 swapping thread while the old version's graphs replay on the server's
 workers; each instance has its own serving stream and graph pool.
-``swap_from_checkpoint`` raises ``NotImplementedError`` until the state
-plane is ported (ROADMAP Queue 1 item 6).
+``swap_from_checkpoint`` restores through the port's
+``core/ckpt_manager.restore_path`` (a manager directory of either
+package).
 """
 
 from __future__ import annotations
@@ -447,15 +448,29 @@ class ModelRegistry:
     def swap_from_checkpoint(self, name: str, loader: Any, ckpt_dir: str,
                              version: Optional[str] = None,
                              **swap_kwargs: Any) -> str:
-        """Hot-swap ``name`` from the newest visible generation of an
-        async-checkpoint directory (the JAX package's
-        ``core/ckpt_manager.py``).  Not ported yet: the port has no
-        checkpoint manager until the state plane comes (ROADMAP Queue 1
-        item 6)."""
-        raise NotImplementedError(
-            "ModelRegistry.swap_from_checkpoint is not ported yet (ROADMAP "
-            "Queue 1 item 6: core/ckpt_manager.py comes with the state "
-            "plane); build the model and call swap(name, model) instead")
+        """Hot-swap ``name`` from the newest VISIBLE generation of an
+        async-checkpoint directory (``core/ckpt_manager.py``): the serving
+        half of train-to-serve refresh.  The manifest decides what is
+        loadable — an in-flight or torn write is never served, because
+        its generation has no committed manifest line yet.
+
+        ``loader`` is called as ``loader(tree, record)`` with the
+        restored train-state tree and its manifest record, and must
+        return the servable model (e.g. an ``InferenceModel`` loaded with
+        the tree's ``params``/``state``).  ``version`` defaults to
+        ``ckpt-<generation>``, so repeated refreshes against an
+        unchanged checkpoint collide loudly instead of silently
+        re-serving identical weights.  All other keywords forward to
+        :meth:`swap`."""
+        from ..core import ckpt_manager as ckpt_mgr_lib
+        tree, rec = ckpt_mgr_lib.restore_path(ckpt_dir)
+        model = loader(tree, rec)
+        if version is None:
+            version = f"ckpt-{rec['gen']}"
+        logger.info("model %s: swapping in checkpoint generation %s "
+                    "(step %s) from %s", name, rec.get("gen"),
+                    rec.get("step"), ckpt_dir)
+        return self.swap(name, model, version=version, **swap_kwargs)
 
     def promote(self, name: str, version: str, warm: bool = True,
                 drain: bool = True, drain_timeout: float = 30.0) -> str:

@@ -64,9 +64,10 @@ worker waits on an event recorded after its own replay, so two workers
 on two shape groups overlap their host work with each other's replays.
 A model loaded with ``device=None`` runs on the card or raises; the
 server never moves work to the CPU.  The knobs' defaults come from
-``ZooConfig``'s (the port has no context), and ``main``, the
-``zoo-serving`` launcher, raises ``NotImplementedError`` until saved
-models load (ROADMAP Queue 1 item 6).  One repair beside the JAX
+``ZooConfig``'s (the port has no context).  ``main`` is the
+``zoo-serving`` launcher (``python -m analytics_zoo_tpu_torch.serving.
+server``), with one flag the JAX package's lacks: ``--device`` (default
+the card).  One repair beside the JAX
 package's: a request that enters the pending table after ``stop()``
 closed the queue is answered ``server shutting down`` at once, where the
 JAX package's leaves it pending.
@@ -1465,11 +1466,171 @@ class ClusterServing:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    """The ``zoo-serving`` launcher.  Not ported yet: it serves
-    ``ZooModel.save_model`` directories, which come with the state plane
-    (ROADMAP Queue 1 item 6).  In code, load an ``InferenceModel`` and
-    pass it to ``ClusterServing``."""
-    raise NotImplementedError(
-        "zoo-serving (server.main) is not ported yet (ROADMAP Queue 1 item "
-        "6: ZooModel.save_model/load_model come with the state plane); "
-        "build ClusterServing(InferenceModel().load(...)) in code instead")
+    """``zoo-serving`` launcher (reference: the cluster-serving-start script
+    + config.yaml, scripts/cluster-serving/).  Loads a ``ZooModel.save_model``
+    directory (of either package), starts the TCP service and, optionally,
+    the HTTP frontend.  Runnable as ``python -m
+    analytics_zoo_tpu_torch.serving.server``; serves on the card unless
+    ``--device`` names another device."""
+    import argparse
+    import signal
+
+    parser = argparse.ArgumentParser(prog="zoo-serving",
+                                     description=main.__doc__)
+    parser.add_argument("--model-dir", default=None,
+                        help="a ZooModel.save_model directory (the "
+                             "'default' model)")
+    parser.add_argument("--model", action="append", default=None,
+                        metavar="NAME=DIR",
+                        help="additional named model(s) for multi-model "
+                             "serving; repeatable")
+    parser.add_argument("--scheduler", default=None,
+                        choices=sorted(scheduler_lib.SCHEDULERS),
+                        help="assembly batching policy (default: "
+                             "ZooConfig.scheduler, window)")
+    parser.add_argument("--config", default=None,
+                        help="ZooConfig JSON/YAML file; its serving "
+                             "fields (scheduler, models) seed the flags")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8980)
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--inference-workers", type=int, default=None,
+                        help="concurrent model-call threads (default: "
+                             "ZooConfig.inference_workers, 2)")
+    parser.add_argument("--http-port", type=int, default=None,
+                        help="also serve HTTP/JSON on this port")
+    parser.add_argument("--hedge-ms", default=None, metavar="MS|auto",
+                        help="router hedge threshold in ms, or 'auto' to "
+                             "self-tune from the observed latency "
+                             "distribution (requires --http-port)")
+    parser.add_argument("--autoscale", action="store_true",
+                        help="run a ServingController that scales "
+                             "zoo-serving subprocess replicas to hold "
+                             "the SLO (requires --http-port; see "
+                             "ZooConfig controller_* fields)")
+    parser.add_argument("--slo-p99-ms", type=float, default=None,
+                        help="autoscaler SLO on the windowed client p99 "
+                             "(default: ZooConfig.controller_slo_p99_ms)")
+    parser.add_argument("--min-replicas", type=int, default=None,
+                        help="autoscaler pool floor (default: "
+                             "ZooConfig.controller_min_replicas)")
+    parser.add_argument("--max-replicas", type=int, default=None,
+                        help="autoscaler pool ceiling (default: "
+                             "ZooConfig.controller_max_replicas)")
+    parser.add_argument("--controller-interval", type=float, default=None,
+                        help="seconds between control ticks (default: "
+                             "ZooConfig.controller_interval_s)")
+    parser.add_argument("--device", default=None,
+                        help="the device the models run on (default: the "
+                             "card; 'cpu' runs the plain versions of the "
+                             "kernels)")
+    args = parser.parse_args(argv)
+
+    def load(mdir: str) -> InferenceModel:
+        return InferenceModel(device=args.device).load_zoo_model(mdir)
+
+    cfg = None
+    if args.config is not None:
+        cfg = ZooConfig.from_file(args.config)
+    models = {}
+    for spec in args.model or []:
+        name, sep, mdir = spec.partition("=")
+        if not sep or not name or not mdir:
+            parser.error(f"--model expects NAME=DIR, got {spec!r}")
+        models[name] = load(mdir)
+    if cfg is not None:
+        for name, mdir in (cfg.models or {}).items():
+            if name not in models:
+                models[name] = load(mdir)
+    model = load(args.model_dir) if args.model_dir else None
+    if model is None and not models:
+        parser.error("at least one of --model-dir / --model / a config "
+                     "with models is required")
+    scheduler = args.scheduler or (cfg.scheduler if cfg else None)
+    serving = ClusterServing(model, host=args.host, port=args.port,
+                             batch_size=args.batch_size,
+                             inference_workers=args.inference_workers,
+                             scheduler=scheduler,
+                             models=models or None,
+                             ).start()
+    if (args.autoscale or args.hedge_ms is not None) \
+            and args.http_port is None:
+        parser.error("--autoscale/--hedge-ms route through the HTTP "
+                     "frontend's replica set; add --http-port")
+    frontend = None
+    controller = None
+    if args.http_port is not None:
+        from .http_frontend import HTTPFrontend
+        from .router import ReplicaSet
+        hedge = args.hedge_ms
+        if hedge is not None and hedge != "auto":
+            hedge = float(hedge)
+        router = ReplicaSet([(serving.host, serving.port)],
+                            hedge_ms=hedge)
+        frontend = HTTPFrontend(host=args.host, port=args.http_port,
+                                router=router).start()
+        logger.info("HTTP frontend on %s:%d", args.host, frontend.port)
+        if args.autoscale:
+            from .controller import (HysteresisPolicy, ServingController,
+                                     SubprocessReplicaFactory)
+            base = cfg or ZooConfig()
+            # new replicas are clones of this one: same model/scheduler
+            # flags, their own port (picked by the factory)
+            child: List[str] = []
+            if args.model_dir:
+                child += ["--model-dir", args.model_dir]
+            for spec in args.model or []:
+                child += ["--model", spec]
+            if args.config:
+                child += ["--config", args.config]
+            if args.scheduler:
+                child += ["--scheduler", args.scheduler]
+            child += ["--batch-size", str(args.batch_size)]
+            if args.inference_workers is not None:
+                child += ["--inference-workers",
+                          str(args.inference_workers)]
+            if args.device is not None:
+                child += ["--device", args.device]
+            policy = HysteresisPolicy(
+                slo_p99_ms=(args.slo_p99_ms
+                            if args.slo_p99_ms is not None
+                            else base.controller_slo_p99_ms),
+                queue_high=base.controller_queue_high,
+                min_replicas=(args.min_replicas
+                              if args.min_replicas is not None
+                              else base.controller_min_replicas),
+                max_replicas=(args.max_replicas
+                              if args.max_replicas is not None
+                              else base.controller_max_replicas),
+                up_cooldown_s=base.controller_up_cooldown_s,
+                down_cooldown_s=base.controller_down_cooldown_s,
+                down_ticks=base.controller_down_ticks)
+            controller = ServingController(
+                router, SubprocessReplicaFactory(extra_args=child),
+                policy=policy,
+                interval_s=(args.controller_interval
+                            if args.controller_interval is not None
+                            else base.controller_interval_s),
+                scrape_cluster=True,
+                flightrec_dir=base.flightrec_dir).start()
+            logger.info("autoscaler on: slo_p99=%.0fms replicas=[%d,%d]",
+                        policy.slo_p99_ms, policy.min_replicas,
+                        policy.max_replicas)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    try:
+        stop.wait()
+    finally:
+        if controller is not None:
+            controller.close()  # stop loop, retire subprocess replicas
+        if frontend is not None:
+            frontend.stop()
+        # SIGTERM = rolling-restart contract: drain (retryable
+        # "draining" replies, in-flight batches finish) before stop
+        serving.drain(timeout=10.0)
+        serving.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs twelve phases, each printing one
+``nvcc`` per source, all at once), then runs thirteen phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
@@ -183,9 +183,42 @@ JSON line:
    p99, the cache hit rate and the gather-bytes ratio (4 or more, as
    bench.py's bar); every reply equal to the eager adapter's ranking of
    its row.
-10. ``devices``: the card as ``nvidia-smi`` reports it.
+10. ``state_plane``: checkpoints, triggers, async and delta generations,
+   preemption and resume, and the saved-model loaders.  (a) bench.py's
+   ``bench_checkpoint`` uncut (a ShardedEmbedding ``NeuralCF(20000,
+   10000)`` with 64-wide tables, 4,096 seeded rows at batch 128, adam
+   1e-2, a ``SeveralIteration(2)`` trigger): no checkpoint, sync saves
+   and ``checkpoint_async=True``, each a warm and a timed epoch from CUDA
+   graphs, the step timed at the ``_train_step`` call boundary (p50,
+   p99, the p99 ratios, bench.py's ``clean`` flag, reported); the async
+   run's generations (full and delta bytes), ``verify()``, a fresh
+   estimator's restore ms and its state against the live one bit for
+   bit.  (b) the ResNet-50 of resnet_train (b) (``norm="batch"``, bf16,
+   sgd 0.1, batch 128, 512 seeded images) from CUDA graphs under cuDNN's
+   deterministic algorithms: 2 epochs straight; 1 epoch saved at its end
+   (sync, and async), then a fresh estimator's ``auto_resume`` to 2: its
+   step losses, weights and running statistics equal the straight run's
+   bit for bit, 53 launches of each batch-norm kernel a resumed step; a
+   load into the straight run's captured estimator, then one more epoch,
+   gives the same losses; a SIGTERM from a timer thread mid-fit under
+   ``preemption_checkpoint=True`` (``Preempted.step`` is the saved step,
+   the restored state the live one); save, snapshot stall, restore ms
+   and bytes.  (c) BERT-base ``BERTSQuAD`` (bf16, dropout 0.1, adamw on
+   warmup_cosine, batch 32, 64 examples) through ``fit(prefetch=2)``
+   from CUDA graphs: 10 epochs straight; 5 with the async manager saving
+   at each epoch's end, then a fresh estimator's ``auto_resume`` to 10:
+   the 10 step losses and the weights equal the straight run's last 10
+   bit for bit (the dropout masks from the restored generator), 12 + 12
+   flash launches a resumed step; the snapshot's stall beside the step;
+   ``save_model`` served by ``InferenceModel.load_zoo_model`` equal to
+   ``load_estimator``'s logits at buckets 1 and 16; and a ``python -m
+   analytics_zoo_tpu_torch.serving.server --model-dir`` child on the card
+   answering 16 requests through the port's client, against direct
+   ``predict`` (equal bits expected, at worst ``TOL_SERVE_BF16``).
+11. ``devices``: the card as ``nvidia-smi`` reports it.
 
-Then a ``kernels`` line (one entry per kernel and path) and, last,
+Then the script's seconds, a ``kernels`` line (one entry per kernel and
+path) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when there is no
 CUDA card.  ``--only kernel,fused_bn,...`` runs the named phases alone and
@@ -3739,6 +3772,558 @@ def phase_recsys() -> dict:
     return res
 
 
+# -- state_plane ------------------------------------------------------------
+
+# bench.py's bench_checkpoint, uncut: a sharded NCF (20,000 + 10,000 rows of
+# 64 in each of its four tables), 4,096 seeded rows at batch 128, adam 1e-2,
+# seed 7, a trigger every 2 steps
+CKPT_NCF = dict(user_count=20_000, item_count=10_000, class_num=2,
+                user_embed=64, item_embed=64, hidden_layers=(64, 32),
+                mf_embed=64, sharded_embeddings=True)
+CKPT_ROWS = 4096
+CKPT_BATCH = 128
+CKPT_EVERY = 2
+CKPT_CLEAN = 1.15     # bench.py's acceptance ratio: reported, not asserted
+SP_IMAGES = 512       # state_plane (b): 4 steps an epoch at batch 128
+SP_SQUAD = (5, 10)    # state_plane (c): the first fit's epochs, the total
+SP_WARMUP = 4         # (c)'s warmup_cosine schedule, over its 20 steps
+SP_SERVE = 16         # requests to the zoo-serving child
+SP_STALL_STEPS = 4    # steps a side of the stall windows
+SP_STALL_SAVES = 4    # windows with a save, between two without
+SP_PREEMPT_EPOCHS = 8  # the preempted fit's epochs (the signal comes first)
+
+
+class StatePlaneSizes:
+    """The phase's shapes: the card's by default; the CPU rehearsal of the
+    phase (tests and debugging) shrinks them."""
+
+    def __init__(self, device="cuda", **kw):
+        self.device = device
+        self.ncf = dict(CKPT_NCF)
+        self.rows, self.batch = CKPT_ROWS, CKPT_BATCH
+        self.resnet = dict(RESNET, norm="batch", dtype="bfloat16")
+        self.image, self.images, self.resnet_batch = (IMAGE, SP_IMAGES,
+                                                      RESNET_BATCH)
+        self.bert = dict(BERT_BASE)
+        self.seq, self.examples, self.squad_batch = (SEQ, TRAIN_EXAMPLES,
+                                                     TRAIN_BATCH)
+        self.__dict__.update(kw)
+
+
+def sp_sync(sizes) -> None:
+    if sizes.device == "cuda":
+        torch.cuda.synchronize()
+
+
+def sp_free(sizes) -> None:
+    """Give back what estimators dropped before this held on the card (a
+    train-step wrapper holds its estimator in a reference cycle, graphs
+    and their memory pools with it), so the next one's allocations and
+    snapshots do not run into the allocator releasing its cache."""
+    import gc
+    gc.collect()
+    if sizes.device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def sp_tree_equal(a, b, what: str) -> int:
+    """Two checkpoint trees bit for bit (leaf paths, shapes, dtypes and
+    bytes); returns the leaves compared."""
+    from analytics_zoo_tpu_torch.core import checkpoint as ckpt_io
+    pa, pb = ckpt_io.leaf_paths(a), ckpt_io.leaf_paths(b)
+    if pa != pb:
+        raise AssertionError(f"{what}: leaf paths differ: {pa[:5]} vs "
+                             f"{pb[:5]}")
+    for path, x, y in zip(pa, ckpt_io.flatten(a)[0], ckpt_io.flatten(b)[0]):
+        x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.reshape(-1).view(torch.uint8),
+                y.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{what}: leaf {path} differs")
+    return len(pa)
+
+
+def sp_train_state(est) -> dict:
+    """What a resume must restore: parameters, buffers, the optimizer's
+    state in optax's layout, the step."""
+    tree = est._save_tree()
+    return {k: tree[k] for k in ("params", "state", "opt_state", "step")}
+
+
+def sp_dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, files in os.walk(path) for f in files)
+
+
+def sp_stall(est, batch, sizes) -> dict:
+    """What a snapshot costs the steps around it: ms of 2 x
+    SP_STALL_STEPS train steps on one batch (synchronised at the window's
+    ends) without and with a trigger save between the halves, in turns
+    (without, with x SP_STALL_SAVES, without), and the host ms of each
+    save call.  The first saves of a manager allocate its snapshot
+    buffers; later ones reuse them (a save that finds both sets still
+    held by the writer makes a third)."""
+    def window(save: bool):
+        sp_sync(sizes)
+        t0 = time.perf_counter()
+        for _ in range(SP_STALL_STEPS):
+            est._train_step(batch)
+        call = None
+        if save:
+            t1 = time.perf_counter()
+            est._trigger_save()
+            call = (time.perf_counter() - t1) * 1e3
+        for _ in range(SP_STALL_STEPS):
+            est._train_step(batch)
+        sp_sync(sizes)
+        return (time.perf_counter() - t0) * 1e3, call
+
+    runs = [window(save) for save in
+            (False,) + (True,) * SP_STALL_SAVES + (False,)]
+    if est._ckpt_mgr is not None:
+        est._ckpt_mgr.flush(raise_error=True)
+    plain = [runs[0][0], runs[-1][0]]
+    base = sum(plain) / len(plain)
+    saved = [ms for ms, _ in runs[1:-1]]
+    return {"window_steps": 2 * SP_STALL_STEPS, "plain_ms": plain,
+            "with_save_ms": saved, "stall_ms": [s - base for s in saved],
+            "save_call_ms": [call for _, call in runs[1:-1]],
+            "step_ms": base / (2 * SP_STALL_STEPS)}
+
+
+def sp_write_errors() -> float:
+    from analytics_zoo_tpu_torch.core import metrics
+    return metrics.get_registry().snapshot().get("ckpt.write_errors", 0)
+
+
+def sp_checkpoint_bench(sizes, root: str) -> dict:
+    """state_plane (a): bench.py's bench_checkpoint.  Three modes (no
+    checkpoint, sync saves, the async manager), each one warm epoch then
+    one timed, a trigger every 2 steps; the step timed at the
+    ``_train_step`` call boundary (so a sync save's stall lands in the
+    interval after it); then the async run's generations, a fresh
+    estimator's restore, and its state against the live one."""
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.orca.learn import Estimator, \
+        SeveralIteration
+
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(0, sizes.ncf["user_count"], sizes.rows),
+                  rng.integers(0, sizes.ncf["item_count"], sizes.rows)],
+                 1).astype(np.int32)
+    y = (rng.random(sizes.rows) < 0.5).astype(np.int32)
+    init = NeuralCF(**sizes.ncf).init_weights(
+        torch.Generator().manual_seed(7)).state_dict()
+
+    def ncf():
+        m = NeuralCF(**sizes.ncf)
+        m.load_state_dict(init)
+        return m
+
+    kw = dict(loss="sparse_categorical_crossentropy", optimizer="adam",
+              learning_rate=1e-2, seed=7, device=sizes.device)
+    modes = {}
+    for mode in ("none", "sync", "async"):
+        d = os.path.join(root, f"ncf_{mode}")
+        est = Estimator.from_keras(
+            ncf(), model_dir=None if mode == "none" else d,
+            checkpoint_async=mode == "async", **kw)
+        trig = None if mode == "none" else SeveralIteration(CKPT_EVERY)
+        est.fit((x, y), epochs=1, batch_size=sizes.batch, verbose=False,
+                checkpoint_trigger=trig)
+        if est._ckpt_mgr is not None:
+            est._ckpt_mgr.flush(raise_error=True)
+        stamps, inner = [], est._train_step
+
+        def timed(batch, _inner=inner, _s=stamps):
+            _s.append(time.perf_counter())
+            return _inner(batch)
+
+        est._train_step = timed
+        t0 = time.perf_counter()
+        est.fit((x, y), epochs=1, batch_size=sizes.batch, verbose=False,
+                checkpoint_trigger=trig)
+        wall = time.perf_counter() - t0
+        est._train_step = inner
+        if est._ckpt_mgr is not None:
+            est._ckpt_mgr.flush(raise_error=True)
+        diffs = np.diff(np.asarray(stamps)) * 1e3
+        res = {"steps": len(stamps), "wall_s": wall,
+               "step_p50_ms": float(np.percentile(diffs, 50)),
+               "step_p99_ms": float(np.percentile(diffs, 99))}
+        if mode == "async":
+            mgr = est._ckpt_mgr
+            gens = mgr.generations()
+            fulls = [r["bytes"] for r in gens if r["kind"] == "full"]
+            deltas = [r["bytes"] for r in gens if r["kind"] == "delta"]
+            if not deltas:
+                raise AssertionError(f"state_plane (a): no delta "
+                                     f"generation among {gens}")
+            errors = mgr.verify()
+            if errors:
+                raise AssertionError(f"state_plane (a): verify() {errors}")
+            res.update({
+                "generations": [r["kind"] for r in gens],
+                "full_bytes_mean": float(np.mean(fulls)),
+                "delta_bytes_mean": float(np.mean(deltas)),
+                "delta_to_full_ratio": float(np.mean(deltas)
+                                             / np.mean(fulls)),
+                "verify": errors})
+            sp_sync(sizes)
+            r0 = time.perf_counter()
+            rest = Estimator.from_keras(ncf(), model_dir=d,
+                                        checkpoint_async=True, **kw)
+            rest.load(d)
+            sp_sync(sizes)
+            res["restore_ms"] = (time.perf_counter() - r0) * 1e3
+            res["restored_leaves_equal"] = sp_tree_equal(
+                sp_train_state(rest), sp_train_state(est),
+                "state_plane (a) restored vs live")
+            del rest
+        modes[mode] = res
+        del est
+        sp_free(sizes)
+    base = modes["none"]["step_p99_ms"]
+    sync_ratio = modes["sync"]["step_p99_ms"] / base
+    async_ratio = modes["async"]["step_p99_ms"] / base
+    return {"modes": modes, "sync_p99_ratio": sync_ratio,
+            "async_p99_ratio": async_ratio,
+            "clean": not (async_ratio > CKPT_CLEAN
+                          and sync_ratio <= CKPT_CLEAN),
+            "trigger_every_steps": CKPT_EVERY}
+
+
+def sp_resnet(bn, sizes, root: str) -> dict:
+    """state_plane (b): bench.py's ResNet-50, norm="batch", bf16, sgd 0.1,
+    from CUDA graphs under cuDNN's deterministic algorithms, over seeded
+    images (4 steps an epoch): 2 epochs straight; 1 epoch saved at its end
+    and a fresh estimator's auto_resume to 2, sync and async (step losses,
+    parameters and running statistics equal the straight run's bit for
+    bit; 53 launches of each batch-norm kernel a resumed step); an
+    in-place load into the straight run's estimator, then one more epoch;
+    a SIGTERM mid-fit (``Preempted.step`` is the checkpoint's, the
+    restored state the live one); the save's, the snapshot's and the
+    restore's times and the checkpoint's bytes."""
+    import signal
+    import threading
+
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.core.failover import Preempted
+    from analytics_zoo_tpu_torch.data import as_feed
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    card = sizes.device == "cuda"
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(SEED + 9)
+    init = from_jax_variables(random_resnet_variables(
+        TrainNet(**sizes.resnet), SEED))
+    xy = (rng.integers(0, 256, (sizes.images, sizes.image, sizes.image, 3),
+                       dtype=np.uint8),
+          rng.integers(0, sizes.resnet["class_num"],
+                       sizes.images).astype(np.int32))
+    steps = sizes.images // sizes.resnet_batch
+
+    def est(**kw):
+        m = TrainNet(**sizes.resnet)
+        m.load_state_dict(init, strict=True)
+        return Estimator.from_keras(
+            m, loss="sparse_categorical_crossentropy", optimizer="sgd",
+            learning_rate=RESNET_LR, seed=SEED, device=sizes.device, **kw)
+
+    def fit(e, epochs, **kw):
+        losses = record_losses(e)
+        e.fit(xy, epochs=epochs, batch_size=sizes.resnet_batch,
+              verbose=False, **kw)
+        return [float(v) for v in losses]
+
+    def weights(e):
+        return {k: v.detach().clone() for k, v in
+                e.model.state_dict().items()}
+
+    def same_weights(a, b, what):
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} tensors differ "
+                                 f"({bad[:3]})")
+
+    try:
+        straight = est()
+        want = fit(straight, 2)
+        want_w = weights(straight)
+        out = {"steps_an_epoch": steps, "straight_losses": want}
+        for mode in ("sync", "async"):
+            d = os.path.join(root, f"resnet_{mode}")
+            first = est(model_dir=d, checkpoint_async=mode == "async")
+            fit(first, 1, checkpoint_trigger="every_epoch")
+            if first._ckpt_mgr is not None:
+                first._ckpt_mgr.flush(raise_error=True)
+            del first
+            sp_free(sizes)
+            resumed = est(model_dir=d, checkpoint_async=mode == "async")
+            if card:
+                bn.reset_launches()
+            got = fit(resumed, 2, auto_resume=True)
+            launches = (read_bn_counts(bn, f"state_plane (b) {mode}",
+                                       bf16=steps) if card else None)
+            if got != want[steps:]:
+                raise AssertionError(f"state_plane (b) {mode}: resumed "
+                                     f"losses {got}, straight "
+                                     f"{want[steps:]}")
+            same_weights(weights(resumed), want_w,
+                         f"state_plane (b) {mode} resumed")
+            out[mode] = {"resumed_losses": got, "launches": launches,
+                         "captures": resumed.capture_count,
+                         "checkpoint_bytes": sp_dir_bytes(d)}
+            batch = next(as_feed(xy, sizes.resnet_batch,
+                                 shuffle=False).epoch(sizes.device, 0))
+            if mode == "sync":  # keep d's epoch-1 save for the load below
+                resumed.model_dir = d + "_stall"
+            out[mode]["stall"] = sp_stall(resumed, batch, sizes)
+            del resumed
+            sp_free(sizes)
+        # in place: a load into the straight run's captured estimator
+        straight.load(os.path.join(root, "resnet_sync"))
+        again = fit(straight, 1)
+        if again != want[steps:]:
+            raise AssertionError(f"state_plane (b): after an in-place load "
+                                 f"{again}, want {want[steps:]}")
+        out["in_place_load_losses_equal"] = True
+        out["in_place_captures"] = straight.capture_count
+        sp_sync(sizes)
+        t0 = time.perf_counter()
+        straight.save(os.path.join(root, "resnet_save"))
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        out["save_bytes"] = sp_dir_bytes(os.path.join(root, "resnet_save"))
+        del straight
+        sp_free(sizes)
+        fresh = est()
+        sp_sync(sizes)
+        t0 = time.perf_counter()
+        fresh.load(os.path.join(root, "resnet_save"))
+        sp_sync(sizes)
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        del fresh
+        # preemption: SIGTERM from a timer thread in the second epoch
+        d = os.path.join(root, "resnet_preempt")
+        pre = est(model_dir=d, preemption_checkpoint=True,
+                  preemption_sync_every=1)
+        inner, timer = pre._train_step, []
+
+        def step(batch):
+            loss = inner(batch)
+            if pre._py_step == steps + 1 and not timer:
+                timer.append(threading.Timer(
+                    0.0, os.kill, (os.getpid(), signal.SIGTERM)))
+                timer[0].start()
+            return loss
+
+        pre._train_step = step
+        try:
+            pre.fit(xy, epochs=SP_PREEMPT_EPOCHS, batch_size=sizes.resnet_batch,
+                    verbose=False)
+            raise AssertionError("state_plane (b): no Preempted")
+        except Preempted as e:
+            preempted = e
+        finally:
+            pre._preempt.uninstall()
+            for t in timer:
+                t.join()
+        from analytics_zoo_tpu_torch.core import checkpoint as ckpt_io
+        saved_step = ckpt_io.latest_step(d)
+        if not (preempted.durable and preempted.step == saved_step
+                == pre._py_step):
+            raise AssertionError(f"state_plane (b): Preempted at "
+                                 f"{preempted.step}, saved {saved_step}, "
+                                 f"live {pre._py_step}")
+        back = est()
+        back.load(d)
+        out["preempted"] = {
+            "step": preempted.step, "epoch": pre._epoch,
+            "restored_leaves_equal": sp_tree_equal(
+                sp_train_state(back), sp_train_state(pre),
+                "state_plane (b) preempted")}
+        del pre, back
+        sp_free(sizes)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def sp_squad(fa, sizes, root: str) -> dict:
+    """state_plane (c): BERT-base BERTSQuAD (bf16, dropout 0.1, adamw on
+    warmup_cosine) through fit(prefetch=2) from CUDA graphs: 10 epochs
+    straight; 5 epochs saved by the async manager at each epoch's end and a
+    fresh estimator's auto_resume to 10 (its 10 step losses and weights
+    equal the straight run's last 10 bit for bit; 12 + 12 flash launches a
+    resumed step); the snapshot's stall; ``save_model`` served by
+    ``load_zoo_model`` against ``load_estimator`` at buckets 1 and 16; and
+    a ``zoo-serving --model-dir`` child answering SP_SERVE requests."""
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.core import launcher
+    from analytics_zoo_tpu_torch.data import as_feed
+    from analytics_zoo_tpu_torch.models import BERTSQuAD, squad_span_loss
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    from analytics_zoo_tpu_torch.serving import (InferenceModel, InputQueue,
+                                                 OutputQueue)
+
+    card = sizes.device == "cuda"
+    cfg = dict(sizes.bert, dropout=0.1, dtype=torch.bfloat16)
+    init = from_jax_variables(random_bert_variables(
+        BERTSQuAD(use_flash=True, **sizes.bert), SEED))
+    rng = np.random.default_rng(SEED + 11)
+    ids = rng.integers(0, sizes.bert["vocab_size"],
+                       (sizes.examples, sizes.seq)).astype(np.int32)
+    start = rng.integers(0, sizes.seq // 2, sizes.examples)
+    spans = np.stack([start, start + rng.integers(1, sizes.seq // 2,
+                                                  sizes.examples)],
+                     1).astype(np.int32)
+    first_epochs, total = SP_SQUAD
+    steps = sizes.examples // sizes.squad_batch
+    sched = {"schedule": "warmup_cosine", "peak": TRAIN_LR,
+             "warmup_steps": SP_WARMUP, "decay_steps": total * steps}
+
+    def est(**kw):
+        m = BERTSQuAD(use_flash=True, **cfg)
+        m.load_state_dict(init, strict=True)
+        return Estimator.from_keras(m, loss=squad_span_loss,
+                                    optimizer="adamw", learning_rate=sched,
+                                    seed=SEED, device=sizes.device, **kw)
+
+    def fit(e, epochs, **kw):
+        losses = record_losses(e)
+        e.fit((ids, spans), epochs=epochs, batch_size=sizes.squad_batch,
+              verbose=False, prefetch=2, **kw)
+        return [float(v) for v in losses]
+
+    straight = est()
+    want = fit(straight, total)
+    want_w = {k: v.clone() for k, v in straight.model.state_dict().items()}
+    del straight
+    sp_free(sizes)
+    d = os.path.join(root, "squad")
+    ckw = dict(model_dir=d, checkpoint_async=True, checkpoint_keep_last=1)
+    first = est(**ckw)
+    fit(first, first_epochs, checkpoint_trigger="every_epoch")
+    first._ckpt_mgr.flush(raise_error=True)
+    del first
+    sp_free(sizes)
+    resumed = est(**ckw)
+    if card:
+        reset_counts(fa)
+    got = fit(resumed, total, auto_resume=True)
+    n = (total - first_epochs) * steps
+    launches = (read_counts(fa, "state_plane (c)",
+                            **{BF16_KERNEL: n, BWD_KERNEL: n})
+                if card else None)
+    if got != want[first_epochs * steps:]:
+        raise AssertionError(f"state_plane (c): resumed losses {got}, "
+                             f"straight {want[first_epochs * steps:]}")
+    bad = [k for k, v in resumed.model.state_dict().items()
+           if not torch.equal(v, want_w[k])]
+    if bad:
+        raise AssertionError(f"state_plane (c): {len(bad)} tensors differ "
+                             f"from the straight run's ({bad[:3]})")
+    out = {"steps": n, "resumed_losses": got, "launches": launches,
+           "captures": resumed.capture_count,
+           "checkpoint_bytes": sp_dir_bytes(d)}
+    batch = next(as_feed((ids, spans), sizes.squad_batch,
+                         shuffle=False).epoch(sizes.device, 0))
+    out["stall"] = sp_stall(resumed, batch, sizes)
+    # the saved model, served
+    mdir = os.path.join(root, "squad_model")
+    resumed.model.save_model(mdir)
+    zoo = InferenceModel(device=sizes.device).load_zoo_model(
+        mdir, dtype=torch.bfloat16)
+    direct = InferenceModel(device=sizes.device).load_estimator(
+        resumed, dtype=torch.bfloat16)
+    for b in (1, 16):
+        a, e = zoo.predict(ids[:b]), direct.predict(ids[:b])
+        if not np.array_equal(a, e):
+            raise AssertionError(f"state_plane (c): load_zoo_model's logits "
+                                 f"at bucket {b} differ from "
+                                 f"load_estimator's by "
+                                 f"{np.abs(a - e).max()}")
+    out["zoo_model_equals_estimator_at_buckets"] = [1, 16]
+    del resumed, zoo, direct
+    sp_free(sizes)
+    ref = InferenceModel(device=sizes.device).load_zoo_model(mdir)
+    want_rows = ref.predict(ids[:SP_SERVE])
+    port = launcher._free_port()
+    log = os.path.join(root, "zoo_serving.log")
+    cmd = [sys.executable, "-m", "analytics_zoo_tpu_torch.serving.server",
+           "--model-dir", mdir, "--port", str(port), "--batch-size",
+           str(SP_SERVE)]
+    if not card:
+        cmd += ["--device", sizes.device]
+    with open(log, "w") as errf:
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.DEVNULL, stderr=errf,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            t0 = time.perf_counter()
+            if not launcher.wait_serving_ready("127.0.0.1", port, proc=proc,
+                                               timeout=300.0):
+                raise AssertionError(f"state_plane (c): zoo-serving never "
+                                     f"answered (rc {proc.poll()})")
+            ready_s = time.perf_counter() - t0
+            iq = InputQueue("127.0.0.1", port)
+            oq = OutputQueue(input_queue=iq)
+            try:
+                uids = [iq.enqueue(f"r{i}", t=ids[i])
+                        for i in range(SP_SERVE)]
+                rows = [oq.query(u, timeout=120.0) for u in uids]
+            finally:
+                iq.close()
+        finally:
+            launcher._terminate_gang([proc], 10.0)
+    if any(r is None for r in rows):
+        with open(log) as f:
+            raise AssertionError(f"state_plane (c): zoo-serving left "
+                                 f"requests unanswered: {f.read()[-2000:]}")
+    rows = np.stack(rows)
+    top = max(1.0, float(np.abs(want_rows).max()))
+    worst = float(np.abs(rows - want_rows).max()) / top
+    if worst > TOL_SERVE_BF16:
+        raise AssertionError(f"state_plane (c): zoo-serving's replies lie "
+                             f"{worst} of max(1, |logit|) from predict")
+    out["zoo_serving"] = {"requests": SP_SERVE, "ready_s": ready_s,
+                          "bitwise_equal": bool(np.array_equal(
+                              rows, want_rows)),
+                          "worst_rel": worst, "tol": TOL_SERVE_BF16,
+                          "returncode": proc.returncode}
+    return out
+
+
+def phase_state_plane(fa, bn, sizes=None) -> dict:
+    """The state plane: (a) bench_checkpoint, (b) ResNet-50 resumed, (c)
+    BERT-base SQuAD resumed and its saved model served (see the module
+    docstring).  Checkpoints under a temporary directory, removed after;
+    the manager's write errors must stay 0."""
+    import shutil
+    import tempfile
+
+    sizes = sizes or StatePlaneSizes()
+    t_phase = time.perf_counter()
+    errors0 = sp_write_errors()
+    root = tempfile.mkdtemp(prefix="zoo-state-plane-")
+    try:
+        sp_free(sizes)
+        res = {"phase": "state_plane",
+               "checkpoint_bench": sp_checkpoint_bench(sizes, root)}
+        sp_free(sizes)
+        res["resnet"] = sp_resnet(bn, sizes, root)
+        sp_free(sizes)
+        res["squad"] = sp_squad(fa, sizes, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if sp_write_errors() != errors0:
+        raise AssertionError("state_plane: an async checkpoint write "
+                             "failed (ckpt.write_errors)")
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3785,7 +4370,7 @@ def main(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:  # one nvcc per source, together
         list(pool.map(_build.build, (BF16_KERNEL, F32_KERNEL, BWD_KERNEL,
                                      BN_KERNEL, XENT_KERNEL)))
@@ -3801,7 +4386,8 @@ def main(argv) -> int:
                   "fused_xent": lambda: phase_fused_xent(fx),
                   "bert_mlm_train": lambda: phase_bert_mlm_train(fa, fx),
                   "ncf_train": phase_ncf_train,
-                  "recsys": phase_recsys}
+                  "recsys": phase_recsys,
+                  "state_plane": lambda: phase_state_plane(fa, bn)}
         for name in only:
             phases[name]()
         return 0
@@ -3816,6 +4402,7 @@ def main(argv) -> int:
     mlm = phase_bert_mlm_train(fa, fx)
     phase_ncf_train()
     phase_recsys()
+    state = phase_state_plane(fa, bn)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -3870,6 +4457,11 @@ def main(argv) -> int:
             run["flash_launches"][BF16_KERNEL]
     entries[0]["launches_cluster_serve"] = \
         cluster["flash_launches"][BF16_KERNEL]
+    # the resumed SQuAD fit of state_plane (c), from its replays
+    entries[0]["launches_state_plane"] = \
+        state["squad"]["launches"][BF16_KERNEL]
+    entries[2]["launches_state_plane"] = \
+        state["squad"]["launches"][BWD_KERNEL]
     entries[0]["launches_by_design_cluster_serve"] = \
         cluster["fwd_launches_by_design"]
     entries[0]["launches_by_design"] = serve["fwd_launches_by_design"]
@@ -3916,6 +4508,10 @@ def main(argv) -> int:
             if sfx == "bf16":  # resnet_train (d), norm="batch"
                 entry["launches_resnet_train_captured"] = resnet[
                     "captured"]["batch"]["launches"][f"{passes[0]}_{sfx}"]
+                # state_plane (b)'s resumed fits, sync and async
+                entry["launches_state_plane"] = {
+                    mode: state["resnet"][mode]["launches"][
+                        f"{passes[0]}_{sfx}"] for mode in ("sync", "async")}
             entry["shape"] = {"rows": x["rows"], "c": x["c"],
                               "dtype": dtype}
             for label in ("most_norms", "stage3"):
@@ -3978,6 +4574,7 @@ def main(argv) -> int:
             entry["shape"] = {k: x[k] for k in ("n", "d", "v", "chunk",
                                                 "dtype", "w_dtype")}
             entries.append(entry)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

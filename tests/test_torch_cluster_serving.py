@@ -552,11 +552,14 @@ def test_native_queue_is_built_from_the_ports_source_into_its_build_dir():
 # -- what is not ported yet, and no device fallback ----------------------------
 
 def test_unported_entry_points_raise_naming_the_state_plane():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        server_lib.main([])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        SubprocessReplicaFactory()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    """The state plane's serving entry points work now: the launcher asks
+    for a model, the factory takes its child's arguments, and a registry
+    refresh from a directory without generations says so."""
+    with pytest.raises(SystemExit):
+        server_lib.main([])  # argparse: a model directory is required
+    factory = SubprocessReplicaFactory(["--model-dir", "/x"])
+    assert factory.extra_args == ["--model-dir", "/x"]
+    with pytest.raises(FileNotFoundError, match="no visible checkpoint"):
         ModelRegistry().swap_from_checkpoint("m", lambda *a: None, "/x")
 
 

@@ -387,9 +387,21 @@ def test_int_mm_is_exact_on_the_cpu():
     assert torch.equal(quant.int_mm(a, b), a.int() @ b.int())
 
 
-def test_load_zoo_model_waits_for_the_state_plane():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+def test_load_zoo_model_waits_for_the_state_plane(tmp_path):
+    """``load_zoo_model`` serves a ``save_model`` directory (here in int8,
+    as ``load`` of the same weights does), and a missing one raises."""
+    with pytest.raises(FileNotFoundError):
         InferenceModel(device="cpu").load_zoo_model("/nonexistent")
+    model = port_models.BERTClassifier(2, **BERT_CFG)
+    model.init_weights(torch.Generator().manual_seed(5))
+    model.save_model(str(tmp_path))
+    x = np.random.default_rng(5).integers(0, 100, (3, 16)).astype(np.int32)
+    got = InferenceModel(device="cpu").load_zoo_model(
+        str(tmp_path), dtype="int8").predict(x)
+    want = InferenceModel(device="cpu").load(
+        port_models.BERTClassifier(2, **BERT_CFG), model.state_dict(),
+        dtype="int8").predict(x)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_load_estimator_serves_a_copy_in_int8():

@@ -15,6 +15,7 @@ direction): those are held to the Adam step bound, 2 x lr per update.
 """
 
 import importlib
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -468,8 +469,8 @@ def test_estimator_asks_for_the_card_by_default(monkeypatch):
     ("nan_policy", "skip_step"),
     ("grad_compression", "int8"), ("frozen", ["bert"]),
     ("aux_loss_weight", 0.5), ("profile", True),
-    ("model_dir", "ckpt"), ("checkpoint_async", True),
-    ("preemption_checkpoint", True), ("checkpoint_retries", 5),
+    ("nan_policy", "rollback"), ("profile_dir", "prof"),
+    ("profile_steps", (1, 2)), ("app_name", "job"),
     ("log_dir", "logs")])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
@@ -485,10 +486,17 @@ def test_default_knobs_pass_and_unknown_ones_are_refused():
         Estimator.from_keras(tnn.Dense(2, 2), loss="mse", device="cpu",
                              bogus=1)
     x = np.zeros((4, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the state plane's fit arguments and save are taken now: an unknown
+    # trigger is refused as the JAX package refuses it, a known one saves
+    with pytest.raises(ValueError, match="unknown trigger"):
         est.fit((x, x), batch_size=2, checkpoint_trigger="epoch")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        est.save("somewhere")
+    with pytest.raises(ValueError, match="no model_dir"):
+        est.save()
+    with tempfile.TemporaryDirectory() as d:
+        assert est.save(d) == d
+        est.fit((x, x), batch_size=2, verbose=False)
+        est.load(d)
+        assert est._py_step == 0
     with pytest.raises(ValueError, match="yields no batches"):
         est.fit((x, x), batch_size=8)
 
