@@ -29,6 +29,17 @@ from torch import nn
 _REGISTRY: Dict[str, type] = {}
 
 
+def init_weights(model: nn.Module,
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Draw every parameter of ``model`` anew from ``generator`` with its
+    layers' initializers (``reset_parameters``)."""
+    for m in model.modules():
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
+    return model
+
+
 class ZooModel(nn.Module):
     """Base: subclasses set ``self._config = {...}`` (constructor kwargs)."""
 
@@ -47,11 +58,7 @@ class ZooModel(nn.Module):
                      ) -> "ZooModel":
         """Draw every parameter anew from ``generator`` with the layers'
         initializers (same distributions as the JAX package)."""
-        for m in self.modules():
-            reset = getattr(m, "reset_parameters", None)
-            if reset is not None:
-                reset(generator)
-        return self
+        return init_weights(self, generator)
 
     # -- training plumbing ----------------------------------------------------
 

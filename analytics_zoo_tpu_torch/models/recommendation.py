@@ -11,20 +11,21 @@ Child names follow the JAX tree (``mlp_user_embed``, ``mlp_{i}``,
 ``Dense`` gets its input width here from the constructor's arguments.
 With ``sharded_embeddings=True`` every id table is a
 ``parallel.ShardedEmbedding`` (deduped gather, sparse row updates under the
-Estimator) under the same child name.  ``SessionRecommender`` runs GRUs and
-waits for the recurrent layers (ROADMAP Queue 1 item 10).
+Estimator) under the same child name.  ``SessionRecommender`` runs the
+port's ``nn.GRU`` (``nn/recurrent.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..nn.layers import Dense, Embedding
+from ..nn.recurrent import GRU
 from ..parallel.embedding import SPARSE_LEAF, ShardedEmbedding
 from .common import ZooModel
 
@@ -262,13 +263,65 @@ class WideAndDeep(ZooModel):
 
 
 class SessionRecommender(ZooModel):
-    """GRU session-based recommender: waits for the port's recurrent
-    layers."""
+    """GRU session-based recommender: item embeddings of the session's
+    clicks through stacked GRUs (``gru_{i}`` returning sequences, then
+    ``gru_out``), with ``include_history`` an MLP (``mlp_{i}``) over the
+    mean embedding of the longer-term history beside it, then
+    ``head`` ``Dense(item_count)``."""
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "SessionRecommender is not ported yet (ROADMAP Queue 1 item 10: "
-            "it runs nn.GRU, which comes with nn/recurrent.py)")
+    def __init__(self, item_count: int, item_embed: int = 32,
+                 rnn_hidden_layers: Sequence[int] = (40, 20),
+                 session_length: int = 10, include_history: bool = False,
+                 mlp_hidden_layers: Sequence[int] = (40, 20),
+                 history_length: int = 5):
+        super().__init__()
+        self._config = dict(item_count=item_count, item_embed=item_embed,
+                            rnn_hidden_layers=list(rnn_hidden_layers),
+                            session_length=session_length,
+                            include_history=include_history,
+                            mlp_hidden_layers=list(mlp_hidden_layers),
+                            history_length=history_length)
+        for k, v in self._config.items():
+            setattr(self, k, v)
+        self.item_embed = Embedding(item_count, item_embed)
+        width = item_embed
+        for i, units in enumerate(self.rnn_hidden_layers[:-1]):
+            self.add_module(f"gru_{i}", GRU(width, units,
+                                            return_sequences=True))
+            width = units
+        self.gru_out = GRU(width, self.rnn_hidden_layers[-1])
+        width = self.rnn_hidden_layers[-1]
+        if include_history:
+            self.hist_embed = Embedding(item_count, item_embed)
+            width += _mlp(self.mlp_hidden_layers, item_embed, "mlp", self)
+        self.head = Dense(width, item_count)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: int ``[B, session_length (+ history_length)]`` item ids."""
+        h = self.item_embed(x[:, :self.session_length])
+        for i in range(len(self.rnn_hidden_layers) - 1):
+            h = getattr(self, f"gru_{i}")(h)
+        h = self.gru_out(h)
+        if self.include_history:
+            hist = x[:, self.session_length:
+                     self.session_length + self.history_length]
+            m = self.hist_embed(hist).mean(dim=1)
+            for i in range(len(self.mlp_hidden_layers)):
+                m = getattr(self, f"mlp_{i}")(m)
+            h = torch.cat([h, m], dim=-1)
+        return self.head(h)
+
+    def recommend_for_session(self, sessions: np.ndarray, max_items: int = 5
+                              ) -> List[List[tuple]]:
+        """Top-k next items per session; returns [(item, prob), ...] rows."""
+        logits = self.predict(np.asarray(sessions))
+        probs = torch.softmax(torch.from_numpy(
+            np.asarray(logits, np.float32)), dim=-1).numpy()
+        out = []
+        for row in probs:
+            top = np.argsort(-row)[:max_items]
+            out.append([(int(i), float(row[i])) for i in top])
+        return out
 
 
 def _recommend(model: ZooModel, user_ids, item_ids, per: str, k: int

@@ -64,6 +64,16 @@ def he_normal(t: torch.Tensor,
                                        generator=generator)
 
 
+@torch.no_grad()
+def orthogonal(t: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """JAX's ``orthogonal``: a QR of a normal draw, the columns of the
+    last axis against the rows of the others, orthonormal along the
+    shorter side (a recurrent kernel ``[U, g * U]`` gets orthonormal
+    rows)."""
+    return torch.nn.init.orthogonal_(t, generator=generator)
+
+
 # the standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
 
@@ -73,6 +83,7 @@ INITIALIZERS = {
     "normal": normal(0.05),
     "zeros": zeros,
     "ones": ones,
+    "orthogonal": orthogonal,
 }
 
 

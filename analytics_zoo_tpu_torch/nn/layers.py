@@ -1,7 +1,8 @@
 """Core layers: the subset of ``analytics_zoo_tpu.nn.layers`` on the BERT
 and ResNet paths (``Dense``, ``Embedding``, ``Dropout``,
 ``LayerNormalization``, ``Conv2D``, ``ScaledWSConv2D``, the pools,
-``Flatten``, ``ZeroPadding2D``, ``BatchNormalization``, ``Sequential``), and
+``Flatten``, ``ZeroPadding2D``, ``BatchNormalization``, ``Sequential``;
+the forecasters' ``Conv1D``), and
 ``Remat`` (``nn/layers_extra.py``).
 
 Parameter names are the JAX package's, so a JAX tree converted by
@@ -436,6 +437,25 @@ class ScaledWSConv2D(Conv2D):
         if self.skip_gain is not None:
             gain = gain * (self.skip_gain * self.branch_scale)
         return scaled_ws_kernel(self.kernel, gain)
+
+
+class Conv1D(nn.Module):
+    """1-D convolution over ``[B, T, C]`` (``layers.py`` Conv1D): the child
+    ``conv``, a ``Conv2D`` with kernel ``(1, k)``, stride ``(1, s)`` and
+    dilation ``(1, d)``, run on ``x[:, None]``; its kernel is the JAX
+    package's 4-D ``[1, k, Cin, Cout]``, OIHW here."""
+
+    def __init__(self, in_channels: int, filters: int, kernel_size: int,
+                 strides: int = 1, padding: Any = "same",
+                 activation: Optional[str] = None, use_bias: bool = True,
+                 kernel_init: str = "he_normal", dilation: int = 1):
+        super().__init__()
+        self.conv = Conv2D(in_channels, filters, (1, kernel_size),
+                           (1, strides), padding, activation, use_bias,
+                           kernel_init, (1, dilation))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x[:, None])[:, 0]
 
 
 def _pool(x: torch.Tensor, kind: str, window: Tuple[int, int],

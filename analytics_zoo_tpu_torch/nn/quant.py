@@ -19,9 +19,10 @@ under a ``QuantApply`` quantizes those inputs with the frozen static scale
 and runs the product as int8 x int8 -> int32 (``torch._int_mm``), then one
 per-output-channel rescale to bf16.  ``ScaledWSConv2D`` opts out (its
 weight standardization needs the float kernel), as do the raw projection
-parameters of attention and the embeddings, which only ever see the
-weight-only form.  ``using`` makes a context visible to the layers of one
-forward on the calling thread; no model's ``forward`` signature changes.
+parameters of attention, the embeddings and the recurrent layers' kernels
+(``nn/recurrent.py``), which only ever see the weight-only form.
+``using`` makes a context visible to the layers of one forward on the
+calling thread; no model's ``forward`` signature changes.
 
 The int8 products are exact in both packages, so the port's int8 outputs
 differ from the JAX package's only in the order of bf16 roundings.

@@ -59,6 +59,12 @@ the unique ids, inside the same step (and the same CUDA graph).
 whole).  ``fit``/``evaluate``/``predict`` take ``XShards`` (of DataFrames
 with ``feature_cols``/``label_cols``).
 
+``fit``, ``evaluate``, ``predict``, ``save``, ``load`` and a trigger's
+save run their whole bodies under one process-wide reentrant lock, the JAX
+package's ``_device_lock``: estimators driven from several threads (the
+automl trials) never capture, replay or allocate in a graph pool at the
+same time.
+
 Constructor knobs of the JAX estimator that are not ported yet raise
 ``NotImplementedError`` (naming the ROADMAP item) when set to anything but
 their default; they are never ignored.
@@ -85,8 +91,10 @@ advances); a checkpoint without it reseeds them from ``seed``.
 
 from __future__ import annotations
 
+import functools
 import inspect
 import logging
+import threading
 import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -167,8 +175,26 @@ class Estimator:
     from_fn = from_keras
 
 
+def _under_device_lock(method: Callable) -> Callable:
+    """``method``'s whole body under ``ZooEstimator._device_lock``."""
+    @functools.wraps(method)
+    def locked(self, *args: Any, **kwargs: Any) -> Any:
+        with ZooEstimator._device_lock:
+            return method(self, *args, **kwargs)
+    return locked
+
+
 class ZooEstimator:
     """The single concrete estimator, on one device."""
+
+    #: The process-wide device lock (the JAX package's): ``fit``,
+    #: ``evaluate``, ``predict``, ``save``, ``load`` and a trigger's save
+    #: hold it for their whole bodies, so estimators driven from several
+    #: threads (the automl thread pool's trials) never capture, replay or
+    #: allocate in a graph pool at the same time; they overlap only in
+    #: what they do outside these calls.  Reentrant: ``fit`` saves and
+    #: loads under it.
+    _device_lock = threading.RLock()
 
     def __init__(self, model: nn.Module, loss: Any, optimizer: Any = "adam",
                  learning_rate: Optional[Any] = None,
@@ -380,7 +406,8 @@ class ZooEstimator:
         graph = self._graphs.get(key)
         if graph is not None:
             return graph, flat, None
-        graph = _StepGraph(self, batch, flat)
+        with ZooEstimator._device_lock:  # the capture stream is shared
+            graph = _StepGraph(self, batch, flat)
         self._graphs[key] = graph
         self.capture_count += 1
         return graph, flat, graph.first_loss
@@ -446,6 +473,7 @@ class ZooEstimator:
 
     # -- training -------------------------------------------------------------
 
+    @_under_device_lock
     def fit(self, data: Any, epochs: int = 1, batch_size: int = 32,
             validation_data: Any = None, prefetch: Optional[int] = None,
             verbose: bool = True,
@@ -635,6 +663,7 @@ class ZooEstimator:
 
     # -- evaluation -----------------------------------------------------------
 
+    @_under_device_lock
     def evaluate(self, data: Any, batch_size: int = 32,
                  feature_cols: Optional[Sequence[str]] = None,
                  label_cols: Optional[Sequence[str]] = None
@@ -674,6 +703,7 @@ class ZooEstimator:
 
     # -- inference ------------------------------------------------------------
 
+    @_under_device_lock
     def predict(self, data: Any, batch_size: int = 32,
                 feature_cols: Optional[Sequence[str]] = None) -> np.ndarray:
         """Forward over all rows, in order: exactly one output row per
@@ -760,6 +790,7 @@ class ZooEstimator:
         for m in self._touched.values():
             m.zero_()  # in place: the captured step marks these tensors
 
+    @_under_device_lock
     def _trigger_save(self) -> None:
         """One trigger firing: async through the manager (the touched rows
         reset only when the snapshot was accepted: one the ``skip`` policy
@@ -774,6 +805,7 @@ class ZooEstimator:
         if accepted:
             self._reset_touched()
 
+    @_under_device_lock
     def save(self, path: Optional[str] = None) -> str:
         """Write the train state to ``path`` (default ``model_dir``) in
         ``core/checkpoint.py``'s format; with ``checkpoint_async=True`` and
@@ -794,6 +826,7 @@ class ZooEstimator:
                             extra={"epoch": int(self._epoch)},
                             retries=self.checkpoint_retries)
 
+    @_under_device_lock
     def load(self, path: Optional[str] = None) -> None:
         """Load a checkpoint of either package (``save``'s format, or the
         newest restorable generation of a manager directory) into this
@@ -923,6 +956,22 @@ def _failed_at(err: BaseException) -> str:
     return f"{f.filename}:{f.lineno} ({f.name}): {f.line}: {err}"
 
 
+# One capture stream a device, shared by every estimator's captures (made
+# under the device lock): cuBLAS keeps a workspace for each stream it runs
+# on (64 MiB on the H100), so a new stream a capture held one more for
+# every estimator made (an AutoTS search makes one a trial) until the
+# process cleared them, up to the size of torch's stream pool.
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    device = _indexed(device)
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 class _StepGraph:
     """One (batch shapes, dtypes) key's captured train step: static input
     buffers, the step's graph in the estimator's memory pool, its loss as
@@ -933,7 +982,9 @@ class _StepGraph:
     inputs, the step runs once eagerly on a side stream as a real step
     (``first_loss``), and the same step is captured on that stream with
     the model's dropout generator and the augment generator registered, so
-    that each replay draws the random numbers the next eager step would."""
+    that each replay draws the random numbers the next eager step would.
+    The side stream is the device's one capture stream
+    (``_capture_stream``)."""
 
     def __init__(self, est: "ZooEstimator", batch: Dict[str, Any],
                  flat: List[torch.Tensor]):
@@ -943,7 +994,7 @@ class _StepGraph:
                        for t in flat]
         self.load(flat)
         static_batch = _rebuild(batch, self.static)
-        side = torch.cuda.Stream(device)
+        side = _capture_stream(device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             first = est._step(static_batch).clone()

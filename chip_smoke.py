@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs thirteen phases, each printing one
+``nvcc`` per source, all at once), then runs fourteen phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
@@ -215,7 +215,31 @@ JSON line:
    analytics_zoo_tpu_torch.serving.server --model-dir`` child on the card
    answering 16 requests through the port's client, against direct
    ``predict`` (equal bits expected, at worst ``TOL_SERVE_BF16``).
-11. ``devices``: the card as ``nvidia-smi`` reports it.
+11. ``autots``: forecasting and AutoML.  (a) Every trunk on the card
+   against itself on the CPU (one numpy draw of weights, dropout 0, f32
+   with TF32 off, as in the whole script): the LSTM, Seq2Seq (LSTM, GRU),
+   TCN and MTNet forecasters' trunks at bench.py's shapes (batch 32,
+   lookback 24, horizon 4, one feature, width 32), ``SessionRecommender``,
+   ``Seq2seq`` with attention and ``Bidirectional(LSTM)`` in each merge
+   mode: outputs and gradients within ``TOL_TRUNK``.  Then, with every
+   kernel count set to 0 (no kernel of the port lies on this path, so
+   they must stay 0): (b) bench.py's ``bench_autots`` uncut (2,000 hourly
+   points, ``AutoTSEstimator(model=["lstm", "tcn"], past_seq_len=24,
+   future_seq_len=4).fit(epochs=1, n_sampling=8, max_concurrent=2)``):
+   trials/hour, search seconds, each trial's status, model and metric,
+   ``best_config``, one capture per trial estimator, the card's allocated
+   bytes before and after, and the pipeline's predictions finite; (c) an
+   LSTM and a TCN forecaster, one ``fit`` epoch eagerly and one from CUDA
+   graphs (cuDNN's deterministic algorithms): their step losses bit for
+   bit; ms a step, the card's kernels a step and a profiled epoch's idle
+   share; (d) the pipeline saved and
+   loaded predicting equal bits, the Seq2Seq, MTNet and two-layer LSTM
+   forecasters each an epoch from CUDA graphs, a ``TCMFForecaster`` on a
+   50 x 500 panel, ``SessionRecommender``'s top-5 rows equal to a softmax
+   of its ``predict``, ``Seq2seq.infer`` beside the CPU's ids; the bytes
+   still allocated once it all is dropped (cuBLAS's workspaces cleared)
+   at most ``AUTOTS_FREED_SLACK`` above the bytes before the search.
+12. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Then the script's seconds, a ``kernels`` line (one entry per kernel and
 path) and, last,
@@ -4324,6 +4348,515 @@ def phase_state_plane(fa, bn, sizes=None) -> dict:
     return res
 
 
+# -- autots -------------------------------------------------------------------
+
+# bench.py's bench_autots, uncut: 2,000 hourly points of sin(2 pi t / 24) +
+# 0.1 N(0, 1) from default_rng(0), the first 90% scaled, AutoTSEstimator(
+# model=["lstm", "tcn"], past_seq_len=24, future_seq_len=4).fit(epochs=1,
+# n_sampling=8, max_concurrent=2) at the forecasters' default widths
+AUTOTS_POINTS = 2000
+AUTOTS_PAST, AUTOTS_FUTURE = 24, 4
+AUTOTS_TRIALS, AUTOTS_CONCURRENT = 8, 2
+AUTOTS_BATCH = 32
+AUTOTS_TCMF = (50, 500)          # (d): the TCMF panel, series x steps
+AUTOTS_SESSIONS = 2048           # (d): SessionRecommender's seeded sessions
+AUTOTS_ITEMS = 5000
+# (a) trunks on the card against the same trunks on the CPU, f32 with TF32
+# off (main() turns it off for the whole script): outputs, and the
+# gradients of sum(out * r) over the input and every parameter, each within
+# TOL_TRUNK of max(1, max |CPU|) of its tensor: the same arithmetic in
+# another summation order (cuBLAS, cuDNN and the CPU's BLAS), carried
+# through up to 24 recurrent steps
+TOL_TRUNK = 1e-4
+# bytes that may stay allocated on the card once the phase's estimators
+# are dropped and cuBLAS's workspaces (one a stream) cleared
+AUTOTS_FREED_SLACK = 1 << 20
+
+
+class AutotsSizes:
+    """The phase's shapes: the card's by default; the CPU rehearsal of the
+    phase (tests and debugging) shrinks them."""
+
+    def __init__(self, device="cuda", **kw):
+        self.device = device
+        self.points, self.trials = AUTOTS_POINTS, AUTOTS_TRIALS
+        self.past, self.future = AUTOTS_PAST, AUTOTS_FUTURE
+        self.hidden, self.channels = 32, (32, 32)
+        self.tcmf, self.sessions, self.items = (AUTOTS_TCMF, AUTOTS_SESSIONS,
+                                                AUTOTS_ITEMS)
+        self.session_kw = {}
+        self.vocab = 1000
+        self.__dict__.update(kw)
+
+
+def autots_series(points: int):
+    """bench_autots's training split: the scaled first 90% of the series."""
+    import pandas as pd
+
+    from analytics_zoo_tpu_torch.chronos import TSDataset
+    t_idx = pd.date_range("2024-01-01", periods=points, freq="h")
+    rng = np.random.default_rng(0)
+    value = (np.sin(np.arange(points) * (2 * np.pi / 24))
+             + 0.1 * rng.normal(size=points))
+    df = pd.DataFrame({"timestamp": t_idx, "value": value})
+    train, _, _ = TSDataset.from_pandas(df, dt_col="timestamp",
+                                        target_col="value", with_split=True,
+                                        test_ratio=0.1)
+    return train.scale()
+
+
+def numpy_state(model: torch.nn.Module, seed: int) -> dict:
+    """A ``state_dict`` for ``model`` drawn from numpy in the JAX tree's
+    layout (N(0, 0.2^2) a leaf) and converted (``convert.py``)."""
+    from analytics_zoo_tpu_torch.convert import (buffer_names,
+                                                 from_jax_variables,
+                                                 to_jax_variables)
+    rng = np.random.default_rng(seed)
+
+    def draw(node):
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        return (0.2 * rng.normal(size=node.shape)).astype(node.dtype)
+
+    return from_jax_variables(draw(to_jax_variables(
+        model.state_dict(), buffer_names(model))))
+
+
+def autots_trunks(sizes) -> dict:
+    """(name -> (trunk, input)) at the bench's shapes: batch 32, lookback
+    24, horizon 4, one feature, the default widths; SessionRecommender and
+    Seq2seq (attention) at theirs; Bidirectional(LSTM) in each merge
+    mode."""
+    from analytics_zoo_tpu_torch import nn as tnn
+    from analytics_zoo_tpu_torch.chronos.forecaster import (_TCN,
+                                                            _Seq2SeqTS,
+                                                            _VanillaLSTM)
+    from analytics_zoo_tpu_torch.chronos.mtnet import _MTNet
+    from analytics_zoo_tpu_torch.models import Seq2seq, SessionRecommender
+    rng = np.random.default_rng(SEED)
+    b, t, h = AUTOTS_BATCH, sizes.past, sizes.hidden
+    x = rng.normal(size=(b, t, 1)).astype(np.float32)
+    head = dict(dropout=0.0, output_dim=1, horizon=sizes.future)
+    sess = SessionRecommender(sizes.items, **sizes.session_kw)
+    s2s = Seq2seq(sizes.vocab, use_attention=True)
+    cases = {
+        "lstm": (_VanillaLSTM(1, hidden_dim=h, **head), x),
+        "seq2seq_lstm": (_Seq2SeqTS(1, h, rnn_type="lstm", **head), x),
+        "seq2seq_gru": (_Seq2SeqTS(1, h, rnn_type="gru", **head), x),
+        "tcn": (_TCN(1, sizes.channels, **head), x),
+        "mtnet": (_MTNet(1, long_num=3, time_step=t // 4, cnn_hid_size=h,
+                         rnn_hid_size=h, **head), x),
+        "session_recommender": (sess, rng.integers(
+            0, sizes.items, (b, sess.session_length)).astype(np.int64)),
+        "seq2seq_attention": (s2s, rng.integers(
+            0, sizes.vocab, (b, s2s.encoder_length + s2s.decoder_length)
+        ).astype(np.int64)),
+    }
+    for mode in ("concat", "sum", "mul", "ave"):
+        cases[f"bidirectional_{mode}"] = (tnn.Bidirectional(
+            tnn.LSTM(1, h, return_sequences=True), mode), x)
+    return cases
+
+
+def trunk_grads(model, x, r, device):
+    """(output, {name: gradient}) of sum(out * r) over ``x`` (when float)
+    and every parameter, on ``device``."""
+    xt = torch.from_numpy(x).to(device)
+    if xt.is_floating_point():
+        xt.requires_grad_(True)
+    out = model(xt)
+    names = [n for n, _ in model.named_parameters()]
+    wrt = list(model.parameters()) + ([xt] if xt.requires_grad else [])
+    grads = torch.autograd.grad((out * torch.from_numpy(r).to(device)).sum(),
+                                wrt)
+    got = {n: g.detach().cpu().numpy() for n, g in zip(names, grads)}
+    if xt.requires_grad:
+        got["input"] = grads[-1].cpu().numpy()
+    return out.detach().cpu().numpy(), got
+
+
+def autots_trunk_checks(sizes) -> dict:
+    """(a): every trunk on the card against itself on the CPU, one numpy
+    draw of weights, dropout 0."""
+    import copy
+    res = {}
+    for i, (name, (model, x)) in enumerate(autots_trunks(sizes).items()):
+        model.load_state_dict(numpy_state(model, SEED + i), strict=True)
+        model.train()
+        card = copy.deepcopy(model).to(sizes.device)
+        with torch.no_grad():
+            probe = model(torch.from_numpy(x))
+        r = np.random.default_rng(SEED + 100 + i).normal(
+            size=tuple(probe.shape)).astype(np.float32)
+        want_out, want = trunk_grads(model, x, r, "cpu")
+        got_out, got = trunk_grads(card, x, r, sizes.device)
+        worst = {}
+        for what, g, w in [("output", got_out, want_out)] + [
+                (k, got[k], want[k]) for k in want]:
+            err = float(np.abs(g - w).max()) / max(1.0,
+                                                   float(np.abs(w).max()))
+            worst[what] = err
+            if not err <= TOL_TRUNK:
+                raise AssertionError(f"autots (a) {name}: {what} on the "
+                                     f"card differs from the CPU by {err} "
+                                     f"of max(1, max |ref|) > {TOL_TRUNK}")
+        res[name] = {"input_shape": list(x.shape),
+                     "output_shape": list(want_out.shape),
+                     "tensors": len(worst),
+                     "worst_rel": max(worst.values()),
+                     "worst_tensor": max(worst, key=worst.get)}
+    return {"tol": TOL_TRUNK, "tf32": False, "trunks": res}
+
+
+def device_ops_per_step(fn, steps: int) -> dict:
+    """The card's operations a step over ``fn`` (``steps`` train steps)
+    under ``torch.profiler``: kernels, and copies and memsets apart."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.count for e in events
+                 if e.key.lower().startswith(("memcpy", "memset")))
+    kernels = sum(e.count for e in events) - copies
+    return {"kernels_per_step": kernels / steps,
+            "copies_and_memsets_per_step": copies / steps}
+
+
+def allocated(sizes) -> int:
+    """The card's allocated bytes once dropped objects are collected."""
+    import gc
+    gc.collect()
+    if sizes.device != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def recording_forecasters(autots_mod, out: list, sizes) -> dict:
+    """``autots``'s model classes, each subclassed so that every ``fit``
+    appends its estimator's captures to ``out`` (nothing of the forecaster
+    is kept); returns the originals."""
+    saved = dict(autots_mod._MODELS)
+
+    def recorded(name, cls):
+        class Recorded(cls):
+            def fit(self, *args, **kwargs):
+                est, first = self.est, []
+                inner = est._train_step
+
+                def step(batch):  # the first: an eager step, the capture
+                    t1 = time.perf_counter()
+                    loss = inner(batch)
+                    if not first:
+                        sp_sync(sizes)
+                        first.append(time.perf_counter() - t1)
+                    return loss
+
+                est._train_step = step
+                t0 = time.perf_counter()
+                try:
+                    hist = super().fit(*args, **kwargs)
+                finally:
+                    del est._train_step
+                out.append({"model": name,
+                            "capture_count": est.capture_count,
+                            "batch_keys": len(est._graphs),
+                            "steps": est._py_step,
+                            "fit_s": time.perf_counter() - t0,
+                            "first_step_s": first[0]})
+                return hist
+
+            def evaluate(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                metrics = super().evaluate(*args, **kwargs)
+                out.append({"model": name, "evaluate_s":
+                            time.perf_counter() - t0})
+                return metrics
+        Recorded.__name__ = cls.__name__
+        return Recorded
+
+    autots_mod._MODELS.update({k: recorded(k, v) for k, v in saved.items()})
+    return saved
+
+
+def autots_search(sizes, train) -> tuple:
+    """(b): bench_autots uncut through AutoTSEstimator on ``sizes.device``:
+    (result, the fitted pipeline)."""
+    from analytics_zoo_tpu_torch.chronos import AutoTSEstimator
+    from analytics_zoo_tpu_torch.chronos import autots as autots_mod
+    fits: list = []
+    saved = recording_forecasters(autots_mod, fits, sizes)
+    before = allocated(sizes)
+    try:
+        auto = AutoTSEstimator(model=["lstm", "tcn"],
+                               past_seq_len=sizes.past,
+                               future_seq_len=sizes.future,
+                               device=sizes.device)
+        t0 = time.perf_counter()
+        pipeline = auto.fit(train, epochs=1, n_sampling=sizes.trials,
+                            max_concurrent=AUTOTS_CONCURRENT)
+        dt = time.perf_counter() - t0
+    finally:
+        autots_mod._MODELS.update(saved)
+    after = allocated(sizes)
+    trials = [{"trial": t.trial_id, "status": t.status,
+               "model": t.config["model"], "metric": t.metric,
+               "duration_s": t.duration_s, "error": t.error}
+              for t in auto.trials]
+    if [t["status"] for t in trials] != ["done"] * sizes.trials:
+        raise AssertionError(f"autots (b): trials {trials}")
+    one = int(sizes.device == "cuda")  # the CPU runs the eager step
+    if any(f["capture_count"] != one or f["batch_keys"] != one
+           for f in fits if "fit_s" in f):
+        raise AssertionError(f"autots (b): captures per trial estimator "
+                             f"{fits}")
+    train.roll(pipeline.config["past_seq_len"], sizes.future)
+    x, _ = train.to_numpy()
+    pred = pipeline.predict(x)
+    if pred.shape != (len(x), sizes.future, 1) or not np.all(
+            np.isfinite(pred)):
+        raise AssertionError(f"autots (b): the pipeline predicts "
+                             f"{pred.shape}, finite {np.isfinite(pred).all()}")
+    return {"n_trials": len(auto.trials), "search_s": dt,
+            "autots_search_trials_per_hour": 3600.0 * len(auto.trials) / dt,
+            "max_concurrent": AUTOTS_CONCURRENT,
+            "best_config": auto.best_config, "trials": trials,
+            "fits": fits, "allocated_bytes_before": before,
+            "allocated_bytes_after": after,
+            "pipeline_windows": len(x)}, pipeline
+
+
+def autots_captured_vs_eager(sizes, train) -> dict:
+    """(c): an LSTM and a TCN forecaster at the bench's shapes (batch 32,
+    lookback 24, horizon 4, 1 feature, dropout 0.1), one seed: one ``fit``
+    epoch eagerly and one from CUDA graphs under cuDNN's deterministic
+    algorithms, their step losses bit for bit; then a warm epoch each way
+    on the default algorithms (ms a step), the card's operations a step
+    and a profiled epoch's idle share."""
+    from analytics_zoo_tpu_torch.chronos import LSTMForecaster, TCNForecaster
+    train.roll(sizes.past, sizes.future)
+    xy = train.to_numpy()
+    steps = len(xy[0]) // AUTOTS_BATCH
+    on_card = sizes.device == "cuda"
+    res = {"windows": len(xy[0]), "steps_an_epoch": steps}
+    for name, cls, kw in (
+            ("lstm", LSTMForecaster, {"hidden_dim": sizes.hidden}),
+            ("tcn", TCNForecaster, {"num_channels": sizes.channels})):
+        runs = {}
+        for mode in ("eager", "captured"):
+            fc = cls(sizes.past, sizes.future, 1, 1, seed=SEED,
+                     device=sizes.device, **kw)
+            fc.est.cuda_graphs = on_card and mode == "captured"
+            losses = record_losses(fc.est)
+            # the compared epochs under cuDNN's deterministic algorithms:
+            # its default weight-gradient algorithms may add in another
+            # order from run to run (on the H100 the TCN's eager and
+            # captured epochs then differed by about 1e-7 of the loss);
+            # the timed epochs after run on the defaults
+            torch.backends.cudnn.deterministic = True
+            try:
+                fc.fit(xy, epochs=1, batch_size=AUTOTS_BATCH)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            del fc.est._train_step  # the class's step again
+            ms, _ = fit_epoch(fc.est, xy, AUTOTS_BATCH) if on_card else \
+                (None, None)
+            run = {"step_ms": ms, "losses": losses,
+                   "capture_count": fc.est.capture_count}
+            if on_card:
+                def epoch():
+                    fc.fit(xy, epochs=1, batch_size=AUTOTS_BATCH)
+                run.update(device_ops_per_step(epoch, steps))
+                profiled = profiled_window(epoch, steps, {})
+                idle_of(profiled, ms)
+                run["profiled"] = profiled
+            runs[mode] = run
+        against = losses_against_eager(runs["captured"].pop("losses"),
+                                       runs["eager"].pop("losses"),
+                                       f"autots (c) {name}")
+        if on_card and not against["bitwise_equal"]:
+            raise AssertionError(f"autots (c) {name}: captured losses are "
+                                 f"not the eager ones bit for bit: "
+                                 f"{against}")
+        res[name] = {**runs, "losses_against_eager": {
+            k: v for k, v in against.items()
+            if k not in ("captured", "eager")}}
+    return res
+
+
+def autots_saved_models(sizes, pipeline, root: str) -> dict:
+    """(d): the pipeline saved and loaded on the card predicts equal bits;
+    each forecaster family fits an epoch from CUDA graphs and predicts; a
+    TCMFForecaster fits and predicts a 50 x 500 panel; SessionRecommender
+    fits an epoch and its top-5 rows are a softmax of its predict;
+    Seq2seq's greedy decode beside the CPU's."""
+    import copy
+    import os
+
+    from analytics_zoo_tpu_torch.chronos import (
+        LSTMForecaster, MTNetForecaster, Seq2SeqForecaster, TCMFForecaster,
+        TSPipeline)
+    from analytics_zoo_tpu_torch.models import Seq2seq, SessionRecommender
+    res = {}
+    train = autots_series(sizes.points)
+    train.roll(pipeline.config["past_seq_len"], sizes.future)
+    x, y = train.to_numpy()
+    path = pipeline.save(os.path.join(root, "pipeline"))
+    loaded = TSPipeline.load(path, device=sizes.device)
+    want, got = pipeline.predict(x), loaded.predict(x)
+    if not np.array_equal(got, want):
+        raise AssertionError("autots (d): the loaded pipeline's predictions "
+                             "are not the saved one's bit for bit")
+    res["pipeline_reload_bitwise_equal"] = True
+    res["pipeline_eval"] = loaded.evaluate((x, y))
+    train.roll(sizes.past, sizes.future)
+    xy = train.to_numpy()
+    families = {}
+    for name, cls, kw in (
+            ("seq2seq_lstm", Seq2SeqForecaster, {"rnn_type": "lstm"}),
+            ("seq2seq_gru", Seq2SeqForecaster, {"rnn_type": "gru"}),
+            ("mtnet", MTNetForecaster, {"long_series_num": 3}),
+            ("lstm_2_layers", LSTMForecaster, {"layer_num": 2})):
+        fc = cls(sizes.past, sizes.future, 1, 1, seed=SEED,
+                 device=sizes.device, **kw)
+        t0 = time.perf_counter()
+        hist = fc.fit(xy, epochs=1, batch_size=AUTOTS_BATCH)
+        fit_s = time.perf_counter() - t0
+        pred = fc.predict(xy[0])
+        if not (np.isfinite(hist["loss"][0]) and np.all(np.isfinite(pred))):
+            raise AssertionError(f"autots (d) {name}: loss {hist}, "
+                                 f"predictions finite "
+                                 f"{np.isfinite(pred).all()}")
+        families[name] = {"epoch_loss": hist["loss"][0], "fit_s": fit_s,
+                          "capture_count": fc.est.capture_count,
+                          "mse": fc.evaluate(xy)["mse"]}
+    res["families"] = families
+    # TCMF on a 50 x 500 panel of seeded low-rank series
+    rng = np.random.default_rng(SEED)
+    n, t = sizes.tcmf
+    tt = np.arange(t)
+    panel = (rng.normal(size=(n, 3)) @ np.stack(
+        [np.sin(tt * 2 * np.pi / 24), np.cos(tt * 2 * np.pi / 168),
+         tt / t]) + 0.05 * rng.normal(size=(n, t))).astype(np.float32)
+    tcmf = TCMFForecaster(device=sizes.device)
+    t0 = time.perf_counter()
+    factor_loss = tcmf.fit({"y": panel[:, :-24]})
+    fit_s = time.perf_counter() - t0
+    pred = tcmf.predict(horizon=24)
+    if pred.shape != (n, 24) or not np.all(np.isfinite(pred)):
+        raise AssertionError(f"autots (d) tcmf: predictions {pred.shape}")
+    res["tcmf"] = {"panel": [n, t], "factor_loss": factor_loss,
+                   "fit_s": fit_s, "tcn_capture_count":
+                   tcmf._tcn_est.capture_count,
+                   "holdout_mae": float(np.abs(pred - panel[:, -24:]).mean())}
+    # SessionRecommender: an epoch from CUDA graphs, then its top 5
+    sess = SessionRecommender(sizes.items, **sizes.session_kw)
+    sess.init_weights(torch.Generator().manual_seed(SEED))
+    sess.compile(loss="sparse_categorical_crossentropy", optimizer="adam",
+                 learning_rate=1e-3, device=sizes.device)
+    ids = rng.integers(0, sizes.items, (sizes.sessions,
+                                        sess.session_length + 1))
+    hist = sess.fit((ids[:, :-1].astype(np.int32),
+                     ids[:, -1].astype(np.int32)), epochs=1,
+                    batch_size=min(256, sizes.sessions), verbose=False)
+    rows = sess.recommend_for_session(ids[:8, :-1], max_items=5)
+    probs = torch.softmax(torch.from_numpy(
+        sess.predict(ids[:8, :-1]).astype(np.float32)), dim=-1).numpy()
+    for row, p in zip(rows, probs):
+        top = np.argsort(-p)[:5]
+        if [i for i, _ in row] != [int(i) for i in top] or \
+                [q for _, q in row] != [float(p[i]) for i in top]:
+            raise AssertionError("autots (d): recommend_for_session's rows "
+                                 "are not the top 5 of a softmax of predict")
+    res["session_recommender"] = {
+        "epoch_loss": hist["loss"][0],
+        "capture_count": sess.estimator.capture_count,
+        "rows": len(rows), "top5_equal_softmax_of_predict": True}
+    # Seq2seq's greedy decode on the card beside the same weights' on the CPU
+    s2s = Seq2seq(sizes.vocab, use_attention=True)
+    s2s.load_state_dict(numpy_state(s2s, SEED), strict=True)
+    cpu = copy.deepcopy(s2s)
+    s2s.compile(loss="sparse_categorical_crossentropy", device=sizes.device)
+    cpu.compile(loss="sparse_categorical_crossentropy", device="cpu")
+    enc = rng.integers(0, sizes.vocab, (16, s2s.encoder_length))
+    got, want = s2s.infer(enc, start_id=1), cpu.infer(enc, start_id=1)
+    if got.shape != (16, s2s.decoder_length) or got.min() < 0 or \
+            got.max() >= sizes.vocab:
+        raise AssertionError(f"autots (d): Seq2seq.infer gave {got.shape}")
+    res["seq2seq_infer"] = {"shape": list(got.shape),
+                            "ids_equal_cpu_share": float(np.mean(got == want))}
+    return res
+
+
+def autots_kernel_counts(fa, bn, fx) -> dict:
+    """Every kernel's launch count since ``autots_reset_counts``."""
+    counts = dict(fa.KERNEL_LAUNCHES)
+    counts.update({f"{BN_KERNEL}_{k}": v
+                   for k, v in bn.KERNEL_LAUNCHES.items()})
+    counts.update({f"{XENT_KERNEL}_{k}": v
+                   for k, v in fx.KERNEL_LAUNCHES.items()})
+    return counts
+
+
+def autots_reset_counts(fa, bn, fx) -> None:
+    reset_counts(fa)
+    bn.reset_launches()
+    fx.reset_launches()
+
+
+def phase_autots(fa, bn, fx, sizes=None) -> dict:
+    """Forecasting and AutoML (see the module docstring): (a) the trunks on
+    the card against the CPU, then the main path with every kernel count
+    set to 0 just before it: (b) bench_autots uncut, (c) captured against
+    eager forecasters, (d) saved models and the other entry points; no
+    kernel of the port lies on it, so every count must still be 0."""
+    import shutil
+    import tempfile
+
+    sizes = sizes or AutotsSizes()
+    t_phase = time.perf_counter()
+    res = {"phase": "autots"}
+    root = tempfile.mkdtemp(prefix="zoo-autots-")
+    done = False
+    try:
+        res["trunks"] = autots_trunk_checks(sizes)
+        autots_reset_counts(fa, bn, fx)
+        res["search"], pipeline = autots_search(sizes, autots_series(
+            sizes.points))
+        res["captured_vs_eager"] = autots_captured_vs_eager(
+            sizes, autots_series(sizes.points))
+        res["saved_models"] = autots_saved_models(sizes, pipeline, root)
+        done = True
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if not done:  # what ran before the failure, for its reader
+            emit({**res, "failed": True})
+    counts = autots_kernel_counts(fa, bn, fx)
+    if any(counts.values()):
+        raise AssertionError(f"autots: a kernel of the port launched on a "
+                             f"path with none: {counts}")
+    res["kernel_launches"] = counts
+    # the search's graphs and pools, and the pipeline's, freed once dropped
+    del pipeline
+    res["search"]["allocated_bytes_dropped"] = allocated(sizes)
+    if sizes.device == "cuda":
+        torch._C._cuda_clearCublasWorkspaces()
+    res["search"]["allocated_bytes_dropped_cublas_cleared"] = \
+        allocated(sizes)
+    grown = res["search"]["allocated_bytes_dropped_cublas_cleared"] - \
+        res["search"]["allocated_bytes_before"]
+    if grown > AUTOTS_FREED_SLACK:
+        raise AssertionError(f"autots: {grown} bytes still allocated on the "
+                             f"card once the search's estimators were "
+                             f"dropped")
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4387,7 +4920,8 @@ def main(argv) -> int:
                   "bert_mlm_train": lambda: phase_bert_mlm_train(fa, fx),
                   "ncf_train": phase_ncf_train,
                   "recsys": phase_recsys,
-                  "state_plane": lambda: phase_state_plane(fa, bn)}
+                  "state_plane": lambda: phase_state_plane(fa, bn),
+                  "autots": lambda: phase_autots(fa, bn, fx)}
         for name in only:
             phases[name]()
         return 0
@@ -4403,6 +4937,7 @@ def main(argv) -> int:
     phase_ncf_train()
     phase_recsys()
     state = phase_state_plane(fa, bn)
+    autots = phase_autots(fa, bn, fx)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -4574,6 +5109,12 @@ def main(argv) -> int:
             entry["shape"] = {k: x[k] for k in ("n", "d", "v", "chunk",
                                                 "dtype", "w_dtype")}
             entries.append(entry)
+    # the autots path launches no kernel of the port (phase_autots holds
+    # every count to 0 over it)
+    for entry in entries:
+        entry["launches_autots"] = sum(
+            n for k, n in autots["kernel_launches"].items()
+            if k.startswith(entry["name"]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

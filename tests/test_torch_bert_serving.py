@@ -294,7 +294,21 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.models.common",
                 "analytics_zoo_tpu_torch.models.recommendation",
                 "analytics_zoo_tpu_torch.parallel",
-                "analytics_zoo_tpu_torch.parallel.embedding"]
+                "analytics_zoo_tpu_torch.parallel.embedding",
+                "analytics_zoo_tpu_torch.nn.recurrent",
+                "analytics_zoo_tpu_torch.models.seq2seq",
+                "analytics_zoo_tpu_torch.automl",
+                "analytics_zoo_tpu_torch.automl.hp",
+                "analytics_zoo_tpu_torch.automl.search",
+                "analytics_zoo_tpu_torch.automl.auto_estimator",
+                "analytics_zoo_tpu_torch.chronos",
+                "analytics_zoo_tpu_torch.chronos.data",
+                "analytics_zoo_tpu_torch.chronos.forecaster",
+                "analytics_zoo_tpu_torch.chronos.autots",
+                "analytics_zoo_tpu_torch.chronos.mtnet",
+                "analytics_zoo_tpu_torch.chronos.tcmf",
+                "analytics_zoo_tpu_torch.chronos.detector",
+                "analytics_zoo_tpu_torch.chronos.experimental"]
 
 
 def test_port_imports_without_jax():

@@ -18,10 +18,10 @@ the small BERT, whose encoder runs in bf16 from its bf16 embedding
 ``tests/test_torch_bert_serving.py``.  The JAX tests' own bounds against
 the f32 model hold for the port too.
 
-The LSTM twin (``test_inference_model_int8_calibrated_with_lstm``) waits
-for ``nn/recurrent.py`` (ROADMAP Queue 1 item 10); BERT's attention
-projections, which stay weight-only under calibration, hold the same rule
-here.
+The LSTM twin (``test_inference_model_int8_calibrated_with_lstm``) holds
+the rule that calibration leaves the recurrent kernels dequantized (only
+``Dense`` and plain ``Conv2D`` take int8 products); BERT's attention
+projections, which stay weight-only under calibration, hold the same rule.
 """
 
 import jax
@@ -248,6 +248,34 @@ def test_ws_conv_stays_weight_only_under_calibration():
         == ["02_layer2"]
     assert isinstance(getattr(pm, "00_layer0")._modules["kernel"],
                       quant.Int8Weight)
+    assert np.all(np.isfinite(got))
+    assert _rel(got, want) <= TOL_F32_NETS
+    assert np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)) < 0.2
+
+
+def test_inference_model_int8_calibrated_with_lstm():
+    """The twin of the JAX test of that name: calibrated int8 leaves the
+    LSTM's input and recurrent kernels dequantized (their int8 leaves
+    stored, read back as bf16 through attribute access on every forward);
+    only the two Dense layers are calibrated and take int8 products."""
+    jm = jnn.Sequential([jnn.LSTM(64), jnn.Dense(16, activation="relu"),
+                         jnn.Dense(4)])
+    pm = tnn.Sequential([tnn.LSTM(16, 64), tnn.Dense(64, 16, "relu"),
+                         tnn.Dense(16, 4)])
+    rng = np.random.default_rng(5)
+    calib = rng.normal(size=(8, 12, 16)).astype(np.float32)
+    variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(calib))
+    x = rng.normal(size=(4, 12, 16)).astype(np.float32)
+    ref, want, got, jim, pim = _served(jm, pm, variables, x, dtype="int8",
+                                       calibrate=calib)
+    assert sorted(pim._quant_ctx.amax) == sorted(jim._quant_ctx.amax) \
+        == ["01_layer1", "02_layer2"]
+    lstm = getattr(pm, "00_layer0")
+    for name in ("kernel", "recurrent_kernel"):
+        w = lstm._modules[name]
+        assert isinstance(w, quant.Int8Weight), name
+        assert torch.equal(getattr(lstm, name), w.dequantize(torch.bfloat16))
+    _assert_same_quantized_weights(jim, pim)
     assert np.all(np.isfinite(got))
     assert _rel(got, want) <= TOL_F32_NETS
     assert np.max(np.abs(got - ref) / np.maximum(np.abs(ref), 1.0)) < 0.2

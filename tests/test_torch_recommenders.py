@@ -2,7 +2,8 @@
 ``ZooModel`` training plumbing against the JAX package on the CPU: the
 ``NeuralCF`` forward with and without MF (replicated and sharded tables),
 ``NCFTail`` on the gathered vectors, ``WideAndDeep`` in its three
-``model_type``s, ``recommend_for_user``/``recommend_for_item``, a 3-epoch
+``model_type``s, ``recommend_for_user``/``recommend_for_item``, the GRU
+``SessionRecommender`` (forward, fit, ``recommend_for_session``), a 3-epoch
 ``compile``/``fit`` loss history and ``predict_classes`` against the JAX
 Estimator, an ``XShards`` fit through ``feature_cols``/``label_cols``, and
 the converter's round trip of these trees.  Weights are initialised in JAX
@@ -24,6 +25,8 @@ from analytics_zoo_tpu.core import init_orca_context
 from analytics_zoo_tpu.data import XShards as JaxXShards
 from analytics_zoo_tpu.models import NCFTail as JaxNCFTail
 from analytics_zoo_tpu.models import NeuralCF as JaxNeuralCF
+from analytics_zoo_tpu.models import \
+    SessionRecommender as JaxSessionRecommender
 from analytics_zoo_tpu.models import WideAndDeep as JaxWideAndDeep
 from analytics_zoo_tpu_torch.convert import (from_jax_variables,
                                              to_jax_variables)
@@ -139,9 +142,50 @@ def test_wide_and_deep_rejects_an_unknown_type():
         WideAndDeep(model_type="deep_n_wide")
 
 
-def test_session_recommender_waits_for_the_recurrent_layers():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        SessionRecommender(item_count=10)
+SESSION_CASES = {
+    "gru_only": dict(item_count=25, item_embed=6, rnn_hidden_layers=(8, 5),
+                     session_length=6),
+    "history": dict(item_count=25, item_embed=6, rnn_hidden_layers=(7,),
+                    session_length=5, include_history=True,
+                    mlp_hidden_layers=(9, 4), history_length=3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SESSION_CASES))
+def test_session_recommender_matches_jax(case):
+    """The GRU session model: its forward, a 3-epoch fit's losses (1e-5 of
+    max(1, |loss|)) and ``recommend_for_session``'s top-5 rows, whose
+    probabilities are a softmax of its ``predict``."""
+    kw = SESSION_CASES[case]
+    width = kw["session_length"] + kw.get("history_length", 0) * \
+        kw.get("include_history", False)
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, kw["item_count"], (64, width)).astype(np.int32)
+    y = rng.integers(0, kw["item_count"], 64).astype(np.int32)
+    init_orca_context("local")
+    jmodel, model = JaxSessionRecommender(**kw), SessionRecommender(**kw)
+    ckw = dict(loss=LOSS, optimizer="adam", learning_rate=1e-2, seed=3)
+    jmodel.compile(**ckw)
+    jmodel.estimator._ensure_initialized(jnp.asarray(x[:32]))
+    variables = jmodel.estimator.get_model()
+    model.load_state_dict(from_jax_variables(variables), strict=True)
+    model.compile(device="cpu", **ckw)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x[:9])).numpy()
+    _close(got, _jax_forward(jmodel, variables, x[:9]), what=case)
+    hj = jmodel.fit((x, y), epochs=3, batch_size=32, verbose=False)
+    ht = model.fit((x, y), epochs=3, batch_size=32, verbose=False)
+    np.testing.assert_allclose(ht["loss"], hj["loss"], rtol=1e-5, atol=1e-5)
+    got = model.recommend_for_session(x[:4], max_items=5)
+    want = jmodel.recommend_for_session(x[:4], max_items=5)
+    assert [[i for i, _ in row] for row in got] == \
+        [[i for i, _ in row] for row in want]
+    np.testing.assert_allclose([p for row in got for _, p in row],
+                               [p for row in want for _, p in row],
+                               atol=1e-5)
+    probs = torch.softmax(torch.from_numpy(model.predict(x[:4])), -1).numpy()
+    for row, pr in zip(got, probs):
+        assert [p for _, p in row] == [float(pr[i]) for i, _ in row]
 
 
 @pytest.mark.parametrize("sharded", [False, True])

@@ -541,3 +541,29 @@ def test_a_failed_capture_raises_naming_the_op():
     with pytest.raises(RuntimeError, match="capture of the train step "
                        "failed at .*float"):
         est.fit((x, x), epochs=1, batch_size=4, verbose=False)
+
+
+@pytest.mark.cuda
+def test_estimators_share_one_capture_stream():
+    """Every estimator captures on the device's one capture stream, so
+    cuBLAS keeps one workspace for all of them: the card's allocated bytes
+    after a sixth estimator's capture are those after the first's, once
+    the dropped estimators are collected."""
+    import gc
+
+    from analytics_zoo_tpu_torch.orca.learn import estimator as est_lib
+    _card()
+    x = np.random.default_rng(0).normal(size=(64, 16)).astype(np.float32)
+    seen = []
+    for i in range(6):
+        est = Estimator.from_keras(
+            tnn.Sequential([tnn.Dense(16, 64, "relu"), tnn.Dense(64, 16)]),
+            loss="mse", optimizer="adam", learning_rate=1e-3)
+        est.fit((x, x), epochs=1, batch_size=16, verbose=False)
+        assert est.capture_count == 1
+        del est
+        gc.collect()
+        torch.cuda.synchronize()
+        seen.append(torch.cuda.memory_allocated())
+    assert list(est_lib._CAPTURE_STREAMS) == [torch.device("cuda", 0)]
+    assert seen[-1] == seen[0], seen
