@@ -93,9 +93,12 @@ class XShards:
         try:
             import pandas as pd
             if isinstance(first, pd.DataFrame):
+                # row ranges by iloc: np.array_split of a DataFrame gives
+                # numpy arrays under pandas 3, frames before it
                 whole = pd.concat(shards, ignore_index=True)
                 return XShards(
-                    [df for df in np.array_split(whole, num_partitions)],
+                    [whole.iloc[part] for part in np.array_split(
+                        np.arange(len(whole)), num_partitions)],
                     self._max_workers)
         except ImportError:
             pass

@@ -1,7 +1,7 @@
 """FeatureTable and StringIndex (a copy of
 ``analytics_zoo_tpu/friesian/table.py``, which is pandas and numpy only,
 with its imports pointed at the port: ``to_feed`` builds the port's
-``DataFeed``; ``read_csv`` waits for the port's readers).
+``DataFeed``, ``read_csv`` the port's ``data.readers.read_csv``).
 
 FeatureTable: tabular feature engineering for recsys pipelines.
 
@@ -67,10 +67,8 @@ class FeatureTable:
 
     @staticmethod
     def read_csv(path: str, **kw: Any) -> "FeatureTable":
-        raise NotImplementedError(
-            "FeatureTable.read_csv is not ported yet (ROADMAP Queue 1 item "
-            "5: data/readers.py); read the file with pandas and use "
-            "FeatureTable.from_pandas")
+        from ..data.readers import read_csv
+        return FeatureTable(read_csv(path, **kw))
 
     # -- inspection ------------------------------------------------------------
 

@@ -9,6 +9,7 @@ from .layers import (AveragePooling2D, BatchNormalization, Conv1D, Conv2D,
                      GlobalMaxPooling2D, LayerNormalization, MaxPooling2D,
                      Remat, ScaledWSConv2D, Sequential, ZeroPadding2D,
                      scaled_ws_kernel, seed_dropout)
+from .layers_zoo import WordEmbedding
 from .recurrent import GRU, LSTM, Bidirectional, SimpleRNN, TimeDistributed
 
 __all__ = ["activations", "initializers", "losses", "metrics", "quant",
@@ -20,4 +21,5 @@ __all__ = ["activations", "initializers", "losses", "metrics", "quant",
            "scaled_ws_kernel",
            "seed_dropout", "MultiHeadAttention", "TransformerLayer",
            "causal_mask", "dot_product_attention", "FLASH_AUTO_MIN_SEQ",
-           "LSTM", "GRU", "SimpleRNN", "Bidirectional", "TimeDistributed"]
+           "LSTM", "GRU", "SimpleRNN", "Bidirectional", "TimeDistributed",
+           "WordEmbedding"]

@@ -18,11 +18,13 @@ import torch
 
 def _clip(x: torch.Tensor, lo: Optional[float] = None,
           hi: Optional[float] = None) -> torch.Tensor:
-    """``jnp.clip(x, lo, hi)`` with its gradient at the bounds."""
+    """``jnp.clip(x, lo, hi)`` with its gradient at the bounds.  The bounds
+    are filled on x's device (``new_full``), never copied from the host,
+    so a CUDA graph can capture the loss."""
     if lo is not None:
-        x = torch.maximum(x, x.new_tensor(lo))
+        x = torch.maximum(x, x.new_full((), lo))
     if hi is not None:
-        x = torch.minimum(x, x.new_tensor(hi))
+        x = torch.minimum(x, x.new_full((), hi))
     return x
 
 

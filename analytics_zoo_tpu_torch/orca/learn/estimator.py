@@ -669,21 +669,26 @@ class ZooEstimator:
                  label_cols: Optional[Sequence[str]] = None
                  ) -> Dict[str, float]:
         """Exact metrics over every row: the last partial batch is padded
-        to the batch shape and its padding weighted out by a mask."""
+        to the batch shape and its padding weighted out by a mask (a
+        stream's own ``"mask"`` where its batch carries one)."""
         data = _maybe_select_cols(data, feature_cols, label_cols)
         feed = as_feed(data, batch_size, shuffle=False, seed=self.seed,
                        drop_remainder=False)
         totals: Optional[List[torch.Tensor]] = None
 
         def accumulate(totals, batch, mask):
-            stats = self._eval_step(batch, to_device(mask, self.device))
+            if not isinstance(mask, torch.Tensor):
+                mask = to_device(mask, self.device)
+            stats = self._eval_step(batch, mask)
             return stats if totals is None else \
                 [a + b for a, b in zip(totals, stats)]
 
         self.model.eval()
         with torch.no_grad():
             for step, batch in enumerate(feed.epoch(self.device, 0)):
-                totals = accumulate(totals, batch, feed.step_mask(step))
+                mask = batch["mask"] if "mask" in batch \
+                    else feed.step_mask(step)
+                totals = accumulate(totals, batch, mask)
             if feed.drop_remainder:
                 # a user-constructed training feed: cover the rows its
                 # epoch 0 drops with one padded, masked batch

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs fourteen phases, each printing one
+``nvcc`` per source, all at once), then runs fifteen phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
@@ -239,7 +239,39 @@ JSON line:
    of its ``predict``, ``Seq2seq.infer`` beside the CPU's ids; the bytes
    still allocated once it all is dropped (cuBLAS's workspaces cleared)
    at most ``AUTOTS_FREED_SLACK`` above the bytes before the search.
-12. ``devices``: the card as ``nvidia-smi`` reports it.
+12. ``readers``: the input readers and the models they feed, from
+   seeded files in a temp dir (a line naming any part whose package,
+   PIL or pyarrow, is missing comes first; without PIL the kernel path
+   runs over bench.py's raw uint8 files).  The kernel path: 3,000 JPEGs
+   of 256 x 256 over 100 class directories through ``ImageSet.read`` ->
+   ``ImageResize(256, 256)``, ``ImageRandomCrop(224, 224)``,
+   ``ImageRandomFlip()`` -> ``to_feed(128, workers="process",
+   readahead=8)`` into resnet_train's ResNet-50 (bf16, sgd 0.1) through
+   ``fit(prefetch=2)`` from CUDA graphs: a capturing epoch, then two
+   timed with every count set to 0 (53 launches of each batch-norm
+   kernel a step from the replays, no other kernel, one capture),
+   images/s and ms a step beside the same estimator's resident
+   ``_multi_step`` window, the feed's io-wait, decode and h2d p50s; the
+   captured fit against the eager fit over 4 batches of the same images
+   and seed (one decoder) under cuDNN's deterministic algorithms, equal
+   bits.  bench.py's ``bench_input_pipeline`` uncut on the port (both
+   backends, stage p50s, the capping stage) and a forked decoder's first
+   and second pass over one fresh shared-memory slot.  A news20-shaped
+   CSV (4,096 documents of 100-1,000 Zipf-drawn words) through
+   ``TextSet.read_csv`` -> tokenize -> normalize -> ``word2idx(20000)``
+   -> ``shape_sequence(500)`` into ``TextClassifier`` (20 classes, tokens
+   200, width 256) with the cnn, lstm and gru encoders, and WikiQA-shaped
+   ids into ``KNRM`` (10 + 40, embed 300, 21 kernels; on the card against
+   the CPU first): each fitted captured and eager from one init (equal
+   bits), ms a step each way, and the captured fit over every row.
+   ``ObjectDetector.predict_image_set`` at 300 (ResNet-18, 21 classes)
+   over decoded JPEGs: raw outputs within ``TOL_SSD`` of the CPU's at the
+   same weights and the same detections.  ``NNImageReader`` ->
+   ``NNClassifier`` (its transform column is ``Estimator.predict``'s
+   argmax), ``AnomalyDetector`` over ``unroll``ed series, the readers'
+   frames and rows against pandas, and the iterator and torch feeds into
+   ``fit``, ``evaluate`` (the masked tail exact) and ``predict``.
+13. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Then the script's seconds, a ``kernels`` line (one entry per kernel and
 path) and, last,
@@ -1004,13 +1036,17 @@ def profile_call(fn, shares: dict) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an aten op's row repeats its kernels' time
-    kernels = [(e.key, e.self_device_time_total / 1e3)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [(e.key, e.self_device_time_total / 1e3) for e in events
+               if e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms in kernels)
+    copies = sum(e.count for e in events
+                 if e.key.lower().startswith(("memcpy", "memset")))
     res = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None}
+           "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+           "device_ops": {"kernels": sum(e.count for e in events) - copies,
+                          "copies_and_memsets": copies}}
     for name, keys in shares.items():
         ms = sum(t for k, t in kernels if any(n in k for n in keys))
         res[f"{name}_share_of_busy"] = ms / busy_ms if busy_ms else None
@@ -4857,6 +4893,891 @@ def phase_autots(fa, bn, fx, sizes=None) -> dict:
     return res
 
 
+# -- readers: the input readers and the models they feed ---------------------
+
+READERS_IMAGES = 3000       # seeded 256 x 256 JPEGs over 100 class dirs
+READERS_CLASSES = 100
+READERS_SIDE = 256
+READERS_READAHEAD = 8       # FileReadahead depth of each decode worker
+READERS_EPOCHS = 2          # the timed ImageSet fit, after a capturing one
+READERS_CMP_STEPS = 4       # captured against eager, one decode worker
+READERS_RESIDENT = 20       # the resident _multi_step window of the fit's
+#                             estimator
+NEWS20 = dict(docs=4096, words=(100, 1000), vocab=20000, classes=20)
+NEWS20_SEQ = 500
+TEXT_BATCH = 128
+# TextClassifier's steps: compared (captured against eager) and timed
+# (the window), by encoder; the recurrent ones are 500-step Python loops
+TEXT_CMP_STEPS = {"cnn": 8, "lstm": 2, "gru": 2}
+TEXT_WINDOW = {"cnn": 20, "lstm": 3, "gru": 3}
+WIKIQA = dict(text1_length=10, text2_length=40, embed_size=300,
+              kernel_num=21)
+WIKIQA_ROWS = 4096
+SSD = dict(class_num=21, backbone_depth=18, image_size=300)
+SSD_BATCH = 8
+SSD_SCORE = 0.1             # predict_image_set's score threshold here
+SSD_HEAD_GAIN = 0.05        # the heads' kernels x he-normal: O(1) outputs
+TOL_SSD = 1e-4              # of max(1, |CPU|): the card's raw outputs
+IP_FILES, IP_SIDE, IP_BATCH = 96, 224, 64   # bench_input_pipeline
+
+
+class ReadersSizes:
+    """The phase's shapes: the card's by default; the CPU rehearsal of the
+    phase (tests and debugging) shrinks them."""
+
+    def __init__(self, device="cuda", **kw):
+        self.device = device
+        self.images, self.classes, self.side = (READERS_IMAGES,
+                                                READERS_CLASSES, READERS_SIDE)
+        self.crop, self.batch = IMAGE, RESNET_BATCH
+        self.resnet = dict(norm="batch", dtype="bfloat16")
+        self.workers = max(4, min(16, os.cpu_count() or 8))
+        self.epochs, self.cmp_steps, self.resident = (
+            READERS_EPOCHS, READERS_CMP_STEPS, READERS_RESIDENT)
+        self.news20, self.seq, self.text_batch = (dict(NEWS20), NEWS20_SEQ,
+                                                  TEXT_BATCH)
+        self.text = dict(token_length=200, encoder_output_dim=256)
+        self.text_cmp, self.text_window = (dict(TEXT_CMP_STEPS),
+                                           dict(TEXT_WINDOW))
+        self.wikiqa, self.knrm_rows = dict(WIKIQA), WIKIQA_ROWS
+        self.knrm_steps = (8, 20)  # compared, window
+        self.ssd, self.ssd_batch = dict(SSD), SSD_BATCH
+        self.ip = (IP_FILES, IP_SIDE, IP_BATCH)
+        self.missing = None  # {package: part}; None probes the imports
+        self.__dict__.update(kw)
+
+
+def rd_window(sizes, fn, steps: int) -> float:
+    """ms a step of ``fn()`` (``steps`` train steps), synchronised at its
+    ends only."""
+    sp_sync(sizes)
+    t0 = time.perf_counter()
+    float(fn()[-1])
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def rd_missing(sizes) -> dict:
+    """The parts of the phase whose package is not installed, by
+    package."""
+    if sizes.missing is not None:
+        return dict(sizes.missing)
+    import importlib.util
+    parts = {"PIL": "JPEG decode (ImageSet, NNImageReader, the detector's "
+                    "images)",
+             "pyarrow": "read_parquet"}
+    return {pkg: part for pkg, part in parts.items()
+            if importlib.util.find_spec(pkg) is None}
+
+
+def write_jpegs(root: str, n: int, classes: int, side: int,
+                seed: int = SEED) -> None:
+    """``n`` seeded JPEGs of ``side`` x ``side`` over ``classes`` class
+    directories: a smooth random field (8 x 8 upsampled) plus pixel noise,
+    so that they compress and decode like photographs, not like noise."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (n, 8, 8, 3), dtype=np.uint8)
+    noise = rng.integers(-12, 13, (n, side, side, 3), dtype=np.int16)
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"class{c:03d}"), exist_ok=True)
+
+    def one(i):
+        img = np.asarray(Image.fromarray(coarse[i]).resize(
+            (side, side), Image.BILINEAR), np.int16) + noise[i]
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, f"class{i % classes:03d}", f"{i:05d}.jpg"),
+            quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, range(n)))
+
+
+class RawImageLoader:
+    """bench.py's ``_RawImageLoader`` on the port's ``FileReadahead``: raw
+    uint8 files read through a per-worker readahead and "decoded" by a
+    numpy flip and brightness jitter (a GIL-holding stand-in for JPEG
+    decode); the streaming feed's ``hint_indices``/``feed_stats``
+    protocols as ImageSet's."""
+
+    def __init__(self, paths, size, readahead=8, classes=1000):
+        self.paths = list(paths)
+        self.size = size
+        self.readahead = readahead
+        self.classes = classes
+        self._ra_lock = threading.Lock()
+
+    def _reader(self):
+        from analytics_zoo_tpu_torch.data import FileReadahead
+        ra = self.__dict__.get("_ra")
+        if ra is not None and ra.pid == os.getpid():
+            return ra
+        with self._ra_lock:  # worker threads share one reader
+            ra = self.__dict__.get("_ra")
+            if ra is None or ra.pid != os.getpid():
+                ra = FileReadahead(depth=self.readahead)
+                self.__dict__["_ra"] = ra
+            return ra
+
+    def hint_indices(self, indices):
+        self._reader().hint([self.paths[i % len(self.paths)]
+                             for i in indices])
+
+    def feed_stats(self):
+        return {"io_wait_ms": self._reader().wait_ms}
+
+    def load(self, i, rng=None):
+        raw = self._reader().get(self.paths[i % len(self.paths)])
+        img = np.frombuffer(raw, np.uint8).reshape(self.size, self.size, 3)
+        img = img[:, ::-1]                        # flip
+        img = np.clip(img.astype(np.int16) + (i % 7), 0, 255)  # jitter
+        return {"x": img.astype(np.uint8),
+                "y": np.int32(i % self.classes)}
+
+
+def write_raw(root: str, n: int, side: int) -> list:
+    """``n`` seeded raw uint8 ``side`` x ``side`` x 3 images (bench.py's
+    input-pipeline files)."""
+    rng = np.random.default_rng(0)
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i in range(n):
+        p = os.path.join(root, f"img{i:03d}.raw")
+        rng.integers(0, 256, (side, side, 3), dtype=np.uint8).tofile(p)
+        paths.append(p)
+    return paths
+
+
+def stage_p50(snap: dict, name: str, field: str = "p50") -> float:
+    v = snap.get(name)
+    return v[field] if isinstance(v, dict) and v.get("count") else 0.0
+
+
+def readers_image_feed(sizes, root: str, missing: dict, n=None,
+                       workers=None, **kw):
+    """The readers' image feed: ``ImageSet.read`` -> resize to the side,
+    random crop, random flip -> ``to_feed`` on decode processes with
+    readahead; without PIL, bench.py's raw-file loader at the crop's size
+    on the same feed (no decoder needed)."""
+    from analytics_zoo_tpu_torch.data import (ImageRandomCrop,
+                                              ImageRandomFlip, ImageResize,
+                                              ImageSet, StreamingDataFeed)
+    kw = dict(batch_size=sizes.batch, shuffle=True, seed=SEED,
+              num_workers=workers or sizes.workers, workers="process", **kw)
+    if "PIL" not in missing:
+        iset = ImageSet.read(os.path.join(root, "jpeg")).transform(
+            ImageResize(sizes.side, sizes.side),
+            ImageRandomCrop(sizes.crop, sizes.crop), ImageRandomFlip())
+        if n is not None:
+            iset = ImageSet(iset.paths[:n], iset.labels[:n],
+                            transforms=iset.transforms)
+        return iset.to_feed(readahead=READERS_READAHEAD, **kw)
+    loader = RawImageLoader(write_raw(os.path.join(root, "raw"), 96,
+                                      sizes.crop), sizes.crop,
+                            READERS_READAHEAD, sizes.classes)
+    return StreamingDataFeed(n or sizes.images, loader.load, **kw)
+
+
+def readers_imageset_fit(fa, bn, fx, sizes, root: str,
+                         missing: dict) -> dict:
+    """The kernel path: the ImageSet feed into bench.py's ResNet-50
+    (``TrainNet``, bf16, sgd 0.1) through ``Estimator.fit(prefetch=2)``
+    from CUDA graphs: a capturing epoch, then ``sizes.epochs`` timed with
+    every kernel count set to 0 just before them (53 launches a step each
+    way from the replays); the resident ``_multi_step`` window of the same
+    estimator on one of the feed's batches; the feed's stage p50s; then
+    the captured fit against the eager fit over the same images and seed
+    (one decode worker, so that the augmentation draws the same) under
+    cuDNN's deterministic algorithms, equal bits."""
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.core import metrics as metrics_lib
+    from analytics_zoo_tpu_torch.nn import BatchNormalization
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    card = sizes.device == "cuda"
+    variables = random_resnet_variables(TrainNet(**sizes.resnet), SEED)
+
+    def estimator(graphs=True):
+        m = TrainNet(**sizes.resnet)
+        m.load_state_dict(from_jax_variables(variables), strict=True)
+        return Estimator.from_keras(
+            m, loss="sparse_categorical_crossentropy", optimizer="sgd",
+            learning_rate=RESNET_LR, seed=SEED, device=sizes.device,
+            cuda_graphs=graphs)
+
+    n_bn = sum(isinstance(m, BatchNormalization)
+               for m in TrainNet(**sizes.resnet).modules())
+    sfx = "bf16" if sizes.resnet.get("dtype") == "bfloat16" else "f32"
+    steps = sizes.images // sizes.batch
+    est = estimator()
+    t0 = time.perf_counter()
+    est.fit(readers_image_feed(sizes, root, missing), epochs=1,
+            batch_size=sizes.batch, verbose=False, prefetch=2)
+    capture_epoch_s = time.perf_counter() - t0
+    calls = []
+    inner = est._train_step
+
+    def step(batch):
+        calls.append(time.perf_counter())
+        return inner(batch)
+
+    est._train_step = step
+    reg = metrics_lib.get_registry()
+    reg.reset()
+    autots_reset_counts(fa, bn, fx)
+    t0 = time.perf_counter()
+    hist = est.fit(readers_image_feed(sizes, root, missing),
+                   epochs=sizes.epochs, batch_size=sizes.batch,
+                   verbose=False, prefetch=2)
+    fit_s = time.perf_counter() - t0
+    counts = autots_kernel_counts(fa, bn, fx)
+    want = {k: 0 for k in counts}
+    if card:
+        for p in ("fwd", "bwd"):
+            want[f"{BN_KERNEL}_{p}_{sfx}"] = n_bn * steps * sizes.epochs
+    if counts != want:
+        raise AssertionError(f"readers imageset fit: launches {counts}; "
+                             f"want {want}")
+    snap = reg.snapshot()
+    del est._train_step
+    if len(calls) != steps * sizes.epochs or not all(
+            map(math.isfinite, hist["loss"])):
+        raise AssertionError(f"readers imageset fit: {len(calls)} steps, "
+                             f"loss {hist['loss']}")
+    feed_it = readers_image_feed(sizes, root, missing).epoch(
+        est.device, 0, place=False)
+    try:
+        host = next(feed_it)
+        b0 = {k: torch.from_numpy(np.array(v)).to(est.device)
+              for k, v in host.items()}
+        getattr(host, "release", lambda: None)()
+    finally:
+        feed_it.close()
+    bn.reset_launches()
+    resident_ms = rd_window(
+        sizes, lambda: est._multi_step(b0, sizes.resident), sizes.resident)
+    resident_counts = dict(bn.KERNEL_LAUNCHES)
+    if card and resident_counts[f"fwd_{sfx}"] != n_bn * sizes.resident:
+        raise AssertionError(f"readers resident window: launches "
+                             f"{resident_counts}")
+    caps = captures(est, "readers imageset fit")
+    gaps = np.diff(calls) * 1e3
+    images_s = steps * sizes.epochs * sizes.batch / fit_s
+    del est, b0
+    sp_free(sizes)
+    # captured against eager over the same images, one decoder
+    cmp = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graphs in (False, True):
+            e = estimator(graphs)
+            losses = record_losses(e)
+            e.fit(readers_image_feed(sizes, root, missing,
+                                     n=sizes.cmp_steps * sizes.batch,
+                                     workers=1),
+                  epochs=1, batch_size=sizes.batch, verbose=False,
+                  prefetch=2)
+            cmp[graphs] = [float(v) for v in losses]
+            del e
+            sp_free(sizes)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    against = losses_against_eager(cmp[True], cmp[False],
+                                   "readers imageset captured vs eager")
+    if card and not against["bitwise_equal"]:
+        raise AssertionError(f"readers imageset: captured losses are not "
+                             f"the eager ones bit for bit: {against}")
+    return {
+        "source": "ImageSet JPEG" if "PIL" not in missing
+        else "raw uint8 files (no PIL)",
+        "images": sizes.images, "classes": sizes.classes,
+        "side": sizes.side, "crop": sizes.crop, "batch": sizes.batch,
+        "decode_workers": sizes.workers, "backend": "process",
+        "readahead": READERS_READAHEAD, "host_cores": os.cpu_count(),
+        "steps_an_epoch": steps, "epochs_timed": sizes.epochs,
+        "capture_epoch_s": capture_epoch_s, "fit_s": fit_s,
+        "ms_a_step": fit_s * 1e3 / (steps * sizes.epochs),
+        "step_call_gap_ms_p50": float(np.median(gaps)) if len(gaps) else
+        None, "images_per_s": images_s,
+        "resident_window_ms_a_step": resident_ms,
+        "vs_resident": fit_s * 1e3 / (steps * sizes.epochs) / resident_ms,
+        "loss": hist["loss"],
+        "feed_stage_p50_ms": {
+            "io_wait": stage_p50(snap, "feed.io_wait_ms"),
+            "decode_batch": stage_p50(snap, "feed.decode_ms"),
+            "load_sample": stage_p50(snap, "feed.load_ms"),
+            "h2d": stage_p50(snap, "feed.h2d_ms"),
+            "data_wait": stage_p50(snap, "train.data_wait_ms")},
+        "launches": counts, "launches_a_step_each_way": n_bn if card else 0,
+        "resident_launches": resident_counts,
+        "losses_against_eager": {k: v for k, v in against.items()
+                                 if k not in ("captured", "eager")},
+        **caps}
+
+
+def readers_input_pipeline(sizes, root: str) -> dict:
+    """bench.py's ``bench_input_pipeline`` uncut on the port: raw uint8
+    files through ``FileReadahead`` and a numpy flip and jitter, each
+    backend's images/s with the batches placed on the card, the stage
+    p50s and the stage that caps the pipeline (decode is per worker, so
+    its share divides by the workers)."""
+    from analytics_zoo_tpu_torch.core import metrics as metrics_lib
+    from analytics_zoo_tpu_torch.data import StreamingDataFeed
+    n_files, size, batch = sizes.ip
+    n_workers = max(2, min(8, os.cpu_count() or 1))
+    prefetch = 4
+    warm = n_workers + prefetch
+    meas = 3 * warm
+    loader = RawImageLoader(write_raw(os.path.join(root, "ip"), n_files,
+                                      size), size)
+    reg = metrics_lib.get_registry()
+
+    def run(backend):
+        reg.reset()
+        feed = StreamingDataFeed(
+            num_samples=(warm + meas + 2) * batch, load_sample=loader.load,
+            batch_size=batch, shuffle=False, num_workers=n_workers,
+            prefetch_batches=prefetch, workers=backend)
+        it = feed.epoch(torch.device(sizes.device), 0)  # h2d on the clock
+        try:
+            for _ in range(warm):
+                next(it)
+            t0 = time.perf_counter()
+            for _ in range(meas):
+                b = next(it)
+            sp_sync(sizes)
+            dt = time.perf_counter() - t0
+        finally:
+            it.close()
+        snap = reg.snapshot()
+        load_mean = stage_p50(snap, "feed.load_ms", "mean")
+        decode_mean = stage_p50(snap, "feed.decode_ms", "mean")
+        del b
+        return meas * batch / dt, {
+            "io_wait_ms_p50": stage_p50(snap, "feed.io_wait_ms"),
+            "decode_ms_p50": stage_p50(snap, "feed.decode_ms"),
+            "load_ms_p50_per_sample": stage_p50(snap, "feed.load_ms"),
+            "assemble_ms_mean": max(0.0, decode_mean - load_mean * batch),
+            "h2d_ms_p50": stage_p50(snap, "feed.h2d_ms")}
+
+    out = {"batch": batch, "num_workers": n_workers, "image_size": size,
+           "host_cores": os.cpu_count(), "files": n_files}
+    for backend in ("thread", "process"):
+        ips, stages = run(backend)
+        out[backend] = {"images_per_s": ips, "stages": stages}
+    best = max(("thread", "process"), key=lambda b: out[b]["images_per_s"])
+    per_batch_ms = 1000.0 * batch / out[best]["images_per_s"]
+    st = out[best]["stages"]
+    shares = {"io": st["io_wait_ms_p50"] / n_workers / per_batch_ms,
+              "decode": st["decode_ms_p50"] / n_workers / per_batch_ms,
+              "h2d": st["h2d_ms_p50"] / per_batch_ms}
+    out.update(process_over_thread=out["process"]["images_per_s"]
+               / max(out["thread"]["images_per_s"], 1e-9),
+               stage_shares_of_batch=shares,
+               bottleneck_stage=max(shares, key=shares.get))
+    return out
+
+
+def _slot_passes(pool, src, out) -> None:
+    """In a forked decoder: fill slot 0 row by row twice, timing each
+    pass."""
+    views = pool.views(0)["x"]
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for k in range(len(views)):
+            views[k] = src
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.put(times)
+
+
+def readers_slot_passes(sizes, repeats: int = 3) -> dict:
+    """ROADMAP's question on the streaming feed's first chunks: a forked
+    decoder's first and second pass over one fresh shared-memory slot of
+    one ResNet batch (``batch`` x crop x crop x 3 uint8), each pool made
+    anew; the first pass faults the slot's pages in.  Forked, not
+    spawned: the feed's process backend forks its decoders, and this
+    measures one of them."""
+    import multiprocessing as mp
+    from analytics_zoo_tpu_torch.data.shm_pool import ShmBatchPool
+    ctx = mp.get_context("fork")
+    src = np.random.default_rng(SEED).integers(
+        0, 256, (sizes.crop, sizes.crop, 3), dtype=np.uint8)
+    passes = []
+    for _ in range(repeats):
+        p = None
+        pool = ShmBatchPool(2, sizes.batch,
+                            {"x": ((sizes.crop, sizes.crop, 3), np.uint8)})
+        try:
+            out = ctx.SimpleQueue()
+            p = ctx.Process(target=_slot_passes, args=(pool, src, out))
+            p.start()
+            passes.append(out.get())  # drained before the join
+            p.join(timeout=60)
+        finally:
+            if p is not None and p.is_alive():
+                p.kill()
+                p.join()
+            pool.close()
+    first, second = [p[0] for p in passes], [p[1] for p in passes]
+    return {"slot_bytes": sizes.batch * sizes.crop * sizes.crop * 3,
+            "first_pass_ms": first, "second_pass_ms": second,
+            "first_minus_second_ms": [a - b for a, b in zip(first, second)]}
+
+
+def news20_csv(sizes, path: str) -> None:
+    """A news20-shaped CSV: documents of 100-1,000 words drawn Zipf-like
+    (p ~ 1 / rank^1.07) from a 20,000-word vocabulary, 20 labels."""
+    import pandas as pd
+    n = sizes.news20
+    rng = np.random.default_rng(SEED + 19)
+    p = 1.0 / np.arange(1, n["vocab"] + 1) ** 1.07
+    lens = rng.integers(n["words"][0], n["words"][1] + 1, n["docs"])
+    ids = rng.choice(n["vocab"], size=int(lens.sum()), p=p / p.sum())
+    words = np.asarray([f"w{i}" for i in range(n["vocab"])])
+    cuts = np.cumsum(lens)[:-1]
+    texts = [" ".join(words[part]) for part in np.split(ids, cuts)]
+    pd.DataFrame({"text": texts,
+                  "label": rng.integers(0, n["classes"], n["docs"])}
+                 ).to_csv(path, index=False)
+
+
+def captured_and_eager(sizes, make, loss, xy, cmp_steps, window, lr=1e-3):
+    """A model built by ``make()`` (one init) fitted eagerly and from CUDA
+    graphs over the first ``cmp_steps`` batches under cuDNN's
+    deterministic algorithms (step losses, equal bits on the card), then
+    each estimator's window of ``window`` steps on one batch (ms a step;
+    on the card its kernels a step and the busy and idle share of a
+    profiled step or five), and the captured one's fit over all of ``xy``
+    (one epoch, ms a step)."""
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    card = sizes.device == "cuda"
+    init = make().state_dict()
+    x, y = xy
+    n = cmp_steps * sizes.text_batch
+    b0 = {"x": torch.from_numpy(x[:sizes.text_batch]).to(sizes.device),
+          "y": torch.from_numpy(y[:sizes.text_batch]).to(sizes.device)}
+    runs = {}
+    for graphs in (False, True):
+        model = make()
+        model.load_state_dict(init)
+        est = Estimator.from_keras(model, loss=loss, optimizer="adam",
+                                   learning_rate=lr, seed=SEED,
+                                   device=sizes.device,
+                                   cuda_graphs=graphs)
+        losses = record_losses(est)
+        torch.backends.cudnn.deterministic = True
+        t0 = time.perf_counter()
+        try:
+            est.fit((x[:n], y[:n]), epochs=1, batch_size=sizes.text_batch,
+                    verbose=False)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        run = {"compared_fit_s": time.perf_counter() - t0,
+               "losses": [float(v) for v in losses]}
+        del est._train_step
+        run["window_ms_a_step"] = rd_window(
+            sizes, lambda: est._multi_step(b0, window), window)
+        if card:  # the card's kernels a step, busy and idle, profiled
+            # over a step or five (a recurrent step is 18,000-26,000
+            # kernels, whose trace the profiler takes seconds to read)
+            steps = 1 if window < 5 else 5
+            run["profiled"] = profiled_window(
+                lambda: est._multi_step(b0, steps), steps, {})
+            idle_of(run["profiled"], run["window_ms_a_step"])
+            run["kernels_per_step"] = \
+                run["profiled"]["device_ops"]["kernels"] / steps
+        if graphs:
+            steps = len(x) // sizes.text_batch
+            t0 = time.perf_counter()
+            hist = est.fit((x, y), epochs=1, batch_size=sizes.text_batch,
+                           verbose=False)
+            run["fit_ms_a_step"] = (time.perf_counter() - t0) * 1e3 / steps
+            run["fit_steps"] = steps
+            run["fit_loss"] = hist["loss"][0]
+            if not math.isfinite(hist["loss"][0]):
+                raise AssertionError(f"readers: fit loss {hist['loss']}")
+            run.update(captures(est, "readers text"))
+        runs[graphs] = run
+        del est
+        sp_free(sizes)
+    against = losses_against_eager(runs[True].pop("losses"),
+                                   runs[False].pop("losses"),
+                                   "readers captured vs eager")
+    if card and not against["bitwise_equal"]:
+        raise AssertionError(f"readers: captured losses are not the eager "
+                             f"ones bit for bit: {against}")
+    return {"captured": runs[True], "eager": runs[False],
+            "compared_steps": cmp_steps, "window_steps": window,
+            "losses_against_eager": {k: v for k, v in against.items()
+                                     if k not in ("captured", "eager")}}
+
+
+def readers_text(sizes, root: str) -> dict:
+    """news20: ``TextSet.read_csv`` -> tokenize -> normalize ->
+    ``word2idx(max_words_num=20000)`` -> ``shape_sequence(500)`` ->
+    ``generate_sample``, into ``TextClassifier`` (20 classes, tokens 200,
+    encoder width 256; its table 20,000 words + PAD + OOV) with each
+    encoder; WikiQA-shaped query/doc ids into ``KNRM`` (10 + 40 ids,
+    embed 300, 21 kernels), first on the card against itself on the CPU
+    at the same weights, then fitted captured and eager."""
+    from analytics_zoo_tpu_torch.data import TextSet
+    from analytics_zoo_tpu_torch.models import KNRM, TextClassifier
+    path = os.path.join(root, "news20.csv")
+    news20_csv(sizes, path)
+    t0 = time.perf_counter()
+    ts = (TextSet.read_csv(path).tokenize().normalize()
+          .word2idx(max_words_num=sizes.news20["vocab"])
+          .shape_sequence(sizes.seq).generate_sample())
+    x, y = ts.to_numpy()
+    pipeline_s = time.perf_counter() - t0
+    vocab = ts.vocab_size()
+    if x.shape != (sizes.news20["docs"], sizes.seq) or x.max() >= vocab:
+        raise AssertionError(f"readers: TextSet ids {x.shape}, max "
+                             f"{x.max()} for a table of {vocab}")
+    out = {"docs": len(x), "seq": sizes.seq, "vocab_rows": vocab,
+           "textset_pipeline_s": pipeline_s,
+           "pad_share": float((x == 0).mean())}
+    gen = torch.Generator().manual_seed(SEED)
+    for enc in ("cnn", "lstm", "gru"):
+        def make(enc=enc):
+            return TextClassifier(
+                class_num=sizes.news20["classes"], vocab_size=vocab,
+                sequence_length=sizes.seq, encoder=enc,
+                **sizes.text).init_weights(gen)
+        out[f"text_classifier_{enc}"] = captured_and_eager(
+            sizes, make, "sparse_categorical_crossentropy", (x, y),
+            sizes.text_cmp[enc], sizes.text_window[enc])
+    # WikiQA-shaped ids: Zipf-like over the same vocabulary; half the
+    # pairs share three query tokens with their document
+    rng = np.random.default_rng(SEED + 20)
+    w = sizes.wikiqa
+    p = 1.0 / np.arange(1, vocab - 1) ** 1.07
+    ids = 2 + rng.choice(vocab - 2, size=(sizes.knrm_rows, w["text1_length"]
+                                          + w["text2_length"]),
+                         p=p / p.sum())
+    pos = rng.random(sizes.knrm_rows) < 0.5
+    for r in np.where(pos)[0]:
+        slots = rng.choice(w["text2_length"], 3, replace=False)
+        ids[r, w["text1_length"] + slots] = ids[r, rng.choice(
+            w["text1_length"], 3, replace=False)]
+    kx = ids.astype(np.int32)
+    ky = pos.astype(np.float32)[:, None]
+
+    def make_knrm():
+        return KNRM(vocab_size=vocab, **w).init_weights(gen)
+
+    model = make_knrm().eval()
+    with torch.no_grad():
+        ref = model(torch.from_numpy(kx[:256])).numpy()
+        got = model.to(sizes.device)(torch.from_numpy(kx[:256]).to(
+            sizes.device)).cpu().numpy()
+    err = float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+    if err > TOL_SSD:
+        raise AssertionError(f"readers: KNRM on the card vs the CPU {err}")
+    out["knrm"] = {"rows": len(kx), "card_vs_cpu_rel_err": err,
+                   **captured_and_eager(sizes, make_knrm,
+                                        "binary_crossentropy", (kx, ky),
+                                        *sizes.knrm_steps)}
+    return out
+
+
+def detector_variables(model, seed: int) -> dict:
+    """``random_resnet_variables`` with the box and class heads' kernels
+    ``SSD_HEAD_GAIN`` times as wide: loc deltas and logits O(1), as a
+    trained detector's are (at he-normal heads on this trunk they reach
+    1e2, and decode's exp turns rounding into whole pixels)."""
+    tree = random_resnet_variables(model, seed)
+    for name, node in tree["params"]["ssd"].items():
+        if name.startswith(("loc_", "cls_")):
+            node["kernel"] = node["kernel"] * np.float32(SSD_HEAD_GAIN)
+    return tree
+
+
+def same_detections(got, want, thr: float) -> dict:
+    """Detections of each image against the reference's: the same labels
+    and count, scores and boxes within TOL_SSD of max(1, |ref|); a
+    detection whose reference score lies within TOL_SSD of the threshold
+    may be on either side of it."""
+    worst, n = 0.0, 0
+    for g, w in zip(got, want):
+        key = lambda d: (str(d[0]), tuple(np.round(d[2], 3)))  # noqa: E731
+        w = [d for d in w if abs(d[1] - thr) > TOL_SSD]
+        g = [d for d in g if abs(d[1] - thr) > TOL_SSD]
+        g, w = sorted(g, key=key), sorted(w, key=key)
+        if [d[0] for d in g] != [d[0] for d in w]:
+            raise AssertionError(f"readers detector: labels "
+                                 f"{[d[0] for d in g]} against "
+                                 f"{[d[0] for d in w]}")
+        for a, b in zip(g, w):
+            top = max(1.0, float(np.abs(b[2]).max()))
+            worst = max(worst, abs(a[1] - b[1]),
+                        float(np.abs(a[2] - b[2]).max()) / top)
+        n += len(g)
+    if worst > TOL_SSD:
+        raise AssertionError(f"readers detector: detections differ by "
+                             f"{worst}")
+    return {"detections": n, "worst_rel": worst, "tol": TOL_SSD}
+
+
+def readers_detector(sizes, root: str, missing: dict) -> dict:
+    """``ObjectDetector.predict_image_set`` at 300 (ResNet-18 trunk, 21
+    classes, maps 38/19/10/5) over decoded JPEGs on the card, against the
+    same model's raw outputs and post-processing on the CPU."""
+    import copy
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.data import (ImageNormalize, ImageResize,
+                                              ImageSet)
+    from analytics_zoo_tpu_torch.models import ObjectDetector
+    s = sizes.ssd["image_size"]
+    if "PIL" in missing:
+        x = np.random.default_rng(SEED).normal(
+            size=(sizes.ssd_batch, s, s, 3)).astype(np.float32)
+    else:
+        iset = ImageSet.read(os.path.join(root, "jpeg"))
+        iset = ImageSet(iset.paths[:sizes.ssd_batch]).transform(
+            ImageResize(s, s), ImageNormalize())
+        x = iset.to_shards(1).concatenated()["x"]
+    det = ObjectDetector(**sizes.ssd)
+    det.load_state_dict(from_jax_variables(
+        detector_variables(det, SEED)), strict=True)
+    cpu = copy.deepcopy(det)
+    cpu.compile(loss="mse", device="cpu")
+    ref = cpu.predict(x, batch_size=sizes.ssd_batch)
+    det.compile(loss="mse", device=sizes.device)
+    raw = det.predict(x, batch_size=sizes.ssd_batch)
+    err = float(np.abs(raw - ref).max() / max(1.0, np.abs(ref).max()))
+    if raw.shape != (len(x), len(det.ssd.anchors), 4 + det.class_num) \
+            or err > TOL_SSD:
+        raise AssertionError(f"readers detector: raw {raw.shape}, "
+                             f"{err} of max(1, |CPU|)")
+    sp_sync(sizes)
+    t0 = time.perf_counter()
+    dets = det.predict_image_set(x, score_threshold=SSD_SCORE)
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"images": len(x), "image_size": s, "fm_sizes": det.ssd.fm_sizes,
+            "anchors": len(det.ssd.anchors), "raw_rel_err": err,
+            "tol": TOL_SSD, "predict_image_set_ms": ms,
+            "score_threshold": SSD_SCORE,
+            **same_detections(dets, cpu.postprocess(ref, SSD_SCORE),
+                              SSD_SCORE)}
+
+
+def readers_frames(sizes, root: str, missing: dict) -> dict:
+    """``NNImageReader.readImages`` -> ``NNClassifier.fit/transform`` (its
+    column against ``Estimator.predict``); ``AnomalyDetector`` over
+    ``unroll``ed series; ``read_csv/json/parquet/npz`` and
+    ``FeatureTable.read_csv`` row counts and frames against pandas; the
+    iterator, torch ``Dataset`` and ``DataLoader`` feeds into ``fit``,
+    ``evaluate`` and ``predict`` on the card."""
+    import glob
+    import pandas as pd
+    from analytics_zoo_tpu_torch import nn as tnn
+    from analytics_zoo_tpu_torch.data import (ImageNormalize, ImageResize,
+                                              from_iterator, from_tf_dataset,
+                                              from_torch_dataloader,
+                                              from_torch_dataset, read_csv,
+                                              read_json, read_npz,
+                                              read_parquet)
+    from analytics_zoo_tpu_torch.friesian import FeatureTable
+    from analytics_zoo_tpu_torch.models import AnomalyDetector, unroll
+    from analytics_zoo_tpu_torch.nnframes import NNClassifier, NNImageReader
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    dev = sizes.device
+    gen = torch.Generator().manual_seed(SEED)
+    out = {}
+    if "PIL" not in missing:
+        d = os.path.join(root, "frames")
+        write_jpegs(d, 128, 4, 64, seed=SEED + 21)
+        df = NNImageReader.readImages(
+            d, transforms=[ImageResize(32, 32), ImageNormalize()])
+        model = tnn.Sequential([tnn.Flatten(),
+                                tnn.Dense(32 * 32 * 3, 64, activation="relu"),
+                                tnn.Dense(64, 4)])
+        for m in model.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+        nnm = (NNClassifier(model, device=dev).setFeaturesCol("image")
+               .setBatchSize(32).setMaxEpoch(3).setLearningRate(1e-3)
+               .fit(df))
+        col = np.asarray(nnm.transform(df)["prediction"].tolist())
+        pred = nnm.estimator.predict(np.stack(df["image"].tolist()),
+                                     batch_size=32)
+        if not np.array_equal(col, np.argmax(pred, -1)):
+            raise AssertionError("readers: NNClassifier's transform column "
+                                 "is not Estimator.predict's argmax")
+        out["nnclassifier"] = {"rows": len(df), "transform_equals_predict":
+                               True, "accuracy": float(
+                                   (col == df["label"].to_numpy()).mean())}
+    t = np.arange(2000, dtype=np.float32)
+    series = np.sin(t / 10) + 0.05 * np.random.default_rng(SEED).normal(
+        size=2000)
+    series[[500, 1200, 1800]] += 5.0
+    ax, ay = unroll(series, unroll_length=24)
+    ad = AnomalyDetector(feature_shape=(24, 1)).init_weights(gen)
+    ad.compile(loss="mse", learning_rate=1e-3, device=dev)
+    hist = ad.fit((ax, ay[:, None]), epochs=2, batch_size=128, verbose=False)
+    apred = ad.predict(ax, batch_size=128)
+    found = ad.detect_anomalies(ay, apred, anomaly_fraction=0.01)
+    if not (np.isfinite(apred).all() and all(map(math.isfinite,
+                                                 hist["loss"]))):
+        raise AssertionError(f"readers: AnomalyDetector loss {hist}")
+    out["anomaly_detector"] = {"windows": len(ax), "loss": hist["loss"],
+                               "anomalies": len(found),
+                               "capture_count": ad.estimator.capture_count}
+    # the readers' frames against pandas
+    rng = np.random.default_rng(SEED + 22)
+    fdir = os.path.join(root, "tables")
+    os.makedirs(fdir, exist_ok=True)
+
+    def frame(n):
+        return pd.DataFrame({"user": rng.integers(0, 50, n),
+                             "item": [f"i{v}" for v in rng.integers(0, 9, n)],
+                             "rating": rng.normal(size=n)})
+
+    for i in range(3):
+        frame(1000).to_csv(os.path.join(fdir, f"part{i}.csv"), index=False)
+    frame(500).to_json(os.path.join(fdir, "events.json"), orient="records")
+    for i in range(2):
+        np.savez(os.path.join(fdir, f"arr{i}.npz"), x=rng.normal(
+            size=(300, 4)), y=rng.integers(0, 2, 300))
+    csvs = sorted(glob.glob(os.path.join(fdir, "*.csv")))
+    checks = {"csv": (read_csv(fdir), [pd.read_csv(f) for f in csvs]),
+              "json": (read_json(os.path.join(fdir, "events.json")),
+                       [pd.read_json(os.path.join(fdir, "events.json"))]),
+              "feature_table_csv": (FeatureTable.read_csv(
+                  os.path.join(fdir, "part*.csv")).shards,
+                  [pd.read_csv(f) for f in csvs])}
+    if "pyarrow" not in missing:
+        for i in range(2):
+            frame(700).to_parquet(os.path.join(fdir, f"p{i}.parquet"))
+        pqs = sorted(glob.glob(os.path.join(fdir, "*.parquet")))
+        checks["parquet"] = (read_parquet(fdir),
+                             [pd.read_parquet(f) for f in pqs])
+    rows = {}
+    for name, (shards, frames) in checks.items():
+        for a, b in zip(shards.collect(), frames):
+            pd.testing.assert_frame_equal(a, b)
+        if len(shards) != sum(map(len, frames)):
+            raise AssertionError(f"readers: {name} {len(shards)} rows")
+        rows[name] = len(shards)
+    npz = read_npz(fdir)
+    rows["npz"] = sum(len(s["x"]) for s in npz.collect())
+    if rows["npz"] != 600:
+        raise AssertionError(f"readers: npz {rows['npz']} rows")
+    out["read_rows_equal_pandas"] = rows
+    # foreign feeds into fit / evaluate / predict
+    def gen_rows(n, seed):
+        r = np.random.default_rng(seed)
+        for _ in range(n):
+            v = r.normal(size=4).astype(np.float32)
+            yield v, np.asarray([v.sum()], np.float32)
+
+    est = Estimator.from_keras(tnn.Sequential([tnn.Dense(4, 1)]),
+                               loss="mse", learning_rate=5e-2,
+                               metrics=["mae"], device=dev, seed=SEED)
+    hist = est.fit(from_iterator(lambda e: gen_rows(650, e), 64), epochs=3,
+                   batch_size=64, verbose=False)
+    res = est.evaluate(from_iterator(lambda e: gen_rows(1000, 7), 64),
+                       batch_size=64)
+    ex = np.stack([v for v, _ in gen_rows(1000, 7)])
+    ey = np.stack([s for _, s in gen_rows(1000, 7)])
+    p = est.predict(ex, batch_size=64)[:, 0]
+    via = est.predict(from_iterator(lambda e: gen_rows(1000, 7), 64),
+                      batch_size=64)[:, 0]
+    mse = float(np.square(p - ey[:, 0]).mean())
+    mae = float(np.abs(p - ey[:, 0]).mean())
+    if not (np.array_equal(p, via) and abs(res["loss"] - mse) <= 1e-5 * mse
+            and abs(res["mae"] - mae) <= 1e-5 * mae):
+        raise AssertionError(f"readers: evaluate {res} against predict's "
+                             f"{mse}, {mae}")
+
+    class Rows(torch.utils.data.Dataset):
+        def __len__(self):
+            return 512
+
+        def __getitem__(self, i):
+            return torch.from_numpy(ex[i]), torch.tensor(ey[i])
+
+    est.fit(from_torch_dataset(Rows(), batch_size=64, num_workers=2),
+            epochs=1, batch_size=64, verbose=False)
+    loader = torch.utils.data.DataLoader(Rows(), batch_size=50)
+    dl = est.evaluate(from_torch_dataloader(loader, batch_size=64),
+                      batch_size=64)
+    out["interop"] = {"iterator_fit_loss": hist["loss"],
+                      "evaluate_masked_tail": res, "mse_from_predict": mse,
+                      "predict_rows": len(via), "dataloader_evaluate": dl,
+                      "capture_count": est.capture_count}
+    import importlib.util
+    out["interop"]["tf"] = (
+        "installed (from_tf_dataset not driven here)"
+        if importlib.util.find_spec("tensorflow") is not None
+        else "tensorflow not installed: from_tf_dataset not run")
+    return out
+
+
+def phase_readers(fa, bn, fx, sizes=None) -> dict:
+    """The readers and the models they feed (see the module docstring):
+    a line naming any part whose package is missing, first; then, from
+    seeded files in a temp dir, the ImageSet fit (the kernel path), the
+    input-pipeline breakdown and the slot passes, the text models, the
+    detector, and the frames, readers and foreign feeds.  Every kernel
+    count but the batch norm's stays 0 over the phase."""
+    import shutil
+    import tempfile
+    sizes = sizes or ReadersSizes()
+    missing = rd_missing(sizes)
+    if missing:
+        emit({"phase": "readers", "missing_packages": {
+            pkg: f"{part}: not run ({pkg} is not installed)"
+            for pkg, part in missing.items()}})
+    t_phase = time.perf_counter()
+    res = {"phase": "readers", "missing_packages": sorted(missing)}
+    root = tempfile.mkdtemp(prefix="zoo-readers-")
+    done = False
+    try:
+        if "PIL" not in missing:
+            t0 = time.perf_counter()
+            write_jpegs(os.path.join(root, "jpeg"), sizes.images,
+                        sizes.classes, sizes.side)
+            res["write_jpegs_s"] = time.perf_counter() - t0
+            res["jpeg_bytes_mean"] = float(np.mean([
+                os.path.getsize(f) for f in
+                __import__("glob").glob(os.path.join(root, "jpeg", "*",
+                                                     "*.jpg"))]))
+        part_s = res["part_seconds"] = {}
+
+        def part(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            part_s[name] = time.perf_counter() - t0
+            return out
+
+        res["imageset_fit"] = part("imageset_fit", lambda: (
+            readers_imageset_fit(fa, bn, fx, sizes, root, missing)))
+        autots_reset_counts(fa, bn, fx)
+        res["input_pipeline"] = part(
+            "input_pipeline", lambda: readers_input_pipeline(sizes, root))
+        res["slot_passes"] = part("slot_passes",
+                                  lambda: readers_slot_passes(sizes))
+        res["text"] = part("text", lambda: readers_text(sizes, root))
+        res["detector"] = part("detector", lambda: readers_detector(
+            sizes, root, missing))
+        res.update(part("frames", lambda: readers_frames(sizes, root,
+                                                         missing)))
+        done = True
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if not done:  # what ran before the failure, for its reader
+            emit({**res, "failed": True})
+    counts = autots_kernel_counts(fa, bn, fx)
+    if any(counts.values()):
+        raise AssertionError(f"readers: a kernel launched off the ImageSet "
+                             f"fit: {counts}")
+    res["kernel_launches"] = res["imageset_fit"]["launches"]
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4921,7 +5842,8 @@ def main(argv) -> int:
                   "ncf_train": phase_ncf_train,
                   "recsys": phase_recsys,
                   "state_plane": lambda: phase_state_plane(fa, bn),
-                  "autots": lambda: phase_autots(fa, bn, fx)}
+                  "autots": lambda: phase_autots(fa, bn, fx),
+                  "readers": lambda: phase_readers(fa, bn, fx)}
         for name in only:
             phases[name]()
         return 0
@@ -4938,6 +5860,7 @@ def main(argv) -> int:
     phase_recsys()
     state = phase_state_plane(fa, bn)
     autots = phase_autots(fa, bn, fx)
+    readers = phase_readers(fa, bn, fx)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -5040,6 +5963,9 @@ def main(argv) -> int:
                 bn_src, x)
             entry["launches_by_pass"] = {p: counts[f"{p}_{sfx}"]
                                          for p in passes}
+            # the readers' ImageSet fit (bf16, from the replays)
+            entry["launches_readers"] = readers["kernel_launches"][
+                f"{BN_KERNEL}_{passes[0]}_{sfx}"]
             if sfx == "bf16":  # resnet_train (d), norm="batch"
                 entry["launches_resnet_train_captured"] = resnet[
                     "captured"]["batch"]["launches"][f"{passes[0]}_{sfx}"]
@@ -5110,11 +6036,15 @@ def main(argv) -> int:
                                                 "dtype", "w_dtype")}
             entries.append(entry)
     # the autots path launches no kernel of the port (phase_autots holds
-    # every count to 0 over it)
+    # every count to 0 over it); the readers' path only the batch norm's
+    # (set above), every other count 0
     for entry in entries:
         entry["launches_autots"] = sum(
             n for k, n in autots["kernel_launches"].items()
             if k.startswith(entry["name"]))
+        entry.setdefault("launches_readers", sum(
+            n for k, n in readers["kernel_launches"].items()
+            if k.startswith(entry["name"])))
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

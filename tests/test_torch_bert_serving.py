@@ -308,7 +308,19 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.chronos.mtnet",
                 "analytics_zoo_tpu_torch.chronos.tcmf",
                 "analytics_zoo_tpu_torch.chronos.detector",
-                "analytics_zoo_tpu_torch.chronos.experimental"]
+                "analytics_zoo_tpu_torch.chronos.experimental",
+                "analytics_zoo_tpu_torch.data.readers",
+                "analytics_zoo_tpu_torch.data.image",
+                "analytics_zoo_tpu_torch.data.text",
+                "analytics_zoo_tpu_torch.data.interop",
+                "analytics_zoo_tpu_torch.nn.layers_zoo",
+                "analytics_zoo_tpu_torch.models.textclassification",
+                "analytics_zoo_tpu_torch.models.textmatching",
+                "analytics_zoo_tpu_torch.models.anomalydetection",
+                "analytics_zoo_tpu_torch.models.objectdetection",
+                "analytics_zoo_tpu_torch.nnframes",
+                "analytics_zoo_tpu_torch.nnframes.nn_classifier",
+                "analytics_zoo_tpu_torch.nnframes.nn_image_reader"]
 
 
 def test_port_imports_without_jax():

@@ -117,9 +117,21 @@ def test_to_feed_builds_the_ports_feed():
     np.testing.assert_array_equal(first["x"].numpy(), want["x"][:16])
 
 
-def test_read_csv_waits_for_the_readers():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        FeatureTable.read_csv("ratings.csv")
+@pytest.mark.parametrize("where", ["file", "glob", "dir"])
+def test_read_csv_equals_jax(tmp_path, where):
+    """``FeatureTable.read_csv`` through the port's reader: the JAX
+    package's table, shard by shard, from one file, a glob and a
+    directory."""
+    for i in range(3):
+        _df(30, 20 + i).to_csv(tmp_path / f"part{i}.csv", index=False)
+    path = {"file": tmp_path / "part1.csv", "glob": tmp_path / "part*.csv",
+            "dir": tmp_path}[where]
+    t, j = FeatureTable.read_csv(str(path)), JaxTable.read_csv(str(path))
+    assert t.shards.num_partitions() == j.shards.num_partitions()
+    for a, b in zip(t.shards.collect(), j.shards.collect()):
+        pd.testing.assert_frame_equal(a, b)
+    _same(t, j)
+    _same(t.encode_string("user")[0], j.encode_string("user")[0])
 
 
 def _pipelines(t):

@@ -2,9 +2,8 @@
 twins of ``tests/test_stream_shm.py``'s ``TestShmPool``,
 ``TestProcessBackend`` and ``TestTailThroughWorkerPool`` and of
 ``tests/test_image.py``'s six streaming-feed tests.  The image twins load
-through the JAX package's ``ImageSet`` (numpy and PIL only), so that both
-feeds decode the same files with the same loader; every batch of the
-port's feed is held against the JAX feed's.
+through the port's own ``ImageSet``; the first of them also holds the
+port's batches against the JAX ImageSet's feed on the same files.
 
 Tolerances: batches exactly (the same loader, the same step order);
 the ResNet trained from the stream, loss history 1e-4 relative against
@@ -29,16 +28,21 @@ import pytest
 import torch
 
 from analytics_zoo_tpu.core import init_orca_context
-from analytics_zoo_tpu.data import (DataFeed as JaxDataFeed, ImageNormalize,
-                                    ImageRandomCrop, ImageRandomFlip,
-                                    ImageResize, ImageSet)
+from analytics_zoo_tpu.data import ImageNormalize as JaxImageNormalize
+from analytics_zoo_tpu.data import ImageRandomCrop as JaxImageRandomCrop
+from analytics_zoo_tpu.data import ImageRandomFlip as JaxImageRandomFlip
+from analytics_zoo_tpu.data import ImageResize as JaxImageResize
+from analytics_zoo_tpu.data import ImageSet as JaxImageSet
 from analytics_zoo_tpu.data import StreamingDataFeed as JaxStreamingDataFeed
 from analytics_zoo_tpu.models import ResNet as JaxResNet
 from analytics_zoo_tpu.orca.learn import Estimator as JaxEstimator
 from analytics_zoo_tpu_torch import nn as tnn
 from analytics_zoo_tpu_torch.convert import from_jax_variables
 from analytics_zoo_tpu_torch.core import metrics
-from analytics_zoo_tpu_torch.data import (ShmBatchPool, SlotBatch,
+from analytics_zoo_tpu_torch.data import (DataFeed, ImageNormalize,
+                                          ImageRandomCrop, ImageRandomFlip,
+                                          ImageResize, ImageSet,
+                                          ShmBatchPool, SlotBatch,
                                           StreamingDataFeed)
 from analytics_zoo_tpu_torch.data import shm_pool
 from analytics_zoo_tpu_torch.models import ResNet
@@ -309,29 +313,25 @@ def _write_dataset(root, n_per_class=8, size=48, classes=("cat", "dog")):
     return str(root)
 
 
-def _port_feed(jax_feed, **kw):
-    """The port's feed over the JAX feed's loader (an ImageSet's bound
-    ``load_sample``: its readahead and io-wait protocols come along)."""
-    return StreamingDataFeed(jax_feed.num_rows, jax_feed._load, **kw)
-
-
 def test_streaming_feed_matches_in_ram_feed(tmp_path):
     """One worker, no shuffle: the in-memory feed's batches, bit for bit,
-    and the JAX stream's."""
+    and the JAX ImageSet's stream over the same files."""
     root = _write_dataset(tmp_path / "imgs")
     iset = ImageSet.read(root).transform(ImageResize(16, 16),
                                          ImageNormalize())
-    jfeed = iset.to_feed(batch_size=8, shuffle=False, num_workers=1)
-    stream = _port_feed(jfeed, batch_size=8, shuffle=False, num_workers=1)
+    stream = iset.to_feed(batch_size=8, shuffle=False, num_workers=1)
     got = _host(stream.epoch(CPU, 0))
-    plain = JaxDataFeed.from_shards(iset.to_shards(num_shards=2),
-                                    batch_size=8, shuffle=False)
-    want = _jax_batches(plain)
+    plain = DataFeed.from_shards(iset.to_shards(num_shards=2),
+                                 batch_size=8, shuffle=False)
+    want = _host(plain.epoch(CPU, 0))
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):
         np.testing.assert_allclose(g["x"], w["x"], rtol=1e-6)
         np.testing.assert_array_equal(g["y"], w["y"])
-    _assert_batches_equal(got, _jax_batches(jfeed))
+    jset = JaxImageSet.read(root).transform(JaxImageResize(16, 16),
+                                            JaxImageNormalize())
+    _assert_batches_equal(got, _jax_batches(
+        jset.to_feed(batch_size=8, shuffle=False, num_workers=1)))
 
 
 def test_streaming_feed_with_readahead_matches_direct_reads(tmp_path):
@@ -340,12 +340,11 @@ def test_streaming_feed_with_readahead_matches_direct_reads(tmp_path):
     root = _write_dataset(tmp_path / "imgs")
     iset = ImageSet.read(root).transform(ImageResize(16, 16),
                                          ImageNormalize())
-    direct = _port_feed(iset.to_feed(batch_size=8), batch_size=8,
-                        shuffle=False, num_workers=1)
+    direct = iset.to_feed(batch_size=8, shuffle=False, num_workers=1)
     got_direct = [b["x"].numpy() for b in direct.epoch(CPU, 0)]
     metrics.get_registry().reset()
-    ahead = _port_feed(iset.to_feed(batch_size=8, readahead=4),
-                       batch_size=8, shuffle=False, num_workers=1)
+    ahead = iset.to_feed(batch_size=8, shuffle=False, num_workers=1,
+                         readahead=4)
     got_ahead = [b["x"].numpy() for b in ahead.epoch(CPU, 0)]
     for a, b in zip(got_direct, got_ahead):
         np.testing.assert_array_equal(a, b)
@@ -357,8 +356,8 @@ def test_streaming_feed_multiworker_covers_epoch(tmp_path):
     root = _write_dataset(tmp_path / "imgs")
     iset = ImageSet.read(root).transform(ImageResize(16, 16),
                                          ImageNormalize())
-    stream = _port_feed(iset.to_feed(batch_size=8), batch_size=8,
-                        shuffle=True, num_workers=3, prefetch_batches=2)
+    stream = iset.to_feed(batch_size=8, shuffle=True, num_workers=3,
+                          prefetch_batches=2)
     ys = []
     for b in stream.epoch(CPU, 0):
         assert tuple(b["x"].shape) == (8, 16, 16, 3)
@@ -387,8 +386,11 @@ def test_streaming_feed_trains_resnet_like_jax(tmp_path):
     iset = ImageSet.read(root).transform(
         ImageResize(36, 36), ImageRandomCrop(32, 32), ImageRandomFlip(),
         ImageNormalize())
+    jset = JaxImageSet.read(root).transform(
+        JaxImageResize(36, 36), JaxImageRandomCrop(32, 32),
+        JaxImageRandomFlip(), JaxImageNormalize())
     kw = dict(batch_size=8, shuffle=True, num_workers=1)
-    jfeed = iset.to_feed(**kw)
+    jfeed = jset.to_feed(**kw)
     fit_kw = dict(loss="sparse_categorical_crossentropy",
                   learning_rate=1e-3)
     jest = JaxEstimator.from_keras(JaxResNet(depth=18, class_num=2, width=8),
@@ -397,7 +399,7 @@ def test_streaming_feed_trains_resnet_like_jax(tmp_path):
     port = ResNet(depth=18, class_num=2, width=8)
     port.load_state_dict(from_jax_variables(jest.get_model()), strict=True)
     est = Estimator.from_keras(port, device="cpu", **fit_kw)
-    hist = est.fit(_port_feed(jfeed, **kw), epochs=2, batch_size=8,
+    hist = est.fit(iset.to_feed(**kw), epochs=2, batch_size=8,
                    verbose=False)
     want = jest.fit(jfeed, epochs=2, batch_size=8, verbose=False)
     assert len(hist["loss"]) == 2
