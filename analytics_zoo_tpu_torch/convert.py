@@ -6,8 +6,12 @@ carry the same names as attributes, so a leaf at ``params/bert/layer_0/mha/wq``
 becomes the key ``bert.layer_0.mha.wq``, and a leaf of ``state`` (batch
 norm's running ``mean``/``var``) the key of a buffer.  Dense kernels keep
 JAX's ``(in, out)`` layout in the port, so loading them is a plain copy.
-Conv kernels are the one layout change: a 4-D leaf named ``kernel`` is
-JAX's HWIO and the port's OIHW, transposed here and only here.
+Conv kernels are the one layout change: a 4-D or 5-D leaf named
+``kernel`` or ``*_kernel`` is JAX's HWIO / DHWIO and the port's OIHW /
+OIDHW (the last two axes moved first and swapped), transposed here and
+only here.  A transposed conv's 4-D kernel takes the same rule, and so
+does any other 4-D kernel (``LocallyConnected2D``'s ``[oh, ow, patch,
+filters]`` is ``[filters, patch, oh, ow]`` in the port).
 
 An int8 weight of the JAX package's serving path is the dict
 ``{"__int8_weight__", "q", "scale"}``; each of its three leaves maps to one
@@ -34,11 +38,27 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
 
 
 def _is_conv_kernel(path: tuple, t: Any) -> bool:
-    """A 4-D conv kernel, or the ``q`` or ``scale`` of an int8 one."""
+    """A 4-D or 5-D kernel (a leaf named ``kernel`` or ``*_kernel``, such
+    as a convolutional LSTM's ``recurrent_kernel``), or the ``q`` or
+    ``scale`` of an int8 4-D one."""
+    if len(t.shape) == 5:
+        return path[-1] == "kernel" or path[-1].endswith("_kernel")
     if len(t.shape) != 4:
         return False
-    return path[-1] == "kernel" or (
+    return path[-1] == "kernel" or path[-1].endswith("_kernel") or (
         len(path) > 1 and path[-2] == "kernel" and path[-1] in ("q", "scale"))
+
+
+def _to_torch_layout(t: torch.Tensor) -> torch.Tensor:
+    """HWIO -> OIHW, DHWIO -> OIDHW: the last two axes first, reversed."""
+    nd = t.dim() - 2
+    return t.permute((nd + 1, nd) + tuple(range(nd)))
+
+
+def _to_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """OIHW -> HWIO, OIDHW -> DHWIO (a view)."""
+    nd = t.dim() - 2
+    return t.permute(tuple(range(2, nd + 2)) + (1, 0))
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -58,7 +78,7 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if key in out:
             raise ValueError(f"two leaves map to the key {key!r}")
         t = _to_tensor(node)
-        out[key] = t.permute(3, 2, 0, 1).contiguous() \
+        out[key] = _to_torch_layout(t).contiguous() \
             if _is_conv_kernel(path, t) else t
 
     for part in ("params", "state"):
@@ -109,7 +129,7 @@ def jax_tree(named: Iterable[Any]) -> Dict[str, Any]:
                 raise ValueError(f"key {key!r} nests under a leaf")
         if leaf in node:
             raise ValueError(f"two keys map to the leaf {key!r}")
-        node[leaf] = t.permute(2, 3, 1, 0) \
+        node[leaf] = _to_jax_layout(t) \
             if _is_conv_kernel((*path, leaf), t) else t
     return out
 

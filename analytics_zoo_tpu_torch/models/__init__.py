@@ -1,11 +1,14 @@
 """Model zoo of the port (the BERT family, ResNet, ImageClassifier, the
 LeNet smoke config, the recommenders, Seq2seq, the text models, the
-anomaly detector and the SSD object detector so far)."""
+anomaly detector, the SSD object detector), foreign-model import
+(``Net``) and ``GraphNet``."""
 
 from .anomalydetection import AnomalyDetector, unroll
 from .bert import BERT, BERTClassifier, BERTNER, BERTSQuAD, squad_span_loss
 from .common import ZooModel
+from .graphnet import GraphNet
 from .image import ImageClassifier, ResNet, lenet
+from .net import ForeignGraphNet, ForeignNet, Net
 from .objectdetection import ObjectDetector, SSDLite, Visualizer
 from .recommendation import (NCFTail, NeuralCF, SessionRecommender,
                              UserItemFeature, UserItemPrediction,
@@ -20,4 +23,5 @@ __all__ = ["ZooModel", "BERT", "BERTClassifier", "BERTNER", "BERTSQuAD",
            "UserItemFeature", "UserItemPrediction", "Seq2seq",
            "RNNEncoder", "RNNDecoder", "TextClassifier", "KNRM",
            "AnomalyDetector", "unroll", "SSDLite", "ObjectDetector",
-           "Visualizer"]
+           "Visualizer", "Net", "ForeignNet", "ForeignGraphNet",
+           "GraphNet"]

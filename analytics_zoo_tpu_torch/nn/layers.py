@@ -1,9 +1,8 @@
-"""Core layers: the subset of ``analytics_zoo_tpu.nn.layers`` on the BERT
-and ResNet paths (``Dense``, ``Embedding``, ``Dropout``,
-``LayerNormalization``, ``Conv2D``, ``ScaledWSConv2D``, the pools,
-``Flatten``, ``ZeroPadding2D``, ``BatchNormalization``, ``Sequential``;
-the forecasters' ``Conv1D``), and
-``Remat`` (``nn/layers_extra.py``).
+"""Core layers: every class of ``analytics_zoo_tpu.nn.layers`` (``Dense``,
+``Embedding``, ``Dropout``, ``LayerNormalization``, the convs, the pools,
+``Flatten``, ``Reshape``, ``Activation``, ``Lambda``, ``ZeroPadding2D``,
+``BatchNormalization``, the merges ``Concatenate``/``Add``/``Multiply``,
+``Sequential``) and ``Remat`` (``nn/layers_extra.py``).
 
 Parameter names are the JAX package's, so a JAX tree converted by
 ``convert.from_jax_variables`` loads with ``load_state_dict``: Dense
@@ -506,9 +505,54 @@ class GlobalMaxPooling2D(nn.Module):
         return x.amax(dim=(1, 2))
 
 
+class GlobalAveragePooling1D(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=1)
+
+
+class GlobalMaxPooling1D(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.amax(dim=1)
+
+
 class Flatten(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(x.shape[0], -1)
+
+
+class Reshape(nn.Module):
+    """``[B, ...] -> [B, *target_shape]``."""
+
+    def __init__(self, target_shape: Sequence[int]):
+        super().__init__()
+        self.target_shape = tuple(target_shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape((x.shape[0],) + self.target_shape)
+
+
+class Activation(nn.Module):
+    """An activation of ``activations`` (or any callable) as a layer."""
+
+    def __init__(self, activation: Union[str, Callable]):
+        super().__init__()
+        self.fn = activations.get(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+
+class Lambda(nn.Module):
+    """A function of the inputs as a layer (``layers.py`` Lambda).
+    ``name``, where given, names its node in a functional ``Model``."""
+
+    def __init__(self, fn: Callable, name: Optional[str] = None):
+        super().__init__()
+        self.fn = fn
+        self.name = name
+
+    def forward(self, *args: Any) -> Any:
+        return self.fn(*args)
 
 
 class ZeroPadding2D(nn.Module):
@@ -605,6 +649,33 @@ class BatchNormalization(nn.Module):
             sh = sh + self.beta
         y = (x - mean_c.reshape(shape)) * inv.to(x.dtype).reshape(shape)
         return y + sh.to(x.dtype).reshape(shape)
+
+
+# -- merge layers: each takes one list of tensors -------------------------------
+
+class Concatenate(nn.Module):
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(list(xs), dim=self.axis)
+
+
+class Add(nn.Module):
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        out = xs[0]
+        for x in xs[1:]:
+            out = out + x
+        return out
+
+
+class Multiply(nn.Module):
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        out = xs[0]
+        for x in xs[1:]:
+            out = out * x
+        return out
 
 
 # -- containers ----------------------------------------------------------------

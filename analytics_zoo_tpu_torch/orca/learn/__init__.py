@@ -3,7 +3,8 @@
 
 from . import optimizers
 from .estimator import Estimator, ZooEstimator
+from .gan import GANEstimator
 from .trigger import EveryEpoch, SeveralIteration, Trigger
 
-__all__ = ["Estimator", "ZooEstimator", "EveryEpoch", "SeveralIteration",
-           "Trigger", "optimizers"]
+__all__ = ["Estimator", "ZooEstimator", "GANEstimator", "EveryEpoch",
+           "SeveralIteration", "Trigger", "optimizers"]

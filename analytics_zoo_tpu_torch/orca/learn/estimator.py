@@ -65,6 +65,15 @@ package's ``_device_lock``: estimators driven from several threads (the
 automl trials) never capture, replay or allocate in a graph pool at the
 same time.
 
+``frozen=`` (a list of parameter-path prefixes, matched on ``/``-joined
+component boundaries, or a predicate of the path) takes the matched
+parameters out of the step: no gradient is taken over them, the optimizer
+never sees them (no update, no weight decay), and the optimizer's state in
+a checkpoint is ``optax.multi_transform``'s tree (``opt_lib.Masked``), so
+a frozen estimator's checkpoint loads in either package.  Buffers (batch
+norm's running statistics) still update, as the JAX package's ``state``
+does.
+
 Constructor knobs of the JAX estimator that are not ported yet raise
 ``NotImplementedError`` (naming the ROADMAP item) when set to anything but
 their default; they are never ignored.
@@ -125,18 +134,18 @@ from .trigger import Trigger
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
 _Q1 = "ROADMAP Queue 1 item"
+_NAN = (f"{_Q1} 14 (nan_policy; its rollback across processes: {_Q1} 7)")
 # the JAX estimator's knobs that the port does not take yet: name ->
 # (default, where it is scheduled)
 _UNPORTED_KNOBS = {
-    "nan_policy": (None, f"{_Q1} 7 (nan_policy)"),
-    "nan_max_rollbacks": (3, f"{_Q1} 7 (nan_policy)"),
+    "nan_policy": (None, _NAN),
+    "nan_max_rollbacks": (3, _NAN),
     "grad_compression": (None, f"{_Q1} 7 (grad_compression)"),
-    "frozen": (None, f"{_Q1} 7 (frozen)"),
-    "profile": (None, f"{_Q1} 7 (profile)"),
-    "profile_dir": (None, f"{_Q1} 7 (profile)"),
-    "profile_steps": ((10, 20), f"{_Q1} 7 (profile)"),
-    "log_dir": (None, f"{_Q1} 7 (summaries)"),
-    "app_name": ("train", f"{_Q1} 7 (summaries)"),
+    "profile": (None, f"{_Q1} 14 (profile)"),
+    "profile_dir": (None, f"{_Q1} 14 (profile)"),
+    "profile_steps": ((10, 20), f"{_Q1} 14 (profile)"),
+    "log_dir": (None, f"{_Q1} 14 (summaries)"),
+    "app_name": ("train", f"{_Q1} 14 (summaries)"),
     "aux_loss_weight": (0.01, f"{_Q1} 9 (MoE auxiliary losses)"),
 }
 # the tree key of the port's own generators (dropout, augment), which the
@@ -159,6 +168,13 @@ def _refuse_unported(what: str, given: Dict[str, Any],
                 f"only the default {default!r} is taken")
 
 
+def _has_torch_leaf(model: nn.Module) -> bool:
+    """Whether a leaf module of ``model`` is one of ``torch.nn``'s own (or
+    a TorchScript module): such a model is foreign to the port."""
+    return any(type(m).__module__.startswith("torch.")
+               for m in model.modules() if not list(m.children()))
+
+
 class Estimator:
     """Factory façade, as the JAX package's."""
 
@@ -173,6 +189,46 @@ class Estimator:
                             **kwargs)
 
     from_fn = from_keras
+
+    @staticmethod
+    def from_torch(*, model: Any, loss: Any, optimizer: Any = "adam",
+                   example_input: Any = None,
+                   learning_rate: Optional[Any] = None,
+                   metrics: Optional[Sequence[Any]] = None,
+                   **kwargs: Any) -> "ZooEstimator":
+        """The reference's ``Estimator.from_torch(model=, loss=,
+        optimizer=)``.  In the port every model is a ``torch.nn.Module``,
+        so the rule is by leaf: a model with a leaf module of ``torch.nn``
+        itself (``torch.nn.Linear``, ``Conv2d``, ...), or a TorchScript
+        module or file path, is foreign and is converted by
+        ``Net.load_torch`` (which needs ``example_input=``, one batch in
+        torch's layout); a model whose leaves are all the port's layers
+        (or the caller's own modules) is native and passes through."""
+        if isinstance(model, str) or _has_torch_leaf(model):
+            from ...models.net import Net
+            if example_input is None:
+                raise ValueError(
+                    "from_torch needs example_input= (one example batch, "
+                    "torch layout) to convert a torch module")
+            model = Net.load_torch(model, example_input)
+        return ZooEstimator(model=model, loss=loss, optimizer=optimizer,
+                            learning_rate=learning_rate, metrics=metrics,
+                            **kwargs)
+
+    @staticmethod
+    def from_graph(model: Any, loss: Any, optimizer: Any = "adam",
+                   learning_rate: Optional[Any] = None,
+                   metrics: Optional[Sequence[Any]] = None,
+                   **kwargs: Any) -> "ZooEstimator":
+        """The reference's TF-graph ``Estimator.from_graph``: a tf.keras
+        model (object or saved path) is converted by ``Net.load_tf``; a
+        ``torch.nn.Module`` passes through."""
+        if not isinstance(model, nn.Module):
+            from ...models.net import Net
+            model = Net.load_tf(model)
+        return ZooEstimator(model=model, loss=loss, optimizer=optimizer,
+                            learning_rate=learning_rate, metrics=metrics,
+                            **kwargs)
 
 
 def _under_device_lock(method: Callable) -> Callable:
@@ -213,14 +269,14 @@ class ZooEstimator:
                  checkpoint_anchor_every: int = 0,
                  checkpoint_delta: bool = True,
                  checkpoint_compact_every: int = 8,
+                 frozen: Any = None,
                  **knobs: Any):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         # ShardedEmbedding tables: updated by the sparse path, never by
         # the dense optimizer
         self._sparse = emb_lib.sparse_parameters(model)
-        _check_sparse_support(self._sparse, grad_accum,
-                              knobs.get("frozen"))
+        _check_sparse_support(self._sparse, grad_accum, frozen)
         _refuse_unported("ZooEstimator", knobs, _UNPORTED_KNOBS)
         if not (sharding == "dp" or emb_lib.is_row_rules(sharding)):
             raise NotImplementedError(
@@ -244,8 +300,19 @@ class ZooEstimator:
         self._aug_gen = torch.Generator(
             device=_indexed(self.device)).manual_seed(int(seed))
         sparse = {id(p) for p in self._sparse.values()}
-        self._params: List[nn.Parameter] = [
-            p for p in self.model.parameters() if id(p) not in sparse]
+        # frozen=: the matched parameters leave the optimizer (and the
+        # gradient) altogether, as optax.multi_transform's set_to_zero
+        # leaves them unmoved and undecayed; buffers (batch norm's running
+        # statistics) still update
+        self.frozen = frozen
+        self._frozen_names = _frozen_names(self.model, frozen, sparse)
+        if frozen is not None:
+            if not self._frozen_names:
+                logger.warning("frozen=%r matched no parameters", frozen)
+            self.optimizer = opt_lib.Masked(self.optimizer)
+        dense = [(n, p) for n, p in self.model.named_parameters()
+                 if id(p) not in sparse and n not in self._frozen_names]
+        self._params: List[nn.Parameter] = [p for _, p in dense]
         self._opt_state: Any = None
         self._epoch = 0
         self._py_step = 0
@@ -257,8 +324,7 @@ class ZooEstimator:
         # captures made: the counterpart of the JAX package's executable
         # cache probe (_jit_cache_size); one per (batch shapes, dtypes) key
         self.capture_count = 0
-        self._dense_names = [n for n, p in self.model.named_parameters()
-                             if id(p) not in sparse]
+        self._dense_names = [n for n, _ in dense]
         self._table_path = {id(p): tp for tp, p in self._sparse.items()}
         self._init_state_plane(model_dir, preemption_checkpoint,
                                preemption_sync_every, checkpoint_retries,
@@ -894,6 +960,27 @@ class ZooEstimator:
             g.manual_seed(int(self.seed))
 
 
+def _frozen_predicate(frozen: Any) -> Callable[[str], bool]:
+    """``frozen=`` as a test of a ``/``-joined parameter path: a callable
+    as it is, else a list of path prefixes matched on component
+    boundaries (``["enc"]`` freezes ``enc/...`` but not ``enc_head/...``),
+    the JAX package's rule."""
+    if callable(frozen):
+        return frozen
+    pre = tuple(frozen)
+    return lambda p: any(p == x or p.startswith(x + "/") for x in pre)
+
+
+def _frozen_names(model: nn.Module, frozen: Any, skip: set) -> set:
+    """The ``named_parameters`` names that ``frozen=`` matches (none of
+    the ids in ``skip``)."""
+    if frozen is None:
+        return set()
+    pred = _frozen_predicate(frozen)
+    return {n for n, p in model.named_parameters()
+            if id(p) not in skip and pred(n.replace(".", "/"))}
+
+
 def _check_sparse_support(tables: Dict[str, nn.Parameter], grad_accum: int,
                           frozen: Any) -> None:
     """The JAX package's guardrails for ShardedEmbedding models, raised as
@@ -908,9 +995,7 @@ def _check_sparse_support(tables: Dict[str, nn.Parameter], grad_accum: int,
             "update.  Use grad_accum=1 (the deduped gather already keeps "
             "the per-step embedding traffic small).")
     if frozen is not None:
-        pred = (frozen if callable(frozen)
-                else lambda p, pre=tuple(frozen):
-                any(p == x or p.startswith(x + "/") for x in pre))
+        pred = _frozen_predicate(frozen)
         hit = [p for p in tables if pred(p)]
         if hit:
             raise ValueError(

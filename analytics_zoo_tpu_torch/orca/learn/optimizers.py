@@ -526,6 +526,31 @@ class Clipped(Optimizer):
         return ((), self.inner.optax_state(params, state, layout))
 
 
+class Masked(Optimizer):
+    """``inner`` over the trainable parameters of an estimator with
+    ``frozen=``, which leaves the frozen ones out of ``params``: they get
+    no update and no weight decay, as under the JAX package's
+    ``optax.multi_transform({"train": tx, "freeze": set_to_zero()},
+    labels)``.  Its optax layout is that transform's state as a checkpoint
+    stores it: ``MultiTransformState(inner_states={"freeze":
+    MaskedState(EmptyState()), "train": MaskedState(<inner's state>)})``
+    as tuples, the inner state over the trainable parameters only (optax
+    puts an empty ``MaskedNode`` where a frozen one was: no leaf)."""
+
+    def __init__(self, inner: Optimizer):
+        self.inner = inner
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def step(self, params, grads, state):
+        return self.inner.step(params, grads, state)
+
+    def optax_state(self, params, state, layout):
+        return ({"freeze": ((),),
+                 "train": (self.inner.optax_state(params, state, layout),)},)
+
+
 # sgd, momentum, adam and adamw are torch.optim's rules under optax's
 # defaults (optax.adamw decays weights by 1e-4, torch.optim.AdamW by 0.01);
 # optax's rmsprop and adagrad place eps and start their accumulators
@@ -606,7 +631,7 @@ def get(optimizer: Any, learning_rate: Optional[Any] = None,
         if name in _NOT_PORTED:
             raise NotImplementedError(
                 f"optimizer {optimizer!r} is not ported yet (ROADMAP "
-                f"Queue 1 item 7); ported: {sorted(_FACTORIES)}")
+                f"Queue 1 item 14); ported: {sorted(_FACTORIES)}")
         if name not in _FACTORIES:
             raise ValueError(f"unknown optimizer {optimizer!r}; known: "
                              f"{sorted(_FACTORIES)}")

@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all at once), then runs fifteen phases, each printing one
+``nvcc`` per source, all at once), then runs sixteen phases, each printing one
 JSON line:
 
 1. ``kernel``: ``flash_attention_fwd``'s kernels (bf16 on the tensor
@@ -271,7 +271,29 @@ JSON line:
    argmax), ``AnomalyDetector`` over ``unroll``ed series, the readers'
    frames and rows against pandas, and the iterator and torch feeds into
    ``fit``, ``evaluate`` (the masked tail exact) and ``predict``.
-13. ``devices``: the card as ``nvidia-smi`` reports it.
+13. ``foreign``: foreign models and transfer learning, f32 (TF32 off).
+   (a) A torchvision-style ResNet-50 (``TvResNet``: Bottleneck [3, 4, 6,
+   3], 7x7 stem, max pool, 1,000 classes, 25,557,032 parameters; the
+   card machine has no torchvision) with a seeded init and non-trivial
+   running statistics goes through ``Net.load_torch`` (torch.fx) into a
+   ``ForeignGraphNet``; on the card its eval forward at batch 32 of 224 x
+   224 against the torch module's own, within ``FOREIGN_FWD_TOL`` of the
+   largest logit.  (b) ``Estimator.from_torch`` of the same module, sgd
+   0.1, batch 32 of seeded images, from CUDA graphs: 3 captured steps
+   against 3 eager ones (equal bits, cuDNN deterministic), then a timed
+   window of 10 replays with every count set to 0 (53 f32 ``bn_train``
+   launches a step each way) and a profiled window (idle share).  (c)
+   ``GraphNet`` at the last stage's output node under a new global
+   pool and ``Dense(2048, 10)`` with ``frozen=["base"]``: 4 captured
+   steps, the backbone equal bit for bit after them, the head moved, 53
+   forward launches a step and no backward one.  (d) ``GANEstimator`` on
+   DCGAN (``dcgan``: z 100, 64 x 64 x 3, ngf = ndf = 64; 3,576,704 and
+   2,765,568 parameters), batch 128, adam 2e-4 (beta1 0.5), seeded
+   images in [-1, 1]: ``fit`` over 4 batches; 3 D/G pairs from CUDA
+   graphs against eager (equal bits); timed and profiled D and G windows
+   (6 and 4 launches a step each way); ``generate(64)`` finite in [-1,
+   1].
+14. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Then the script's seconds, a ``kernels`` line (one entry per kernel and
 path) and, last,
@@ -2531,8 +2553,10 @@ def phase_fused_bn(bn) -> dict:
     """The fused batch-norm kernels against their plain versions at every
     ResNet-50 shape (batch 128) and the edge cases, forward (y, mean, var)
     and backward (dx, dgamma, dbeta, with non-zero dmean/dvar), both
-    dtypes; bit-for-bit repeats; then times at the stem's shape, the one
-    the most norms see and the last stage's."""
+    dtypes, and in f32 at every shape of the foreign phase (the converted
+    torch ResNet-50 at batch 32, DCGAN's G and D at batch 128); bit-for-bit
+    repeats; then times at the stem's shape, the one the most norms see
+    and the last stage's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst = {"f32": 0.0, "bf16_rel": 0.0, "stats": 0.0}
     eps = 1e-3
@@ -2576,6 +2600,12 @@ def phase_fused_bn(bn) -> dict:
     cases = [(rows, c, dt, 0) for rows, c in shapes + BN_EDGE
              for dt in dtypes]
     cases += [(3001, 64, dt, 1) for dt in dtypes]  # unaligned: scalar path
+    foreign = foreign_bn_maps()
+    if sum(foreign.values()) != RESNET_BN + 3 + 4:
+        raise AssertionError(f"foreign phase: {sum(foreign.values())} "
+                             f"batch norms")
+    foreign_shapes = [k for k in foreign if k not in counts]
+    cases += [(rows, c, torch.float32, 0) for rows, c in foreign_shapes]
     for rows, c, dt, offset in cases:
         check(*bn_inputs(gen, rows, c, dt, offset))
     # no atomics: one input, identical bits
@@ -2647,6 +2677,9 @@ def phase_fused_bn(bn) -> dict:
     res = {"phase": "fused_bn", "cases": len(cases),
            "resnet50_shapes_batch128": shapes,
            "resnet50_norms_by_shape": [[*k, n] for k, n in counts.items()],
+           "foreign_f32_norms_by_shape": [[*k, n]
+                                          for k, n in foreign.items()],
+           "foreign_f32_shapes_checked": foreign_shapes,
            "edge_shapes": BN_EDGE,
            "worst": worst,
            "tolerances": {"f32_rel_to_max1": TOL_BN_F32,
@@ -5778,6 +5811,550 @@ def phase_readers(fa, bn, fx, sizes=None) -> dict:
     return res
 
 
+# -- foreign: a torch ResNet-50 converted, transfer learning, DCGAN ---------
+
+FOREIGN_BATCH = 32
+FOREIGN_LR = 0.1
+FOREIGN_STEPS = 10        # the timed window of captured steps
+FOREIGN_CMP_STEPS = 3     # captured against eager
+FOREIGN_TRANSFER_STEPS = 4
+FOREIGN_CLASSES_NEW = 10  # the transfer head's classes
+# f32 with TF32 off on both sides; the converted net runs channels-last
+# through other cuDNN algorithms than torch's NCHW module, so the two eval
+# forwards' sums differ in order: held at this share of the largest logit
+FOREIGN_FWD_TOL = 1e-4
+TV_RESNET50_PARAMS = 25_557_032  # torchvision's resnet50()
+# DCGAN (Radford et al. 2016; PyTorch's examples/dcgan): z 100, 64x64x3
+DCGAN = dict(nz=100, ngf=64, ndf=64, nc=3, size=64)
+DCGAN_BATCH = 128
+DCGAN_LR = 2e-4
+DCGAN_B1 = 0.5            # the paper's Adam beta1
+DCGAN_STEPS = 10          # timed D and G steps each
+DCGAN_CMP_STEPS = 3       # D/G pairs, captured against eager
+DCGAN_FIT_IMAGES = 4 * DCGAN_BATCH
+
+
+class TvBottleneck(torch.nn.Module):
+    """torchvision's ``Bottleneck`` (stride on the 3x3), written out: the
+    card machine has no torchvision."""
+
+    def __init__(self, cin: int, width: int, stride: int = 1,
+                 downsample=None):
+        super().__init__()
+        tnn = torch.nn
+        self.conv1 = tnn.Conv2d(cin, width, 1, bias=False)
+        self.bn1 = tnn.BatchNorm2d(width)
+        self.conv2 = tnn.Conv2d(width, width, 3, stride=stride, padding=1,
+                                bias=False)
+        self.bn2 = tnn.BatchNorm2d(width)
+        self.conv3 = tnn.Conv2d(width, width * 4, 1, bias=False)
+        self.bn3 = tnn.BatchNorm2d(width * 4)
+        self.relu = tnn.ReLU(inplace=True)
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        out += identity
+        return self.relu(out)
+
+
+class TvResNet(torch.nn.Module):
+    """torchvision's ``ResNet`` over ``TvBottleneck`` (``layers`` (3, 4, 6,
+    3) and ``width`` 64 are ``resnet50()``): 7x7/2 stem, 3x3/2 max pool,
+    four stages, global average pool, ``fc``."""
+
+    def __init__(self, layers=(3, 4, 6, 3), classes: int = 1000,
+                 width: int = 64):
+        super().__init__()
+        tnn = torch.nn
+        self.conv1 = tnn.Conv2d(3, width, 7, stride=2, padding=3, bias=False)
+        self.bn1 = tnn.BatchNorm2d(width)
+        self.relu = tnn.ReLU(inplace=True)
+        self.maxpool = tnn.MaxPool2d(3, stride=2, padding=1)
+        cin = width
+        for i, n in enumerate(layers):
+            w = width * 2 ** i
+            blocks = []
+            for j in range(n):
+                stride = 2 if (j == 0 and i > 0) else 1
+                down = None
+                if j == 0:
+                    down = tnn.Sequential(
+                        tnn.Conv2d(cin, w * 4, 1, stride=stride, bias=False),
+                        tnn.BatchNorm2d(w * 4))
+                blocks.append(TvBottleneck(cin, w, stride, down))
+                cin = w * 4
+            setattr(self, f"layer{i + 1}", tnn.Sequential(*blocks))
+        self.avgpool = tnn.AdaptiveAvgPool2d(1)
+        self.fc = tnn.Linear(cin, classes)
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        return self.fc(torch.flatten(self.avgpool(x), 1))
+
+
+@torch.no_grad()
+def tv_resnet(seed: int, **kw) -> TvResNet:
+    """A ``TvResNet`` with a seeded init: convs He-normal over fan out
+    (torchvision's), batch norms' scales, shifts and running statistics
+    drawn away from 1 and 0 so that the eval forward has teeth, ``fc``
+    uniform in +-1/sqrt(fan in)."""
+    m = TvResNet(**kw).eval()
+    g = torch.Generator().manual_seed(seed)
+    for mod in m.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            fan_out = mod.out_channels * mod.kernel_size[0] * \
+                mod.kernel_size[1]
+            mod.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=g)
+        elif isinstance(mod, torch.nn.BatchNorm2d):
+            mod.weight.uniform_(0.5, 1.5, generator=g)
+            mod.bias.uniform_(-0.1, 0.1, generator=g)
+            mod.running_mean.uniform_(-0.2, 0.2, generator=g)
+            mod.running_var.uniform_(0.5, 2.0, generator=g)
+        elif isinstance(mod, torch.nn.Linear):
+            lim = 1.0 / math.sqrt(mod.in_features)
+            mod.weight.uniform_(-lim, lim, generator=g)
+            mod.bias.uniform_(-lim, lim, generator=g)
+    return m
+
+
+def dcgan(nz: int = 100, ngf: int = 64, ndf: int = 64, nc: int = 3,
+          size: int = 64):
+    """DCGAN's generator and discriminator from the port's layers (the
+    paper's and PyTorch's examples/dcgan at ``size`` 64): G takes ``z``
+    through ``Reshape`` to 1x1xnz, a 4x4 transposed conv to ``ngf *
+    2^(k-1)`` channels at 4x4, then stride-2 4x4 transposed convs halving
+    the channels to ``ngf``, batch norm and ReLU after each, and one more
+    to ``nc`` channels with tanh; D mirrors it with stride-2 4x4 convs from
+    ``ndf`` up and LeakyReLU(0.2) (no batch norm on the first), then a
+    4x4 valid conv to one logit.  Batch norms take torch's defaults
+    (momentum 0.1, so 0.9 here; epsilon 1e-5); no conv has a bias.
+    Channel-last: G gives ``[B, size, size, nc]``, D takes it."""
+    from analytics_zoo_tpu_torch import nn as P
+    n_up = int(math.log2(size)) - 2
+    bn = dict(momentum=0.9, epsilon=1e-5)
+    ch = ngf * 2 ** (n_up - 1)
+    g = [P.Reshape((1, 1, nz)),
+         P.Conv2DTranspose(nz, ch, 4, padding="valid", use_bias=False),
+         P.BatchNormalization(ch, **bn), P.Activation("relu")]
+    for _ in range(n_up - 1):
+        g += [P.Conv2DTranspose(ch, ch // 2, 4, strides=2, use_bias=False),
+              P.BatchNormalization(ch // 2, **bn), P.Activation("relu")]
+        ch //= 2
+    g += [P.Conv2DTranspose(ch, nc, 4, strides=2, use_bias=False),
+          P.Activation("tanh")]
+    d = [P.Conv2D(nc, ndf, 4, strides=2, use_bias=False), P.LeakyReLU(0.2)]
+    ch = ndf
+    for _ in range(n_up - 1):
+        d += [P.Conv2D(ch, ch * 2, 4, strides=2, use_bias=False),
+              P.BatchNormalization(ch * 2, **bn), P.LeakyReLU(0.2)]
+        ch *= 2
+    d += [P.Conv2D(ch, 1, 4, padding="valid", use_bias=False), P.Flatten()]
+    return P.Sequential(g), P.Sequential(d)
+
+
+@torch.no_grad()
+def dcgan_init(model: torch.nn.Module, seed: int) -> None:
+    """DCGAN's init: conv kernels N(0, 0.02), batch-norm scales N(1,
+    0.02), shifts 0."""
+    from analytics_zoo_tpu_torch import nn as P
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, (P.Conv2D, P.Conv2DTranspose)):
+            m.kernel.normal_(0.0, 0.02, generator=g)
+        elif isinstance(m, P.BatchNormalization):
+            m.gamma.normal_(1.0, 0.02, generator=g)
+            m.beta.zero_()
+
+
+def foreign_bn_maps(sizes=None) -> dict:
+    """Every distinct (rows, C) the foreign phase's f32 batch norms see,
+    with how many norms see it: the torch ResNet-50's 53 (the converted
+    net's norms take the same activations channel-last) at the phase's
+    batch, then DCGAN's G and D at its batch (one example through each on
+    the phase's device)."""
+    from analytics_zoo_tpu_torch.nn import BatchNormalization
+    sizes = sizes or ForeignSizes()
+    dev = torch.device(sizes.device)
+    maps: dict = {}
+
+    def hook(batch, channels_last):
+        def record(_m, inp, _out):
+            shape = inp[0].shape
+            c = shape[-1] if channels_last else shape[1]
+            spatial = shape[1:-1] if channels_last else shape[2:]
+            key = (batch * math.prod(spatial), c)
+            maps[key] = maps.get(key, 0) + 1
+        return record
+
+    m = TvResNet(**sizes.resnet).to(dev).eval()
+    g, d = dcgan(**sizes.gan)
+    g, d = g.to(dev).eval(), d.to(dev).eval()
+    hooks = [b.register_forward_hook(hook(sizes.batch, False))
+             for b in m.modules() if isinstance(b, torch.nn.BatchNorm2d)]
+    hooks += [b.register_forward_hook(hook(sizes.gan_batch, True))
+              for net in (g, d) for b in net.modules()
+              if isinstance(b, BatchNormalization)]
+    side, nc = sizes.gan["size"], sizes.gan["nc"]
+    try:
+        with torch.no_grad():
+            m(torch.zeros(1, 3, sizes.image, sizes.image, device=dev))
+            g(torch.zeros(1, sizes.gan["nz"], device=dev))
+            d(torch.zeros(1, side, side, nc, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return maps
+
+
+class ForeignSizes:
+    """The phase's shapes: the card's by default; the CPU rehearsal
+    (tests) shrinks them."""
+
+    def __init__(self, device="cuda", **kw):
+        self.device = device
+        self.batch, self.image, self.lr = FOREIGN_BATCH, IMAGE, FOREIGN_LR
+        self.resnet = dict(layers=(3, 4, 6, 3), classes=1000, width=64)
+        self.steps, self.cmp_steps = FOREIGN_STEPS, FOREIGN_CMP_STEPS
+        self.transfer_steps = FOREIGN_TRANSFER_STEPS
+        self.new_classes = FOREIGN_CLASSES_NEW
+        self.gan = dict(DCGAN)
+        self.gan_batch, self.gan_steps = DCGAN_BATCH, DCGAN_STEPS
+        self.gan_cmp_steps = DCGAN_CMP_STEPS
+        self.gan_fit_images = DCGAN_FIT_IMAGES
+        self.__dict__.update(kw)
+
+
+def fg_check(bn, sizes, what: str, fwd: int, bwd: int) -> dict:
+    """The batch-norm counts since the last reset: ``fwd`` and ``bwd`` f32
+    launches on the card, every count 0 on the CPU."""
+    counts = dict(bn.KERNEL_LAUNCHES)
+    want = {"fwd_f32": 0, "bwd_f32": 0, "fwd_bf16": 0, "bwd_bf16": 0}
+    if sizes.device == "cuda":
+        want.update(fwd_f32=fwd, bwd_f32=bwd)
+    if counts != want:
+        raise AssertionError(f"foreign {what}: fused_bn launches {counts}; "
+                             f"want {want}")
+    return counts
+
+
+def fg_window(sizes, fn, steps: int) -> tuple:
+    """``window_ms`` on the card; on the CPU the host's time and the
+    values."""
+    if sizes.device == "cuda":
+        return window_ms(fn, steps)
+    t0 = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t0) * 1e3 / steps, out
+
+
+def foreign_convert(sizes, m, x) -> dict:
+    """(a) ``Net.load_torch`` of the torch ResNet-50 into a
+    ``ForeignGraphNet``, moved to the card; its eval forward against the
+    torch module's own on the card at the batch, held at FOREIGN_FWD_TOL
+    of the largest logit."""
+    import copy
+    from analytics_zoo_tpu_torch.models import ForeignGraphNet, Net
+    from analytics_zoo_tpu_torch.nn import BatchNormalization
+    t0 = time.perf_counter()
+    net = Net.load_torch(m, x[:2])
+    convert_s = time.perf_counter() - t0
+    if not isinstance(net, ForeignGraphNet):
+        raise AssertionError(f"foreign: converted to {type(net).__name__}")
+    n_bn = sum(isinstance(b, BatchNormalization) for b in net.modules())
+    dev = torch.device(sizes.device)
+    ref = copy.deepcopy(m).to(dev).eval()
+    net = net.to(dev).eval()
+    xd = torch.from_numpy(x).to(dev)
+    with torch.no_grad():
+        want = ref(xd)
+        got = net(xd)
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    if not err <= FOREIGN_FWD_TOL * scale:
+        raise AssertionError(f"foreign: the converted ResNet-50's eval "
+                             f"forward is {err} from torch's (largest "
+                             f"logit {scale})")
+    nodes = len(net.nodes)
+    del ref, net
+    return {"convert_s": convert_s, "batch_norms": n_bn, "nodes": nodes,
+            "max_abs_err": err, "largest_logit": scale,
+            "tol": FOREIGN_FWD_TOL * scale}
+
+
+def foreign_train(bn, sizes, m, x, y) -> dict:
+    """(b) ``Estimator.from_torch`` of the torch module, f32, sgd, from
+    CUDA graphs: captured against eager step losses under cuDNN's
+    deterministic algorithms (equal bits); then a warm call, a timed
+    window of replays with every count set to 0 just before it (one f32
+    batch-norm launch each way a norm a step), and a profiled window."""
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    card = sizes.device == "cuda"
+    dev = torch.device(sizes.device)
+    b0 = {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)}
+
+    def estimator(graphs=True):
+        return Estimator.from_torch(
+            model=m, example_input=x[:2],
+            loss="sparse_categorical_crossentropy", optimizer="sgd",
+            learning_rate=sizes.lr, seed=SEED, device=sizes.device,
+            cuda_graphs=graphs)
+
+    cmp = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graphs in (False, True):
+            e = estimator(graphs)
+            cmp[graphs] = [float(v) for v in
+                           e._multi_step(b0, sizes.cmp_steps)]
+            del e
+            sp_free(sizes)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    against = losses_against_eager(cmp[True], cmp[False],
+                                   "foreign from_torch captured vs eager")
+    if card and not against["bitwise_equal"]:
+        raise AssertionError(f"foreign from_torch: captured losses are not "
+                             f"the eager ones bit for bit: {against}")
+    est = estimator()
+    n_bn = sum(1 for k in est.model.state_dict() if k.endswith(".var"))
+    float(est._multi_step(b0, 1)[-1])  # warm: the capture
+    bn.reset_launches()
+    step_ms, losses = fg_window(
+        sizes, lambda: est._multi_step(b0, sizes.steps), sizes.steps)
+    launches = fg_check(bn, sizes, "from_torch replays",
+                        n_bn * sizes.steps, n_bn * sizes.steps)
+    losses = [float(v) for v in losses]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"foreign from_torch: losses {losses}")
+    profiled = None
+    if card:
+        profiled = profiled_window(
+            lambda: est._multi_step(b0, 5), 5,
+            {"batch_norm": ("bn_fwd_kernel", "bn_bwd_kernel")})
+        idle_of(profiled, step_ms)
+    caps = captures(est, "foreign from_torch")
+    del est
+    sp_free(sizes)
+    return {"batch": sizes.batch, "step_ms": step_ms,
+            "images_per_s": sizes.batch / (step_ms / 1e3),
+            "losses": losses, "losses_against_eager": {
+                k: v for k, v in against.items()
+                if k not in ("captured", "eager")},
+            "launches": launches,
+            "launches_a_step_each_way": n_bn if card else 0,
+            "profiled": profiled, **caps}
+
+
+class TransferNet(torch.nn.Module):
+    """(c)'s model: the converted net cut at ``node`` by ``GraphNet``
+    (``base``), a global average pool and a new ``Dense`` head."""
+
+    def __init__(self, net, node: str, channels: int, classes: int):
+        super().__init__()
+        from analytics_zoo_tpu_torch import nn as P
+        from analytics_zoo_tpu_torch.models import GraphNet
+        self.base = GraphNet(net, [node])
+        self.pool = P.GlobalAveragePooling2D()
+        self.head = P.Dense(channels, classes)
+
+    def forward(self, x):
+        return self.head(self.pool(self.base(x)))
+
+
+def foreign_transfer(bn, sizes, m, x) -> dict:
+    """(c) The converted net cut at its last stage's output node, a new
+    pool and head, ``frozen=["base"]``: a few captured steps; the backbone
+    equal bit for bit after them, the head moved, the backbone's norms
+    still launched forward (running statistics are state) and never
+    backward."""
+    from analytics_zoo_tpu_torch.models import Net
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    net = Net.load_torch(m, x[:2])
+    node = [n["name"] for n in net.nodes if n["module"]
+            and n["name"].startswith("layer4")][-1]
+    channels = net.fc.kernel.shape[0]
+    model = TransferNet(net, node, channels, sizes.new_classes)
+    est = Estimator.from_keras(model, loss="sparse_categorical_crossentropy",
+                               optimizer="sgd", learning_rate=sizes.lr,
+                               seed=SEED, device=sizes.device,
+                               frozen=["base"])
+    n_bn = sum(1 for k in net.state_dict() if k.endswith(".var"))
+    dev = torch.device(sizes.device)
+    y = np.random.default_rng(SEED + 3).integers(
+        0, sizes.new_classes, len(x)).astype(np.int32)
+    b0 = {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)}
+    base = {k: v.detach().clone() for k, v in net.named_parameters()}
+    head = model.head.kernel.detach().clone()
+    float(est._multi_step(b0, 1)[-1])  # warm: the capture
+    bn.reset_launches()
+    step_ms, losses = fg_window(
+        sizes, lambda: est._multi_step(b0, sizes.transfer_steps),
+        sizes.transfer_steps)
+    launches = fg_check(bn, sizes, "transfer replays",
+                        n_bn * sizes.transfer_steps, 0)
+    moved = [k for k, v in net.named_parameters()
+             if not torch.equal(v, base[k])]
+    if moved:
+        raise AssertionError(f"foreign transfer: frozen backbone moved: "
+                             f"{moved[:5]}")
+    if torch.equal(model.head.kernel, head):
+        raise AssertionError("foreign transfer: the new head did not train")
+    losses = [float(v) for v in losses]
+    caps = captures(est, "foreign transfer")
+    out = {"node": node, "frozen": ["base"], "step_ms": step_ms,
+           "losses": losses, "backbone_bitwise_equal": True,
+           "trainable_params": sum(p.numel() for p in est._params),
+           "frozen_params": sum(v.numel() for v in base.values()),
+           "launches": launches, **caps}
+    del est, model, net
+    sp_free(sizes)
+    return out
+
+
+def foreign_dcgan(bn, sizes) -> dict:
+    """(d) ``GANEstimator`` at DCGAN's widths, adam at DCGAN_LR (beta1
+    0.5): ``fit`` over seeded images in [-1, 1]; D/G step pairs from CUDA
+    graphs against eager (equal bits, deterministic cuDNN); timed D and G
+    windows of replays with the counts set to 0 before each (D: two
+    forwards a step, so two launches a norm each way; G: one); then
+    ``generate(64)`` finite and in [-1, 1]."""
+    from analytics_zoo_tpu_torch.nn import BatchNormalization
+    from analytics_zoo_tpu_torch.orca.learn import GANEstimator, optimizers
+    card = sizes.device == "cuda"
+    g0, d0 = dcgan(**sizes.gan)
+    dcgan_init(g0, SEED)
+    dcgan_init(d0, SEED + 1)
+    g_state, d_state = g0.state_dict(), d0.state_dict()
+    n_g = sum(isinstance(b, BatchNormalization) for b in g0.modules())
+    n_d = sum(isinstance(b, BatchNormalization) for b in d0.modules())
+
+    def gan(graphs=True):
+        g, d = dcgan(**sizes.gan)
+        g.load_state_dict(g_state)
+        d.load_state_dict(d_state)
+        return GANEstimator(
+            g, d, generator_optimizer=optimizers.adam(DCGAN_LR, b1=DCGAN_B1),
+            discriminator_optimizer=optimizers.adam(DCGAN_LR, b1=DCGAN_B1),
+            noise_dim=sizes.gan["nz"], seed=SEED, device=sizes.device,
+            cuda_graphs=graphs)
+
+    side = sizes.gan["size"]
+    images = np.random.default_rng(SEED + 4).uniform(
+        -1.0, 1.0, (sizes.gan_fit_images, side, side, sizes.gan["nc"])) \
+        .astype(np.float32)
+    dev = torch.device(sizes.device)
+    real = torch.from_numpy(images[:sizes.gan_batch]).to(dev)
+    cmp = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for graphs in (False, True):
+            e = gan(graphs)
+            pairs = []
+            for _ in range(sizes.gan_cmp_steps):
+                pairs += [e.d_step(real), e.g_step(real)]
+            cmp[graphs] = [float(v) for v in pairs]
+            del e
+            sp_free(sizes)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    against = losses_against_eager(cmp[True], cmp[False],
+                                   "foreign dcgan captured vs eager")
+    if card and not against["bitwise_equal"]:
+        raise AssertionError(f"foreign dcgan: captured losses are not the "
+                             f"eager ones bit for bit: {against}")
+    est = gan()
+    t0 = time.perf_counter()
+    hist = est.fit(images, epochs=1, batch_size=sizes.gan_batch,
+                   verbose=False)
+    fit_s = time.perf_counter() - t0
+    if not all(map(math.isfinite, hist["d_loss"] + hist["g_loss"])):
+        raise AssertionError(f"foreign dcgan: fit losses {hist}")
+    windows = {}
+    for kind, n_bn, calls in (("d", n_d, 2), ("g", n_g, 1)):
+        step = est.d_step if kind == "d" else est.g_step
+        bn.reset_launches()
+        ms, losses = fg_window(sizes, lambda: torch.stack(
+            [step(real) for _ in range(sizes.gan_steps)]), sizes.gan_steps)
+        windows[kind] = {"step_ms": ms, "launches": fg_check(
+            bn, sizes, f"dcgan {kind} replays", calls * n_bn * sizes.gan_steps,
+            calls * n_bn * sizes.gan_steps),
+            "launches_a_step_each_way": calls * n_bn if card else 0}
+        if card:
+            prof = profiled_window(
+                lambda: [step(real) for _ in range(5)], 5,
+                {"batch_norm": ("bn_fwd_kernel", "bn_bwd_kernel")})
+            idle_of(prof, ms)
+            windows[kind]["profiled"] = prof
+    samples = est.generate(64)
+    if not (np.isfinite(samples).all() and np.abs(samples).max() <= 1.0):
+        raise AssertionError("foreign dcgan: generate(64) is not finite "
+                             "in [-1, 1]")
+    out = {"widths": sizes.gan, "batch": sizes.gan_batch, "lr": DCGAN_LR,
+           "fit_s": fit_s, "fit_history": hist, "steps": est.step,
+           "d_step": windows["d"], "g_step": windows["g"],
+           "losses_against_eager": {k: v for k, v in against.items()
+                                    if k not in ("captured", "eager")},
+           "generate": {"shape": list(samples.shape),
+                        "min": float(samples.min()),
+                        "max": float(samples.max())},
+           "capture_count": est.capture_count,
+           "params": {"g": sum(p.numel() for p in est.generator.parameters()),
+                      "d": sum(p.numel() for p in
+                               est.discriminator.parameters())}}
+    del est
+    sp_free(sizes)
+    return out
+
+
+def phase_foreign(bn, sizes=None) -> dict:
+    """Foreign models and transfer learning (see the module docstring):
+    (a) conversion, (b) the ``from_torch`` fit from CUDA graphs, (c) the
+    frozen-backbone transfer, (d) DCGAN.  Only the f32 batch-norm kernels
+    launch, and only in the counted windows' parts."""
+    sizes = sizes or ForeignSizes()
+    t_phase = time.perf_counter()
+    m = tv_resnet(SEED, **sizes.resnet)
+    n_params = sum(p.numel() for p in m.parameters())
+    if sizes.resnet == dict(layers=(3, 4, 6, 3), classes=1000, width=64) \
+            and n_params != TV_RESNET50_PARAMS:
+        raise AssertionError(f"foreign: the torch ResNet-50 has {n_params} "
+                             f"parameters, not {TV_RESNET50_PARAMS}")
+    rng = np.random.default_rng(SEED + 2)
+    x = rng.standard_normal((sizes.batch, 3, sizes.image, sizes.image),
+                            dtype=np.float32)
+    y = rng.integers(0, sizes.resnet["classes"], sizes.batch).astype(np.int32)
+    res = {"phase": "foreign", "torch_params": n_params,
+           "part_seconds": {}}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        res["part_seconds"][name] = time.perf_counter() - t0
+
+    bn.reset_launches()
+    part("convert", lambda: foreign_convert(sizes, m, x))
+    fg_check(bn, sizes, "eval forwards", 0, 0)
+    part("from_torch", lambda: foreign_train(bn, sizes, m, x, y))
+    part("transfer", lambda: foreign_transfer(bn, sizes, m, x))
+    part("dcgan", lambda: foreign_dcgan(bn, sizes))
+    total = {k: res["from_torch"]["launches"][k]
+             + res["transfer"]["launches"][k]
+             + res["dcgan"]["d_step"]["launches"][k]
+             + res["dcgan"]["g_step"]["launches"][k]
+             for k in res["from_torch"]["launches"]}
+    res["kernel_launches"] = {f"{BN_KERNEL}_{k}": v for k, v in total.items()}
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5843,7 +6420,8 @@ def main(argv) -> int:
                   "recsys": phase_recsys,
                   "state_plane": lambda: phase_state_plane(fa, bn),
                   "autots": lambda: phase_autots(fa, bn, fx),
-                  "readers": lambda: phase_readers(fa, bn, fx)}
+                  "readers": lambda: phase_readers(fa, bn, fx),
+                  "foreign": lambda: phase_foreign(bn)}
         for name in only:
             phases[name]()
         return 0
@@ -5861,6 +6439,7 @@ def main(argv) -> int:
     state = phase_state_plane(fa, bn)
     autots = phase_autots(fa, bn, fx)
     readers = phase_readers(fa, bn, fx)
+    foreign = phase_foreign(bn)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -6045,6 +6624,15 @@ def main(argv) -> int:
         entry.setdefault("launches_readers", sum(
             n for k, n in readers["kernel_launches"].items()
             if k.startswith(entry["name"])))
+        # the foreign phase's counted windows: the converted ResNet-50's
+        # replays, the transfer's and DCGAN's D and G steps (f32 batch
+        # norm only)
+        entry["launches_foreign"] = 0
+        if entry["name"] == BN_KERNEL:
+            direction = next(iter(entry["launches_by_pass"]))
+            sfx = "bf16" if entry["shape"]["dtype"] == "bfloat16" else "f32"
+            entry["launches_foreign"] = foreign["kernel_launches"][
+                f"{BN_KERNEL}_{direction}_{sfx}"]
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -320,7 +320,17 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.models.objectdetection",
                 "analytics_zoo_tpu_torch.nnframes",
                 "analytics_zoo_tpu_torch.nnframes.nn_classifier",
-                "analytics_zoo_tpu_torch.nnframes.nn_image_reader"]
+                "analytics_zoo_tpu_torch.nnframes.nn_image_reader",
+                "analytics_zoo_tpu_torch.nn.module",
+                "analytics_zoo_tpu_torch.nn.functional",
+                "analytics_zoo_tpu_torch.nn.layers_extra",
+                "analytics_zoo_tpu_torch.autograd",
+                "analytics_zoo_tpu_torch.keras2",
+                "analytics_zoo_tpu_torch.keras2.layers",
+                "analytics_zoo_tpu_torch.keras2.models",
+                "analytics_zoo_tpu_torch.models.net",
+                "analytics_zoo_tpu_torch.models.graphnet",
+                "analytics_zoo_tpu_torch.orca.learn.gan"]
 
 
 def test_port_imports_without_jax():

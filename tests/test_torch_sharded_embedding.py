@@ -209,12 +209,12 @@ def test_sparse_guardrails_raise_as_the_reference():
                              frozen=["mlp_user_embed"])
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         Estimator.from_keras(model, loss=LOSS, device="cpu", sharding="fsdp")
-    # a dense model takes grad_accum; frozen= stays unported (item 7)
+    # a dense model takes grad_accum, and frozen= on its dense layers
     Estimator.from_keras(NeuralCF(16, 8), loss=LOSS, device="cpu",
                          grad_accum=2)
-    with pytest.raises(NotImplementedError, match="frozen"):
-        Estimator.from_keras(NeuralCF(16, 8), loss=LOSS, device="cpu",
-                             frozen=["head"])
+    est = Estimator.from_keras(NeuralCF(16, 8), loss=LOSS, device="cpu",
+                               frozen=["mlp_user_embed"])
+    assert est._frozen_names == {"mlp_user_embed.embeddings"}
 
 
 class _Shapes(TorchDispatchMode):

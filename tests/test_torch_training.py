@@ -267,7 +267,7 @@ def test_optimizer_defaults_are_optax_not_torch():
     opt.step(p, [torch.zeros(3)], opt.init(p))
     np.testing.assert_allclose(p[0].numpy(), 1 - 1e-4, rtol=1e-6)
     for name in ("lamb", "lars"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
             optimizers.get(name, 0.1)
     with pytest.raises(ValueError, match="unknown optimizer"):
         optimizers.get("nope", 0.1)
@@ -467,7 +467,7 @@ def test_estimator_asks_for_the_card_by_default(monkeypatch):
 @pytest.mark.parametrize("knob,value", [
     ("nan_max_rollbacks", 5), ("sharding", "fsdp"),
     ("nan_policy", "skip_step"),
-    ("grad_compression", "int8"), ("frozen", ["bert"]),
+    ("grad_compression", "int8"),
     ("aux_loss_weight", 0.5), ("profile", True),
     ("nan_policy", "rollback"), ("profile_dir", "prof"),
     ("profile_steps", (1, 2)), ("app_name", "job"),
