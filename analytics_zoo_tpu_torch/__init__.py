@@ -13,7 +13,10 @@ kernels (the tests do).
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+import gc
+import threading
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -37,4 +40,36 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["default_device", "resolve_device"]
+_gc_lock = threading.Lock()
+_gc_holds = 0
+_gc_was_enabled = True
+
+
+@contextlib.contextmanager
+def collector_held() -> Iterator[None]:
+    """Hold Python's cyclic garbage collector off, in every thread, while
+    the block runs: each CUDA graph capture runs inside one.
+
+    ``torch.cuda.graph`` no longer collects before it captures, so a dead
+    reference cycle that holds an earlier graph (an estimator or a served
+    model its owner dropped) could be collected while a capture is under
+    way; that graph's destructor makes CUDA calls a capture forbids, and
+    the capture failed with "operation not permitted when stream is
+    capturing".  Nested and concurrent holds are counted: the collector
+    comes back, as it was, when the last one ends."""
+    global _gc_holds, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
+
+
+__all__ = ["collector_held", "default_device", "resolve_device"]

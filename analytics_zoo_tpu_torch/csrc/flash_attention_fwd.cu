@@ -95,6 +95,13 @@ constexpr int kBlockN = 64;   // keys per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;
+
+// max(x, lo) that keeps a NaN, as the plain version's clamp and the JAX
+// kernel's jnp.maximum do: fmaxf drops it, so a row of NaN logits would
+// leave a finite lse.
+__device__ __forceinline__ float keep_nan_max(float x, float lo) {
+  return x != x ? x : fmaxf(x, lo);
+}
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -329,7 +336,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float lr = l[mt][r];
       lr += __shfl_xor_sync(0xffffffffu, lr, 1);
       lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-      lr = fmaxf(lr, 1e-30f);
+      lr = keep_nan_max(lr, 1e-30f);
       const float inv = 1.f / lr;
       const int row = mt * 16 + g + 8 * r;  // in the warp's rows
 #pragma unroll
@@ -566,7 +573,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     float lr = l[r];
     lr += __shfl_xor_sync(0xffffffffu, lr, 1);
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    lr = fmaxf(lr, 1e-30f);
+    lr = keep_nan_max(lr, 1e-30f);
     const float inv = 1.f / lr;
     const int row = 16 * warp + g + 8 * r;  // in the tile
 #pragma unroll

@@ -90,6 +90,13 @@ constexpr int kQStride = kBlockQ + 4;  // Qt / Pt row stride (16-byte aligned)
 constexpr int kKStride = kBlockK + 1;  // Kt row stride (transposing writes)
 constexpr float kNegInf = -1e30f;
 
+// max(x, lo) that keeps a NaN, as the plain version's clamp and the JAX
+// kernel's jnp.maximum do: fmaxf drops it, so a row of NaN logits would
+// leave a finite lse.
+__device__ __forceinline__ float keep_nan_max(float x, float lo) {
+  return x != x ? x : fmaxf(x, lo);
+}
+
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1)
@@ -233,7 +240,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= tq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = keep_nan_max(l[i], 1e-30f);
     float* orow = out + (bh * size_t(tq) + r) * d;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
@@ -465,7 +472,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q,
     float lr = l[h];
     lr += __shfl_xor_sync(0xffffffffu, lr, 1);
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    lr = fmaxf(lr, 1e-30f);
+    lr = keep_nan_max(lr, 1e-30f);
     const int row = row0 + 8 * h;
     if (row >= tq) continue;
     float* o = out + (int64_t(bh) * tq + row) * d;
@@ -613,7 +620,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const float denom = fmaxf(l, 1e-30f);
+  const float denom = keep_nan_max(l, 1e-30f);
   if (b == 0) l_s[a] = denom;
   if (chunk == 0 && b == 0 && q0 + a < tq)
     lse[bh * tq + q0 + a] = m + logf(denom);

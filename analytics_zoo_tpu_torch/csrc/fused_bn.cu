@@ -9,7 +9,8 @@
 //
 //   forward   shift = x[0, :]                                   (f32)
 //             m1 = sum(x - shift) / n,  m2 = sum((x - shift)^2) / n
-//             mean = m1 + shift,  var = max(m2 - m1^2, 0)       (f32 [C])
+//             mean = m1 + shift,  var = max(m2 - m1^2, 0)       (f32 [C];
+//             a NaN stays NaN)
 //             inv = rsqrt(var + eps) * gamma,  mean_c = T(mean)
 //             sh = (f32(mean_c) - mean) * inv + beta
 //             y = (x - mean_c) * T(inv) + T(sh)   in T, rounded per op
@@ -498,7 +499,11 @@ __global__ void __launch_bounds__(kThreads, 1) bn_fwd_kernel(FwdArgs<T> a) {
              const float n = float(a.rows);
              const float m1 = __fdiv_rn(s1, n), m2 = __fdiv_rn(s2, n);
              const float mean = __fadd_rn(m1, to_f(a.x[c]));
-             const float var = fmaxf(__fsub_rn(m2, __fmul_rn(m1, m1)), 0.f);
+             // max(d, 0) that keeps a NaN, as jnp.maximum and torch's
+             // clamp do (fmaxf drops it: a poisoned channel's var would
+             // read 0)
+             const float d = __fsub_rn(m2, __fmul_rn(m1, m1));
+             const float var = d != d ? d : fmaxf(d, 0.f);
              const float inv =
                  __fmul_rn(rsqrtf(__fadd_rn(var, a.eps)), a.gamma[c]);
              const float mean_c = round_t<T>(mean);

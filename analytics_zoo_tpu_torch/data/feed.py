@@ -248,12 +248,24 @@ class DataFeed(FeedBase):
 
     def epoch(self, device: torch.device, epoch_idx: int = 0
               ) -> Iterator[Dict[str, Any]]:
-        """One epoch's batches, each placed on ``device``."""
+        """One epoch's batches, each placed on ``device``.  Each step hits
+        the ``feed.stall`` fault point (core/faults.py), where an armed
+        delay stands for a slow storage read, and observes its host-side
+        assembly (slice and placement call) in ``feed.batch_assembly_ms``."""
+        from ..core import faults
+        from ..core import metrics as metrics_lib
+        reg = faults.get_registry()
+        m_assemble = metrics_lib.get_registry().histogram(
+            "feed.batch_assembly_ms")
         idx = self.epoch_index(epoch_idx)
         for step in range(self.steps_per_epoch()):
+            reg.fire("feed.stall")
+            t0 = time.monotonic()
             sel = self.batch_index(idx, step)
-            yield tree_map(lambda a: to_device(_take(a, sel), device),
-                           self._data)
+            batch = tree_map(lambda a: to_device(_take(a, sel), device),
+                             self._data)
+            m_assemble.observe((time.monotonic() - t0) * 1000.0)
+            yield batch
 
 
 class PrefetchIterator:

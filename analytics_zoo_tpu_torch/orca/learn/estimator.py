@@ -74,9 +74,40 @@ a frozen estimator's checkpoint loads in either package.  Buffers (batch
 norm's running statistics) still update, as the JAX package's ``state``
 does.
 
-Constructor knobs of the JAX estimator that are not ported yet raise
-``NotImplementedError`` (naming the ROADMAP item) when set to anything but
-their default; they are never ignored.
+The JAX estimator's single-device knobs are taken as it takes them:
+
+- ``nan_policy="skip_step"`` keeps the step's pre-step state inside the
+  step (and its CUDA graph): the dense parameters, the model's buffers
+  (batch norm's running statistics, which the forward moves before the
+  verdict is known) and every tensor of the optimizer's state are copied
+  into buffers made once, and after the update each is set back to its
+  copy where ``ok = isfinite(loss) & isfinite(global_norm(grads, row
+  grads))`` is false, by ``torch.where`` on the device; the sparse
+  tables' row gradients are zeroed where ``ok`` is false, and an int32
+  ``bad_steps`` counter on the device adds ``1 - ok``.  Nothing reads
+  ``ok`` on the host: a poisoned step is one replay like any other.
+  ``"warn"``, ``"raise"`` and ``"rollback"`` read the loss (with the
+  gradient norm folded into it) once a step; ``"rollback"`` reloads the
+  newest ``model_dir`` checkpoint in place, at most
+  ``nan_max_rollbacks`` times, then raises ``NonFiniteLossError``.
+- ``fit`` fires the fault points ``worker.crash``, ``worker.hang`` and
+  ``step.nan`` (which NaN-fills the batch's float leaves) before each
+  step, and on an unhandled exception dumps the flight record
+  (``core/flightrec.py``) into ``model_dir`` and re-raises.
+- ``profile=`` counts new step keys (a capture on the card) as
+  ``train.compiles`` with a ``train.compile`` span, sets the ``train.mfu``
+  gauge each epoch, and with ``trace_dir``/``trace_steps`` (or
+  ``profile_dir``/``profile_steps``) records steps ``[start, end)`` with
+  ``torch.profiler`` into a Chrome trace, the device synchronised before
+  the window opens and before it closes, so the window holds whole
+  replays.
+- ``log_dir``/``app_name`` write the per-epoch scalars through
+  ``core/summary.py`` (``get_train_summary``, ``get_validation_summary``).
+
+The knobs that need several processes (``grad_compression``) or the MoE
+layers (``aux_loss_weight``) raise ``NotImplementedError`` (naming the
+ROADMAP item) when set to anything but their default; they are never
+ignored.
 
 The state plane is the JAX package's: ``save``/``load`` write and read
 ``core/checkpoint.py``'s format (the JAX estimator's tree: ``params`` and
@@ -103,6 +134,8 @@ from __future__ import annotations
 import functools
 import inspect
 import logging
+import math
+import os
 import threading
 import time
 import traceback
@@ -112,10 +145,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ... import DeviceLike, resolve_device
+from ... import DeviceLike, collector_held, resolve_device
 from ...convert import buffer_names, from_jax_variables, jax_tree, \
     jax_variables, to_jax_variables
 from ...core import checkpoint as ckpt_io
+from ...core import faults as faults_lib
 from ...core import metrics as telemetry
 from ...core import trace as trace_lib
 from ...core.config import ZooConfig
@@ -134,20 +168,65 @@ from .trigger import Trigger
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
 _Q1 = "ROADMAP Queue 1 item"
-_NAN = (f"{_Q1} 14 (nan_policy; its rollback across processes: {_Q1} 7)")
 # the JAX estimator's knobs that the port does not take yet: name ->
 # (default, where it is scheduled)
 _UNPORTED_KNOBS = {
-    "nan_policy": (None, _NAN),
-    "nan_max_rollbacks": (3, _NAN),
     "grad_compression": (None, f"{_Q1} 7 (grad_compression)"),
-    "profile": (None, f"{_Q1} 14 (profile)"),
-    "profile_dir": (None, f"{_Q1} 14 (profile)"),
-    "profile_steps": ((10, 20), f"{_Q1} 14 (profile)"),
-    "log_dir": (None, f"{_Q1} 14 (summaries)"),
-    "app_name": ("train", f"{_Q1} 14 (summaries)"),
     "aux_loss_weight": (0.01, f"{_Q1} 9 (MoE auxiliary losses)"),
 }
+
+#: Valid values for ``ZooEstimator(nan_policy=...)``.
+NAN_POLICIES = ("warn", "skip_step", "rollback", "raise")
+
+#: Per-device peak FLOP/s, the ``train.mfu`` denominator when neither
+#: ``profile["peak_flops"]`` nor ``ZooConfig.device_peak_flops`` is set.
+#: "cpu" is the JAX package's nominal figure (a trend signal only).
+#: "gpu" holds published dense rates by card (a substring of
+#: ``torch.cuda.get_device_name``) and compute dtype: the H100 SXM's
+#: bf16/f16 tensor-core rate and its f32 rate outside the tensor cores.
+#: On a card not listed no peak is known and ``train.mfu`` stays unset.
+NOMINAL_PEAK_FLOPS = {
+    "cpu": 5e10,
+    "gpu": {"H100": {torch.bfloat16: 989e12, torch.float16: 989e12,
+                     torch.float32: 67e12}},
+}
+
+
+def nominal_peak_flops(device: torch.device,
+                       dtype: torch.dtype) -> Optional[float]:
+    """``NOMINAL_PEAK_FLOPS``' figure for ``device`` computing in
+    ``dtype``; None for a card or dtype the table does not list."""
+    if device.type != "cuda":
+        return NOMINAL_PEAK_FLOPS["cpu"]
+    name = torch.cuda.get_device_name(device)
+    for card, rates in NOMINAL_PEAK_FLOPS["gpu"].items():
+        if card in name:
+            return rates.get(dtype)
+    return None
+
+
+def _compute_dtype(model: nn.Module) -> torch.dtype:
+    """The dtype a model computes in: the first floating ``dtype`` that a
+    module of it declares (BERT's, ResNet's), else its first floating
+    parameter's."""
+    for m in model.modules():
+        dt = getattr(m, "dtype", None)
+        if isinstance(dt, torch.dtype) and dt.is_floating_point:
+            return dt
+    for p in model.parameters():
+        if p.is_floating_point():
+            return p.dtype
+    return torch.float32
+
+
+class NonFiniteLossError(RuntimeError):
+    """A training step produced a non-finite loss and the configured
+    ``nan_policy`` could not (or was told not to) heal it."""
+
+    def __init__(self, step: int, message: Optional[str] = None):
+        super().__init__(message
+                         or f"non-finite loss at train step {step}")
+        self.step = step
 # the tree key of the port's own generators (dropout, augment), which the
 # JAX estimator's load does not read
 _GENERATORS = "torch_generators"
@@ -270,6 +349,13 @@ class ZooEstimator:
                  checkpoint_delta: bool = True,
                  checkpoint_compact_every: int = 8,
                  frozen: Any = None,
+                 nan_policy: Optional[str] = None,
+                 nan_max_rollbacks: int = 3,
+                 profile: Any = None,
+                 profile_dir: Optional[str] = None,
+                 profile_steps: Sequence[int] = (10, 20),
+                 log_dir: Optional[str] = None,
+                 app_name: str = "train",
                  **knobs: Any):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -331,6 +417,43 @@ class ZooEstimator:
                                checkpoint_async, checkpoint_inflight,
                                checkpoint_keep_last, checkpoint_anchor_every,
                                checkpoint_delta, checkpoint_compact_every)
+        self._init_knobs(nan_policy, nan_max_rollbacks, profile,
+                         profile_dir, profile_steps, log_dir, app_name)
+
+    def _init_knobs(self, nan_policy, nan_max_rollbacks, profile,
+                    profile_dir, profile_steps, log_dir, app_name) -> None:
+        """The JAX estimator's single-device knobs: the non-finite policy,
+        the step profiler and the summaries."""
+        if nan_policy is not None and nan_policy not in NAN_POLICIES:
+            raise ValueError(f"nan_policy must be one of {NAN_POLICIES} "
+                             f"or None, got {nan_policy!r}")
+        self.nan_policy = nan_policy
+        self.nan_max_rollbacks = max(0, nan_max_rollbacks)
+        self.bad_steps = 0  # total non-finite steps seen (host mirror)
+        self._rollbacks = 0
+        # skip_step's counter, advanced inside the step; what a checkpoint
+        # stores as bad_steps
+        self._bad_steps = torch.zeros((), dtype=torch.int32,
+                                      device=self.device)
+        self._guarded: Optional[List[torch.Tensor]] = None
+        self._guard_copies: List[torch.Tensor] = []
+        from ...core.summary import SummaryWriter
+        self._writer = SummaryWriter(log_dir, app_name) if log_dir else None
+        self.profile_dir = profile_dir
+        self.profile_steps = tuple(profile_steps)
+        self._profiler = None
+        self._profile_cfg: Optional[Dict[str, Any]] = None
+        if profile:
+            pcfg = {} if profile is True else dict(profile)
+            self._profile_cfg = {
+                "flops_per_sample": pcfg.get("flops_per_sample"),
+                "peak_flops": pcfg.get("peak_flops")}
+            if pcfg.get("trace_dir"):
+                self.profile_dir = pcfg["trace_dir"]
+                self.profile_steps = tuple(
+                    pcfg.get("trace_steps", self.profile_steps))
+        self._eager_keys: set = set()
+        self.trace_files: List[str] = []
 
     def _init_state_plane(self, model_dir, preemption_checkpoint,
                           sync_every, retries, use_async, inflight,
@@ -379,6 +502,12 @@ class ZooEstimator:
         if isinstance(self._learning_rate, (int, float)):
             return float(self._learning_rate)
         return 1e-3
+
+    def _init_opt(self) -> Any:
+        """The optimizer's state over the dense parameters, named by their
+        paths in the JAX tree (LARS and LAMB exclude leaves by path)."""
+        return self.optimizer.init(
+            self._params, [n.replace(".", "/") for n in self._dense_names])
 
     def _loss_and_grads(self, x: Any, y: Any) -> tuple:
         """One forward in training mode; returns its loss, the gradient of
@@ -429,9 +558,31 @@ class ZooEstimator:
                 grads.append(s if s.dtype == p.dtype else s.to(p.dtype))
         return torch.stack(losses).mean(), grads
 
+    def _guard_tensors(self) -> List[torch.Tensor]:
+        """What ``nan_policy="skip_step"`` keeps at its pre-step value:
+        the dense parameters, the model's buffers and every tensor of the
+        optimizer's state (its lazy state made first), each once; the
+        copies' buffers are made with the list, once."""
+        if self._guarded is None:
+            self.optimizer.materialize(self._params, self._opt_state)
+            seen, kept = set(), []
+            for t in (list(self._params) + list(self.model.buffers())
+                      + opt_lib.state_tensors(self._opt_state)):
+                if id(t) not in seen:
+                    seen.add(id(t))
+                    kept.append(t)
+            self._guarded = kept
+            self._guard_copies = [torch.empty_like(t) for t in kept]
+        return self._guarded
+
     def _step(self, batch: Dict[str, Any]) -> torch.Tensor:
         """One optimizer step on ``batch`` (what a graph captures): the
         loss, on the device."""
+        skip = self.nan_policy == "skip_step"
+        if skip:
+            with torch.no_grad():
+                kept = self._guard_tensors()
+                torch._foreach_copy_(self._guard_copies, kept)
         self.model.train()
         rows = []  # no sparse table with grad_accum > 1 (refused at init)
         if self.grad_accum > 1:
@@ -443,12 +594,28 @@ class ZooEstimator:
             # in JAX
             grads = [torch.zeros_like(p) if g is None else g
                      for g, p in zip(grads, self._params)]
+            ok = None
+            if self.nan_policy is not None:
+                # the JAX step's grads_for_norm: the dense gradients and
+                # the tables' row gradients
+                finite = torch.isfinite(opt_lib.global_norm(
+                    grads + [g for _, g in rows if g is not None]))
+                if skip:
+                    ok = torch.isfinite(loss) & finite
+                else:
+                    # the host policies read only the loss: a finite loss
+                    # over a non-finite gradient reads as NaN
+                    loss = torch.where(finite, loss.detach(),
+                                       torch.full_like(loss, math.nan))
             self._opt_state = self.optimizer.step(self._params, grads,
                                                   self._opt_state)
             # the tables: -embedding_lr x each lookup's row gradient added
-            # on its unique ids (the JAX package's scatter-add)
+            # on its unique ids (the JAX package's scatter-add); a skipped
+            # step adds zeros (0 x NaN would be NaN)
             for tap, g in rows:
                 if g is not None:
+                    if ok is not None:
+                        g = g.masked_fill(~ok, 0)
                     tap.table.index_add_(0, tap.uniq, g.to(tap.table.dtype),
                                          alpha=-self._embed_lr())
                     mask = self._touched.get(self._table_path[id(tap.table)])
@@ -456,6 +623,10 @@ class ZooEstimator:
                         # the padded slots land on the spare last slot
                         mask.index_fill_(0, torch.where(
                             tap.valid, tap.uniq, mask.shape[0] - 1), True)
+            if ok is not None:
+                for t, old in zip(self._guarded, self._guard_copies):
+                    torch.where(ok, t, old, out=t)
+                self._bad_steps.add_((~ok).to(torch.int32))
         return loss.detach()
 
     def _graph_for(self, batch: Dict[str, Any]) -> Tuple[
@@ -464,11 +635,10 @@ class ZooEstimator:
         key runs its first step eagerly (the third item, its loss) and is
         captured."""
         if self._opt_state is None:
-            self._opt_state = self.optimizer.init(self._params)
+            self._opt_state = self._init_opt()
         flat = [to_device(a, self.device) if not isinstance(a, torch.Tensor)
                 else a for a in leaves(batch)]
-        key = (_structure(batch),
-               tuple((tuple(t.shape), t.dtype) for t in flat))
+        key = _batch_key(batch, flat)
         graph = self._graphs.get(key)
         if graph is not None:
             return graph, flat, None
@@ -484,7 +654,9 @@ class ZooEstimator:
         graph."""
         if not self.cuda_graphs:
             if self._opt_state is None:
-                self._opt_state = self.optimizer.init(self._params)
+                self._opt_state = self._init_opt()
+            if self._profile_cfg is not None:
+                self._eager_keys.add(_batch_key(batch, leaves(batch)))
             loss = self._step(batch)
         else:
             graph, flat, loss = self._graph_for(batch)
@@ -582,7 +754,13 @@ class ZooEstimator:
         on (the JAX package's semantics).  With
         ``preemption_checkpoint=True`` a SIGTERM or SIGINT during ``fit``
         checkpoints at the next ``preemption_sync_every``-th step and
-        raises ``core.failover.Preempted``."""
+        raises ``core.failover.Preempted``.
+
+        With a ``nan_policy`` the history also has ``"bad_steps"`` (the
+        epoch's non-finite steps); under ``"skip_step"`` the epoch loss is
+        the mean over its finite steps.  An exception out of the steps
+        (``NonFiniteLossError`` included) dumps the flight record into
+        ``model_dir`` before it propagates."""
         if prefetch is None:
             prefetch = ZooConfig.prefetch
         if (auto_resume and self._opt_state is None and self.model_dir
@@ -599,15 +777,36 @@ class ZooEstimator:
         fit_tid = trace_lib.new_trace_id() if record_spans else None
         fit_sid = trace_lib.new_span_id() if record_spans else None
         self.trace_id = fit_tid
+        fit_t0 = time.monotonic()
         history: Dict[str, List[float]] = {"loss": []}
+        start_epoch = self._epoch
+        target_epoch = self._epoch + epochs
         if self._preempt is not None:
             self._preempt.active = True
         try:
-            for _ in range(epochs):
-                self._fit_epoch(feed, prefetch, trigger, history, reg,
-                                record_spans, fit_tid, fit_sid, verbose,
-                                validation_data, batch_size)
+            # while, not for: a rollback rewinds self._epoch to the
+            # restored checkpoint's epoch and runs on from there
+            while self._epoch < target_epoch:
+                if not self._fit_epoch(feed, prefetch, trigger, history, reg,
+                                       record_spans, fit_tid, fit_sid,
+                                       verbose, validation_data, batch_size):
+                    # rolled back: drop the entries of the epochs about to
+                    # run again
+                    keep = max(0, self._epoch - start_epoch)
+                    for v in history.values():
+                        del v[keep:]
+        except Exception as e:
+            # the flight record: recent spans, metric movement and
+            # warnings beside the checkpoints (Preempted is a
+            # BaseException, so a requested stop does not land here)
+            from ...core import flightrec
+            flightrec.dump(
+                f"train.{type(e).__name__}", dump_dir=self.model_dir,
+                extra={"step": self._py_step, "epoch": self._epoch,
+                       "error": str(e)})
+            raise
         finally:
+            self._stop_profile()
             if self._preempt is not None:
                 self._preempt.active = False
             if self._ckpt_mgr is not None:
@@ -615,23 +814,41 @@ class ZooEstimator:
                 # durable; a writer error was logged, counted
                 # (ckpt.write_errors) and forced the next save full
                 self._ckpt_mgr.flush(raise_error=False)
+            if record_spans:
+                trace_lib.record(
+                    fit_tid, "train.fit",
+                    {"epochs": self._epoch - start_epoch,
+                     "steps": self._py_step},
+                    span_id=fit_sid,
+                    dur_ms=(time.monotonic() - fit_t0) * 1000.0)
         return history
 
     def _fit_epoch(self, feed, prefetch, trigger, history, reg,
                    record_spans, fit_tid, fit_sid, verbose,
-                   validation_data, batch_size) -> None:
-        """One epoch of ``fit``: its steps, the preemption check and the
-        trigger after each, then the epoch's loss, telemetry, validation
-        and the epoch-end trigger."""
+                   validation_data, batch_size) -> bool:
+        """One epoch of ``fit``: before each step the fault points and the
+        profiler window, after each the non-finite check of the host
+        policies, the preemption check and the trigger; then the epoch's
+        loss, telemetry, summaries, validation and the epoch-end trigger.
+        False when a rollback cut the epoch short."""
         m_step = reg.histogram("train.step_ms")
         m_wait = reg.histogram("train.data_wait_ms")
         m_steps = reg.counter("train.steps")
         m_samples = reg.counter("train.samples")
+        m_bad = reg.counter("train.bad_steps")
         m_prefetch = reg.gauge("train.prefetch_depth")
+        # the profiler's series exist only while it is on
+        m_compiles = m_mfu = None
+        if self._profile_cfg is not None:
+            m_compiles = reg.counter("train.compiles")
+            m_mfu = reg.gauge("train.mfu")
+        faults = faults_lib.get_registry()
+        host_nan_check = self.nan_policy in ("warn", "rollback", "raise")
         epoch_sid = trace_lib.new_span_id() if record_spans else None
         t0 = time.monotonic()
         losses: List[torch.Tensor] = []
         epoch_wait = 0.0
+        bad_before = self.bad_steps
         if prefetch and prefetch > 0 and _supports_host_epoch(feed):
             # stream feeds: host batches, placed in the producer
             batch_iter = PrefetchIterator(
@@ -655,7 +872,28 @@ class ZooEstimator:
                 m_wait.observe(wait * 1000.0)
                 if "mask" in batch:  # a stream's padded batch: skipped
                     continue
-                losses.append(self._train_step(batch))
+                # the worker fault seams (core/faults.py), disarmed no-ops
+                # unless a test or a chaos schedule arms them
+                if faults.fire("worker.crash"):
+                    logger.error("injected worker.crash at step %d",
+                                 self._py_step)
+                    os._exit(1)
+                faults.fire("worker.hang")  # an armed delay is the hang
+                if faults.fire("step.nan"):
+                    batch = _poison_batch(batch)
+                self._maybe_profile()
+                compiles_before = self.compile_count
+                loss = self._train_step(batch)
+                losses.append(loss)
+                if m_compiles is not None:
+                    grew = self.compile_count - compiles_before
+                    if grew:
+                        m_compiles.inc(grew)
+                        if record_spans:
+                            trace_lib.record(
+                                fit_tid, "train.compile",
+                                {"step": self._py_step, "compiles": grew},
+                                parent=epoch_sid)
                 step_ms = (time.monotonic() - t_fetch) * 1000.0
                 m_step.observe(step_ms)
                 if record_spans:
@@ -667,6 +905,19 @@ class ZooEstimator:
                         parent=epoch_sid, dur_ms=step_ms)
                 m_steps.inc()
                 m_samples.inc(feed.global_batch)
+                if host_nan_check and not math.isfinite(float(loss)):
+                    self.bad_steps += 1
+                    m_bad.inc()
+                    if self.nan_policy == "raise":
+                        raise NonFiniteLossError(self._py_step)
+                    if self.nan_policy == "warn":
+                        logger.warning(
+                            "non-finite loss at step %d (nan_policy="
+                            "'warn'): training continues on possibly "
+                            "poisoned parameters", self._py_step)
+                    else:
+                        self._rollback_to_checkpoint()
+                        return False
                 self._after_step(trigger)
         finally:
             # a mid-epoch exit must not leak the producer thread
@@ -681,30 +932,156 @@ class ZooEstimator:
                 "fit got no batches to train on (every batch was a "
                 "masked, padded one); reduce batch_size")
         self._epoch += 1
-        # one host synchronisation an epoch
-        epoch_loss = float(torch.stack(losses).float().mean())
+        # one host synchronisation an epoch; under skip_step the skipped
+        # steps' NaN losses leave the mean, and the on-device counter is
+        # read
+        stacked = torch.stack(losses).float()
+        if self.nan_policy == "skip_step":
+            epoch_loss = float(torch.nanmean(stacked))
+            self.bad_steps = int(self._bad_steps)
+            if self.bad_steps > bad_before:
+                m_bad.inc(self.bad_steps - bad_before)
+        else:
+            epoch_loss = float(stacked.mean())
         history["loss"].append(epoch_loss)
+        if self.nan_policy is not None:
+            history.setdefault("bad_steps", []).append(
+                self.bad_steps - bad_before)
         dt = time.monotonic() - t0
+        n = len(losses) * feed.global_batch
+        step_ms = 1000.0 * dt / len(losses)
+        wait_ms = 1000.0 * epoch_wait / len(losses)
+        samples_per_sec = n / dt
+        mfu = self._measure_mfu(samples_per_sec)
+        if mfu is not None:
+            m_mfu.set(mfu)
         if record_spans:
             trace_lib.record(
                 fit_tid, "train.epoch",
                 {"epoch": self._epoch, "loss": round(epoch_loss, 6),
-                 "steps": len(losses),
-                 "step_ms": round(1000.0 * dt / len(losses), 3),
-                 "data_wait_ms": round(
-                     1000.0 * epoch_wait / len(losses), 3)},
+                 "steps": len(losses), "step_ms": round(step_ms, 3),
+                 "data_wait_ms": round(wait_ms, 3)},
                 span_id=epoch_sid, parent=fit_sid, dur_ms=dt * 1000.0)
+        if self._writer:
+            for tag, value in (
+                    ("loss", epoch_loss), ("throughput", samples_per_sec),
+                    ("samples_per_sec", samples_per_sec),
+                    ("step_time_ms", step_ms), ("data_wait_ms", wait_ms),
+                    ("compute_ms", max(0.0, step_ms - wait_ms))):
+                self._writer.add_scalar(tag, value, self._epoch)
+            if self.nan_policy is not None:
+                self._writer.add_scalar(
+                    "bad_steps", self.bad_steps - bad_before, self._epoch)
         if verbose:
             logger.info("epoch %d: loss=%.4f (%.1f examples/s)",
-                        self._epoch, epoch_loss,
-                        len(losses) * feed.global_batch / dt)
+                        self._epoch, epoch_loss, samples_per_sec)
         if validation_data is not None:
             for k, v in self.evaluate(validation_data,
                                       batch_size).items():
                 history.setdefault(f"val_{k}", []).append(v)
+                if self._writer:
+                    self._writer.add_scalar(f"val_{k}", v, self._epoch)
         if trigger and self.model_dir and trigger.fires(
                 step=self._py_step, epoch_end=True):
             self._trigger_save()
+        return True
+
+    @property
+    def compile_count(self) -> int:
+        """Step keys seen so far: captures on the card, distinct batch
+        keys of the eager step (counted while the profiler is on)."""
+        return self.capture_count + len(self._eager_keys)
+
+    def _measure_mfu(self, samples_per_sec: float) -> Optional[float]:
+        """``flops_per_sample x samples/s / (peak x devices)`` for the
+        ``train.mfu`` gauge; None unless the profiler is on and the model
+        (or the profile dict) declares ``flops_per_sample``.  The peak is
+        ``profile["peak_flops"]``, else ``ZooConfig.device_peak_flops``,
+        else ``nominal_peak_flops`` of the device and the model's compute
+        dtype; None where none of them gives one."""
+        if self._profile_cfg is None:
+            return None
+        fps = (self._profile_cfg.get("flops_per_sample")
+               or getattr(self.model, "flops_per_sample", None))
+        if not fps:
+            return None
+        peak = self._profile_cfg.get("peak_flops")
+        if peak is None:
+            peak = ZooConfig.device_peak_flops
+        if peak is None:
+            peak = nominal_peak_flops(self.device, _compute_dtype(self.model))
+        if peak is None:
+            return None
+        return float(fps) * samples_per_sec / float(peak)  # one device
+
+    def _rollback_to_checkpoint(self) -> None:
+        """``nan_policy="rollback"``: load the newest ``model_dir``
+        checkpoint in place (parameters, buffers, optimizer, step, epoch;
+        the captured graphs replay on), and let ``fit`` run on from it.
+        At most ``nan_max_rollbacks`` times: a deterministic NaN would
+        loop for ever."""
+        self._rollbacks += 1
+        if self._rollbacks > self.nan_max_rollbacks:
+            raise NonFiniteLossError(
+                self._py_step,
+                f"non-finite loss at step {self._py_step}: rollback budget "
+                f"({self.nan_max_rollbacks}) exhausted - the fault is "
+                f"deterministic, not transient")
+        if self._ckpt_mgr is not None:
+            # an accepted snapshot still being written is a valid target
+            # once it lands
+            self._ckpt_mgr.flush(raise_error=False)
+        if not (self.model_dir and self._ckpt_exists(self.model_dir)):
+            raise NonFiniteLossError(
+                self._py_step,
+                f"non-finite loss at step {self._py_step}: nan_policy="
+                "'rollback' found no checkpoint in model_dir (configure "
+                "model_dir and a checkpoint_trigger)")
+        logger.warning(
+            "non-finite loss at step %d: rolling back to the last "
+            "checkpoint in %s (rollback %d/%d)", self._py_step,
+            self.model_dir, self._rollbacks, self.nan_max_rollbacks)
+        self.load(self.model_dir)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _maybe_profile(self) -> None:
+        """Open the trace window at step ``start`` and close it at
+        ``end``, between steps (the card synchronised first, so the window
+        holds whole replays)."""
+        if self.profile_dir is None:
+            return
+        start, end = self.profile_steps
+        if self._profiler is None and start <= self._py_step < end:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._sync()
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+            self._trace_start = self._py_step
+        elif self._profiler is not None and self._py_step >= end:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        """Close an open trace window: wait for the card, stop the
+        profiler and write its Chrome trace into ``profile_dir``."""
+        if self._profiler is None:
+            return
+        prof, self._profiler = self._profiler, None
+        self._sync()
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        path = os.path.join(
+            self.profile_dir,
+            f"train_{os.getpid()}_steps{self._trace_start}-"
+            f"{self._py_step}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        self.trace_files.append(path)
+        logger.info("wrote the profiler trace to %s", path)
 
     def _after_step(self, trigger: Optional[Trigger]) -> None:
         """After each step: a preemption checkpoint and ``Preempted`` when
@@ -798,6 +1175,17 @@ class ZooEstimator:
 
     # -- state ----------------------------------------------------------------
 
+    def get_train_summary(self, tag: str = "loss") -> List[Tuple[int, float]]:
+        """``[(epoch, value)]`` of a scalar from ``log_dir`` (the
+        reference's ``Estimator.get_train_summary``)."""
+        if self._writer is None:
+            raise ValueError("no log_dir configured")
+        return self._writer.read_scalar(tag)
+
+    def get_validation_summary(self, tag: str) -> List[Tuple[int, float]]:
+        return self.get_train_summary(tag if tag.startswith("val_")
+                                      else f"val_{tag}")
+
     def get_model(self) -> Dict[str, Any]:
         """The current variables as the JAX tree ``{"params", "state"}``
         of numpy arrays (``convert.to_jax_variables``): parameters under
@@ -810,7 +1198,7 @@ class ZooEstimator:
         """The optimizer's state in optax's layout over the dense
         parameters (made first if no step ran yet), leaves live."""
         if self._opt_state is None:
-            self._opt_state = self.optimizer.init(self._params)
+            self._opt_state = self._init_opt()
         return self.optimizer.optax_state(
             self._params, self._opt_state,
             lambda ts: jax_tree(zip(self._dense_names, ts)))
@@ -834,7 +1222,7 @@ class ZooEstimator:
             # jax.random.PRNGKey(seed): a JAX step folds the step into it
             # and never advances it
             "rng": np.asarray([seed >> 32, seed & 0xFFFFFFFF], np.uint32),
-            "bad_steps": np.asarray(0, np.int32),
+            "bad_steps": self._bad_steps,
             _GENERATORS: {
                 "dropout": [g.get_state() for g in self._generators_list()],
                 "augment": self._aug_gen.get_state()},
@@ -928,6 +1316,14 @@ class ZooEstimator:
             strict=True)
         opt_lib.load_optax(self._optax_state(), tree["opt_state"])
         self._py_step = int(np.asarray(tree["step"]))
+        bad = np.asarray(tree.get("bad_steps", 0), np.int32)
+        self._bad_steps.copy_(torch.from_numpy(bad.reshape(())))
+        if self.nan_policy == "skip_step":
+            # the host mirror follows the restored counter, so the next
+            # epoch reports only its own bad steps; the host policies keep
+            # theirs (a rollback's load must not erase the step that
+            # triggered it)
+            self.bad_steps = int(bad)
         self._epoch = int(extra.get("epoch", self._epoch))
         self._load_generators(tree.get(_GENERATORS))
         # fresh masks: rows diverge from the restored generation only once
@@ -1017,6 +1413,30 @@ def _maybe_select_cols(data: Any, feature_cols: Optional[Sequence[str]],
     return data
 
 
+def _batch_key(batch: Dict[str, Any], flat: Sequence[Any]) -> tuple:
+    """A batch's step key from its nesting and its leaves ``flat``:
+    their shapes and dtypes (what a new capture, or a JAX retrace, is
+    made for)."""
+    return (_structure(batch),
+            tuple((tuple(a.shape), str(a.dtype)) for a in flat))
+
+
+def _poison_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """``step.nan``: every float leaf of the batch NaN-filled, so the
+    non-finite value runs through the real forward and backward (loss and
+    gradients), the guard path a numerical blow-up takes; integer leaves
+    (token ids, labels) pass through.  Same shapes and dtypes, so the same
+    step graph."""
+    def nan_fill(a):
+        if isinstance(a, torch.Tensor):
+            return a * math.nan if a.is_floating_point() else a
+        a = np.asarray(a)
+        return (a * a.dtype.type(np.nan)
+                if np.issubdtype(a.dtype, np.floating) else a)
+
+    return tree_map(nan_fill, batch)
+
+
 def _structure(tree: Any) -> Any:
     """The nesting of a batch without its leaves: part of a graph's key."""
     if isinstance(tree, dict):
@@ -1096,7 +1516,7 @@ class _StepGraph:
         for gen in _generators(est):
             self.graph.register_generator_state(gen)
         try:
-            with _launches.recording(side) as self.launches:
+            with collector_held(), _launches.recording(side) as self.launches:
                 with torch.cuda.graph(self.graph, pool=est._pool,
                                       stream=side,
                                       capture_error_mode="thread_local"):

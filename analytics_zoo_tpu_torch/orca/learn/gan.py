@@ -147,10 +147,14 @@ class GANEstimator:
                            device=batch["x"].device)
 
     def _ensure_opt(self) -> None:
+        """Each side's optimizer state, its parameters named by their
+        paths in the JAX tree (LARS and LAMB exclude leaves by path)."""
         if self._g_opt is None:
-            self._g_opt = self.g_tx.init(self._g_params)
+            self._g_opt = self.g_tx.init(
+                self._g_params, [n.replace(".", "/") for n in self._g_names])
         if self._d_opt is None:
-            self._d_opt = self.d_tx.init(self._d_params)
+            self._d_opt = self.d_tx.init(
+                self._d_params, [n.replace(".", "/") for n in self._d_names])
 
     def _d_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         noise = self._noise(batch)

@@ -20,7 +20,10 @@ Learning rates are a float or a schedule (a callable of the update count,
 parameters' device, and a schedule maps that tensor to an f32 learning
 rate there: a step reads nothing from the device and writes no host
 state, so a CUDA graph of it replays (``estimator.py``) and the CPU runs
-the same formulation.  LARS and LAMB are not ported yet.
+the same formulation.  LARS and LAMB (the JAX package's own
+transformations, with its exclusion regexes and its update-count
+convention: the learning rate at the count after the increment, from 1)
+compute their per-leaf norms and trust ratios on the device too.
 
 Checkpoints hold the state in optax's layout, the tree the JAX package's
 ``tx.init`` gives for the same name and options (``Optimizer.optax_state``:
@@ -39,6 +42,7 @@ as torch would, so a load before any step has somewhere to go.
 from __future__ import annotations
 
 import math
+import re
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -394,11 +398,20 @@ class Optimizer:
     ``optax_state(params, state, layout)`` gives the state in optax's
     layout (see the module docstring)."""
 
-    def init(self, params: Tensors) -> Any:
+    def init(self, params: Tensors, names: Optional[Sequence[str]] = None
+             ) -> Any:
+        """The state over ``params``; ``names`` (their ``/``-joined paths
+        in the JAX tree) matter only to the rules that exclude leaves by
+        path (LARS, LAMB)."""
         raise NotImplementedError
 
     def step(self, params: Tensors, grads: Tensors, state: Any) -> Any:
         raise NotImplementedError
+
+    def materialize(self, params: Tensors, state: Any) -> None:
+        """Make any state the rule makes lazily at its first step (as
+        that step would make it), so every state tensor exists before
+        one."""
 
     def optax_state(self, params: Tensors, state: Any,
                     layout: Layout) -> Any:
@@ -416,7 +429,7 @@ class Transformed(Optimizer):
                  layout: Optional[Callable[[Any, Layout], Any]] = None):
         self.tx, self._layout = tx, layout
 
-    def init(self, params):
+    def init(self, params, names=None):
         return self.tx.init(params)
 
     def step(self, params, grads, state):
@@ -443,7 +456,7 @@ class TorchOptim(Optimizer):
         self.cls, self.learning_rate, self.options = \
             cls, learning_rate, options
 
-    def init(self, params):
+    def init(self, params, names=None):
         fused = all(p.is_cuda for p in params)
         lr = self.learning_rate
         if callable(lr):
@@ -470,23 +483,19 @@ class TorchOptim(Optimizer):
         state["count"].add_(1)
         return state
 
-    def optax_state(self, params, state, layout):
+    def materialize(self, params, state):
         optim = state["optim"]
         group = optim.param_groups[0]
-        sched = _schedule_state(self.learning_rate, state["count"])
         if self.cls is torch.optim.SGD:
-            if not group["momentum"]:
-                return ((), sched)  # optax.sgd: identity, then the lr
-            bufs = []
-            for p in params:
-                st = optim.state[p]
-                if st.get("momentum_buffer") is None:
-                    # torch's first step sets the buffer to the gradient,
-                    # as 0 * momentum + gradient does
-                    st["momentum_buffer"] = torch.zeros_like(
-                        p, memory_format=torch.preserve_format)
-                bufs.append(st["momentum_buffer"])
-            return ((layout(bufs),), sched)
+            if group["momentum"]:
+                for p in params:
+                    st = optim.state[p]
+                    if st.get("momentum_buffer") is None:
+                        # torch's first step sets the buffer to the
+                        # gradient, as 0 * momentum + gradient does
+                        st["momentum_buffer"] = torch.zeros_like(
+                            p, memory_format=torch.preserve_format)
+            return
         on_device = group["capturable"] or group["fused"]
         for p in params:  # torch.optim.Adam's lazy state, made now
             st = optim.state[p]
@@ -498,6 +507,17 @@ class TorchOptim(Optimizer):
                     p, memory_format=torch.preserve_format)
                 st["exp_avg_sq"] = torch.zeros_like(
                     p, memory_format=torch.preserve_format)
+
+    def optax_state(self, params, state, layout):
+        optim = state["optim"]
+        group = optim.param_groups[0]
+        sched = _schedule_state(self.learning_rate, state["count"])
+        self.materialize(params, state)
+        if self.cls is torch.optim.SGD:
+            if not group["momentum"]:
+                return ((), sched)  # optax.sgd: identity, then the lr
+            bufs = [optim.state[p]["momentum_buffer"] for p in params]
+            return ((layout(bufs),), sched)
         sts = [optim.state[p] for p in params]
         adam = (Tied([st["step"] for st in sts] + [state["count"]]),
                 layout([st["exp_avg"] for st in sts]),
@@ -514,12 +534,15 @@ class Clipped(Optimizer):
     def __init__(self, inner: Optimizer, max_norm: float):
         self.inner, self.clip = inner, clip_by_global_norm(max_norm)
 
-    def init(self, params):
-        return self.inner.init(params)
+    def init(self, params, names=None):
+        return self.inner.init(params, names)
 
     def step(self, params, grads, state):
         grads, _ = self.clip.update(grads, {}, None)
         return self.inner.step(params, grads, state)
+
+    def materialize(self, params, state):
+        self.inner.materialize(params, state)
 
     def optax_state(self, params, state, layout):
         # optax.chain(clip_by_global_norm, tx): the clip's state is empty
@@ -540,11 +563,14 @@ class Masked(Optimizer):
     def __init__(self, inner: Optimizer):
         self.inner = inner
 
-    def init(self, params):
-        return self.inner.init(params)
+    def init(self, params, names=None):
+        return self.inner.init(params, names)
 
     def step(self, params, grads, state):
         return self.inner.step(params, grads, state)
+
+    def materialize(self, params, state):
+        self.inner.materialize(params, state)
 
     def optax_state(self, params, state, layout):
         return ({"freeze": ((),),
@@ -604,6 +630,211 @@ def adagrad(learning_rate: Any, initial_accumulator_value: float = 0.1,
                              scale_by_learning_rate(learning_rate)), layout)
 
 
+# -- large-batch optimizers (LARS / LAMB) -------------------------------------
+#
+# The JAX package's own transformations (not optax's): a LAYERWISE trust
+# ratio rescales each parameter tensor's update by ||w|| / ||update||, and
+# the leaves whose path matches an exclusion regex (bias and normalization
+# parameters by default) get neither the ratio nor weight decay.  The
+# per-leaf norms are ``torch._foreach_norm`` over f32 copies, the ratios
+# ``torch.where`` on the device: nothing is read back, so a CUDA graph
+# captures the step.
+
+#: Parameter paths excluded from trust-ratio adaptation and weight decay:
+#: regexes searched against the "/"-joined param path.  Defaults cover
+#: nn/layers.py naming - Dense/Conv ``bias``, Layer/BatchNorm
+#: ``gamma``/``beta``.
+EXCLUDE_DEFAULT = (r"(^|/)bias$", r"(^|/)gamma$", r"(^|/)beta$")
+
+
+def _exclusion_flags(names: Sequence[str], exclude: Sequence[str]
+                     ) -> List[bool]:
+    """The JAX package's ``_exclusion_tree`` over leaves given by their
+    ``/``-joined paths (the port's optimizers take flat lists): True where
+    a path matches a regex of ``exclude``."""
+    pats = [re.compile(p) for p in (exclude or ())]
+    return [any(p.search(n) for p in pats) for n in names]
+
+
+def _trust_ratio(w_norm: torch.Tensor, u_norm: torch.Tensor,
+                 coefficient: float) -> torch.Tensor:
+    """``coefficient * ||w|| / ||u||``, 1 where either norm is 0 (a
+    zero-initialized tensor still gets its first update, and a zero update
+    gives no NaN)."""
+    ok = (w_norm > 0) & (u_norm > 0)
+    return torch.where(ok, coefficient * w_norm
+                       / torch.where(ok, u_norm, torch.ones_like(u_norm)),
+                       torch.ones_like(w_norm))
+
+
+def _lr_at(learning_rate: Any, count: torch.Tensor) -> Any:
+    """The learning rate at ``count`` (the count after this update's
+    increment): a schedule's f32 tensor, or the constant rounded to f32."""
+    return (learning_rate(count) if callable(learning_rate)
+            else _f32(learning_rate))
+
+
+def _apply_scaled(params: Tensors, steps: Tensors, lr: Any) -> None:
+    """``p += (-lr * step).astype(p.dtype)`` for each leaf."""
+    updates = torch._foreach_mul(steps, -lr)
+    for p, u in zip(params, updates):
+        p.add_(u if u.dtype == p.dtype else u.to(p.dtype))
+
+
+def _ratio_scale(idx: List[int], ws: Tensors, us: Tensors,
+                 coefficient: float, eps: float = 0.0) -> None:
+    """Scale ``us[i]`` in place by the trust ratio of ``ws[i]`` for each
+    ``i`` of ``idx`` (``||u|| + eps`` in the denominator)."""
+    if not idx:
+        return
+    wn = torch._foreach_norm([ws[i] for i in idx])
+    un = torch._foreach_norm([us[i] for i in idx])
+    if eps:
+        un = torch._foreach_add(un, eps)
+    ratios = [_trust_ratio(w, u, coefficient) for w, u in zip(wn, un)]
+    torch._foreach_mul_([us[i] for i in idx], ratios)
+
+
+class Layerwise(Optimizer):
+    """LARS or LAMB over a list of parameters, in the JAX package's state
+    layout: ``{"momentum", "count"}`` (LARS) or ``{"mu", "nu", "count"}``
+    (LAMB), the moments f32 and shaped like the parameters, the count an
+    int32 tensor.  ``init``'s ``names`` decide the excluded leaves; it
+    refuses to run without them (indices match no regex, so every bias and
+    norm scale would be decayed and adapted where the JAX rule excludes
+    them)."""
+
+    def __init__(self, kind: str, learning_rate: Any,
+                 exclude: Sequence[str], **hyper: Any):
+        self.kind, self.learning_rate = kind, learning_rate
+        self.exclude, self.hyper = tuple(exclude or ()), hyper
+
+    def init(self, params, names=None):
+        if names is None or len(names) != len(params):
+            raise ValueError(
+                f"{self.kind}: init needs the /-joined path of each of the "
+                f"{len(params)} parameters (the excluded leaves are found "
+                f"by path), got {None if names is None else len(names)}")
+        zeros = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        state = {"count": _new_count(params),
+                 "excluded": tuple(_exclusion_flags(names, self.exclude))}
+        if self.kind == "lars":
+            state["momentum"] = zeros
+        else:
+            state["mu"] = zeros
+            state["nu"] = [torch.zeros_like(z) for z in zeros]
+        return state
+
+    def step(self, params, grads, state):
+        h = self.hyper
+        count = state["count"]
+        count.add_(1)
+        lr = _lr_at(self.learning_rate, count)
+        adapt = [i for i, e in enumerate(state["excluded"]) if not e]
+        gs = [g.float() for g in grads]
+        ws = [p.float() for p in params]
+        if self.kind == "lars":
+            if adapt:
+                decayed = torch._foreach_add([gs[i] for i in adapt],
+                                             [ws[i] for i in adapt],
+                                             alpha=h["weight_decay"])
+                for i, g in zip(adapt, decayed):
+                    gs[i] = g
+                _ratio_scale(adapt, ws, gs, h["trust_coefficient"],
+                             h["eps"])
+            m = state["momentum"]
+            torch._foreach_mul_(m, h["momentum"])
+            torch._foreach_add_(m, gs)
+            if h["nesterov"]:
+                steps = torch._foreach_mul(m, h["momentum"])
+                torch._foreach_add_(steps, gs)
+            else:
+                steps = m
+            _apply_scaled(params, steps, lr)
+            return state
+        b1, b2 = h["b1"], h["b2"]
+        c = count.float()
+        bc1 = 1.0 - torch.pow(_f32(b1), c)
+        bc2 = 1.0 - torch.pow(_f32(b2), c)
+        mu, nu = state["mu"], state["nu"]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, gs, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, gs, gs, value=1.0 - b2)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, h["eps"])
+        us = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(us, den)
+        if adapt:
+            torch._foreach_add_([us[i] for i in adapt],
+                                [ws[i] for i in adapt],
+                                alpha=h["weight_decay"])
+            _ratio_scale(adapt, ws, us, h["trust_coefficient"])
+        _apply_scaled(params, us, lr)
+        return state
+
+    def optax_state(self, params, state, layout):
+        if self.kind == "lars":
+            return {"momentum": layout(state["momentum"]),
+                    "count": state["count"]}
+        return {"mu": layout(state["mu"]), "nu": layout(state["nu"]),
+                "count": state["count"]}
+
+
+def lars(learning_rate: Any, momentum: float = 0.9,
+         weight_decay: float = 1e-4, trust_coefficient: float = 0.001,
+         eps: float = 1e-9, nesterov: bool = False,
+         exclude: Sequence[str] = EXCLUDE_DEFAULT) -> Optimizer:
+    """Layer-wise Adaptive Rate Scaling (You et al. 2017): SGD with
+    momentum whose per-layer step is ``trust_coefficient * ||w|| / (||g +
+    wd*w|| + eps)``; excluded leaves get plain momentum SGD."""
+    return Layerwise("lars", learning_rate, exclude, momentum=momentum,
+                     weight_decay=weight_decay,
+                     trust_coefficient=trust_coefficient, eps=eps,
+                     nesterov=nesterov)
+
+
+def lamb(learning_rate: Any, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-6, weight_decay: float = 0.01,
+         trust_coefficient: float = 1.0,
+         exclude: Sequence[str] = EXCLUDE_DEFAULT) -> Optimizer:
+    """LAMB (You et al. 2019): Adam's moments, decoupled weight decay and a
+    per-layer trust ratio ``||w|| / ||m/(sqrt(v)+eps) + wd*w||``; excluded
+    leaves skip the ratio and the decay (plain Adam)."""
+    return Layerwise("lamb", learning_rate, exclude, b1=b1, b2=b2, eps=eps,
+                     weight_decay=weight_decay,
+                     trust_coefficient=trust_coefficient)
+
+
+def state_tensors(state: Any) -> Tensors:
+    """Every tensor an optimizer's state holds, each once, in a fixed
+    order: the update counts and moments of the written-out rules and the
+    per-parameter state of a ``torch.optim`` optimizer.  What a step that
+    must be undone (``nan_policy="skip_step"``) keeps a copy of."""
+    out: Tensors = []
+    seen = set()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            if id(x) not in seen:
+                seen.add(id(x))
+                out.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, torch.optim.Optimizer):
+            for group in x.param_groups:
+                for p in group["params"]:
+                    walk(x.state.get(p, {}))
+
+    walk(state)
+    return out
+
+
 _FACTORIES = {
     "sgd": lambda lr, **kw: sgd(lr, **kw),
     "momentum": lambda lr, **kw: sgd(lr, momentum=kw.pop("momentum", 0.9),
@@ -612,8 +843,9 @@ _FACTORIES = {
     "adamw": lambda lr, **kw: adamw(lr, **kw),
     "rmsprop": lambda lr, **kw: rmsprop(lr, **kw),
     "adagrad": lambda lr, **kw: adagrad(lr, **kw),
+    "lamb": lambda lr, **kw: lamb(lr, **kw),
+    "lars": lambda lr, **kw: lars(lr, **kw),
 }
-_NOT_PORTED = ("lamb", "lars")
 
 
 def get(optimizer: Any, learning_rate: Optional[Any] = None,
@@ -628,10 +860,6 @@ def get(optimizer: Any, learning_rate: Optional[Any] = None,
     learning_rate = resolve_learning_rate(learning_rate)
     if isinstance(optimizer, str):
         name = optimizer.lower()
-        if name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"optimizer {optimizer!r} is not ported yet (ROADMAP "
-                f"Queue 1 item 14); ported: {sorted(_FACTORIES)}")
         if name not in _FACTORIES:
             raise ValueError(f"unknown optimizer {optimizer!r}; known: "
                              f"{sorted(_FACTORIES)}")

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import DeviceLike, resolve_device
+from .. import DeviceLike, collector_held, resolve_device
 from ..convert import buffer_names, from_jax_variables, to_jax_variables
 from ..nn import quant
 from ..ops import _build, _launches
@@ -178,7 +178,7 @@ class _Graph:
             im._forward(self.static_in)  # kernels built, workspaces made
         capture.synchronize()
         self.graph = torch.cuda.CUDAGraph()
-        with _launches.recording(capture) as self.launches:
+        with collector_held(), _launches.recording(capture) as self.launches:
             with torch.cuda.graph(self.graph, pool=im._pool, stream=capture,
                                   capture_error_mode="thread_local"):
                 self.static_out = im._forward(self.static_in)

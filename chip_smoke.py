@@ -42,7 +42,10 @@ JSON line:
    same input twice gives identical bits; then their times at the stem's
    shape, the one 11 of the 53 norms see (25,088 x 256) and the last
    stage's beside the bound, the plain version and
-   ``F.batch_norm(training=True)`` on the same channels_last map.
+   ``F.batch_norm(training=True)`` on the same channels_last map; and the
+   f32 kernels' device time at the foreign phase's 10 other maps beside
+   ``F.batch_norm`` over the same ``[rows, C]`` map and the bound
+   (``foreign_f32_timings``).
 3. ``bert_serve``: BERT-base (``BERTClassifier``, width 768, 12 layers, 12
    heads, seq 512, ``use_flash=True``) with random weights made from a seed
    in the JAX tree layout, served through ``InferenceModel`` in bf16:
@@ -180,9 +183,11 @@ JSON line:
    then its tail in ``InferenceModel`` behind ``CachedEmbeddingModel`` and
    ``ClusterServing`` with the fitted ``FeaturePipeline``, 4 closed-loop
    clients for 2.5 s over a zipf(1.5) trace of 20 candidates: requests/s,
-   p99, the cache hit rate and the gather-bytes ratio (4 or more, as
-   bench.py's bar); every reply equal to the eager adapter's ranking of
-   its row.
+   p99, the cache hit rate and the gather-bytes ratio; every reply equal
+   to the eager adapter's ranking of its row.  The rows gathered must be
+   exactly the unique ids of the batches the server formed, and the trace
+   replayed in the server's full batches of 8 must save 4x or more
+   (bench.py's bar) on a batching the host's pace cannot change.
 10. ``state_plane``: checkpoints, triggers, async and delta generations,
    preemption and resume, and the saved-model loaders.  (a) bench.py's
    ``bench_checkpoint`` uncut (a ShardedEmbedding ``NeuralCF(20000,
@@ -293,7 +298,34 @@ JSON line:
    graphs against eager (equal bits); timed and profiled D and G windows
    (6 and 4 launches a step each way); ``generate(64)`` finite in [-1,
    1].
-14. ``devices``: the card as ``nvidia-smi`` reports it.
+14. ``train_knobs``: the Estimator's single-device knobs.  (a) bench.py's
+   MLM recipe (BERT-base, the 30,522 head through ``fused_softmax_xent``,
+   ``grad_accum=8`` x 4 x 512, bf16, dropout 0) with flash attention in
+   every block, under ``optimizer="lamb"`` and ``nan_policy="skip_step"``:
+   a 4-step fit eagerly, then from CUDA graphs (step losses against the
+   eager ones, bad_steps 0, one capture), then windows of 10 replays with
+   the guard and with no policy, in turns (the guard's ms a step); the
+   flash (bf16) and cross-entropy (bf16) launches of the captured runs.
+   (b) resnet_train's ResNet-50 (``norm="batch"``, bf16, batch 128 x 224,
+   float images) under ``optimizer="lars"`` and ``skip_step`` from CUDA
+   graphs, cuDNN deterministic, with ``step.nan`` armed once at step 2 of
+   4: bad_steps 1, one capture, and parameters, running statistics and
+   LARS state equal, bit for bit, a run with no policy on the same batches
+   without the poisoned one; windows of 10 replays of both in turns (the
+   guard's ms a step); 53 launches of each batch-norm kernel a step.  (c) the
+   six bf16 kernel entries of this path (flash forward and backward,
+   batch norm forward and backward, cross-entropy forward and backward)
+   on an input with one NaN against their plain versions: the same
+   non-finite positions in every output.  (d) (b)'s model under
+   ``nan_policy="rollback"`` with an every-epoch checkpoint: right after
+   the rollback the state equals a fresh load of the checkpoint bit for
+   bit, the fit ends finite; under ``"raise"``, ``NonFiniteLossError``
+   and a flight record in ``model_dir``.  (e) ``profile=`` (a trace
+   window over steps [2, 4), flops_per_sample, the bf16 peak) and
+   ``log_dir``: the Chrome trace holds 53 of each batch-norm kernel a
+   replayed step, ``train.compiles`` 1, ``train.mfu`` set, every summary
+   tag written.
+15. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Then the script's seconds, a ``kernels`` line (one entry per kernel and
 path) and, last,
@@ -2674,12 +2706,45 @@ def phase_fused_bn(bn) -> dict:
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "device_share_of_bound": bound_ms / dev_ms})
             del lib_in, lib_out, x, dy, x4, dy4, y
+    # the foreign path's f32 maps: device time of each direction against
+    # F.batch_norm over the same [rows, C] map (training mode) and its
+    # autograd.grad, beside the bound
+    foreign_timings = []
+    for rows, c in foreign_shapes:
+        x, g, b, dy, dm, dv = bn_inputs(gen, rows, c, torch.float32)
+        m, v = bn.bn_train_fwd(x, g, b, eps)[1:]
+        lib_in = x.detach().requires_grad_()
+        lib_w, lib_b = (t.detach().requires_grad_() for t in (g, b))
+        run_m, run_v = torch.zeros(c, device="cuda"), \
+            torch.ones(c, device="cuda")
+        lib_out = torch.nn.functional.batch_norm(
+            lib_in, run_m, run_v, lib_w, lib_b, training=True,
+            momentum=0.01, eps=eps)
+        row = {"rows": rows, "c": c, "norms": foreign[(rows, c)]}
+        for direction, kernel, library in (
+                ("fwd", lambda: bn.bn_train_fwd(x, g, b, eps),
+                 lambda: torch.nn.functional.batch_norm(
+                     x, run_m, run_v, g, b, training=True, momentum=0.01,
+                     eps=eps)),
+                ("bwd", lambda: bn.bn_train_bwd(x, g, m, v, dy, dm, dv, eps),
+                 lambda: torch.autograd.grad(
+                     lib_out, (lib_in, lib_w, lib_b), dy,
+                     retain_graph=True))):
+            bound_ms, bound_by = bn_bound(rows, c, 4, direction)
+            row[direction] = {
+                "device_ms": device_ms(kernel, iters=10),
+                "library_device_ms": device_ms(library, iters=10),
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        foreign_timings.append(row)
+        del x, dy, lib_in, lib_out
     res = {"phase": "fused_bn", "cases": len(cases),
            "resnet50_shapes_batch128": shapes,
            "resnet50_norms_by_shape": [[*k, n] for k, n in counts.items()],
            "foreign_f32_norms_by_shape": [[*k, n]
                                           for k, n in foreign.items()],
            "foreign_f32_shapes_checked": foreign_shapes,
+           "foreign_f32_timings": foreign_timings,
+           "card": nvidia_smi(),
            "edge_shapes": BN_EDGE,
            "worst": worst,
            "tolerances": {"f32_rel_to_max1": TOL_BN_F32,
@@ -3193,19 +3258,25 @@ class MlmEncoder(torch.nn.Module):
     ``dtype``, ``layers`` post-LN ``TransformerLayer``s with
     ``remat_attention=True``, then the vocab head: applied (``fused=False``,
     logits for ``sparse_categorical_crossentropy``) or handed to the loss as
-    ``(h, head.kernel, head.bias)`` for ``fused_softmax_xent``."""
+    ``(h, head.kernel, head.bias)`` for ``fused_softmax_xent``.
+    ``flash=True`` puts the flash-attention kernels in the blocks' attention
+    (no remat: the flash core keeps no attention map); ``cfg`` and ``seq``
+    (``MLM``'s and ``SEQ`` by default) size it."""
 
-    def __init__(self, layers, dtype, fused):
+    def __init__(self, layers, dtype, fused, flash=False, cfg=None,
+                 seq=SEQ):
         super().__init__()
         from analytics_zoo_tpu_torch import nn as tnn
-        d, v = MLM["d_model"], MLM["vocab"]
+        cfg = cfg or MLM
+        d, v = cfg["d_model"], cfg["vocab"]
         self.dtype, self.fused = dtype, fused
         self.tok = tnn.Embedding(v, d)
-        self.pos = torch.nn.Parameter(torch.empty(1, SEQ, d))
+        self.pos = torch.nn.Parameter(torch.empty(1, seq, d))
         self.blocks = [f"block{i}" for i in range(layers)]
         for name in self.blocks:
             self.add_module(name, tnn.TransformerLayer(
-                d, MLM["heads"], remat_attention=True))
+                d, cfg["heads"], use_flash=flash,
+                remat_attention=not flash))
         self.head = tnn.Dense(d, v)
 
     def forward(self, ids):
@@ -3217,7 +3288,7 @@ class MlmEncoder(torch.nn.Module):
         return self.head(x)
 
 
-def mlm_loss(fused):
+def mlm_loss(fused, chunk=MLM_CHUNK):
     """The recipe's loss: per-token sparse cross-entropy on the logits, or
     the same function through ``fused_softmax_xent`` (a loss callable)."""
     if not fused:
@@ -3225,7 +3296,7 @@ def mlm_loss(fused):
     from analytics_zoo_tpu_torch.ops import fused_softmax_xent
 
     def loss(out, y):
-        return fused_softmax_xent(out[0], out[1], y, MLM_CHUNK, bias=out[2])
+        return fused_softmax_xent(out[0], out[1], y, chunk, bias=out[2])
 
     return loss
 
@@ -3558,6 +3629,7 @@ RECSYS_TRACE = 512                   # zipf(1.5) requests, cycled
 RECSYS_CLIENTS = 4
 RECSYS_SECONDS = 2.5
 RECSYS_MIN_GATHER_RATIO = 4.0        # bench_recsys: naive / deduped bytes
+RECSYS_BATCH = 8                     # the server's batch size
 
 
 def record_losses(est) -> list:
@@ -3673,6 +3745,21 @@ def phase_ncf_train() -> dict:
     return res
 
 
+def dedup_rows(x: np.ndarray, columns) -> list:
+    """(deduped, naive) rows of each table for one served batch ``x`` of
+    ``[user | k items]`` rows, as ``CachedEmbeddingModel.predict`` looks
+    them up: a user column repeats each user k times."""
+    x = np.asarray(x, np.int64)
+    k = x.shape[1] - 1
+    out = []
+    for _, which in columns:
+        ids = np.repeat(x[:, 0], k) if which == "user" else x[:, 1:]
+        ids = ids.reshape(-1)
+        ids = ids[ids >= 0]
+        out.append((int(np.unique(ids).size), int(ids.size)))
+    return out
+
+
 def _zipf_trace(rng, n_users, n_items) -> np.ndarray:
     """bench_recsys's request trace: a zipf(1.5) user and RECSYS_K zipf
     items a request, as raw string events."""
@@ -3718,7 +3805,17 @@ def phase_recsys() -> dict:
     inference_workers=2)`` with the fitted ``FeaturePipeline``: 4
     closed-loop clients for 2.5 s over a zipf(1.5) trace of k = 20
     candidates.  Every reply must equal the eager adapter's ranking of
-    its row (the tail served eagerly, no cache)."""
+    its row (the tail served eagerly, no cache).
+
+    The dedup is held on two counts.  The rows gathered in the window
+    must equal, exactly, the unique ids of each table in each batch the
+    server formed (recorded as the adapter receives them).  The window's
+    naive / deduped ratio is reported only: it is set by how many
+    requests the 2 ms batch window groups (3.65 at one a batch, 4.47 at
+    two, over this trace), which the host's pace decides.  The 4x bar
+    (bench.py's) holds on the same trace replayed in the server's full
+    batches of 8 through an uncached adapter, whose rankings must equal
+    the eager ones too."""
     import pandas as pd
 
     from analytics_zoo_tpu_torch.core import metrics as metrics_lib
@@ -3732,6 +3829,11 @@ def phase_recsys() -> dict:
                                                  OutputQueue)
 
     t_phase = time.perf_counter()
+    # what else runs on the host: its pace sets how many requests the 2 ms
+    # window groups into a batch, and so the window's gather ratio
+    host = {"threads_at_start": sorted(t.name for t in threading.enumerate()
+                                       if t is not threading.main_thread()),
+            "loadavg_1m_at_start": os.getloadavg()[0]}
     n_rows, n_users, n_items = RECSYS_EVENTS
     rng = np.random.default_rng(SEED)
     df = pd.DataFrame({
@@ -3790,8 +3892,16 @@ def phase_recsys() -> dict:
                                   dtype=np.int64)
     trace = _zipf_trace(rng, n_users, n_items)
     lat, replies, errors = [], [], []
+    served = []            # each batch as the server hands it over
+    serve_batch = adapter.predict
+
+    def recording(x):
+        served.append(np.array(x, copy=True))
+        return serve_batch(x)
+
+    adapter.predict = recording
     with ClusterServing(models={"recsys": adapter},
-                        pipelines={"recsys": tf}, batch_size=8,
+                        pipelines={"recsys": tf}, batch_size=RECSYS_BATCH,
                         batch_timeout_ms=2, inference_workers=2) as srv:
         barrier = threading.Barrier(RECSYS_CLIENTS + 1)
 
@@ -3823,10 +3933,11 @@ def phase_recsys() -> dict:
             t.start()
         deadline = time.monotonic() + RECSYS_SECONDS
         barrier.wait()
-        t0 = time.monotonic()
+        t0, cpu0 = time.monotonic(), time.process_time()
         for t in threads:
             t.join(timeout=120)
         wall = time.monotonic() - t0
+        host["process_cpu_s_per_s"] = (time.process_time() - cpu0) / wall
         st = srv.stats()
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"recsys: {errors[:3] or 'a client hung'}")
@@ -3842,10 +3953,36 @@ def phase_recsys() -> dict:
                              f"ranking (rows {wrong[:5]})")
     ratio = (snap["embed.gather_bytes_naive"]
              / max(1, snap["embed.gather_bytes"]))
-    if ratio < RECSYS_MIN_GATHER_RATIO:
-        raise AssertionError(f"recsys: gather-bytes ratio {ratio:.3f} < "
-                             f"{RECSYS_MIN_GATHER_RATIO} (bench.py's bar): "
-                             f"the dedup saves less than it should")
+    cols = est.model.embedding_columns()
+    want_rows = [0, 0]     # deduped, naive
+    for x in served:
+        for part in dedup_rows(x, cols):
+            want_rows[0] += part[0]
+            want_rows[1] += part[1]
+    got_rows = [snap["embed.gather_rows"], snap["embed.gather_rows_naive"]]
+    if got_rows != want_rows or sum(len(x) for x in served) != len(lat):
+        raise AssertionError(f"recsys: rows gathered (deduped, naive) "
+                             f"{got_rows}, the served batches' unique ids "
+                             f"give {want_rows}; {len(served)} batches of "
+                             f"{sum(len(x) for x in served)} rows for "
+                             f"{len(lat)} requests")
+    replay_reg = metrics_lib.MetricsRegistry()
+    replay = CachedEmbeddingModel(tab, cols, eager_im, metrics=replay_reg)
+    rows = tf(trace)
+    ranked = np.concatenate([replay.predict(rows[i:i + RECSYS_BATCH])
+                             for i in range(0, len(rows), RECSYS_BATCH)])
+    rsnap = replay_reg.snapshot()
+    full_ratio = (rsnap["embed.gather_bytes_naive"]
+                  / max(1, rsnap["embed.gather_bytes"]))
+    if not np.array_equal(ranked, want):
+        raise AssertionError("recsys: the replay in batches of "
+                             f"{RECSYS_BATCH} ranks differently from the "
+                             "eager adapter")
+    if full_ratio < RECSYS_MIN_GATHER_RATIO:
+        raise AssertionError(f"recsys: gather-bytes ratio {full_ratio:.3f} "
+                             f"over the trace in batches of {RECSYS_BATCH} "
+                             f"< {RECSYS_MIN_GATHER_RATIO} (bench.py's "
+                             f"bar): the dedup saves less than it should")
     res = {"phase": "recsys", "rows_after_negative_sampling": len(xy[1]),
            "feature_pipeline_s": feat_s,
            "table_rows": {"user": user_idx.size, "item": item_idx.size},
@@ -3857,8 +3994,11 @@ def phase_recsys() -> dict:
            "candidates_per_request": RECSYS_K,
            "cache_hit_rate": hits / max(1, hits + misses),
            "gather_bytes_ratio": ratio,
+           "served_batches": len(served),
+           "served_mean_batch": len(lat) / max(1, len(served)),
+           "gather_bytes_ratio_full_batches": full_ratio,
            "replies_equal_eager": len(replies),
-           "tail_compile_count": im.compile_count,
+           "tail_compile_count": im.compile_count, "host": host,
            "seconds": time.perf_counter() - t_phase}
     res.pop("tokens_per_s")
     emit(res)
@@ -6354,6 +6494,520 @@ def phase_foreign(bn, sizes=None) -> dict:
     emit(res)
     return res
 
+# -- train_knobs -----------------------------------------------------------------
+
+# the Estimator's single-device knobs on the card (see the module docstring)
+KNOBS_MLM_STEPS = 4      # (a): fit steps over distinct batches, eager and captured
+KNOBS_WINDOW = 10        # (a): replays a timed window, with and without the guard
+KNOBS_RESNET_STEPS = 4   # (b): batches of the poisoned fit
+KNOBS_POISON = 2         # (b): the step step.nan poisons (from 0)
+KNOBS_LARS_LR = 0.1
+KNOBS_TRACE = (2, 4)     # (e): the profiler's window of steps [start, end)
+KNOBS_SCALARS = ("loss", "throughput", "samples_per_sec", "step_time_ms",
+                 "data_wait_ms", "compute_ms", "bad_steps")
+
+
+class TrainKnobsSizes:
+    """The phase's shapes: the card's by default; the CPU rehearsal (tests)
+    shrinks them."""
+
+    def __init__(self, device="cuda", **kw):
+        self.device = device
+        self.mlm, self.seq = dict(MLM), SEQ
+        self.micro, self.accum, self.chunk = MLM_MICRO, MLM_ACCUM, MLM_CHUNK
+        self.mlm_steps, self.window = KNOBS_MLM_STEPS, KNOBS_WINDOW
+        self.resnet = dict(RESNET, norm="batch", dtype="bfloat16")
+        self.image, self.batch = IMAGE, RESNET_BATCH
+        self.resnet_steps, self.poison = KNOBS_RESNET_STEPS, KNOBS_POISON
+        self.bn_norms = RESNET_BN
+        self.bn_map = (RESNET_BATCH * 56 * 56, 64)  # rows, C: stage 0's
+        self.__dict__.update(kw)
+
+
+def kn_counts(fa, bn, fx) -> dict:
+    """The launches of the kernels line's twelve entries since
+    ``autots_reset_counts``, by entry: the flash forward by source, its
+    backward by dtype (f32: the wgmma_tf32 design; bf16: the others at
+    d <= 64), the batch norm and the cross-entropy passes by dtype."""
+    bwd_f32 = fa.BWD_LAUNCHES["wgmma_tf32"]
+    counts = {"flash_attention_fwd_bf16": fa.KERNEL_LAUNCHES[BF16_KERNEL],
+              "flash_attention_fwd_f32": fa.KERNEL_LAUNCHES[F32_KERNEL],
+              "flash_attention_bwd_bf16":
+                  fa.KERNEL_LAUNCHES[BWD_KERNEL] - bwd_f32,
+              "flash_attention_bwd_f32": bwd_f32}
+    counts.update({f"{BN_KERNEL}_{k}": v
+                   for k, v in bn.KERNEL_LAUNCHES.items()})
+    counts.update({f"{XENT_KERNEL}_{k}": v
+                   for k, v in fx.KERNEL_LAUNCHES.items()})
+    return counts
+
+
+def kn_expect(fa, bn, fx, sizes, what: str, **want: int) -> dict:
+    """The counts since the reset: ``want``'s entries as given, every
+    other 0 (on the card; the CPU launches nothing)."""
+    got = kn_counts(fa, bn, fx)
+    if sizes.device == "cuda":
+        full = {k: want.get(k, 0) for k in got}
+        if got != full:
+            raise AssertionError(f"train_knobs {what}: launches {got}; "
+                                 f"want {full}")
+    return got
+
+
+def kn_window(sizes, fn, steps: int) -> float:
+    """ms a step of ``fn()`` (``steps`` steps), synchronised at its ends."""
+    sp_sync(sizes)
+    t0 = time.perf_counter()
+    losses = fn()
+    float(losses[-1])
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def kn_mlm(fa, bn, fx, sizes) -> dict:
+    """train_knobs (a): bench.py's BERT-base MLM recipe (the fused head,
+    grad_accum 8 x 4 x 512, bf16) with flash attention, under LAMB and
+    nan_policy="skip_step": a fit over distinct batches eagerly, then from
+    CUDA graphs (its step losses against the eager ones, bad_steps 0, one
+    capture), then timed windows of replays with the guard and without it
+    (an estimator with no policy), in turns; the flash and cross-entropy
+    launches of the captured runs."""
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.data import as_feed
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    cfg, gbatch = sizes.mlm, sizes.micro * sizes.accum
+    layers = cfg["layers"]
+    state = from_jax_variables(random_bert_variables(MlmEncoder(
+        layers, torch.float32, True, flash=True, cfg=cfg, seq=sizes.seq),
+        SEED))
+    rng = np.random.default_rng(SEED + 21)
+    shape = (gbatch * sizes.mlm_steps, sizes.seq)
+    x = rng.integers(0, cfg["vocab"], shape).astype(np.int32)
+    y = rng.integers(0, cfg["vocab"], shape).astype(np.int32)
+
+    def make(policy, graphs=True):
+        m = MlmEncoder(layers, torch.bfloat16, True, flash=True, cfg=cfg,
+                       seq=sizes.seq)
+        m.load_state_dict(state, strict=True)
+        return Estimator.from_keras(
+            m, loss=mlm_loss(True, sizes.chunk), optimizer="lamb",
+            learning_rate=TRAIN_LR, seed=SEED, grad_accum=sizes.accum,
+            cuda_graphs=graphs, device=sizes.device, nan_policy=policy)
+
+    def fit(est):
+        losses = record_losses(est)
+        hist = est.fit((x, y), epochs=1, batch_size=gbatch, verbose=False)
+        return [float(v) for v in losses], hist
+
+    eager = make("skip_step", graphs=False)
+    eager_losses, _ = fit(eager)
+    del eager
+    sp_free(sizes)
+    autots_reset_counts(fa, bn, fx)
+    est = make("skip_step")
+    captured, hist = fit(est)
+    against = losses_against_eager(captured, eager_losses,
+                                   "train_knobs (a) lamb")
+    batch = next(as_feed((x, y), gbatch, seed=SEED).epoch(est.device, 0))
+    plain = make(None)
+    plain._train_step(batch)
+    ms = {"skip_step": [], "none": []}
+    w = sizes.window
+    for name, e in (("skip_step", est), ("none", plain), ("none", plain),
+                    ("skip_step", est)):
+        ms[name].append(kn_window(sizes, lambda: e._multi_step(batch, w), w))
+    steps = sizes.mlm_steps + 4 * w + 1
+    launches = kn_expect(
+        fa, bn, fx, sizes, "(a)",
+        flash_attention_fwd_bf16=layers * sizes.accum * steps,
+        flash_attention_bwd_bf16=layers * sizes.accum * steps,
+        **{f"{XENT_KERNEL}_{p}_bf16": sizes.accum * steps
+           for p in ("fwd", "dl", "dh", "dw")})
+    bad = int(est._bad_steps)
+    if bad or hist["bad_steps"] != [0] or est.bad_steps:
+        raise AssertionError(f"train_knobs (a): bad_steps {bad}, history "
+                             f"{hist['bad_steps']}")
+    caps = {"skip_step": captures(est, "train_knobs (a)"),
+            "none": captures(plain, "train_knobs (a) no policy")}
+    one = int(sizes.device == "cuda")  # the CPU captures nothing
+    if est.capture_count != one or plain.capture_count != one:
+        raise AssertionError(f"train_knobs (a): captures {caps}")
+    del est, plain
+    sp_free(sizes)
+    skip_ms = float(np.median(ms["skip_step"]))
+    none_ms = float(np.median(ms["none"]))
+    return {"config": dict(cfg, seq=sizes.seq), "flash": True,
+            "optimizer": "lamb", "learning_rate": TRAIN_LR,
+            "nan_policy": "skip_step", "global_batch": gbatch,
+            "grad_accum": sizes.accum, "micro_batch": sizes.micro,
+            "losses_against_eager": against, "epoch_loss": hist["loss"],
+            "bad_steps": bad, "window_step_ms": ms,
+            "step_ms": {"skip_step": skip_ms, "none": none_ms},
+            "guard_ms": skip_ms - none_ms, "captures": caps,
+            "steps_counted": steps, "launches": launches}
+
+
+def kn_resnet_data(sizes, steps: int, seed: int) -> tuple:
+    """Seeded float images (``step.nan`` poisons float leaves only) in
+    [0, 255] for TrainNet's normalisation, and labels."""
+    rng = np.random.default_rng(seed)
+    n = sizes.batch * steps
+    return (rng.uniform(0.0, 255.0, (n, sizes.image, sizes.image, 3)
+                        ).astype(np.float32),
+            rng.integers(0, sizes.resnet["class_num"], n).astype(np.int32))
+
+
+def kn_resnet_maker(sizes):
+    """A factory of resnet_train's ResNet-50 (norm="batch", bf16) under
+    LARS from one seeded init, and an unshuffled feed of given rows."""
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.data import DataFeed
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    init = from_jax_variables(random_resnet_variables(
+        TrainNet(**sizes.resnet), SEED))
+
+    def make(**kw):
+        m = TrainNet(**sizes.resnet)
+        m.load_state_dict(init, strict=True)
+        return Estimator.from_keras(
+            m, loss="sparse_categorical_crossentropy", optimizer="lars",
+            learning_rate=KNOBS_LARS_LR, seed=SEED, device=sizes.device,
+            **kw)
+
+    def feed(x, y):
+        return DataFeed({"x": x, "y": y}, sizes.batch, shuffle=False,
+                        seed=SEED)
+
+    return make, feed
+
+
+def kn_state(est) -> dict:
+    """Parameters, buffers and the optimizer's state (optax's layout)."""
+    tree = est._save_tree()
+    return {k: tree[k] for k in ("params", "state", "opt_state")}
+
+
+def kn_resnet(fa, bn, fx, sizes) -> dict:
+    """train_knobs (b): ResNet-50 (norm="batch", bf16) under LARS and
+    nan_policy="skip_step" from CUDA graphs (cuDNN deterministic), with
+    step.nan armed once at step ``poison``: bad_steps 1, one capture (the
+    poisoned step a replay like the others), and the parameters, running
+    statistics and LARS state equal, bit for bit, a second run (no
+    policy) on the same batches with the poisoned one left out; then
+    windows of replays of both in turns (the guard's ms a step); 53
+    launches of each batch-norm kernel a step."""
+    from analytics_zoo_tpu_torch.core import faults
+
+    torch.backends.cudnn.deterministic = True
+    make, feed = kn_resnet_maker(sizes)
+    x, y = kn_resnet_data(sizes, sizes.resnet_steps, SEED + 22)
+    b = sizes.batch
+    keep = np.r_[0:sizes.poison * b, (sizes.poison + 1) * b:len(y)]
+    reg = faults.get_registry()
+    autots_reset_counts(fa, bn, fx)
+    fired = reg.fired("step.nan")
+    poisoned = make(nan_policy="skip_step")
+    losses = record_losses(poisoned)
+    with reg.armed("step.nan", times=1, after=sizes.poison):
+        hist = poisoned.fit(feed(x, y), epochs=1, batch_size=b,
+                            verbose=False)
+    step_losses = [float(v) for v in losses]
+    if reg.fired("step.nan") - fired != 1:
+        raise AssertionError("train_knobs (b): step.nan did not fire once")
+    clean = make()  # no policy: the guard's yardstick too
+    clean_hist = clean.fit(feed(x[keep], y[keep]), epochs=1, batch_size=b,
+                           verbose=False)
+    bad = int(poisoned._bad_steps)
+    if (bad != 1 or poisoned.bad_steps != 1 or hist["bad_steps"] != [1]
+            or clean.bad_steps != 0):
+        raise AssertionError(f"train_knobs (b): bad_steps {bad} "
+                             f"({hist['bad_steps']}), clean "
+                             f"{clean.bad_steps}")
+    if math.isfinite(step_losses[sizes.poison]) or not all(
+            math.isfinite(v) for i, v in enumerate(step_losses)
+            if i != sizes.poison) or not math.isfinite(hist["loss"][0]):
+        raise AssertionError(f"train_knobs (b): step losses {step_losses}")
+    caps = captures(poisoned, "train_knobs (b)")
+    if poisoned.capture_count != int(sizes.device == "cuda"):
+        raise AssertionError(f"train_knobs (b): {caps} (the poisoned step "
+                             f"captured anew)")
+    leaves = sp_tree_equal(kn_state(poisoned), kn_state(clean),
+                           "train_knobs (b) poisoned vs without the batch")
+    batch = next(feed(x, y).epoch(poisoned.device, 0))
+    ms = {"skip_step": [], "none": []}
+    w = sizes.window
+    for name, e in (("skip_step", poisoned), ("none", clean),
+                    ("none", clean), ("skip_step", poisoned)):
+        ms[name].append(kn_window(sizes, lambda: e._multi_step(batch, w), w))
+    steps = 2 * sizes.resnet_steps - 1 + 4 * w
+    launches = kn_expect(fa, bn, fx, sizes, "(b)",
+                         **{f"{BN_KERNEL}_{d}_bf16": sizes.bn_norms * steps
+                            for d in ("fwd", "bwd")})
+    del poisoned, clean
+    sp_free(sizes)
+    return {"config": sizes.resnet, "optimizer": "lars",
+            "learning_rate": KNOBS_LARS_LR, "batch": b,
+            "steps": sizes.resnet_steps, "poisoned_step": sizes.poison,
+            "step_losses": step_losses, "epoch_loss": hist["loss"],
+            "epoch_loss_without_the_batch": clean_hist["loss"],
+            "bad_steps": bad, "captures": caps,
+            "leaves_equal_bit_for_bit": leaves, "window_step_ms": ms,
+            "step_ms": {k: float(np.median(v)) for k, v in ms.items()},
+            "guard_ms": float(np.median(ms["skip_step"])
+                              - np.median(ms["none"])),
+            "steps_counted": steps, "launches": launches}
+
+
+def kn_same_nonfinite(got, want, what: str) -> dict:
+    """The kernel's outputs against the plain version's on an input with a
+    NaN: the same set of non-finite positions in every output (and some in
+    each)."""
+    counts = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        gb = ~torch.isfinite(g.float())
+        wb = ~torch.isfinite(w.float())
+        if not wb.any():
+            raise AssertionError(f"train_knobs (c) {what}: output {i} of the "
+                                 f"plain version kept no NaN")
+        if not torch.equal(gb, wb):
+            raise AssertionError(
+                f"train_knobs (c) {what}: output {i} has {int(gb.sum())} "
+                f"non-finite values, the plain version {int(wb.sum())}; "
+                f"{int((gb ^ wb).sum())} positions differ")
+        counts.append([int(wb.sum()), wb.numel()])
+    return {"nonfinite_of_size": counts}
+
+
+def kn_nan(fa, bn, fx, sizes) -> dict:
+    """train_knobs (c): each of the six bf16 kernel entries of this path
+    on an input with one NaN against its plain version on the same input,
+    at the path's shapes: the flash forward and backward (a NaN row of q),
+    the batch-norm forward (a NaN in x) and backward (a NaN in dy), the
+    cross-entropy forward and backward (a NaN row of h)."""
+    dev = sizes.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    bf = torch.bfloat16
+    cfg = sizes.mlm
+    bh, t = sizes.micro * cfg["heads"], sizes.seq
+    d = cfg["d_model"] // cfg["heads"]
+    q, k, v, dout = (torch.randn(bh, t, d, generator=gen, device=dev
+                                 ).to(bf) for _ in range(4))
+    q[bh // 2, t // 3] = float("nan")
+    res = {"shapes": {"flash": [bh, t, d], "bn": list(sizes.bn_map),
+                      "xent": [sizes.micro * t, cfg["d_model"],
+                               cfg["vocab"]]}}
+    out_k, lse_k = fa.flash_attention_fwd(q, k, v)
+    out_r, lse_r = fa.flash_attention_fwd_reference(q, k, v)
+    res["flash_fwd"] = kn_same_nonfinite((out_k, lse_k), (out_r, lse_r),
+                                         "flash forward")
+    res["flash_bwd"] = kn_same_nonfinite(
+        fa.flash_attention_bwd(q, k, v, out_k, lse_k, dout),
+        fa.flash_attention_bwd_reference(q, k, v, out_r, lse_r, dout),
+        "flash backward")
+    rows, c = sizes.bn_map
+    x = torch.randn(rows, c, generator=gen, device=dev).to(bf)
+    gamma = torch.ones(c, device=dev)
+    beta = torch.zeros(c, device=dev)
+    xn = x.clone()
+    xn[rows // 2, c // 3] = float("nan")
+    res["bn_fwd"] = kn_same_nonfinite(
+        bn.bn_train_fwd(xn, gamma, beta, 1e-5),
+        bn.bn_train_fwd_reference(xn, gamma, beta, 1e-5), "bn forward")
+    _, mean, var = bn.bn_train_fwd_reference(x, gamma, beta, 1e-5)
+    dy = torch.randn(rows, c, generator=gen, device=dev).to(bf)
+    dy[rows // 2, c // 3] = float("nan")
+    zero = torch.zeros(c, device=dev)
+    res["bn_bwd"] = kn_same_nonfinite(
+        bn.bn_train_bwd(x, gamma, mean, var, dy, zero, zero, 1e-5),
+        bn.bn_train_bwd_reference(x, gamma, mean, var, dy, zero, zero,
+                                  1e-5), "bn backward")
+    n, dm, vocab = sizes.micro * t, cfg["d_model"], cfg["vocab"]
+    h = torch.randn(n, dm, generator=gen, device=dev).to(bf)
+    h[n // 2] = float("nan")
+    w = 0.02 * torch.randn(dm, vocab, generator=gen, device=dev)
+    bias = torch.zeros(vocab, device=dev)
+    labels = torch.randint(0, vocab, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    loss_k, lse_k = fx.fused_xent_fwd(h, w, bias, labels, sizes.chunk)
+    loss_r, lse_r = fx.fused_xent_reference(h, w, bias, labels, sizes.chunk)
+    res["xent_fwd"] = kn_same_nonfinite((loss_k, lse_k), (loss_r, lse_r),
+                                        "cross-entropy forward")
+    g = torch.ones((), device=dev)
+    res["xent_bwd"] = kn_same_nonfinite(
+        fx.fused_xent_bwd(h, w, bias, labels, lse_k, g, sizes.chunk),
+        fx.fused_xent_bwd_reference(h, w, bias, labels, lse_r, g,
+                                    sizes.chunk), "cross-entropy backward")
+    return res
+
+
+def kn_rollback(fa, bn, fx, sizes, root: str) -> dict:
+    """train_knobs (d): (b)'s model under nan_policy="rollback" with an
+    every-epoch checkpoint, step.nan on the first step of epoch 2: right
+    after the rollback the parameters, buffers and LARS state equal a
+    fresh estimator's load of the checkpoint bit for bit; the fit ends its
+    2 epochs finite, one rollback.  Then nan_policy="raise":
+    NonFiniteLossError, and the flight record in model_dir."""
+    import json as json_lib
+
+    from analytics_zoo_tpu_torch.core import faults
+    from analytics_zoo_tpu_torch.orca.learn import NonFiniteLossError
+
+    make, feed = kn_resnet_maker(sizes)
+    x, y = kn_resnet_data(sizes, 2, SEED + 24)
+    b = sizes.batch
+    reg = faults.get_registry()
+    d1 = os.path.join(root, "rollback")
+    est = make(nan_policy="rollback", model_dir=d1)
+    checked = {}
+    rollback = est._rollback_to_checkpoint
+
+    def checked_rollback():
+        rollback()
+        ref = make()
+        ref.load(d1)
+        checked["leaves"] = sp_tree_equal(
+            kn_state(est), kn_state(ref),
+            "train_knobs (d) rolled back vs the checkpoint")
+        checked["step"] = est._py_step
+        del ref
+
+    est._rollback_to_checkpoint = checked_rollback
+    with reg.armed("step.nan", times=1, after=2):
+        hist = est.fit(feed(x, y), epochs=2, batch_size=b, verbose=False,
+                       checkpoint_trigger="every_epoch")
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in est.model.parameters())
+    if (est._rollbacks != 1 or "leaves" not in checked or est._py_step != 4
+            or len(hist["loss"]) != 2 or not finite
+            or not all(map(math.isfinite, hist["loss"]))):
+        raise AssertionError(f"train_knobs (d) rollback: {est._rollbacks} "
+                             f"rollbacks, step {est._py_step}, history "
+                             f"{hist}, finite {finite}")
+    caps = captures(est, "train_knobs (d)")
+    del est
+    sp_free(sizes)
+    d2 = os.path.join(root, "raise")
+    est = make(nan_policy="raise", model_dir=d2)
+    raised = None
+    with reg.armed("step.nan", times=1, after=1):
+        try:
+            est.fit(feed(x, y), epochs=1, batch_size=b, verbose=False)
+        except NonFiniteLossError as e:
+            raised = str(e)
+    path = os.path.join(d2, f"flightrec_{os.getpid()}.json")
+    if raised is None or not os.path.exists(path):
+        raise AssertionError(f"train_knobs (d) raise: raised {raised!r}, "
+                             f"flight record {os.path.exists(path)}")
+    with open(path) as f:
+        record = json_lib.load(f)
+    if record["reason"] != "train.NonFiniteLossError":
+        raise AssertionError(f"train_knobs (d): flight record's reason "
+                             f"{record['reason']}")
+    del est
+    sp_free(sizes)
+    return {"rollback": {"history": hist, "rolled_back_to_step":
+                         checked["step"], "leaves_equal_checkpoint":
+                         checked["leaves"], "captures": caps},
+            "raise": {"error": raised, "flight_record_reason":
+                      record["reason"],
+                      "flight_record_spans": len(record.get("spans", []))}}
+
+
+def kn_profile(fa, bn, fx, sizes, root: str) -> dict:
+    """train_knobs (e): (b)'s model with profile= (a trace window over
+    steps [2, 4), flops_per_sample and the bf16 peak) and log_dir: the
+    Chrome trace holds the replayed batch-norm kernels of the window's
+    steps (53 of each a step), train.compiles counts the one capture,
+    train.mfu is set, scalars.jsonl has every per-epoch tag."""
+    import json as json_lib
+
+    from analytics_zoo_tpu_torch.core import metrics as telemetry
+
+    make, feed = kn_resnet_maker(sizes)
+    x, y = kn_resnet_data(sizes, sizes.resnet_steps, SEED + 25)
+    probe = TrainNet(**sizes.resnet).to(sizes.device)
+    fwd_flops = model_flops_per_image(
+        probe, torch.from_numpy(x[:2]).to(sizes.device))
+    del probe
+    tdir, ldir = os.path.join(root, "trace"), os.path.join(root, "logs")
+    est = make(nan_policy="skip_step", log_dir=ldir, profile={
+        "trace_dir": tdir, "trace_steps": KNOBS_TRACE,
+        "flops_per_sample": 3.0 * fwd_flops, "peak_flops": PEAK_BF16_FLOPS})
+    compiles0 = telemetry.get_registry().snapshot().get("train.compiles", 0)
+    hist = est.fit(feed(x, y), epochs=1, batch_size=sizes.batch,
+                   verbose=False)
+    snap = telemetry.get_registry().snapshot()
+    compiles = snap["train.compiles"] - compiles0
+    mfu = snap["train.mfu"]["value"]
+    if len(est.trace_files) != 1 or compiles != 1 or est.compile_count != 1 \
+            or not mfu > 0:
+        raise AssertionError(f"train_knobs (e): traces {est.trace_files}, "
+                             f"compiles {compiles}, mfu {mfu}")
+    with open(est.trace_files[0]) as f:
+        events = json_lib.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    in_trace = {d: sum(f"bn_{d}_kernel" in n for n in kernels)
+                for d in ("fwd", "bwd")}
+    window = KNOBS_TRACE[1] - KNOBS_TRACE[0]
+    if sizes.device == "cuda" and in_trace != {
+            d: sizes.bn_norms * window for d in in_trace}:
+        raise AssertionError(f"train_knobs (e): the trace of {window} "
+                             f"replays holds {in_trace} batch-norm kernels")
+    with open(os.path.join(ldir, "train", "scalars.jsonl")) as f:
+        tags = sorted({json_lib.loads(line)["tag"] for line in f})
+    if tags != sorted(KNOBS_SCALARS):
+        raise AssertionError(f"train_knobs (e): summary tags {tags}")
+    summary = est.get_train_summary("step_time_ms")
+    del est
+    sp_free(sizes)
+    return {"trace_steps": list(KNOBS_TRACE), "trace_kernels": len(kernels),
+            "trace_bn_kernels": in_trace,
+            "trace_bytes": os.path.getsize(os.path.join(
+                tdir, os.listdir(tdir)[0])),
+            "compiles": compiles, "mfu": mfu,
+            "flops_per_image": 3.0 * fwd_flops, "epoch_loss": hist["loss"],
+            "summary_tags": tags, "step_time_ms_summary": summary}
+
+
+def phase_train_knobs(fa, bn, fx, sizes=None) -> dict:
+    """The Estimator's single-device knobs (see the module docstring): (a)
+    BERT MLM under LAMB, (b) ResNet-50 under LARS with a poisoned step,
+    (c) NaN through the six bf16 kernel entries, (d) rollback and raise,
+    (e) the profiler's trace and the summaries.  ``kernel_launches`` is
+    (a)'s and (b)'s runs: the main path, not (c)'s comparisons."""
+    import shutil
+    import tempfile
+
+    sizes = sizes or TrainKnobsSizes()
+    t_phase = time.perf_counter()
+    res = {"phase": "train_knobs", "part_seconds": {},
+           "card": nvidia_smi() if sizes.device == "cuda" else "cpu"}
+    root = tempfile.mkdtemp(prefix="zoo-train-knobs-")
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        res["part_seconds"][name] = time.perf_counter() - t0
+
+    try:
+        sp_free(sizes)
+        part("mlm_lamb", lambda: kn_mlm(fa, bn, fx, sizes))
+        part("resnet_lars", lambda: kn_resnet(fa, bn, fx, sizes))
+        part("nan_propagation", lambda: kn_nan(fa, bn, fx, sizes))
+        part("rollback_raise", lambda: kn_rollback(fa, bn, fx, sizes, root))
+        part("profile_summaries",
+             lambda: kn_profile(fa, bn, fx, sizes, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["kernel_launches"] = {
+        k: res["mlm_lamb"]["launches"][k] + res["resnet_lars"]["launches"][k]
+        for k in res["mlm_lamb"]["launches"]}
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 
 def phase_devices() -> str:
     smi = subprocess.run(
@@ -6421,7 +7075,8 @@ def main(argv) -> int:
                   "state_plane": lambda: phase_state_plane(fa, bn),
                   "autots": lambda: phase_autots(fa, bn, fx),
                   "readers": lambda: phase_readers(fa, bn, fx),
-                  "foreign": lambda: phase_foreign(bn)}
+                  "foreign": lambda: phase_foreign(bn),
+                  "train_knobs": lambda: phase_train_knobs(fa, bn, fx)}
         for name in only:
             phases[name]()
         return 0
@@ -6440,6 +7095,7 @@ def main(argv) -> int:
     autots = phase_autots(fa, bn, fx)
     readers = phase_readers(fa, bn, fx)
     foreign = phase_foreign(bn)
+    knobs = phase_train_knobs(fa, bn, fx)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -6633,6 +7289,17 @@ def main(argv) -> int:
             sfx = "bf16" if entry["shape"]["dtype"] == "bfloat16" else "f32"
             entry["launches_foreign"] = foreign["kernel_launches"][
                 f"{BN_KERNEL}_{direction}_{sfx}"]
+    # train_knobs: (a)'s and (b)'s captured runs, by entry
+    flash_keys = ("flash_attention_fwd_bf16", "flash_attention_fwd_f32",
+                  "flash_attention_bwd_bf16", "flash_attention_bwd_f32")
+    for i, entry in enumerate(entries):
+        if i < len(flash_keys):
+            key = flash_keys[i]
+        else:
+            sfx = "bf16" if entry["shape"]["dtype"] == "bfloat16" else "f32"
+            key = (f"{entry['name']}_{next(iter(entry['launches_by_pass']))}"
+                   f"_{sfx}")
+        entry["launches_train_knobs"] = knobs["kernel_launches"][key]
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -275,6 +275,8 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.core.trace",
                 "analytics_zoo_tpu_torch.core.faults",
                 "analytics_zoo_tpu_torch.core.flightrec",
+                "analytics_zoo_tpu_torch.core.summary",
+                "analytics_zoo_tpu_torch.core.chaos",
                 "analytics_zoo_tpu_torch.core.config",
                 "analytics_zoo_tpu_torch.native",
                 "analytics_zoo_tpu_torch.serving.protocol",

@@ -73,9 +73,11 @@ def _images(n, size=16, seed=0):
         -1.0, 1.0, (n, size, size, 3)).astype(np.float32)
 
 
-def _twins(real, lr=2e-4):
+def _twins(real, lr=2e-4, optimizer="adam"):
     jgan = JaxGAN(*jax_dcgan(**SMALL), noise_dim=SMALL["nz"],
-                  generator_lr=lr, discriminator_lr=lr)
+                  generator_lr=lr, discriminator_lr=lr,
+                  generator_optimizer=optimizer,
+                  discriminator_optimizer=optimizer)
     jgan._ensure_initialized(jnp.asarray(real))
     ts = jax.device_get(jgan._ts)
     g, d = _chip_smoke().dcgan(**SMALL)
@@ -84,7 +86,8 @@ def _twins(real, lr=2e-4):
     d.load_state_dict(from_jax_variables(
         {"params": ts["d_params"], "state": ts["d_state"]}), strict=True)
     gan = GANEstimator(g, d, noise_dim=SMALL["nz"], generator_lr=lr,
-                       discriminator_lr=lr, device="cpu")
+                       discriminator_lr=lr, generator_optimizer=optimizer,
+                       discriminator_optimizer=optimizer, device="cpu")
     return jgan, gan
 
 
@@ -105,18 +108,11 @@ def _held_trees(jtree, ptree, tol=1e-4):
                                    atol=tol * max(1.0, np.abs(x).max()))
 
 
-def test_dcgan_steps_match_jax_with_its_noise():
-    """Three D/G steps: D with G in eval and D trained on the real and the
-    fake batch in turn (the second call on the first's statistics), G with
-    D in eval; the JAX noise ``normal(fold_in(rng, step))`` fed to the
-    port."""
-    real = _images(16)
-    jgan, gan = _twins(real)
-    n_bn = sum(isinstance(m, P.BatchNormalization)
-               for m in gan.discriminator.modules())
-    assert n_bn == 1 and sum(isinstance(m, P.BatchNormalization)
-                             for m in gan.generator.modules()) == 2
-    for _ in range(3):
+def _steps_against_jax(jgan, gan, real, steps=3):
+    """``steps`` D/G steps of both packages, the JAX noise
+    ``normal(fold_in(rng, step))`` fed to the port; the losses at each
+    step and the trees after them held to JAX's."""
+    for _ in range(steps):
         for kind in ("d", "g"):
             ts = jgan._ts
             noise = jax.random.normal(
@@ -128,11 +124,45 @@ def test_dcgan_steps_match_jax_with_its_noise():
                 real, noise=np.asarray(noise))
             assert abs(float(ploss) - float(jloss)) < 1e-5, kind
     ts = jax.device_get(jgan._ts)
-    assert gan.step == int(ts["step"]) == 6
+    assert gan.step == int(ts["step"]) == 2 * steps
     _held_trees({"params": ts["g_params"], "state": ts["g_state"]},
                 _port_tree(gan.generator))
     _held_trees({"params": ts["d_params"], "state": ts["d_state"]},
                 _port_tree(gan.discriminator))
+    return ts
+
+
+def test_dcgan_steps_match_jax_with_its_noise():
+    """Three D/G steps: D with G in eval and D trained on the real and the
+    fake batch in turn (the second call on the first's statistics), G with
+    D in eval; the JAX noise ``normal(fold_in(rng, step))`` fed to the
+    port."""
+    real = _images(16)
+    jgan, gan = _twins(real)
+    n_bn = sum(isinstance(m, P.BatchNormalization)
+               for m in gan.discriminator.modules())
+    assert n_bn == 1 and sum(isinstance(m, P.BatchNormalization)
+                             for m in gan.generator.modules()) == 2
+    _steps_against_jax(jgan, gan, real)
+
+
+def test_dcgan_lamb_steps_match_jax_with_its_exclusions():
+    """Both sides under LAMB: the batch norms' gamma and beta are left out
+    of the decay and the trust ratio by their paths, as the JAX
+    GANEstimator's ``_exclusion_tree`` leaves them out; the steps, the
+    trees and the moments equal JAX's."""
+    real = _images(16)
+    jgan, gan = _twins(real, lr=1e-3, optimizer="lamb")
+    gan._ensure_opt()
+    for opt, names in ((gan._g_opt, gan._g_names),
+                       (gan._d_opt, gan._d_names)):
+        excluded = {n for n, e in zip(names, opt["excluded"]) if e}
+        assert excluded and excluded == {
+            n for n in names if n.rsplit(".", 1)[-1] in ("gamma", "beta")}
+    ts = _steps_against_jax(jgan, gan, real)
+    mine = gan._tree()
+    for kind in ("g_opt", "d_opt"):
+        _held_trees(ts[kind], mine[kind])
 
 
 def test_gan_learns_shifted_gaussian():

@@ -352,10 +352,36 @@ def test_touched_masks_mark_no_row_for_the_padding(tmp_path):
         assert ids.tolist() == want, tp
 
 
-def test_nan_policy_rollback_still_waits_for_item_7():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Estimator.from_keras(tnn.Dense(2, 2), loss="mse", device="cpu",
-                             model_dir="ckpt", nan_policy="rollback")
+def test_nan_policy_rollback_still_waits_for_item_7(tmp_path):
+    """On one process ``nan_policy="rollback"`` reloads ``model_dir`` in
+    place and re-runs the epoch (the rollback across processes is ROADMAP
+    Queue 1 item 7): a NaN at step 3 of 4 ends on the clean run's losses
+    and parameters, bit for bit, with the step count rewound."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 4)).astype(np.float32)
+    y = rng.normal(size=(64, 1)).astype(np.float32)
+    init = tnn.Sequential([tnn.Dense(4, 8, activation="relu"),
+                           tnn.Dense(8, 1)]).state_dict()
+
+    def mkest(**kw):
+        model = tnn.Sequential([tnn.Dense(4, 8, activation="relu"),
+                                tnn.Dense(8, 1)])
+        model.load_state_dict(init)
+        return Estimator.from_keras(model, loss="mse", optimizer="adam",
+                                    learning_rate=1e-3, device="cpu", **kw)
+
+    clean_est = mkest()
+    clean = clean_est.fit((x, y), epochs=2, batch_size=32, verbose=False)
+    est = mkest(nan_policy="rollback", model_dir=str(tmp_path / "ckpt"))
+    with faults_lib.get_registry().armed("step.nan", times=1, after=2):
+        hist = est.fit((x, y), epochs=2, batch_size=32,
+                       checkpoint_trigger="every_epoch", verbose=False)
+    assert est._rollbacks == 1 and est.bad_steps == 1
+    assert est._py_step == 4
+    assert hist["loss"] == clean["loss"]
+    assert hist["bad_steps"] == [0, 0]
+    for a, b in zip(est.model.parameters(), clean_est.model.parameters()):
+        assert torch.equal(a, b)
 
 
 # -- saved models and serving --------------------------------------------------
