@@ -15,9 +15,14 @@ XShards, as in the JAX package.
 
 Two things differ from the JAX version.  The initial ``F`` and ``X`` are
 drawn from a ``torch.Generator`` seeded with ``seed`` (JAX draws them
-from ``jax.random``; ``fit(_init=(F0, X0))`` takes given ones).  And the
-port factorizes on one device: the JAX version shards the panel's rows
-over a mesh, which waits for several processes (ROADMAP Queue 1 item 7).
+from ``jax.random``; ``fit(_init=(F0, X0))`` takes given ones).  And
+where the JAX version shards the panel's rows over its mesh's ``data``
+axis, the port takes a list of devices (``device=["cuda:0", "cuda:1"]``):
+the rows, zero-padded to a multiple of the device count and masked out of
+the loss, are split in equal blocks, each block's ``F`` and ``Y`` on its
+device; ``X`` lives on the first device and each block's product reads a
+copy of it, whose gradients autograd sums back; the TCN trains on the
+first device.
 ``save``/``load`` write and read the JAX package's files (``factors.npz``,
 ``config.json``, ``shards.json``, the TCN's checkpoint under ``tcn/``),
 so either package loads the other's.
@@ -38,16 +43,11 @@ from ..orca.learn import optimizers as opt_lib
 from .forecaster import _TCN, seeded
 
 
-def _one_device(device: Any) -> DeviceLike:
+def _devices(device: Any) -> list:
+    """``device`` as a list of devices (one unless a list names more)."""
     if isinstance(device, (list, tuple)):
-        if len(device) > 1:
-            raise NotImplementedError(
-                f"TCMFForecaster(device={device!r}): factorizing over "
-                "several devices is not ported yet (ROADMAP Queue 1 item "
-                "7: the JAX package shards the panel's rows over a mesh); "
-                "give one device")
-        device = device[0] if device else None
-    return device
+        return [resolve_device(d) for d in device] or [resolve_device(None)]
+    return [resolve_device(device)]
 
 
 class TCMFForecaster:
@@ -59,7 +59,8 @@ class TCMFForecaster:
         """``rank``: k, the basis dimension.  vbsize/hbsize are kept for
         reference-API compatibility (batching knobs of the reference's
         torch code; the whole panel trains at once here)."""
-        self.device = resolve_device(_one_device(device))
+        self.devices = _devices(device)
+        self.device = self.devices[0]
         self._config = dict(num_channels_X=list(num_channels_X or (16, 16)),
                             y_iters=y_iters, rank=rank,
                             tcn_lookback=tcn_lookback, lam=lam, lr=lr,
@@ -93,8 +94,56 @@ class TCMFForecaster:
             gen = torch.Generator().manual_seed(int(self.seed))
             init = (torch.randn((n, k), generator=gen) * 0.1,
                     torch.randn((k, t), generator=gen) * 0.1)
-        f, x = (torch.from_numpy(np.array(a, np.float32)).to(self.device)
-                for a in init)
+        f0, x0 = (np.array(a, np.float32) for a in init)
+        devices = self.devices
+        if len(devices) == 1:
+            self._factorize_one(y, f0, x0)
+            return
+        # the rows in equal blocks a device, padded with zero rows that
+        # the mask keeps out of the loss (so they never move)
+        dp = len(devices)
+        pad = (-n) % dp
+        m = (n + pad) // dp
+        f0 = np.concatenate([f0, np.zeros((pad, k), np.float32)])
+        y_pad = np.concatenate([y, np.zeros((pad, t), np.float32)])
+        mask = np.zeros((n + pad, 1), np.float32)
+        mask[:n] = 1.0
+        fs = [torch.from_numpy(f0[i * m:(i + 1) * m]).to(d).requires_grad_()
+              for i, d in enumerate(devices)]
+        ys = [torch.from_numpy(y_pad[i * m:(i + 1) * m]).to(d)
+              for i, d in enumerate(devices)]
+        masks = [torch.from_numpy(mask[i * m:(i + 1) * m]).to(d)
+                 for i, d in enumerate(devices)]
+        home = devices[0]
+        xp = torch.from_numpy(x0).to(home).requires_grad_()
+        params = fs + [xp]
+        tx = opt_lib.adam(self.lr)
+        state = tx.init(params)
+        lam = self.lam
+        denom_mse, denom_f = float(n * t), float(n * k)
+        loss = None
+        for _ in range(self.iters):
+            sq = f2 = None
+            for fp, yd, md, d in zip(fs, ys, masks, devices):
+                xd = xp if d == home else xp.to(d)
+                a = torch.sum(((fp @ xd - yd) * md) ** 2).to(home)
+                b = torch.sum((fp * md) ** 2).to(home)
+                sq, f2 = (a, b) if sq is None else (sq + a, f2 + b)
+            loss = sq / denom_mse + lam * (f2 / denom_f
+                                           + torch.mean(xp ** 2))
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                state = tx.step(params, list(grads), state)
+        self.F = np.concatenate([f.detach().cpu().numpy() for f in fs])[:n]
+        self.X = xp.detach().cpu().numpy()
+        self._factor_loss = float(loss.detach())
+
+    def _factorize_one(self, y: np.ndarray, f0: np.ndarray,
+                       x0: np.ndarray) -> None:
+        """The factorization on one device."""
+        n, t = y.shape
+        k = self.rank
+        f, x = (torch.from_numpy(a).to(self.device) for a in (f0, x0))
         params = [f.requires_grad_(True), x.requires_grad_(True)]
         yd = torch.as_tensor(y).to(self.device)
         tx = opt_lib.adam(self.lr)

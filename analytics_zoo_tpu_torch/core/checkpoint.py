@@ -29,10 +29,20 @@ it before trusting the bytes: a mismatch raises
 ``checkpoint.corrupt_files``), unless ``save(keep=2)`` left the previous
 generation, to which restore falls back with a warning.
 
-One process: the port writes the dense layout only.  A meta with a
-``sharded`` entry (the JAX package's multi-process layout,
-``shards_<gen>_p<i>.npz``) raises ``NotImplementedError``: reading it
-comes with sharding (ROADMAP Queue 1 item 7).
+Several processes (``torch.distributed`` initialized, world size > 1):
+the JAX package's multi-process layout.  ``save`` is collective: every
+process calls it with its tree.  Each array leaf is a sharded entry of
+the meta (``{"shape", "dtype", "shards": {index key: owner}, "spec"}``,
+the JAX package's ``_index_key`` names and owner rule: a piece is
+written by the lowest rank holding it): a :class:`Sharded` leaf brings
+its pieces and owners (the estimator's rule-placed leaves), any other
+array leaf is one whole piece owned by process 0.  Each process writes
+the pieces it owns to ``shards_<gen>_p<i>.npz``; the generation tag is
+process 0's, broadcast; a barrier and an allgather of the files' CRCs
+over the host group (``core/context.py``) come before process 0 writes
+the meta, and a last barrier before anyone returns.  ``restore``
+reassembles every sharded leaf whole on the host (from any tiling), so
+either package restores the other's checkpoint.
 """
 
 from __future__ import annotations
@@ -204,6 +214,69 @@ def _is_array_leaf(leaf: Any) -> bool:
     return isinstance(leaf, (torch.Tensor, np.ndarray))
 
 
+class Sharded:
+    """An array leaf placed over several processes, as ``save`` writes it:
+    its global ``shape`` and ``dtype``, the pieces this process holds
+    (``{index key: array or tensor}``), every piece's owner rank and the
+    placement's ``spec`` (recorded in the meta)."""
+
+    def __init__(self, shape: Any, dtype: Any, pieces: Dict[str, Any],
+                 owners: Dict[str, int], spec: Any = None):
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = dtype
+        self.pieces = pieces
+        self.owners = owners
+        self.spec = spec
+
+
+def _whole_key(shape: Tuple[int, ...]) -> str:
+    return ",".join(f"0:{d}" for d in shape) if shape else ":"
+
+
+def _dtype_name(leaf: Any) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return _RAW_TORCH.get(leaf.dtype) or str(leaf.dtype).replace(
+            "torch.", "")
+    if isinstance(leaf, torch.dtype):
+        return _RAW_TORCH.get(leaf) or str(leaf).replace("torch.", "")
+    return np.dtype(getattr(leaf, "dtype", leaf)).name
+
+
+def _world() -> Tuple[int, int]:
+    """(rank, world size): ``data.readers.process_grid``, the one source."""
+    from ..data.readers import process_grid
+    return process_grid()
+
+
+def _host_group() -> Any:
+    from .context import OrcaContext
+    import torch.distributed as dist
+    g = OrcaContext.host_group
+    if g is not None:
+        return g
+    return None if dist.get_backend() != "gloo" else dist.group.WORLD
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    dist.barrier(group=_host_group())
+
+
+def _gather_ints(value: int) -> List[int]:
+    import torch.distributed as dist
+    t = torch.tensor([value], dtype=torch.int64)
+    parts = [torch.zeros(1, dtype=torch.int64) for _ in range(_world()[1])]
+    dist.all_gather(parts, t, group=_host_group())
+    return [int(p.item()) for p in parts]
+
+
+def _broadcast_int(value: int) -> int:
+    import torch.distributed as dist
+    t = torch.tensor([value], dtype=torch.int64)
+    dist.broadcast(t, src=0, group=_host_group())
+    return int(t.item())
+
+
 # -- tree flattening (the JAX package's pytree order) ---------------------------
 
 def flatten(tree: Any) -> Tuple[List[Any], Any]:
@@ -279,6 +352,9 @@ def save(path: str, tree: Any, step: Optional[int] = None,
     t_save = time.monotonic()
     leaves, structure = flatten(tree)
     os.makedirs(path, exist_ok=True)
+    if _world()[1] > 1:
+        return _save_processes(path, leaves, structure, step, extra,
+                               retries, retry_delay, t_save)
     arrays: Dict[str, np.ndarray] = {}
     scalars: List[Any] = []
     raw_dtypes: Dict[str, str] = {}
@@ -343,8 +419,92 @@ def save(path: str, tree: Any, step: Optional[int] = None,
     return path
 
 
+def _save_processes(path: str, leaves: List[Any], structure: Any,
+                    step: Optional[int], extra: Optional[dict],
+                    retries: int, retry_delay: float, t_save: float) -> str:
+    """``save`` over several processes: the JAX package's multi-process
+    layout (see the module's doc)."""
+    pidx, pcount = _world()
+    scalars: List[Any] = []
+    shard_meta: List[Any] = []
+    mine: Dict[str, np.ndarray] = {}
+    for i, leaf in enumerate(leaves):
+        if isinstance(leaf, Sharded):
+            entry = {"shape": list(leaf.shape),
+                     "dtype": _dtype_name(leaf.dtype),
+                     "shards": dict(leaf.owners)}
+            if leaf.spec is not None:
+                entry["spec"] = [list(e) if isinstance(e, tuple) else e
+                                 for e in leaf.spec]
+            for key, piece in leaf.pieces.items():
+                if leaf.owners.get(key) == pidx:
+                    mine[f"a{i}__{key}"] = _npz_safe(piece)[0]
+            shard_meta.append(entry)
+            scalars.append(None)
+        elif _is_array_leaf(leaf):
+            shape = tuple(leaf.shape)
+            key = _whole_key(shape)
+            shard_meta.append({"shape": list(shape),
+                               "dtype": _dtype_name(leaf),
+                               "shards": {key: 0}})
+            if pidx == 0:
+                mine[f"a{i}__{key}"] = _npz_safe(leaf)[0]
+            scalars.append(None)
+        else:
+            shard_meta.append(None)
+            scalars.append(_encode_scalar(leaf) if pidx == 0 else None)
+    gen = f"{_broadcast_int(secrets.randbits(31) if pidx == 0 else 0):08x}"
+    crc = [0]
+
+    def _write_shards() -> None:
+        fd, tmp = tempfile.mkstemp(dir=path, suffix=f".p{pidx}.tmp")
+        with os.fdopen(fd, "wb") as f:
+            savez(f, mine)
+        crc[0] = _crc32_file(tmp)
+        os.replace(tmp, os.path.join(path, _shards_name(gen, pidx)))
+        fsync_dir(path)
+
+    _write_with_retry(_write_shards, f"shards p{pidx}", retries, retry_delay)
+    _barrier()  # every shard file complete before the meta is visible
+    crcs = {_shards_name(gen, p): c & 0xFFFFFFFF
+            for p, c in enumerate(_gather_ints(crc[0]))}
+    if pidx == 0:
+        meta = {"treedef": structure, "scalars": scalars,
+                "sharded": shard_meta, "n_leaves": len(leaves),
+                "step": step, "gen": gen, "raw_dtypes": {},
+                "extra": extra or {}}
+
+        def _write_data_and_meta() -> None:
+            fd, tmp = tempfile.mkstemp(dir=path, suffix=".npz.tmp")
+            with os.fdopen(fd, "wb") as f:
+                savez(f, {})
+            meta["crc32"] = dict(crcs, **{_data_name(gen): _crc32_file(tmp)})
+            fd, tmp_meta = tempfile.mkstemp(dir=path, suffix=".json.tmp")
+            with os.fdopen(fd, "w") as f:
+                json.dump(meta, f)
+            os.replace(tmp, os.path.join(path, _data_name(gen)))
+            os.replace(tmp_meta, os.path.join(path, _META))
+            fsync_dir(path)
+
+        _write_with_retry(_write_data_and_meta, "data+meta", retries,
+                          retry_delay)
+        try:
+            os.remove(os.path.join(path, _PREV_META))
+        except OSError:
+            pass
+        _gc_stale_generations(path, {gen})
+    _barrier()  # nobody returns before the meta names this generation
+    metrics_lib.get_registry().observe(
+        "checkpoint.save_ms", (time.monotonic() - t_save) * 1000.0)
+    return path
+
+
 def _data_name(gen: Optional[str]) -> str:
     return f"arrays_{gen}.npz" if gen else _DATA
+
+
+def _shards_name(gen: Optional[str], proc: int) -> str:
+    return f"shards_{gen}_p{proc}.npz" if gen else f"shards_p{proc}.npz"
 
 
 def _gc_stale_generations(path: str, live_gens: set) -> None:
@@ -394,25 +554,64 @@ def restore(path: str) -> Any:
     return out
 
 
+def _key_to_index(key: str) -> tuple:
+    if key == ":":
+        return ()
+    return tuple(slice(int(a), int(b))
+                 for a, b in (p.split(":") for p in key.split(",")))
+
+
+def _restore_sharded_leaf(path: str, meta: dict, i: int, entry: dict,
+                          files: Dict[int, Any]) -> Any:
+    """One sharded entry reassembled whole from every saved piece (any
+    tiling); raises if the pieces do not cover it."""
+    shape = tuple(entry["shape"])
+    name = entry["dtype"]
+    raw = name if name in _RAW_BY_NAME else None
+    out = np.empty(shape, np.uint16 if raw == "bfloat16" else (
+        np.uint8 if raw else np.dtype(name)))
+    filled = 0
+    for key, proc in entry["shards"].items():
+        proc = int(proc)
+        if proc not in files:
+            fname = _shards_name(meta.get("gen"), proc)
+            _verify_crc(path, fname, meta.get("crc32"))
+            files[proc] = np.load(os.path.join(path, fname),
+                                  allow_pickle=False)
+        piece = files[proc][f"a{i}__{key}"]
+        idx = _key_to_index(key)
+        out[idx] = piece
+        filled += int(np.prod(piece.shape)) if shape else 1
+    if filled != max(1, int(np.prod(shape))):
+        raise ValueError(f"checkpoint shards of leaf {i} cover {filled} of "
+                         f"{int(np.prod(shape))} elements")
+    return _from_npz(out, raw)
+
+
 def _restore_from_meta(path: str, meta: dict) -> Any:
-    if meta.get("sharded"):
-        raise NotImplementedError(
-            f"checkpoint at {path} is a multi-process save (shards_<gen>_"
-            "p<i>.npz); reading that layout is not ported yet (ROADMAP "
-            "Queue 1 item 7: it comes with sharding)")
     crcs = meta.get("crc32")
     data_name = _data_name(meta.get("gen"))
     _verify_crc(path, data_name, crcs)
     raw_dtypes = meta.get("raw_dtypes") or {}
+    shard_meta = meta.get("sharded") or [None] * meta["n_leaves"]
+    files: Dict[int, Any] = {}
     leaves = []
-    with np.load(os.path.join(path, data_name), allow_pickle=False) as npz:
-        for i in range(meta["n_leaves"]):
-            enc = meta["scalars"][i]
-            if enc is None:
-                leaves.append(_from_npz(npz[f"a{i}"],
-                                        raw_dtypes.get(f"a{i}")))
-            else:
-                leaves.append(_decode_scalar(enc))
+    try:
+        with np.load(os.path.join(path, data_name),
+                     allow_pickle=False) as npz:
+            for i in range(meta["n_leaves"]):
+                enc = meta["scalars"][i]
+                if shard_meta[i] is not None:
+                    leaves.append(_restore_sharded_leaf(
+                        path, meta, i, shard_meta[i], files))
+                elif enc is None:
+                    leaves.append(_from_npz(npz[f"a{i}"],
+                                            raw_dtypes.get(f"a{i}")))
+                else:
+                    leaves.append(_decode_scalar(enc))
+    finally:
+        for f in files.values():
+            f.close()
     return unflatten(meta["treedef"], leaves)
 
 

@@ -1,5 +1,6 @@
-# Port of analytics_zoo_tpu/core/failover.py: one process, so the consensus
-# is the local flag (the JAX package's jax.process_count() == 1 branch).
+# Port of analytics_zoo_tpu/core/failover.py: the flag's consensus is an
+# allgather over the context's host group (torch.distributed) instead of
+# jax.experimental.multihost_utils.
 """Preemption-safe training: SIGTERM → checkpoint → resume.
 
 Reference (SURVEY.md §5.3): failure recovery ran through Spark — lost
@@ -9,10 +10,10 @@ executors were rescheduled and training restarted from the last BigDL
 The platform preempts a machine by SIGTERM with a grace window and
 restarts the job itself; the framework's job is only (1) to get a
 checkpoint written inside the window and (2) to resume from it on
-restart.  The guard checks its flag every ``sync_every`` steps.  The JAX
-package allgathers the flag across hosts there so that every process saves
-at one step; the port runs one process, whose flag is the consensus
-(several processes come with ROADMAP Queue 1 item 7).
+restart.  The guard checks its flag every ``sync_every`` steps, and over
+several processes allgathers it there over the host group
+(``core/context.py``), so that every process saves at one step; in one
+process the flag alone decides.
 
 Usage (wired into ZooEstimator via ``preemption_checkpoint=True``):
 
@@ -132,11 +133,25 @@ class PreemptionGuard:
         return self._flag
 
     def should_checkpoint(self, step: int) -> bool:
-        """At every ``sync_every``-th step: was a signal received?  (One
-        process: the local flag is the consensus.)"""
+        """At every ``sync_every``-th step: was a signal received by any
+        process?  (The flags allgathered over the host group; in one
+        process the local flag.)"""
         if step % self.sync_every != 0:
             return False
-        return self.flagged
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()) or \
+                dist.get_world_size() == 1:
+            return self.flagged
+        import torch
+        from .context import OrcaContext
+        group = OrcaContext.host_group
+        if group is None and dist.get_backend() == "gloo":
+            group = dist.group.WORLD
+        flag = torch.tensor([int(self.flagged)], dtype=torch.int32)
+        flags = [torch.zeros_like(flag)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(flags, flag, group=group)
+        return bool(any(int(f.item()) for f in flags))
 
 
 def checkpoint_for_exit(manager, tree, step: int, extra=None,

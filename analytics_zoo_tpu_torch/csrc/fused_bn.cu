@@ -694,6 +694,221 @@ __global__ void __launch_bounds__(kThreads, 1) bn_bwd_kernel(BwdArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
+// the split form: batch norm over a batch split across processes
+// ---------------------------------------------------------------------------
+// When the batch's rows lie on several processes, one grid barrier cannot
+// span them: each direction splits at its reduction.  The wrapper
+// (ops/fused_bn.py) runs, for the forward,
+//   stats:  part = per-channel f32 (sum(x - shift), sum((x - shift)^2)) of
+//           the local rows, shift = the global row 0 (broadcast from the
+//           first rank of the data group);
+//   all_reduce of the [2, C] sums over the data group;
+//   apply:  mean, var over the global n and y, with the one-launch
+//           kernel's finalize and normalize arithmetic;
+// and for the backward
+//   stats:  (sum(dy), sum(dy x_hat)) of the local rows;
+//   all_reduce of [s1, s2, dmean, dvar] ([4, C]);
+//   apply:  dx from the global sums (dgamma, dbeta are the local sums: the
+//           estimator's gradient all-reduce adds them up).
+// The stats launch is a grid of (channel tile x row split) blocks, each
+// writing its partials to [split][2][C], and a second small launch sums
+// the splits per channel in a fixed order; no atomics, so one input gives
+// one result.  The apply launch is a grid of the same shape over the rows.
+
+template <typename T>
+struct SplitArgs {
+  const T* x;
+  const T* dy;          // the backward's
+  const float* shift;   // the forward's [C]
+  const float* mean;    // the backward's saved statistics
+  const float* var;
+  float* part;          // [splits][2][C]
+  int64_t rows;
+  int C, ctiles, units;
+  float eps;
+};
+
+// stats: each block's partial sums of its unit's rows
+template <typename T, int V, bool kBwd>
+__global__ void __launch_bounds__(kThreads) bn_split_sums_kernel(
+    SplitArgs<T> a) {
+  __shared__ __align__(16) float red[kThreads * (V > 2 ? V : 2)];
+  const Unit w = unit<V>(blockIdx.x, a.ctiles, a.units, a.rows, a.C);
+  const int C = a.C;
+  float s1[V], s2[V], k0[V], k1[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) s1[i] = s2[i] = k0[i] = k1[i] = 0.f;
+  if (w.active) {
+    if constexpr (kBwd) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        k0[i] = a.mean[w.c0 + i];
+        k1[i] = rsqrtf(__fadd_rn(a.var[w.c0 + i], a.eps));
+      }
+      walk<false>(w.r0, w.r1,
+                  [&](int64_t r) {
+                    return Pair<V>{vload<T, V>(a.dy + r * C + w.c0),
+                                   vload<T, V>(a.x + r * C + w.c0)};
+                  },
+                  [&](int64_t, const Pair<V>& q) {
+#pragma unroll
+                    for (int i = 0; i < V; ++i) {
+                      s1[i] += q.g.v[i];
+                      s2[i] = fmaf(q.g.v[i],
+                                   __fmul_rn(__fsub_rn(q.x.v[i], k0[i]),
+                                             k1[i]),
+                                   s2[i]);
+                    }
+                  });
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) k0[i] = a.shift[w.c0 + i];
+      walk<false>(w.r0, w.r1,
+                  [&](int64_t r) { return vload<T, V>(a.x + r * C + w.c0); },
+                  [&](int64_t, const Vec<V>& v) {
+#pragma unroll
+                    for (int i = 0; i < V; ++i) {
+                      const float d = v.v[i] - k0[i];
+                      s1[i] += d;
+                      s2[i] = fmaf(d, d, s2[i]);
+                    }
+                  });
+    }
+  }
+  write_partials<V>(a.part, C, w, red, s1, s2);
+}
+
+// stats' second launch: out[j][c] = sum over the splits of part[s][j][c],
+// in split order
+__global__ void bn_split_reduce_kernel(const float* part, float* out, int C,
+                                       int splits) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float a = 0.f, b = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    a += part[int64_t(s) * 2 * C + c];
+    b += part[int64_t(s) * 2 * C + C + c];
+  }
+  out[c] = a;
+  out[C + c] = b;
+}
+
+template <typename T>
+struct SplitFwdApply {
+  const T* x;
+  T* y;
+  const float* gamma;
+  const float* beta;
+  const float* sums;   // [2][C], summed over every process
+  const float* shift;  // [C]
+  float* mean;
+  float* var;
+  int64_t rows, n;     // local rows, global rows
+  int C, ctiles, units;
+  float eps;
+};
+
+// the forward's apply: each thread derives its channels' scalars from the
+// global sums (the one-launch finalize's arithmetic), blocks of split 0
+// write mean and var, and every block writes y for its rows
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) bn_split_fwd_apply_kernel(
+    SplitFwdApply<T> a) {
+  const Unit w = unit<V>(blockIdx.x, a.ctiles, a.units, a.rows, a.C);
+  if (!w.active) return;
+  const int C = a.C;
+  float sc[3][V];  // mean_c, T(inv), T(sh)
+  const float n = float(a.n);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = w.c0 + i;
+    const float m1 = __fdiv_rn(a.sums[c], n);
+    const float m2 = __fdiv_rn(a.sums[C + c], n);
+    const float mean = __fadd_rn(m1, a.shift[c]);
+    const float d = __fsub_rn(m2, __fmul_rn(m1, m1));
+    const float var = d != d ? d : fmaxf(d, 0.f);
+    const float inv = __fmul_rn(rsqrtf(__fadd_rn(var, a.eps)), a.gamma[c]);
+    const float mean_c = round_t<T>(mean);
+    const float sh =
+        __fadd_rn(__fmul_rn(__fsub_rn(mean_c, mean), inv), a.beta[c]);
+    sc[0][i] = mean_c;
+    sc[1][i] = round_t<T>(inv);
+    sc[2][i] = round_t<T>(sh);
+    if (w.split == 0 && threadIdx.y == 0) {
+      a.mean[c] = mean;
+      a.var[c] = var;
+    }
+  }
+  walk<false>(w.r0, w.r1,
+              [&](int64_t r) { return vload<T, V>(a.x + r * C + w.c0); },
+              [&](int64_t r, Vec<V> v) {
+#pragma unroll
+                for (int i = 0; i < V; ++i) {
+                  const float d = round_t<T>(__fsub_rn(v.v[i], sc[0][i]));
+                  const float p = round_t<T>(__fmul_rn(d, sc[1][i]));
+                  v.v[i] = __fadd_rn(p, sc[2][i]);
+                }
+                store<T, V>(a.y + r * C + w.c0, v.v);
+              });
+}
+
+template <typename T>
+struct SplitBwdApply {
+  const T* dy;
+  const T* x;
+  const float* gamma;
+  const float* mean;
+  const float* var;
+  const float* sums;  // [4][C]: s1, s2, dmean, dvar, summed over processes
+  T* dx;
+  int64_t rows, n;
+  int C, ctiles, units;
+  float eps;
+};
+
+// the backward's apply: k, c1, c2, cv from the global sums (the one-launch
+// finalize's arithmetic), then dx = T(((dy k - c1) - (x - mean) c2) + x cv)
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads) bn_split_bwd_apply_kernel(
+    SplitBwdApply<T> a) {
+  const Unit w = unit<V>(blockIdx.x, a.ctiles, a.units, a.rows, a.C);
+  if (!w.active) return;
+  const int C = a.C;
+  float sc[4][V], mu[V];
+  const float n = float(a.n);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = w.c0 + i;
+    const float s1 = a.sums[c], s2 = a.sums[C + c];
+    const float inv = rsqrtf(__fadd_rn(a.var[c], a.eps));
+    const float k = __fmul_rn(a.gamma[c], inv);
+    const float dvn = __fdiv_rn(a.sums[3 * C + c], n);
+    mu[i] = a.mean[c];
+    sc[0][i] = k;
+    sc[1][i] = __fadd_rn(__fsub_rn(__fmul_rn(__fdiv_rn(s1, n), k),
+                                   __fdiv_rn(a.sums[2 * C + c], n)),
+                         __fmul_rn(__fmul_rn(dvn, 2.f), mu[i]));
+    sc[2][i] = __fmul_rn(__fmul_rn(__fdiv_rn(s2, n), k), inv);
+    sc[3][i] = __fmul_rn(dvn, 2.f);
+  }
+  walk<false>(w.r0, w.r1,
+              [&](int64_t r) {
+                return Pair<V>{vload<T, V>(a.dy + r * C + w.c0),
+                               vload<T, V>(a.x + r * C + w.c0)};
+              },
+              [&](int64_t r, Pair<V> q) {
+#pragma unroll
+                for (int i = 0; i < V; ++i) {
+                  const float g = q.g.v[i], v = q.x.v[i];
+                  const float p = __fsub_rn(__fmul_rn(g, sc[0][i]), sc[1][i]);
+                  const float b = __fmul_rn(__fsub_rn(v, mu[i]), sc[2][i]);
+                  q.g.v[i] = __fadd_rn(__fsub_rn(p, b), __fmul_rn(v, sc[3][i]));
+                }
+                store<T, V>(a.dx + r * C + w.c0, q.g.v);
+              });
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -827,6 +1042,96 @@ cudaError_t bwd(const T* dy, const T* x, const float* gamma, const float* mean,
   return launch(bn_bwd_kernel<T, V>, blocks, s, a.count, stream, a);
 }
 
+// The split form's grid over [rows, C]: (channel tile x `splits` row
+// ranges) blocks of (tx, ty) threads; false if the shape does not fit.
+inline bool split_shape(int64_t rows, int C, int V, int splits, dim3& block,
+                        int& ctiles, int& units) {
+  if (rows < 1 || C < 1 || C % V || splits < 1) return false;
+  const int nvec = C / V;
+  const int tx = nvec < kThreads ? nvec : kThreads;
+  block = dim3(tx, kThreads / tx);
+  ctiles = (nvec + tx - 1) / tx;
+  units = ctiles * splits;
+  return true;
+}
+
+template <typename T, int V, bool kBwd>
+cudaError_t split_stats(const T* dy, const T* x, const float* shift,
+                        const float* mean, const float* var, float* work,
+                        float* out, int64_t rows, int C, int splits,
+                        float eps, cudaStream_t stream) {
+  SplitArgs<T> a;
+  dim3 block;
+  if (!split_shape(rows, C, V, splits, block, a.ctiles, a.units))
+    return cudaErrorInvalidValue;
+  a.x = x;
+  a.dy = dy;
+  a.shift = shift;
+  a.mean = mean;
+  a.var = var;
+  a.part = work;
+  a.rows = rows;
+  a.C = C;
+  a.eps = eps;
+  bn_split_sums_kernel<T, V, kBwd><<<a.units, block, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bn_split_reduce_kernel<<<(C + 255) / 256, 256, 0, stream>>>(work, out, C,
+                                                             splits);
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t split_fwd_apply(const T* x, T* y, const float* gamma,
+                            const float* beta, const float* sums,
+                            const float* shift, float* mean, float* var,
+                            int64_t rows, int64_t n, int C, int splits,
+                            float eps, cudaStream_t stream) {
+  SplitFwdApply<T> a;
+  dim3 block;
+  if (!split_shape(rows, C, V, splits, block, a.ctiles, a.units) || n < rows)
+    return cudaErrorInvalidValue;
+  a.x = x;
+  a.y = y;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.sums = sums;
+  a.shift = shift;
+  a.mean = mean;
+  a.var = var;
+  a.rows = rows;
+  a.n = n;
+  a.C = C;
+  a.eps = eps;
+  bn_split_fwd_apply_kernel<T, V><<<a.units, block, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t split_bwd_apply(const T* dy, const T* x, const float* gamma,
+                            const float* mean, const float* var,
+                            const float* sums, T* dx, int64_t rows, int64_t n,
+                            int C, int splits, float eps,
+                            cudaStream_t stream) {
+  SplitBwdApply<T> a;
+  dim3 block;
+  if (!split_shape(rows, C, V, splits, block, a.ctiles, a.units) || n < rows)
+    return cudaErrorInvalidValue;
+  a.dy = dy;
+  a.x = x;
+  a.gamma = gamma;
+  a.mean = mean;
+  a.var = var;
+  a.sums = sums;
+  a.dx = dx;
+  a.rows = rows;
+  a.n = n;
+  a.C = C;
+  a.eps = eps;
+  bn_split_bwd_apply_kernel<T, V><<<a.units, block, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  x, y, dy, dx: contiguous [rows,
@@ -878,6 +1183,80 @@ cudaError_t bwd(const T* dy, const T* x, const float* gamma, const float* mean,
 
 FUSED_BN_ENTRIES(f32, float, 4)
 FUSED_BN_ENTRIES(bf16, __nv_bfloat16, 8)
+
+// The split form's entry pairs (see "the split form" above).  x, dy, y, dx:
+// contiguous [rows, C] of the entry's dtype; shift, gamma, beta, mean, var:
+// f32 [C]; work: f32 [splits][2][C]; out: f32 [2][C] (the local sums);
+// sums: f32 [2][C] (forward) or [4][C] (backward: s1, s2, dmean, dvar),
+// summed over every process; n: the global rows.  `splits` row ranges a
+// channel tile; `vec` as above.  Each launches on `stream`, does not
+// synchronise and allocates nothing; returns the first failure's
+// cudaError_t (0 on success).
+#define FUSED_BN_SPLIT_ENTRIES(SUFFIX, T, V)                                  \
+  extern "C" int fused_bn_split_fwd_stats_##SUFFIX(                           \
+      const void* x, const void* shift, void* work, void* out,                \
+      long long rows, int C, int splits, int vec, void* stream) {             \
+    auto s = static_cast<cudaStream_t>(stream);                               \
+    auto run = [&](auto v) {                                                  \
+      return split_stats<T, decltype(v)::value, false>(                       \
+          nullptr, static_cast<const T*>(x),                                  \
+          static_cast<const float*>(shift), nullptr, nullptr,                 \
+          static_cast<float*>(work), static_cast<float*>(out), rows, C,       \
+          splits, 0.f, s);                                                    \
+    };                                                                        \
+    return vec ? run(std::integral_constant<int, V>())                        \
+               : run(std::integral_constant<int, 1>());                       \
+  }                                                                           \
+  extern "C" int fused_bn_split_fwd_apply_##SUFFIX(                           \
+      const void* x, void* y, const void* gamma, const void* beta,            \
+      const void* sums, const void* shift, void* mean, void* var,             \
+      long long rows, long long n, int C, int splits, int vec, float eps,     \
+      void* stream) {                                                         \
+    auto s = static_cast<cudaStream_t>(stream);                               \
+    auto run = [&](auto v) {                                                  \
+      return split_fwd_apply<T, decltype(v)::value>(                          \
+          static_cast<const T*>(x), static_cast<T*>(y),                       \
+          static_cast<const float*>(gamma), static_cast<const float*>(beta),  \
+          static_cast<const float*>(sums), static_cast<const float*>(shift),  \
+          static_cast<float*>(mean), static_cast<float*>(var), rows, n, C,    \
+          splits, eps, s);                                                    \
+    };                                                                        \
+    return vec ? run(std::integral_constant<int, V>())                        \
+               : run(std::integral_constant<int, 1>());                       \
+  }                                                                           \
+  extern "C" int fused_bn_split_bwd_stats_##SUFFIX(                           \
+      const void* dy, const void* x, const void* mean, const void* var,       \
+      void* work, void* out, long long rows, int C, int splits, int vec,      \
+      float eps, void* stream) {                                              \
+    auto s = static_cast<cudaStream_t>(stream);                               \
+    auto run = [&](auto v) {                                                  \
+      return split_stats<T, decltype(v)::value, true>(                        \
+          static_cast<const T*>(dy), static_cast<const T*>(x), nullptr,       \
+          static_cast<const float*>(mean), static_cast<const float*>(var),    \
+          static_cast<float*>(work), static_cast<float*>(out), rows, C,       \
+          splits, eps, s);                                                    \
+    };                                                                        \
+    return vec ? run(std::integral_constant<int, V>())                        \
+               : run(std::integral_constant<int, 1>());                       \
+  }                                                                           \
+  extern "C" int fused_bn_split_bwd_apply_##SUFFIX(                           \
+      const void* dy, const void* x, const void* gamma, const void* mean,     \
+      const void* var, const void* sums, void* dx, long long rows,            \
+      long long n, int C, int splits, int vec, float eps, void* stream) {     \
+    auto s = static_cast<cudaStream_t>(stream);                               \
+    auto run = [&](auto v) {                                                  \
+      return split_bwd_apply<T, decltype(v)::value>(                          \
+          static_cast<const T*>(dy), static_cast<const T*>(x),                \
+          static_cast<const float*>(gamma), static_cast<const float*>(mean),  \
+          static_cast<const float*>(var), static_cast<const float*>(sums),    \
+          static_cast<T*>(dx), rows, n, C, splits, eps, s);                   \
+    };                                                                        \
+    return vec ? run(std::integral_constant<int, V>())                        \
+               : run(std::integral_constant<int, 1>());                       \
+  }
+
+FUSED_BN_SPLIT_ENTRIES(f32, float, 4)
+FUSED_BN_SPLIT_ENTRIES(bf16, __nv_bfloat16, 8)
 
 #ifdef FUSED_BN_TRACE
 extern "C" int fused_bn_trace(void* out) {

@@ -8,9 +8,15 @@ default) or padded by wrapping around to the first rows, with ``step_mask``
 marking the real rows so that ``evaluate`` scores every row exactly.  Each
 batch is placed on the estimator's device as it is yielded.
 
-Single process: the global batch is the local batch.  ``FeedBase`` holds
-the index arithmetic that ``DataFeed`` and ``stream.StreamingDataFeed``
-share.  ``PrefetchIterator`` runs a feed's epoch on a producer thread
+A feed yields global batches: ``batch_size`` is the global batch.  Over
+several processes every process is given the whole dataset (the same
+``seed`` gives every process the same shuffle) and takes its equal slice
+of each global batch, ``shard_batch``'s rows of its batch shard along the
+mesh's batch axes (``BATCH_AXES``: ``data`` and ``fsdp``); ranks that
+differ only along another axis (``model``) take the same rows.  A batch
+that the batch axes do not divide raises there, as in the JAX package.
+``FeedBase`` holds the index arithmetic that ``DataFeed`` and
+``stream.StreamingDataFeed`` share.  ``PrefetchIterator`` runs a feed's epoch on a producer thread
 (``Estimator.fit(prefetch=)``); with ``place`` it also places host batches
 there, on the card through pinned staging and a side stream
 (``PlacedBatch``: the consumer's stream waits on the copy's event).
@@ -134,6 +140,44 @@ def device_placer(device: torch.device) -> Callable[[Any], Any]:
             ready.record(stream)
         return PlacedBatch(out, ready)
     return place
+
+
+BATCH_AXES = ("data", "fsdp")  # mesh axes a batch dim is sharded over
+
+
+def batch_axis_size(mesh: Any) -> int:
+    """The number of batch shards of ``mesh``: the product of its batch
+    axes' sizes."""
+    size = 1
+    for a in BATCH_AXES:
+        if a in mesh.axis_names:
+            size *= mesh.shape[a]
+    return size
+
+
+def shard_batch(batch: Any, mesh: Any) -> Any:
+    """This rank's rows of a global batch: block ``mesh.index(BATCH_AXES)``
+    of ``batch_axis_size(mesh)`` equal blocks of every leaf's dim 0 (a
+    view); the batch itself on a mesh of one batch shard.  A global batch
+    the batch axes do not divide raises (there is no replicated fallback
+    across processes)."""
+    s = batch_axis_size(mesh)
+    if s == 1:
+        return batch
+    k = mesh.index(BATCH_AXES)
+
+    def take(a: Any) -> Any:
+        n = nrows(a)
+        if n % s:
+            raise ValueError(
+                f"global batch dim {n} does not divide the mesh batch axes "
+                f"(size {s}); pick a batch size divisible by the data/fsdp "
+                "axes in multi-process runs (no replicated fallback across "
+                "processes)")
+        m = n // s
+        return a[k * m:(k + 1) * m]
+
+    return tree_map(take, batch)
 
 
 class FeedBase:

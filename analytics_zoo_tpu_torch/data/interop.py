@@ -19,11 +19,15 @@ Every foreign source becomes one of two feeds:
   exact.
 
 TensorFlow is not a dependency: ``from_tf_dataset`` imports it lazily and
-raises a clear error when absent.  One process only: the JAX package's
-agreement between processes on the number of batches (an allgather each
-batch) comes with several processes, ROADMAP Queue 1 item 7; until then
-an ``IterableDataFeed`` raises when ``torch.distributed`` runs more than
-one.
+raises a clear error when absent.  Over several processes an
+``IterableDataFeed`` is the JAX package's: each process keeps sample ``i``
+of the shared stream where ``i % count == index`` (unless
+``pre_sharded``), forms its local rows (the global batch over the process
+count), and the processes agree on the batch count and the mask with an
+allgather each batch over the host group; a process that ran dry sends
+all-masked filler until the longest stream ends.  The port's feeds yield
+global batches (the Estimator takes each rank's rows), so the local rows
+are allgathered in process order into the global batch.
 """
 
 from __future__ import annotations
@@ -88,16 +92,22 @@ class IterableDataFeed(FeedBase):
 
     def epoch(self, device: torch.device, epoch_idx: int = 0
               ) -> Iterator[Dict[str, Any]]:
-        """One pass over the stream as batches on ``device``."""
-        if process_grid()[1] > 1:
-            raise NotImplementedError(
-                "IterableDataFeed over several processes is not ported yet "
-                "(ROADMAP Queue 1 item 7: the processes' agreement on the "
-                "batch count); run one process")
+        """One pass over the stream as global batches on ``device``."""
+        pidx, pcount = process_grid()
+        multi = pcount > 1
         it = self._make_iter(epoch_idx)
+        if not self.pre_sharded and multi:
+            it = (e for i, e in enumerate(it) if i % pcount == pidx)
         lb = self._local_batch
+        if multi:
+            if lb % pcount:
+                raise ValueError(
+                    f"global batch {lb} does not divide over {pcount} "
+                    "processes")
+            lb //= pcount
         count = 0
         pending = None
+        last_row: Any = None
         exhausted = False
 
         def flush(batch_rows, n_real, include_mask):
@@ -107,6 +117,8 @@ class IterableDataFeed(FeedBase):
                 m = np.zeros((len(batch_rows),), np.float32)
                 m[:n_real] = 1.0
                 batch["mask"] = m
+            if multi:
+                batch = tree_map(_gather_rows, batch)
             return tree_map(lambda a: to_device(a, device), batch)
 
         while True:
@@ -118,21 +130,68 @@ class IterableDataFeed(FeedBase):
                 except StopIteration:
                     exhausted = True
             n_real = len(rows)
-            if n_real == 0:
+            if multi:
+                # every process emits the same number of batches of one
+                # structure, even where the streams' lengths differ
+                starved = n_real == 0 and last_row is None
+                stats = _allgather_ints([n_real, int(starved)])
+                reals = [a for a, _ in stats]
+                if max(reals) == 0:
+                    break
+                if max(b for _, b in stats):
+                    # raised on every process (a local raise would leave
+                    # the peers in the next collective)
+                    raise ValueError(
+                        "a process received zero samples while others have "
+                        "data; give every process samples (or use "
+                        "pre_sharded=False striding)")
+                include_mask = min(reals) < lb
+            elif n_real == 0:
                 break
-            include_mask = n_real < lb
-            if include_mask and self.drop_remainder:
+            else:
+                include_mask = n_real < lb
+            if include_mask and self.drop_remainder and not multi:
                 break
             if n_real < lb:
-                rows = rows + [rows[-1]] * (lb - n_real)
+                filler = rows[-1] if rows else last_row
+                rows = rows + [filler] * (lb - n_real)
+            last_row = rows[-1]
             if pending is not None:
                 yield pending  # one-batch lookahead, like DataFeed
             pending = flush(rows, n_real, include_mask)
-            if exhausted:
+            if exhausted and not multi:
                 break
-        self._n = count
+        self._n = sum(a for a, _ in _allgather_ints([count, 0])) if multi \
+            else count
         if pending is not None:
             yield pending
+
+
+def _host_group() -> Any:
+    import torch.distributed as dist
+    from ..core.context import OrcaContext
+    g = OrcaContext.host_group
+    if g is None and dist.get_backend() == "gloo":
+        g = dist.group.WORLD
+    return g
+
+
+def _allgather_ints(values: list) -> list:
+    """Each process's ``values`` (ints), over the host group."""
+    import torch.distributed as dist
+    t = torch.tensor(values, dtype=torch.int64)
+    parts = [torch.zeros_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t, group=_host_group())
+    return [tuple(int(v) for v in p.tolist()) for p in parts]
+
+
+def _gather_rows(a: np.ndarray) -> np.ndarray:
+    """Every process's rows of one leaf, in process order."""
+    import torch.distributed as dist
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t, group=_host_group())
+    return torch.cat(parts).numpy()
 
 
 def from_iterator(make_iter: Callable[[int], Iterator[Any]],

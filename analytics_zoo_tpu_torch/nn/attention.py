@@ -6,6 +6,13 @@ attention, bias-free projections ``wq/wk/wv`` of shape ``(d_model, H*D)`` and
 ``wo`` of shape ``(H*D, d_model)``.  With ``use_flash`` and no mask the core
 goes through ``ops.flash_attention`` (the CUDA kernel on the card);
 otherwise through the dense ``dot_product_attention``.
+
+A layer given a ``parallel.tensor_parallel.ModelParallel`` as ``tp`` (the
+Estimator does, over a mesh with a ``model`` axis and the tensor-parallel
+rules) computes its share of the model group: its block of heads of
+``wq``/``wk``/``wv`` and of ``wo``'s rows, and in ``TransformerLayer`` its
+block of ``ffn1``'s columns and ``ffn2``'s rows, the partial outputs
+summed over the group.
 """
 
 from __future__ import annotations
@@ -113,6 +120,7 @@ class MultiHeadAttention(nn.Module):
         self.wv = nn.Parameter(torch.empty(d_model, inner))
         self.wo = nn.Parameter(torch.empty(inner, d_model))
         self.drop = Dropout(dropout)
+        self.tp = None  # a ModelParallel: compute this rank's heads
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -121,14 +129,22 @@ class MultiHeadAttention(nn.Module):
 
     def _proj(self, w: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         y = src @ w.to(src.dtype)
-        return y.reshape(src.shape[:-1] + (self.num_heads, self.head_dim))
+        return y.reshape(src.shape[:-1] + (-1, self.head_dim))
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        tp = self.tp
+        wq, wk, wv, wo = self.wq, self.wk, self.wv, self.wo
+        if tp is not None:
+            # this rank's heads: a block of wq/wk/wv's columns, of wo's rows
+            cols = tp.block(self.num_heads * self.head_dim)
+            wq, wk, wv, wo = wq[:, cols], wk[:, cols], wv[:, cols], wo[cols]
+            x = tp.copy_to(x)
+            kv = x if kv is None else tp.copy_to(kv)
         kv = x if kv is None else kv
-        q = self._proj(self.wq, x)
-        k = self._proj(self.wk, kv)
-        v = self._proj(self.wv, kv)
+        q = self._proj(wq, x)
+        k = self._proj(wk, kv)
+        v = self._proj(wv, kv)
         use_flash = self.use_flash
         if use_flash == "auto":
             use_flash = kv.shape[1] >= FLASH_AUTO_MIN_SEQ
@@ -150,7 +166,9 @@ class MultiHeadAttention(nn.Module):
                     use_reentrant=False, preserve_rng_state=False)
             else:
                 ctx = dot_product_attention(q, k, v, mask)
-        out = ctx.reshape(x.shape[:-1] + (-1,)) @ self.wo.to(x.dtype)
+        out = ctx.reshape(x.shape[:-1] + (-1,)) @ wo.to(x.dtype)
+        if tp is not None:
+            out = tp.reduce_from(out)
         return self.drop(out)
 
 
@@ -171,11 +189,23 @@ class TransformerLayer(nn.Module):
         self.ffn1 = Dense(d_model, d_model * hidden_mult, activation="gelu")
         self.ffn2 = Dense(d_model * hidden_mult, d_model)
         self.drop = Dropout(dropout)
+        self.tp = None  # a ModelParallel: compute this rank's ffn block
+
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        if tp is None:
+            return self.ffn2(self.ffn1(x))
+        # this rank's block of ffn1's columns and of ffn2's rows
+        c = tp.block(self.ffn1.units)
+        h = tp.copy_to(x) @ self.ffn1.kernel[:, c].to(x.dtype)
+        h = self.ffn1.activation(h + self.ffn1.bias[c].to(h.dtype))
+        y = tp.reduce_from(h @ self.ffn2.kernel[c].to(h.dtype))
+        return y + self.ffn2.bias.to(y.dtype)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.pre_ln:
             x = x + self.drop(self.mha(self.ln1(x), mask=mask))
-            return x + self.drop(self.ffn2(self.ffn1(self.ln2(x))))
+            return x + self.drop(self._ffn(self.ln2(x)))
         x = self.ln1(x + self.drop(self.mha(x, mask=mask)))
-        return self.ln2(x + self.drop(self.ffn2(self.ffn1(x))))
+        return self.ln2(x + self.drop(self._ffn(x)))

@@ -579,7 +579,13 @@ class BatchNormalization(nn.Module):
     ``ops.fused_bn.bn_train`` (the CUDA kernels on the card); training over
     another axis takes the inline shifted f32 moments.  The normalize of
     that path and of eval is the rounding-compensated one, in the
-    activation's dtype."""
+    activation's dtype.
+
+    ``group``: the ``torch.distributed`` data group whose ranks hold one
+    global batch in equal parts (set by the Estimator over several
+    processes; None in one process): training then normalizes by the
+    global batch's moments, through ``fused_bn.bn_train``'s split form
+    (any axis: the channel axis is moved last for it)."""
 
     def __init__(self, dim: int, momentum: float = 0.99,
                  epsilon: float = 1e-3, center: bool = True,
@@ -590,6 +596,7 @@ class BatchNormalization(nn.Module):
         self.epsilon = epsilon
         self.axis = axis
         self.train_fn = fused_bn.bn_train
+        self.group = None
         self.gamma = nn.Parameter(torch.empty(dim)) if scale else None
         self.beta = nn.Parameter(torch.empty(dim)) if center else None
         self.register_buffer("mean", torch.zeros(dim))
@@ -613,14 +620,19 @@ class BatchNormalization(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axis = self.axis % x.dim()
         dim = x.shape[axis]
-        if self.training and axis == x.dim() - 1:
+        if self.training and (axis == x.dim() - 1 or self.group is not None):
             gamma = self.gamma if self.gamma is not None \
                 else self.mean.new_ones(dim)
             beta = self.beta if self.beta is not None \
                 else self.mean.new_zeros(dim)
-            y, mean, var = self.train_fn(x, gamma, beta, self.epsilon)
+            xl = x if axis == x.dim() - 1 else x.movedim(axis, -1)
+            if self.group is None:
+                y, mean, var = self.train_fn(xl, gamma, beta, self.epsilon)
+            else:
+                y, mean, var = self.train_fn(xl, gamma, beta, self.epsilon,
+                                             group=self.group)
             self._update(mean.detach(), var.detach())
-            return y
+            return y if axis == x.dim() - 1 else y.movedim(-1, axis)
         shape = [1] * x.dim()
         shape[axis] = dim
         if self.training:

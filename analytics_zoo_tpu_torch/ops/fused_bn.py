@@ -19,6 +19,26 @@ per-channel shift (``_normalize``); the backward takes ``s1 = Σdy`` and
   returns ``(y, mean, var)`` and saves ``(x, gamma, mean, var)``, as the
   ``custom_vjp`` does.
 
+Over a batch split across processes (``bn_train(..., group=)``: the data
+group of ``torch.distributed`` ranks whose local rows make one global
+batch) the moments are the global batch's, as the JAX package's
+``_moments`` over a sharded batch: one grid barrier cannot span processes,
+so each direction splits at its reduction (``bn_train_split``):
+
+- forward: the first rank's row 0 is broadcast as the shift; a kernel
+  writes the per-channel f32 ``Σ(x - shift)`` and ``Σ(x - shift)²`` of the
+  local rows (``split_fwd_stats``); the ``[2, C]`` sums are all-reduced
+  over the group; a kernel finalizes mean and var over the global n and
+  normalizes with the same rounding-compensated arithmetic
+  (``split_fwd_apply``);
+- backward: a kernel writes the local ``s1 = Σdy`` and ``s2 = Σdy·x̂``
+  (``split_bwd_stats``); ``[s1, s2, dmean, dvar]`` are all-reduced; a
+  kernel writes dx from the global sums (``split_bwd_apply``).  dgamma and
+  dbeta are the local sums: the estimator's gradient all-reduce adds the
+  ranks' up, as it adds every other parameter's.
+
+The one-launch cooperative kernels stay the path of one process.
+
 For a tensor on the CPU the wrappers use ``bn_train_fwd_reference`` and
 ``bn_train_bwd_reference``, which repeat the JAX package's arithmetic.
 There is no fallback from the card to the plain versions: a kernel that
@@ -33,7 +53,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import NamedTuple, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
@@ -42,10 +62,15 @@ from . import _launches
 SOURCE = "fused_bn"  # csrc/<source>.cu
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 PASSES = ("fwd", "bwd")
+SPLIT_PASSES = ("split_fwd_stats", "split_fwd_apply", "split_bwd_stats",
+                "split_bwd_apply")
 # launches of each kernel by dtype ("fwd_bf16", ...): each entry call
 # launches its direction's kernel once; bn_train_fwd.launches and
 # bn_train_bwd.launches count the entries' calls
 KERNEL_LAUNCHES = {f"{p}_{s}": 0 for s in _SUFFIX.values() for p in PASSES}
+# the split entries' launches by dtype ("split_fwd_stats_bf16", ...)
+SPLIT_KERNEL_LAUNCHES = {f"{p}_{s}": 0 for s in _SUFFIX.values()
+                         for p in SPLIT_PASSES}
 _count_lock = threading.Lock()
 # the launch (as csrc/fused_bn.cu derives it): blocks of 512 threads, one
 # an SM, over tiles of up to 512 channel vectors (whole rows of every
@@ -253,7 +278,10 @@ def _count(fn, *names: str) -> None:
     with _count_lock:
         fn.launches += 1
         for name in names:
-            KERNEL_LAUNCHES[name] += 1
+            if name in KERNEL_LAUNCHES:
+                KERNEL_LAUNCHES[name] += 1
+            else:
+                SPLIT_KERNEL_LAUNCHES[name] += 1
 
 
 def _launch_fwd(x, gamma, beta, eps):
@@ -364,28 +392,298 @@ class _FusedBatchNorm(torch.autograd.Function):
 
 
 def bn_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-             eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             eps: float, group: Any = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One training-step batch norm over the last axis of ``x``: ``(y in
     x's dtype, f32 batch mean, f32 biased batch var)``, differentiable in
-    all three.  On the card both directions run in ``csrc/fused_bn.cu``."""
+    all three.  On the card both directions run in ``csrc/fused_bn.cu``.
+    With a ``group`` (a ``torch.distributed`` process group, even of one
+    rank) the batch is the global one its ranks hold: the split form
+    (``bn_train_split``)."""
+    if group is not None:
+        return bn_train_split(x, gamma, beta, eps, group)
     return _FusedBatchNorm.apply(x, gamma, beta, float(eps), False)
 
 
 def bn_train_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                   eps: float) -> Tuple[torch.Tensor, ...]:
+                   eps: float, group: Any = None) -> Tuple[torch.Tensor, ...]:
     """``bn_train`` through the plain versions on any device: the yardstick
     the kernels are held against (``chip_smoke.py``); no layer calls it."""
+    if group is not None:
+        return bn_train_split(x, gamma, beta, eps, group, plain=True)
     return _FusedBatchNorm.apply(x, gamma, beta, float(eps), True)
+
+
+# -- the split form: one batch over several processes -------------------------
+
+#: row ranges a channel tile in the split kernels' grids: about two
+#: 512-thread blocks an SM, at least 4 rows a thread
+SPLIT_BLOCKS_PER_SM = 2
+
+
+def split_plan(rows: int, c: int, itemsize: int, vec: bool,
+               sm_count: int) -> int:
+    """The split kernels' row ranges a channel tile over ``[rows, c]``."""
+    v = 16 // itemsize if vec else 1
+    nvec = c // v
+    tx = min(nvec, THREADS)
+    ty = THREADS // tx
+    ctiles = -(-nvec // tx)
+    return max(1, min(-(-SPLIT_BLOCKS_PER_SM * sm_count // ctiles),
+                      -(-rows // (ty * MIN_ROWS_PER_THREAD))))
+
+
+def split_fwd_stats_reference(x: torch.Tensor, shift: torch.Tensor
+                              ) -> torch.Tensor:
+    """``[Σ(x - shift), Σ(x - shift)²]`` of x's rows per channel, f32
+    ``[2, C]``."""
+    xc = x.reshape(-1, x.shape[-1]).float() - shift
+    return torch.stack([xc.sum(dim=0), xc.square().sum(dim=0)])
+
+
+def split_fwd_apply_reference(x, gamma, beta, sums, shift, n, eps):
+    """``(y, mean, var)`` from the global sums over ``n`` rows: the plain
+    forward's finalize and normalize."""
+    m1 = sums[0] / n
+    m2 = sums[1] / n
+    mean = m1 + shift
+    var = torch.clamp_min(m2 - m1.square(), 0.0)
+    inv = torch.rsqrt(var + eps) * gamma
+    mean_c = mean.to(x.dtype)
+    sh = (mean_c.float() - mean) * inv + beta
+    y = (x - mean_c) * inv.to(x.dtype) + sh.to(x.dtype)
+    return y, mean, var
+
+
+def split_bwd_stats_reference(x, mean, var, dy, eps) -> torch.Tensor:
+    """``[Σdy, Σdy·(x - mean)·rsqrt(var + eps)]`` of the local rows, f32
+    ``[2, C]``."""
+    c = x.shape[-1]
+    xf = x.reshape(-1, c).float()
+    dyf = dy.reshape(-1, c).float()
+    inv = torch.rsqrt(var + eps)
+    return torch.stack([dyf.sum(dim=0),
+                        (dyf * ((xf - mean) * inv)).sum(dim=0)])
+
+
+def split_bwd_apply_reference(x, gamma, mean, var, dy, sums, n, eps):
+    """dx from the global ``[s1, s2, dmean, dvar]`` over ``n`` rows: the
+    plain backward's element pass."""
+    c = x.shape[-1]
+    xf = x.reshape(-1, c).float()
+    dyf = dy.reshape(-1, c).float()
+    s1, s2, dmean, dvar = sums
+    inv = torch.rsqrt(var + eps)
+    k = gamma * inv
+    c1 = (s1 / n) * k - dmean / n + (dvar / n) * 2.0 * mean
+    c2 = (s2 / n) * k * inv
+    cv = (dvar / n) * 2.0
+    dx = dyf * k - c1 - (xf - mean) * c2 + xf * cv
+    return dx.to(x.dtype).reshape(x.shape)
+
+
+_SPLIT_ARGS = {
+    # (pointers, then the integer and float arguments after them)
+    "split_fwd_stats": ([ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    "split_fwd_apply": ([ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float]),
+    "split_bwd_stats": ([ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float]),
+    "split_bwd_apply": ([ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float]),
+}
+
+
+def _split_entry(name: str, dtype: torch.dtype):
+    key = (name, dtype)
+    if key not in _entries:
+        from . import _build
+        lib = _build.load(SOURCE)
+        fn = getattr(lib, f"fused_bn_{name}_{_SUFFIX[dtype]}")
+        fn.argtypes = _SPLIT_ARGS[name] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[key] = lib, fn
+    return _entries[key]
+
+
+def _split_call(entry, x: torch.Tensor, *args) -> None:
+    """Launch split entry ``entry`` (one of the ``split_*`` wrappers) on
+    ``x``'s stream and count it."""
+    name = entry.__name__
+    lib, fn = _split_entry(name, x.dtype)
+    err = _on_stream(x.device, lambda stream: fn(*args, stream))
+    _raise_on_error(lib, f"fused_bn {name}", err)
+    _count(entry, f"{name}_{_SUFFIX[x.dtype]}")
+
+
+def split_launches() -> dict:
+    """Launches of each split entry (stats and apply of each direction)."""
+    return {name: globals()[name].launches for name in SPLIT_PASSES}
+
+
+def _split_geometry(x: torch.Tensor, *maps: torch.Tensor):
+    c, rows = x.shape[-1], _rows(x)
+    vec = _vectorized(c, x.element_size(), x, *maps)
+    splits = split_plan(rows, c, x.element_size(), vec,
+                        _sm_count(x.device.index))
+    return c, rows, vec, splits
+
+
+def split_fwd_stats(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """The local sums of the split forward, f32 ``[2, C]``: the kernel for
+    a CUDA tensor, the plain version for a CPU one."""
+    if _on_cpu(x, "split_fwd_stats"):
+        return split_fwd_stats_reference(x, shift)
+    _check_launch(x, shift)
+    x = x.contiguous()
+    c, rows, vec, splits = _split_geometry(x)
+    work = torch.empty(splits * 2 * c, dtype=torch.float32, device=x.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    shift = _f32(shift)
+    _split_call(split_fwd_stats, x, x.data_ptr(), shift.data_ptr(),
+                work.data_ptr(), out.data_ptr(), rows, c, splits, int(vec))
+    return out
+
+
+def split_fwd_apply(x, gamma, beta, sums, shift, n: int, eps: float):
+    """``(y, mean, var)`` of the split forward from the global sums over
+    ``n`` rows."""
+    if _on_cpu(x, "split_fwd_apply"):
+        return split_fwd_apply_reference(x, gamma, beta, sums, shift, n, eps)
+    _check_launch(x, gamma, beta, sums, shift)
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    c, rows, vec, splits = _split_geometry(x, y)
+    mean = torch.empty(c, dtype=torch.float32, device=x.device)
+    var = torch.empty(c, dtype=torch.float32, device=x.device)
+    gamma, beta, sums, shift = (_f32(t) for t in (gamma, beta, sums, shift))
+    _split_call(split_fwd_apply, x, x.data_ptr(), y.data_ptr(),
+                gamma.data_ptr(), beta.data_ptr(), sums.data_ptr(),
+                shift.data_ptr(), mean.data_ptr(), var.data_ptr(), rows,
+                int(n), c, splits, int(vec), float(eps))
+    return y, mean, var
+
+
+def split_bwd_stats(x, mean, var, dy, eps: float) -> torch.Tensor:
+    """The local ``[s1, s2]`` of the split backward, f32 ``[2, C]``."""
+    if _on_cpu(x, "split_bwd_stats"):
+        return split_bwd_stats_reference(x, mean, var, dy, eps)
+    _check_launch(x, mean, var, dy)
+    x, dy = x.contiguous(), dy.contiguous()
+    c, rows, vec, splits = _split_geometry(x, dy)
+    work = torch.empty(splits * 2 * c, dtype=torch.float32, device=x.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    mean, var = _f32(mean), _f32(var)
+    _split_call(split_bwd_stats, x, dy.data_ptr(), x.data_ptr(),
+                mean.data_ptr(), var.data_ptr(), work.data_ptr(),
+                out.data_ptr(), rows, c, splits, int(vec), float(eps))
+    return out
+
+
+def split_bwd_apply(x, gamma, mean, var, dy, sums, n: int, eps: float):
+    """dx of the split backward from the global ``[s1, s2, dmean, dvar]``
+    over ``n`` rows."""
+    if _on_cpu(x, "split_bwd_apply"):
+        return split_bwd_apply_reference(x, gamma, mean, var, dy, sums, n,
+                                         eps)
+    _check_launch(x, gamma, mean, var, dy, sums)
+    x, dy = x.contiguous(), dy.contiguous()
+    dx = torch.empty_like(x)
+    c, rows, vec, splits = _split_geometry(x, dy, dx)
+    gamma, mean, var, sums = (_f32(t) for t in (gamma, mean, var, sums))
+    _split_call(split_bwd_apply, x, dy.data_ptr(), x.data_ptr(),
+                gamma.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                sums.data_ptr(), dx.data_ptr(), rows, int(n), c, splits,
+                int(vec), float(eps))
+    return dx
+
+
+for _fn in (split_fwd_stats, split_fwd_apply, split_bwd_stats,
+            split_bwd_apply):
+    _fn.launches = 0
+
+
+def _group_size(group: Any) -> int:
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def _all_reduce(t: torch.Tensor, group: Any) -> torch.Tensor:
+    import torch.distributed as dist
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _SplitBatchNorm(torch.autograd.Function):
+    """Batch norm over the global batch whose rows ``group``'s ranks hold
+    in equal parts: ``(y, mean, var)`` as ``_FusedBatchNorm``, through the
+    split entries (or, with ``plain``, their plain versions on any
+    device)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, group, plain):
+        import torch.distributed as dist
+        c = x.shape[-1]
+        # a copy: the broadcast writes it (row 0 of an f32 x is a view)
+        shift = x.reshape(-1, c)[0].detach().float().clone()
+        dist.broadcast(shift, src=dist.get_global_rank(group, 0),
+                       group=group)
+        n = _rows(x) * _group_size(group)
+        stats = split_fwd_stats_reference if plain else split_fwd_stats
+        apply = split_fwd_apply_reference if plain else split_fwd_apply
+        sums = _all_reduce(stats(x, shift).contiguous(), group)
+        y, mean, var = apply(x, gamma, beta, sums, shift, n, eps)
+        ctx.save_for_backward(x, gamma, mean, var)
+        ctx.eps, ctx.group, ctx.plain, ctx.n = eps, group, plain, n
+        return y, mean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dmean, dvar):
+        x, gamma, mean, var = ctx.saved_tensors
+        dy = dy.contiguous()
+        stats = split_bwd_stats_reference if ctx.plain else split_bwd_stats
+        apply = split_bwd_apply_reference if ctx.plain else split_bwd_apply
+        local = stats(x, mean, var, dy, ctx.eps)
+        sums = _all_reduce(torch.cat([local, dmean.float()[None],
+                                      dvar.float()[None]]).contiguous(),
+                           ctx.group)
+        dx = apply(x, gamma, mean, var, dy, sums, ctx.n, ctx.eps)
+        return dx, local[1].clone(), local[0].clone(), None, None, None
+
+
+def bn_train_split(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   eps: float, group: Any, plain: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training batch norm over the global batch that ``group``'s ranks
+    hold in equal local parts ``x``: ``(y, mean, var)`` with the global
+    moments, differentiable (dx through the global sums; dgamma and dbeta
+    the local rows' share).  On the card the split entries of
+    ``csrc/fused_bn.cu``; ``plain`` takes their plain versions on any
+    device."""
+    return _SplitBatchNorm.apply(x, gamma, beta, float(eps), group,
+                                 bool(plain))
 
 
 def reset_launches() -> None:
     """Set every launch count of this module to 0."""
     with _count_lock:
         bn_train_fwd.launches = bn_train_bwd.launches = 0
+        for name in SPLIT_PASSES:
+            globals()[name].launches = 0
+        for name in SPLIT_KERNEL_LAUNCHES:
+            SPLIT_KERNEL_LAUNCHES[name] = 0
         for name in KERNEL_LAUNCHES:
             KERNEL_LAUNCHES[name] = 0
 
 
-__all__ = ["bn_train", "bn_train_plain", "bn_train_fwd", "bn_train_bwd",
+__all__ = ["SPLIT_KERNEL_LAUNCHES", "SPLIT_PASSES", "bn_train_split", "split_bwd_apply",
+           "split_bwd_stats", "split_fwd_apply", "split_fwd_stats",
+           "split_launches",
+           "bn_train", "bn_train_plain", "bn_train_fwd", "bn_train_bwd",
            "bn_train_fwd_reference", "bn_train_bwd_reference",
            "KERNEL_LAUNCHES", "Plan", "plan", "reset_launches"]

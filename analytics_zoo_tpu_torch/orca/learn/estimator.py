@@ -104,10 +104,21 @@ The JAX estimator's single-device knobs are taken as it takes them:
 - ``log_dir``/``app_name`` write the per-epoch scalars through
   ``core/summary.py`` (``get_train_summary``, ``get_validation_summary``).
 
-The knobs that need several processes (``grad_compression``) or the MoE
-layers (``aux_loss_weight``) raise ``NotImplementedError`` (naming the
-ROADMAP item) when set to anything but their default; they are never
-ignored.
+Over several processes (``core/context.py``'s ``init_orca_context``) the
+estimator trains one global batch a step across the mesh's ranks:
+``sharding=`` ``"dp"``, ``"fsdp"``, ``"tp"``, ``"tp+fsdp"``, ``"2d"`` or a
+rule list, and ``grad_compression=`` ``None``, ``"none"``, ``"bf16"`` or
+``"int8"``, as ``scaleout.py`` describes (the batch sharded, batch norm over
+the global batch, gradients all-reduced, rule-placed leaves kept as this
+rank's pieces, the quantized wire and its residuals).  ``evaluate``
+returns the global metrics and ``predict`` this process's rows; the fit
+beats the supervisor's heartbeat (``core.context.heartbeat``), and meters
+``train.grad_bytes`` a step and ``train.comm_ms`` an epoch under
+``grad_compression``.  A checkpoint over several processes is the JAX
+package's multi-process layout, written collectively
+(``checkpoint_async`` falls back to it).  The MoE layers' knob
+(``aux_loss_weight``) raises ``NotImplementedError`` (naming its ROADMAP
+item) when set to anything but its default; it is never ignored.
 
 The state plane is the JAX package's: ``save``/``load`` write and read
 ``core/checkpoint.py``'s format (the JAX estimator's tree: ``params`` and
@@ -153,8 +164,10 @@ from ...core import faults as faults_lib
 from ...core import metrics as telemetry
 from ...core import trace as trace_lib
 from ...core.config import ZooConfig
+from ...core.context import config_default, current_mesh, heartbeat
 from ...data.feed import (FeedBase, PrefetchIterator, as_feed,
-                          device_placer, leaves, nrows, to_device, tree_map)
+                          device_placer, leaves, nrows, shard_batch,
+                          to_device, tree_map)
 from ...data.shards import XShards
 from ...data.stream import make_placer
 from ...nn import losses as losses_lib
@@ -163,6 +176,7 @@ from ...nn.layers import Dropout, _indexed, seed_dropout
 from ...ops import _launches
 from ...parallel import embedding as emb_lib
 from . import optimizers as opt_lib
+from .scaleout import Scaleout, one_process
 from .trigger import Trigger
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -171,7 +185,6 @@ _Q1 = "ROADMAP Queue 1 item"
 # the JAX estimator's knobs that the port does not take yet: name ->
 # (default, where it is scheduled)
 _UNPORTED_KNOBS = {
-    "grad_compression": (None, f"{_Q1} 7 (grad_compression)"),
     "aux_loss_weight": (0.01, f"{_Q1} 9 (MoE auxiliary losses)"),
 }
 
@@ -356,6 +369,7 @@ class ZooEstimator:
                  profile_steps: Sequence[int] = (10, 20),
                  log_dir: Optional[str] = None,
                  app_name: str = "train",
+                 grad_compression: Optional[str] = None,
                  **knobs: Any):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -364,12 +378,37 @@ class ZooEstimator:
         self._sparse = emb_lib.sparse_parameters(model)
         _check_sparse_support(self._sparse, grad_accum, frozen)
         _refuse_unported("ZooEstimator", knobs, _UNPORTED_KNOBS)
-        if not (sharding == "dp" or emb_lib.is_row_rules(sharding)):
+        if grad_compression is None:
+            grad_compression = config_default("grad_compression", None)
+        if grad_compression is not None:
+            from ...parallel.util import GRAD_COMPRESSION
+            if grad_compression not in GRAD_COMPRESSION:
+                raise ValueError(
+                    f"grad_compression must be one of {GRAD_COMPRESSION} "
+                    f"or None, got {grad_compression!r}")
+            if grad_compression != "none" and grad_accum > 1:
+                raise ValueError(
+                    "grad_compression='bf16'/'int8' requires grad_accum=1 "
+                    "(the compressed collective already decomposes the "
+                    "batch per shard)")
+            if grad_compression != "none" and self._sparse:
+                raise ValueError(
+                    "grad_compression='bf16'/'int8' is not supported with "
+                    f"ShardedEmbedding tables (found {list(self._sparse)}):"
+                    " sparse row gradients always travel f32 and never "
+                    "enter the quantized collective.  Use "
+                    "grad_compression=None (or 'none' for wire metering of "
+                    "the dense leaves).")
+        self.grad_compression = grad_compression
+        self.sharding = sharding
+        mesh = current_mesh()
+        if emb_lib.is_row_rules(sharding):
+            sharding = "dp"  # one process: every table whole on its device
+        if self._sparse and mesh is not None and mesh.size > 1:
             raise NotImplementedError(
-                f"ZooEstimator(sharding={sharding!r}) is not ported yet "
-                f"({_Q1} 7 (sharding)); only 'dp' and "
-                "embedding_row_rules() (one card: every table whole on the "
-                "card) are taken")
+                f"ShardedEmbedding tables over {mesh.size} processes are "
+                f"not ported yet ({_Q1} 19 (row-sharded tables across "
+                "processes)); one process trains them on its device")
         self.embedding_lr = embedding_lr
         self._learning_rate = learning_rate
         self.grad_accum = int(grad_accum)
@@ -412,6 +451,31 @@ class ZooEstimator:
         self.capture_count = 0
         self._dense_names = [n for n, _ in dense]
         self._table_path = {id(p): tp for tp, p in self._sparse.items()}
+        # several processes, a strategy or a compressed wire: the mesh's
+        # half of the step (scaleout.py); None is the one-process step
+        self._scale: Optional[Scaleout] = None
+        self.capture_refused: Optional[str] = None
+        one_process(self.model)
+        if ((mesh is not None and mesh.size > 1) or sharding != "dp"
+                or grad_compression is not None):
+            from ...core.context import make_mesh
+            self._scale = Scaleout(self, mesh or make_mesh(None, 1),
+                                   sharding, grad_compression)
+            if self._scale.communicates and self.cuda_graphs:
+                self.cuda_graphs = False
+                self.capture_refused = (
+                    f"the step all-reduces over {self._scale.mesh.size} "
+                    f"processes ({self._scale.mesh.backend}); steps with "
+                    f"collectives run eagerly ({_Q1} 18)")
+                logger.warning("CUDA graphs off: %s", self.capture_refused)
+        self._opt_params: List[torch.Tensor] = (
+            self._scale.opt_params if self._scale is not None
+            else self._params)
+        self._grad_bytes_step = 0
+        if grad_compression is not None:
+            from ...parallel.util import grad_wire_bytes
+            self._grad_bytes_step = grad_wire_bytes(self._params,
+                                                    grad_compression)
         self._init_state_plane(model_dir, preemption_checkpoint,
                                preemption_sync_every, checkpoint_retries,
                                checkpoint_async, checkpoint_inflight,
@@ -473,6 +537,15 @@ class ZooEstimator:
             from ...core.failover import PreemptionGuard
             self._preempt = PreemptionGuard(sync_every).install()
         self._ckpt_mgr = None
+        mesh = current_mesh()
+        if use_async and mesh is not None and mesh.size > 1:
+            # saves over several processes are collective (each process
+            # writes its pieces); a writer thread of one process cannot run
+            # that protocol: the inline collective save instead
+            logger.warning(
+                "checkpoint_async=True is single-process only; the run over "
+                "%d processes falls back to synchronous saves", mesh.size)
+            use_async = False
         if use_async:
             if model_dir is None:
                 raise ValueError("checkpoint_async=True needs model_dir")
@@ -507,7 +580,8 @@ class ZooEstimator:
         """The optimizer's state over the dense parameters, named by their
         paths in the JAX tree (LARS and LAMB exclude leaves by path)."""
         return self.optimizer.init(
-            self._params, [n.replace(".", "/") for n in self._dense_names])
+            self._opt_params,
+            [n.replace(".", "/") for n in self._dense_names])
 
     def _loss_and_grads(self, x: Any, y: Any) -> tuple:
         """One forward in training mode; returns its loss, the gradient of
@@ -564,9 +638,11 @@ class ZooEstimator:
         optimizer's state (its lazy state made first), each once; the
         copies' buffers are made with the list, once."""
         if self._guarded is None:
-            self.optimizer.materialize(self._params, self._opt_state)
+            self.optimizer.materialize(self._opt_params, self._opt_state)
             seen, kept = set(), []
-            for t in (list(self._params) + list(self.model.buffers())
+            ef = (self._scale.ef or []) if self._scale is not None else []
+            for t in (list(self._params) + list(self._opt_params)
+                      + list(self.model.buffers()) + list(ef)
                       + opt_lib.state_tensors(self._opt_state)):
                 if id(t) not in seen:
                     seen.add(id(t))
@@ -594,12 +670,19 @@ class ZooEstimator:
             # in JAX
             grads = [torch.zeros_like(p) if g is None else g
                      for g, p in zip(grads, self._params)]
+            if self._scale is not None:
+                # the global batch's loss and gradients; the ranks' batch
+                # norm statistics merged under a compressed wire
+                loss, grads = self._scale.reduce(loss, grads)
+                self._scale.merge_statistics()
             ok = None
             if self.nan_policy is not None:
                 # the JAX step's grads_for_norm: the dense gradients and
                 # the tables' row gradients
                 finite = torch.isfinite(opt_lib.global_norm(
                     grads + [g for _, g in rows if g is not None]))
+                if self._scale is not None:
+                    finite = self._scale.agree(finite)
                 if skip:
                     ok = torch.isfinite(loss) & finite
                 else:
@@ -607,8 +690,14 @@ class ZooEstimator:
                     # over a non-finite gradient reads as NaN
                     loss = torch.where(finite, loss.detach(),
                                        torch.full_like(loss, math.nan))
-            self._opt_state = self.optimizer.step(self._params, grads,
-                                                  self._opt_state)
+            if self._scale is not None:
+                self._opt_state = self.optimizer.step(
+                    self._opt_params, self._scale.opt_grads(grads),
+                    self._opt_state)
+                self._scale.gather(self._params)
+            else:
+                self._opt_state = self.optimizer.step(self._params, grads,
+                                                      self._opt_state)
             # the tables: -embedding_lr x each lookup's row gradient added
             # on its unique ids (the JAX package's scatter-add); a skipped
             # step adds zeros (0 x NaN would be NaN)
@@ -652,6 +741,8 @@ class ZooEstimator:
         """One optimizer step on ``batch``; returns the loss (on the
         device, not synchronised).  On the card: a replay of the key's
         graph."""
+        if self._scale is not None:
+            batch = shard_batch(batch, self._scale.mesh)
         if not self.cuda_graphs:
             if self._opt_state is None:
                 self._opt_state = self._init_opt()
@@ -837,6 +928,8 @@ class ZooEstimator:
         m_samples = reg.counter("train.samples")
         m_bad = reg.counter("train.bad_steps")
         m_prefetch = reg.gauge("train.prefetch_depth")
+        m_grad_bytes = reg.counter("train.grad_bytes") \
+            if self.grad_compression is not None else None
         # the profiler's series exist only while it is on
         m_compiles = m_mfu = None
         if self._profile_cfg is not None:
@@ -872,6 +965,9 @@ class ZooEstimator:
                 m_wait.observe(wait * 1000.0)
                 if "mask" in batch:  # a stream's padded batch: skipped
                     continue
+                # the gang supervisor's liveness beat (a no-op unless a
+                # heartbeat file is configured), its payload a status
+                heartbeat(step=self._py_step)
                 # the worker fault seams (core/faults.py), disarmed no-ops
                 # unless a test or a chaos schedule arms them
                 if faults.fire("worker.crash"):
@@ -905,6 +1001,8 @@ class ZooEstimator:
                         parent=epoch_sid, dur_ms=step_ms)
                 m_steps.inc()
                 m_samples.inc(feed.global_batch)
+                if self._grad_bytes_step:
+                    m_grad_bytes.inc(self._grad_bytes_step)
                 if host_nan_check and not math.isfinite(float(loss)):
                     self.bad_steps += 1
                     m_bad.inc()
@@ -955,6 +1053,16 @@ class ZooEstimator:
         mfu = self._measure_mfu(samples_per_sec)
         if mfu is not None:
             m_mfu.set(mfu)
+        comm_ms = self._measure_comm_ms()  # None unless configured
+        if comm_ms is not None:
+            reg.histogram("train.comm_ms").observe(comm_ms)
+        hb_extra = {}
+        if os.environ.get("ZOO_HEARTBEAT_METRICS"):
+            # the supervisor folds every rank's registry snapshot into the
+            # gang's (core/launcher.py)
+            hb_extra["metrics"] = reg.snapshot()
+        heartbeat(force=True, step=self._py_step, loss=epoch_loss,
+                  samples_per_sec=round(samples_per_sec, 2), **hb_extra)
         if record_spans:
             trace_lib.record(
                 fit_tid, "train.epoch",
@@ -985,6 +1093,32 @@ class ZooEstimator:
                 step=self._py_step, epoch_end=True):
             self._trigger_save()
         return True
+
+    def _measure_comm_ms(self) -> Optional[float]:
+        """Wall ms of the gradient all-reduce alone at the configured wire
+        width (``train.comm_ms``): gradient-shaped tensors filled on the
+        device, reduced through the step's own reduce, synchronised; once
+        an epoch (the first call warms and is discarded).  None without
+        ``grad_compression``."""
+        if self.grad_compression is None or self._scale is None:
+            return None
+        scale = self._scale
+
+        def probe():
+            probe_grads = [torch.zeros_like(p) for p in self._params]
+            saved = [r.clone() for r in scale.ef] if scale.ef else None
+            scale.reduce(torch.zeros((), device=self.device), probe_grads)
+            if saved is not None:  # the probe must not move the residuals
+                for r, old in zip(scale.ef, saved):
+                    r.copy_(old)
+            self._sync()
+
+        if not getattr(self, "_comm_warm", False):
+            probe()
+            self._comm_warm = True
+        t0 = time.monotonic()
+        probe()
+        return (time.monotonic() - t0) * 1000.0
 
     @property
     def compile_count(self) -> int:
@@ -1122,6 +1256,9 @@ class ZooEstimator:
         def accumulate(totals, batch, mask):
             if not isinstance(mask, torch.Tensor):
                 mask = to_device(mask, self.device)
+            if self._scale is not None:  # this rank's rows of the batch
+                batch, mask = shard_batch((batch, mask), self._scale.mesh)
+            heartbeat()  # a long validation sweep is progress too
             stats = self._eval_step(batch, mask)
             return stats if totals is None else \
                 [a + b for a, b in zip(totals, stats)]
@@ -1143,6 +1280,12 @@ class ZooEstimator:
                                          batch), mask)
         if totals is None:
             raise ValueError("evaluate got no batches")
+        if self._scale is not None and self._scale.batch_group is not None:
+            # the global sums: the ranks' rows make the global batch
+            import torch.distributed as dist
+            totals = [t.clone() for t in totals]
+            for t in totals:
+                dist.all_reduce(t, group=self._scale.batch_group)
         out = {"loss": float(totals[0][0] / torch.clamp(totals[0][1],
                                                         min=1.0))}
         for m, stat in zip(self.metrics, totals[1:]):
@@ -1163,14 +1306,34 @@ class ZooEstimator:
                              "the feed with shuffle=False")
         outs: List[np.ndarray] = []
         self.model.eval()
+        scale = self._scale if (self._scale is not None
+                                and self._scale.batch_size > 1) else None
         with torch.no_grad():
-            for batch in feed.epoch(self.device, 0):
-                outs.append(_to_numpy(self._forward_eval(batch["x"])))
-            if feed.drop_remainder:
+            for step, batch in enumerate(feed.epoch(self.device, 0)):
+                heartbeat()  # a long prediction sweep is progress too
+                if scale is None:
+                    outs.append(_to_numpy(self._forward_eval(batch["x"])))
+                    continue
+                # this process's rows: its block of each global batch,
+                # the padding past the last row left out
+                x = shard_batch(batch["x"], scale.mesh)
+                out = _to_numpy(self._forward_eval(x))
+                if "mask" in batch:  # a stream's padded rows
+                    real = _to_numpy(shard_batch(batch["mask"],
+                                                 scale.mesh)) > 0
+                    outs.append(out[real])
+                    continue
+                m = nrows(x)
+                first = step * feed._local_batch + scale.batch_index * m
+                outs.append(out[:max(0, min(m, feed.num_rows - first))])
+            if feed.drop_remainder and (scale is None
+                                        or scale.batch_index == 0):
                 rem = feed.remainder()
                 if rem is not None:  # tail rows the epoch skipped
                     outs.append(_to_numpy(self._forward_eval(tree_map(
                         lambda a: to_device(a, self.device), rem["x"]))))
+        if scale is not None:
+            return np.concatenate(outs, axis=0)
         return np.concatenate(outs, axis=0)[:feed.num_rows]
 
     # -- state ----------------------------------------------------------------
@@ -1200,8 +1363,25 @@ class ZooEstimator:
         if self._opt_state is None:
             self._opt_state = self._init_opt()
         return self.optimizer.optax_state(
-            self._params, self._opt_state,
-            lambda ts: jax_tree(zip(self._dense_names, ts)))
+            self._opt_params, self._opt_state, self._opt_tree)
+
+    def _opt_tree(self, ts: List[Any]) -> Dict[str, Any]:
+        """Per-parameter optimizer state as the JAX params tree: a sharded
+        leaf's piece as its ``ShardedLeaf`` (already in the JAX layout),
+        the rest through ``jax_tree``."""
+        if self._scale is None:
+            return jax_tree(zip(self._dense_names, ts))
+        out = self._scale.opt_layout(ts)
+        tree = jax_tree((n, t) for n, t in zip(self._dense_names, out)
+                        if isinstance(t, torch.Tensor))
+        for n, t in zip(self._dense_names, out):
+            if not isinstance(t, torch.Tensor):
+                *path, leaf = n.split(".")
+                node = tree
+                for k in path:
+                    node = node.setdefault(k, {})
+                node[leaf] = t
+        return tree
 
     def _generators_list(self) -> List[torch.Generator]:
         """The dropout generators (each once, in module order)."""
@@ -1214,7 +1394,7 @@ class ZooEstimator:
         tensors; the touched-row masks are not part of it) plus the port's
         generator states under a key the JAX estimator ignores."""
         seed = int(self.seed) & 0xFFFFFFFFFFFFFFFF
-        return {
+        tree = {
             **jax_variables(self.model.state_dict(),
                             buffer_names(self.model)),
             "opt_state": opt_lib.snapshot(self._optax_state()),
@@ -1227,6 +1407,9 @@ class ZooEstimator:
                 "dropout": [g.get_state() for g in self._generators_list()],
                 "augment": self._aug_gen.get_state()},
         }
+        if self._scale is not None:
+            self._scale.save_tree(tree)
+        return tree
 
     def _ckpt_exists(self, path: str) -> bool:
         """A resumable checkpoint at ``path``: the sync layout, or an async
@@ -1315,6 +1498,11 @@ class ZooEstimator:
             {"params": tree["params"], "state": tree.get("state") or {}}),
             strict=True)
         opt_lib.load_optax(self._optax_state(), tree["opt_state"])
+        if self._scale is not None:
+            # the master pieces from the loaded parameters, and this rank's
+            # residuals
+            self._scale.reload_pieces(self._params)
+            self._scale.load_tree(tree)
         self._py_step = int(np.asarray(tree["step"]))
         bad = np.asarray(tree.get("bad_steps", 0), np.int32)
         self._bad_steps.copy_(torch.from_numpy(bad.reshape(())))

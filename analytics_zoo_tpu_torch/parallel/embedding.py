@@ -25,9 +25,10 @@ over the unique rows, whose backward is deterministic on the card (it runs
 under ``torch.use_deterministic_algorithms``), so a captured step gives the
 eager step's bits.
 
-On one card, row sharding (``embedding_row_rules``) keeps every table whole
-on the card; the rules keep the reference's form for the mesh to come
-(ROADMAP Queue 1 item 7).
+In one process, row sharding (``embedding_row_rules``) keeps every table
+whole on its device; the rules keep the reference's form.  Tables sharded
+by rows across processes are ROADMAP Queue 1 item 19 (the Estimator
+refuses a sparse model over several processes until then).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from torch.nn import functional as F
 
 from ..core import metrics as metrics_lib
 from ..nn import initializers
+from .sharding import P, ShardingRule
 
 #: The parameter leaf every ShardedEmbedding table registers under: the
 #: marker the Estimator's sparse train path and the row rule key on.
@@ -53,20 +55,11 @@ SPARSE_LEAF = "sharded_embeddings"
 _COMBINERS = (None, "sum", "mean")
 
 
-@dataclass
-class ShardingRule:
-    """The reference's rule form: the first regex (searched in a
-    ``/``-joined parameter path) that matches wins; ``spec`` names the
-    mesh axes each dimension shards over (``None``: replicated)."""
-    pattern: str
-    spec: Tuple[Any, ...]
-
-
 def embedding_row_rules(axes: Sequence[str] = ("data", "fsdp", "model")
                         ) -> List[ShardingRule]:
     """Row-shard every ShardedEmbedding table over all the mesh's axes
     (dimension 0 over ``axes``).  On one card the table stays whole."""
-    return [ShardingRule(SPARSE_LEAF + "$", (tuple(axes),))]
+    return [ShardingRule(SPARSE_LEAF + "$", P(tuple(axes)))]
 
 
 def is_row_rules(sharding: Any) -> bool:

@@ -153,7 +153,7 @@ JSON line:
    tree layout.  (a) f32, 2 layers at full width: the plain head's and
    the fused head's gradients, and the losses of a 3-step ``grad_accum=2``
    fit, against each other.  (b) bf16 with the plain head and (c) with the
-   head through ``fused_softmax_xent`` (a loss callable), 20 steps a fit,
+   head through ``fused_softmax_xent`` (a loss callable), 10 steps a fit,
    two fits each in turns (plain, fused, fused, plain): every fit's loss
    must fall, every (c) fit must launch the forward and each backward pass
    8 times a step (both directions on ``wgmma``; (a)'s fused fit 6 times
@@ -162,8 +162,8 @@ JSON line:
    TFLOP/s, one
    profiled step's idle share and the head's and loss's share of the card's
    time.  (a)-(c) run eagerly.  (d) the fused recipe from CUDA graphs,
-   bench.py's phases: the eager window of 10 steps on the seeded batch
-   (its losses) and a warm one (its time), then ``_multi_step(batch, 50)`` once (its first 10 losses against the
+   bench.py's phases: the eager window of 5 steps on the seeded batch
+   (its losses) and a warm one (its time), then ``_multi_step(batch, 20)`` once (its first 5 losses against the
    eager ones) and three times timed, 8 launches of each ``fused_xent``
    pass a step from the replays, one capture, a profiled window, peak
    memory; the streaming phase (8 worker threads, ``_multi_step_data``
@@ -325,10 +325,35 @@ JSON line:
    ``log_dir``: the Chrome trace holds 53 of each batch-norm kernel a
    replayed step, ``train.compiles`` 1, ``train.mfu`` set, every summary
    tag written.
-15. ``devices``: the card as ``nvidia-smi`` reports it.
+15. ``scaleout``: the Estimator over several processes, in children that
+   the port's gang launcher (``core/launcher.launch``) starts from this
+   script (``--scaleout-child``).  One child, a world of 1 over NCCL
+   (``init_orca_context("multihost")``): (a) bert_train's BERT-base SQuAD
+   (bf16, flash, batch 32) under ``sharding`` dp, fsdp, tp and 2d against
+   the same Estimator made before the context: the captured fit's step
+   losses (equal bits expected), 12 + 12 flash launches a step, ms a step
+   of a window of replays; (b) resnet_train's ResNet-50 (bf16, batch 128)
+   under ``grad_compression`` None, none, bf16 and int8: captured fits,
+   53 launches of each batch-norm direction a step, none's losses equal
+   None's, ``train.grad_bytes`` 4x smaller in int8, the residuals finite
+   and nonzero; (c) the split batch-norm entries at an explicit one-rank
+   group at every ResNet-50 map (batch 128), bf16 and f32, against the
+   plain split version and the one-launch kernel, then their times (CUDA
+   events; with and without the group's collectives) beside the bytes
+   bound and ``nn.SyncBatchNorm``; and (d)'s one-process reference.  Then
+   (d): 2 ranks on the one card (gloo over CUDA tensors) under the
+   supervisor, ResNet-50 bf16 dp at a global batch of 128 (64 a rank,
+   eager), batch norm across the ranks through the split entries, a
+   checkpoint every epoch; rank 1 dies before its 4th step, the gang is
+   restarted and resumes; the 5 step losses against the one-process run
+   on the whole batch, the split entries' launches in each rank, the
+   supervisor's events and its gang metrics.
+16. ``devices``: the card as ``nvidia-smi`` reports it.
 
+Each phase's seconds follow it on a line of their own (the full run).
 Then the script's seconds, a ``kernels`` line (one entry per kernel and
-path) and, last,
+path; ``launches_scaleout`` the scaleout phase's, and one entry a
+direction and dtype for the split batch norm) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when there is no
 CUDA card.  ``--only kernel,fused_bn,...`` runs the named phases alone and
@@ -476,7 +501,7 @@ MLM = dict(vocab=30522, d_model=768, heads=12, layers=12)
 MLM_MICRO = 4
 MLM_ACCUM = 8
 MLM_BATCH = MLM_MICRO * MLM_ACCUM
-MLM_STEPS = 20           # 20 epochs over one seeded global batch
+MLM_STEPS = 10           # 10 epochs over one seeded global batch
 MLM_CHUNK = 512          # fused_softmax_xent's chunk: one sequence
 MLM_CHECK_LAYERS = 2     # bert_mlm_train (a), f32 at full width
 MLM_CHECK_ACCUM = 2      # ... global batch 8 = 2 x 4
@@ -498,7 +523,7 @@ XENT_EDGE = [(300, 40, 777, 100), (129, 13, 30, 43), (256, 64, 1000, 128),
 # call, streaming `chunk_steps, n_chunks = 10, 3` from 8 worker threads
 # with 4 batches of prefetch; bench_resnet50: 20 x 3, streaming 5 x 4 from
 # max(4, min(16, cores)) worker processes with 4 of prefetch
-MLM_RESIDENT = (50, 3)
+MLM_RESIDENT = (20, 3)
 MLM_STREAM = (10, 3)
 MLM_STREAM_WORKERS = 8
 RESNET_RESIDENT = (20, 3)
@@ -507,7 +532,7 @@ STREAM_PREFETCH = 4
 # steps of the eager step the captured one must repeat bit for bit (an
 # eager MLM step takes 0.5-0.9 s; a ResNet step under cuDNN's
 # deterministic algorithms, which the comparison needs, is slower too)
-MLM_CMP_STEPS = 10
+MLM_CMP_STEPS = 5
 RESNET_CMP_STEPS = 5
 # bench.py's acceptance for a streaming phase: within 15% of resident
 STREAM_WITHIN = 0.15
@@ -538,7 +563,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # process lost none.  What it loses is then the padding's.
 _PAD_LAUNCHES = 64
 _PAD_KERNEL = "spin_kernel"
-_PAD_IDLE_S = 0.05
+_PAD_IDLE_S = 0.02
 
 
 def _pad() -> None:
@@ -1784,6 +1809,9 @@ def phase_cluster_serve(fa) -> dict:
     return res
 
 
+INT8_DEVICE_BUCKETS = (16, 64)  # int8_gemm_timings' device_ms buckets
+
+
 def int8_gemm_shapes() -> list:
     """(layer, M, K, N, launches per forward) of the int8 products of a
     calibrated BERT-base forward at each bucket: ffn1 and ffn2 in each of
@@ -1839,7 +1867,10 @@ def int8_gemm_timings(quant) -> list:
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         for name, fn in fns.items():
             row[f"{name}_ms"] = cuda_ms(fn)
-            row[f"{name}_device_ms"] = device_ms(fn)
+            # the profiler's windows at the two largest buckets only
+            row[f"{name}_device_ms"] = (device_ms(fn) if m >= min(
+                INT8_DEVICE_BUCKETS) * SEQ or layer == "pooler" and
+                m >= min(INT8_DEVICE_BUCKETS) else None)
         rows.append(row)
         del a, w, x, wb
     return rows
@@ -3436,7 +3467,7 @@ def phase_bert_mlm_train(fa, fx) -> dict:
     torch.cuda.empty_cache()
 
     # (b) plain head and (c) fused head: bench.py's recipe, bf16, 12
-    # layers, global batch 32 = grad_accum 8 x 4, 20 steps on one seeded
+    # layers, global batch 32 = grad_accum 8 x 4, 10 steps on one seeded
     # batch.  The step is host-bound and the host's time swings between
     # fits of one code, so the two heads take turns: plain, fused, fused,
     # plain; each fit must launch as it should and lower the loss
@@ -3538,9 +3569,10 @@ def phase_bert_mlm_train(fa, fx) -> dict:
 
 def mlm_captured(fa, fx, make, x, y, fwd_flops, eager_run) -> dict:
     """bert_mlm_train (d): bench.py's ``bench_bert`` (the fused head) from
-    CUDA graphs.  The eager step's window of 10 steps on the seeded batch
-    (its losses the yardstick) and a second, warm one (its time), then ``_multi_step(batch, 50)`` once to
-    warm (its first 10 losses against the eager ones) and three times
+    CUDA graphs.  The eager step's window of ``MLM_CMP_STEPS`` steps on
+    the seeded batch (its losses the yardstick) and a second, warm one (its
+    time), then ``_multi_step(batch, MLM_RESIDENT[0])`` once to warm (its
+    first ``MLM_CMP_STEPS`` losses against the eager ones) and three times
     timed, 8 launches of each ``fused_xent`` pass a step counted from the
     replays, a profiled window, peak memory; then bench.py's streaming
     phase: 8 worker threads decode token batches, ``_multi_step_data``
@@ -5005,6 +5037,8 @@ def autots_kernel_counts(fa, bn, fx) -> dict:
     counts = dict(fa.KERNEL_LAUNCHES)
     counts.update({f"{BN_KERNEL}_{k}": v
                    for k, v in bn.KERNEL_LAUNCHES.items()})
+    counts.update({f"{BN_KERNEL}_{k}": v
+                   for k, v in bn.SPLIT_KERNEL_LAUNCHES.items()})
     counts.update({f"{XENT_KERNEL}_{k}": v
                    for k, v in fx.KERNEL_LAUNCHES.items()})
     return counts
@@ -6172,10 +6206,11 @@ class ForeignSizes:
 
 
 def fg_check(bn, sizes, what: str, fwd: int, bwd: int) -> dict:
-    """The batch-norm counts since the last reset: ``fwd`` and ``bwd`` f32
-    launches on the card, every count 0 on the CPU."""
-    counts = dict(bn.KERNEL_LAUNCHES)
-    want = {"fwd_f32": 0, "bwd_f32": 0, "fwd_bf16": 0, "bwd_bf16": 0}
+    """The batch-norm counts since the last reset, one-launch and split
+    entries: ``fwd`` and ``bwd`` f32 one-launch launches on the card, every
+    other count 0 (every count on the CPU)."""
+    counts = dict(bn.KERNEL_LAUNCHES, **bn.SPLIT_KERNEL_LAUNCHES)
+    want = dict.fromkeys(counts, 0)
     if sizes.device == "cuda":
         want.update(fwd_f32=fwd, bwd_f32=bwd)
     if counts != want:
@@ -6525,10 +6560,11 @@ class TrainKnobsSizes:
 
 
 def kn_counts(fa, bn, fx) -> dict:
-    """The launches of the kernels line's twelve entries since
+    """The launches of the kernels line's entries since
     ``autots_reset_counts``, by entry: the flash forward by source, its
     backward by dtype (f32: the wgmma_tf32 design; bf16: the others at
-    d <= 64), the batch norm and the cross-entropy passes by dtype."""
+    d <= 64), the batch norm's passes (one-launch and split) and the
+    cross-entropy passes by dtype."""
     bwd_f32 = fa.BWD_LAUNCHES["wgmma_tf32"]
     counts = {"flash_attention_fwd_bf16": fa.KERNEL_LAUNCHES[BF16_KERNEL],
               "flash_attention_fwd_f32": fa.KERNEL_LAUNCHES[F32_KERNEL],
@@ -6537,6 +6573,8 @@ def kn_counts(fa, bn, fx) -> dict:
               "flash_attention_bwd_f32": bwd_f32}
     counts.update({f"{BN_KERNEL}_{k}": v
                    for k, v in bn.KERNEL_LAUNCHES.items()})
+    counts.update({f"{BN_KERNEL}_{k}": v
+                   for k, v in bn.SPLIT_KERNEL_LAUNCHES.items()})
     counts.update({f"{XENT_KERNEL}_{k}": v
                    for k, v in fx.KERNEL_LAUNCHES.items()})
     return counts
@@ -7009,6 +7047,612 @@ def phase_train_knobs(fa, bn, fx, sizes=None) -> dict:
 
 
 
+# -- scaleout: the Estimator over several processes ---------------------------
+
+SCALEOUT_STRATEGIES = ("dp", "fsdp", "tp", "2d")
+SCALEOUT_BERT_EXAMPLES = 64     # (a): 2 steps an epoch at batch 32
+SCALEOUT_BERT_EPOCHS = 2        # (a): the captured fit, 4 steps
+SCALEOUT_WINDOW = 5             # (a), (b): replays of a timed window
+SCALEOUT_COMPRESSION = (None, "none", "bf16", "int8")
+SCALEOUT_RESNET_IMAGES = 256    # (b): 2 steps an epoch at batch 128
+SCALEOUT_GANG_RANKS = 2         # (d): both on the one card
+SCALEOUT_GANG_EPOCHS = 5        # (d): one global batch of 128 an epoch
+SCALEOUT_GANG_LR = 1e-3
+SCALEOUT_GANG_KILL = 3          # (d): rank 1 dies before its 4th step
+# (d) against the one-process run of the same 5 steps: bf16 activations
+# summed in another order (two ranks' partial sums, gloo's all-reduce of
+# the f32 gradients) move a loss by about 1e-3 of it
+TOL_SCALEOUT_GANG = 2e-2
+TOL_SPLIT_BN_F32 = 2e-5         # (c): of max(1, |ref|), split vs one-launch
+TOL_SPLIT_BN_BF16 = 2e-2        # (c): one bf16 ulp of the output at most
+SCALEOUT_TIMEOUT = 400          # one child gang's attempt, seconds
+
+
+def so_counts(fa, bn, fx, what: str, **want: int) -> dict:
+    """``kn_counts`` since the last ``autots_reset_counts``: ``want``'s
+    entries as given, every other 0."""
+    got = kn_counts(fa, bn, fx)
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"scaleout {what}: launches {got}; want {full}")
+    return got
+
+
+def so_bert(fa, bn, fx, rng) -> dict:
+    """(a): BERT-base SQuAD (bf16, flash, batch 32, seq 512) under each
+    strategy at world size 1, against the same Estimator made before the
+    context: the captured fit's step losses, the flash launches a step
+    (every other kernel's 0) and the ms a step of a window of replays."""
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.core.context import (init_orca_context,
+                                                      OrcaContext)
+    from analytics_zoo_tpu_torch.data import as_feed
+    from analytics_zoo_tpu_torch.models import BERTSQuAD, squad_span_loss
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    state = from_jax_variables(random_bert_variables(
+        BERTSQuAD(use_flash=True, **BERT_BASE), SEED))
+    x, y = squad_examples(rng, SCALEOUT_BERT_EXAMPLES)
+    steps = SCALEOUT_BERT_EPOCHS * (SCALEOUT_BERT_EXAMPLES // TRAIN_BATCH)
+
+    def run(sharding):
+        m = BERTSQuAD(use_flash=True, **dict(BERT_BASE, dropout=0.1,
+                                             dtype=torch.bfloat16))
+        m.load_state_dict(state, strict=True)
+        kw = {} if sharding is None else {"sharding": sharding}
+        est = Estimator.from_keras(m.cuda(), loss=squad_span_loss,
+                                   optimizer="adamw",
+                                   learning_rate=TRAIN_LR, seed=SEED, **kw)
+        losses = []
+        inner = est._train_step
+        est._train_step = lambda b: losses.append(inner(b)) or losses[-1]
+        autots_reset_counts(fa, bn, fx)
+        est.fit((x, y), epochs=SCALEOUT_BERT_EPOCHS, batch_size=TRAIN_BATCH,
+                verbose=False)
+        launches = read_counts(fa, f"scaleout (a) {sharding}", **{
+            BF16_KERNEL: steps, BWD_KERNEL: steps})
+        per_layer = BERT_BASE["n_layers"] * steps
+        counts = so_counts(fa, bn, fx, f"(a) {sharding}",
+                           flash_attention_fwd_bf16=per_layer,
+                           flash_attention_bwd_bf16=per_layer)
+        est._train_step = inner
+        batch = next(as_feed((x, y), TRAIN_BATCH, seed=SEED).epoch(
+            est.device, 0))
+        ms, _ = window_ms(lambda: est._multi_step(batch, SCALEOUT_WINDOW),
+                          SCALEOUT_WINDOW)
+        out = {"step_losses": [float(v) for v in losses],
+               "captured": est.cuda_graphs and est.capture_count == 1,
+               "capture_refused": est.capture_refused,
+               "ms_per_step": ms,
+               "flash_launches_per_step": {
+                   k: v / steps for k, v in launches.items()},
+               "launches": launches, "counts": counts}
+        del est, m
+        torch.cuda.empty_cache()
+        return out
+
+    base = run(None)  # no context yet
+    mesh = init_orca_context("multihost")
+    res = {"world": mesh.size, "backend": mesh.backend, "mesh": mesh.shape,
+           "no_context": base, "strategies": {}}
+    for strategy in SCALEOUT_STRATEGIES:
+        r = run(strategy)
+        gap = max(abs(a - b) for a, b in zip(r["step_losses"],
+                                             base["step_losses"]))
+        r["loss_gap_to_no_context"] = gap
+        r["equal_bits"] = r["step_losses"] == base["step_losses"]
+        if not all(map(math.isfinite, r["step_losses"])):
+            raise AssertionError(f"scaleout (a) {strategy}: losses "
+                                 f"{r['step_losses']}")
+        res["strategies"][strategy] = r
+    res["context"] = OrcaContext.config.cluster_mode
+    return res
+
+
+def so_resnet_data(n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8),
+            rng.integers(0, RESNET["class_num"], n).astype(np.int32))
+
+
+def so_resnet_model(bn, variables, **kw):
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    m = TrainNet(norm="batch", **dict({"dtype": "bfloat16"}, **kw))
+    m.load_state_dict(from_jax_variables(variables), strict=True)
+    return m.cuda()
+
+
+def so_compression(fa, bn, fx) -> dict:
+    """(b): resnet_train's ResNet-50 (bf16, batch 128, batch norm) under
+    each grad_compression at world size 1: the captured fit's losses, the
+    batch-norm launches a step, ms a step, train.grad_bytes, the int8
+    residuals."""
+    from analytics_zoo_tpu_torch.core import metrics as telemetry
+    from analytics_zoo_tpu_torch.data import as_feed
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+
+    variables = random_resnet_variables(TrainNet(norm="batch"), SEED)
+    x, y = so_resnet_data(SCALEOUT_RESNET_IMAGES, SEED + 30)
+    steps = SCALEOUT_RESNET_IMAGES // RESNET_BATCH
+    res = {}
+    for comp in SCALEOUT_COMPRESSION:
+        est = Estimator.from_keras(
+            so_resnet_model(bn, variables),
+            loss="sparse_categorical_crossentropy", optimizer="sgd",
+            learning_rate=RESNET_LR, seed=SEED, grad_compression=comp)
+        losses = []
+        inner = est._train_step
+        est._train_step = lambda b: losses.append(inner(b)) or losses[-1]
+        telemetry.get_registry().reset()
+        autots_reset_counts(fa, bn, fx)
+        est.fit((x, y), epochs=1, batch_size=RESNET_BATCH, verbose=False)
+        counts = read_bn_counts(bn, f"scaleout (b) {comp}", bf16=steps)
+        every = so_counts(fa, bn, fx, f"(b) {comp}", **{
+            f"{BN_KERNEL}_{p}_bf16": RESNET_BN * steps for p in bn.PASSES})
+        snap = telemetry.get_registry().snapshot()
+        est._train_step = inner
+        batch = next(as_feed((x, y), RESNET_BATCH, seed=SEED).epoch(
+            est.device, 0))
+        ms, _ = window_ms(lambda: est._multi_step(batch, SCALEOUT_WINDOW),
+                          SCALEOUT_WINDOW)
+        r = {"step_losses": [float(v) for v in losses], "ms_per_step": ms,
+             "captured": est.cuda_graphs and est.capture_count == 1,
+             "bn_launches": counts, "counts": every,
+             "bn_launches_per_step": {k: v / steps for k, v in counts.items()
+                                      if v},
+             "grad_bytes": snap.get("train.grad_bytes"),
+             "comm_ms": snap.get("train.comm_ms")}
+        if comp == "int8":
+            ef = est._scale.ef
+            r["residuals_finite"] = bool(all(
+                torch.isfinite(e).all().item() for e in ef))
+            r["residuals_nonzero"] = bool(any(
+                e.abs().sum().item() > 0 for e in ef))
+            r["residual_leaves"] = len(ef)
+        res[str(comp)] = r
+        del est
+        torch.cuda.empty_cache()
+    if res["none"]["step_losses"] != res["None"]["step_losses"]:
+        raise AssertionError(f"scaleout (b): grad_compression='none' losses "
+                             f"{res['none']['step_losses']} are not None's "
+                             f"{res['None']['step_losses']}")
+    ratio = res["none"]["grad_bytes"] / res["int8"]["grad_bytes"]
+    if ratio < 4.0:
+        raise AssertionError(f"scaleout (b): int8 grad_bytes only {ratio}x "
+                             f"smaller than none's")
+    if not (res["int8"]["residuals_finite"]
+            and res["int8"]["residuals_nonzero"]):
+        raise AssertionError("scaleout (b): int8 residuals not finite and "
+                             "nonzero")
+    for comp, r in res.items():
+        if not all(map(math.isfinite, r["step_losses"])):
+            raise AssertionError(f"scaleout (b) {comp}: {r['step_losses']}")
+    res["grad_bytes_none_over_int8"] = ratio
+    return res
+
+
+def split_two_ranks(bn, x, g, b, dy, dmean, dvar, eps) -> dict:
+    """The split entries as (d)'s two ranks run them, each on its half of
+    the batch (n = 2 x its rows), with the group's all-reduces as f32 sums
+    of the halves' partials and nonzero dmean and dvar: each entry against
+    its plain version on the same inputs, and the halves' y, mean, var and
+    dx against the one-launch entries over the whole batch.  The worst
+    error of each check, relative to max(1, |ref|)."""
+    half, n = x.shape[0] // 2, x.shape[0]
+    xs, dys = (x[:half], x[half:]), (dy[:half], dy[half:])
+    shift = x[0].float().clone()
+    worst = {}
+
+    def check(key, got, ref):
+        e = ((got.float() - ref.float()).abs().max()
+             / max(1.0, ref.float().abs().max().item())).item()
+        worst[key] = max(worst.get(key, 0.0), e)
+
+    parts = [bn.split_fwd_stats(p, shift) for p in xs]
+    for p, s in zip(xs, parts):
+        check("fwd_stats", s, bn.split_fwd_stats_reference(p, shift))
+    sums = parts[0] + parts[1]
+    outs = [bn.split_fwd_apply(p, g, b, sums, shift, n, eps) for p in xs]
+    for p, o in zip(xs, outs):
+        for a, r in zip(o, bn.split_fwd_apply_reference(p, g, b, sums, shift,
+                                                        n, eps)):
+            check("fwd_apply", a, r)
+    mean, var = outs[0][1], outs[0][2]
+    if not (torch.equal(mean, outs[1][1]) and torch.equal(var, outs[1][2])):
+        raise AssertionError("split_fwd_apply: the two ranks' moments differ")
+    parts = [bn.split_bwd_stats(p, mean, var, d, eps) for p, d in zip(xs, dys)]
+    for p, d, s in zip(xs, dys, parts):
+        check("bwd_stats", s, bn.split_bwd_stats_reference(p, mean, var, d,
+                                                           eps))
+    sums = torch.cat([parts[0] + parts[1], dmean[None], dvar[None]])
+    dxs = [bn.split_bwd_apply(p, g, mean, var, d, sums, n, eps)
+           for p, d in zip(xs, dys)]
+    for p, d, dx in zip(xs, dys, dxs):
+        check("bwd_apply", dx, bn.split_bwd_apply_reference(
+            p, g, mean, var, d, sums, n, eps))
+    y1, m1, v1 = bn.bn_train_fwd(x, g, b, eps)
+    dx1 = bn.bn_train_bwd(x, g, m1, v1, dy, dmean, dvar, eps)[0]
+    for a, r in ((torch.cat([o[0] for o in outs]), y1), (mean, m1),
+                 (var, v1), (torch.cat(dxs), dx1)):
+        check("vs_one_launch", a, r)
+    return worst
+
+
+def so_split_bn(bn) -> dict:
+    """(c): the split entries at group size 1 (an explicit one-rank group)
+    at every ResNet-50 map at batch 128, bf16 and f32, forward and
+    backward, against the plain split version and the one-launch kernel;
+    at the same maps as two ranks of 64 images (``split_two_ranks``: global
+    n, nonzero dmean and dvar); then their times (CUDA events) beside the bytes bound and
+    nn.SyncBatchNorm at world size 1 at three maps."""
+    import torch.distributed as dist
+    group = dist.new_group([0])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    eps = 1e-3
+    maps = resnet_bn_maps(RESNET_BATCH)
+    worst = {"bfloat16": {"plain": 0.0, "one_launch": 0.0},
+             "float32": {"plain": 0.0, "one_launch": 0.0}}
+    worst_abs = {"bfloat16": 0.0, "float32": 0.0}  # against the plain split
+
+    def err(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / max(1.0, b.float().abs().max().item())).item()
+
+    two_ranks = {"bfloat16": {}, "float32": {}}
+    for (rows, c) in maps:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g, b, dy, dmean, dvar = bn_inputs(gen, rows, c, dtype)
+            key = str(dtype).replace("torch.", "")
+            for check, e in split_two_ranks(bn, x, g, b, dy, dmean, dvar,
+                                            eps).items():
+                two_ranks[key][check] = max(two_ranks[key].get(check, 0.0),
+                                            e)
+            outs = {}
+            for kind in ("split", "plain", "one_launch"):
+                xr = x.clone().requires_grad_()
+                gr, br = g.clone().requires_grad_(), b.clone().requires_grad_()
+                if kind == "one_launch":
+                    yv, m, v = bn.bn_train(xr, gr, br, eps)
+                else:
+                    yv, m, v = bn.bn_train_split(xr, gr, br, eps, group,
+                                                 plain=kind == "plain")
+                (yv.float() * dy.float()).sum().backward()
+                outs[kind] = (yv, m, v, xr.grad, gr.grad, br.grad)
+            for ref in ("plain", "one_launch"):
+                e = max(err(a, r) for a, r in zip(outs["split"], outs[ref]))
+                worst[key][ref] = max(worst[key][ref], e)
+            worst_abs[key] = max(worst_abs[key], max(
+                (a.float() - r.float()).abs().max().item()
+                for a, r in zip(outs["split"], outs["plain"])))
+            del outs, x, dy
+    for key, w in worst.items():
+        tol = TOL_SPLIT_BN_BF16 if key == "bfloat16" else TOL_SPLIT_BN_F32
+        if max(w.values()) > tol or max(two_ranks[key].values()) > tol:
+            raise AssertionError(f"scaleout (c) {key}: split batch norm off "
+                                 f"by {w}, as two ranks by "
+                                 f"{two_ranks[key]} > {tol}")
+    bn.reset_launches()
+    order = list(maps)
+    timed_maps = {"stem": order[0],
+                  "most_norms": max(maps, key=maps.get), "stage3": order[-1]}
+    timings = []
+    for label, (rows, c) in timed_maps.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g, b, dy, _, _ = bn_inputs(gen, rows, c, dtype)
+            itemsize = x.element_size()
+            sync = torch.nn.SyncBatchNorm(c, eps=eps, momentum=0.01).cuda()
+            if dtype == torch.bfloat16:
+                sync = sync.to(torch.bfloat16)
+            xs = x.reshape(RESNET_BATCH, -1, c).permute(0, 2, 1)
+            xr = x.clone().requires_grad_()
+            gr, br = g.clone().requires_grad_(), b.clone().requires_grad_()
+
+            def fwd():
+                return bn.bn_train_split(x, g, b, eps, group)
+
+            def fwd_plain():
+                return bn.bn_train_split(x, g, b, eps, group, plain=True)
+
+            def fwd_one():
+                return bn.bn_train(x, g, b, eps)
+
+            def fwd_sync():
+                return sync(xs)
+
+            def fwd_bwd(kind):
+                def f():
+                    xr.grad = gr.grad = br.grad = None
+                    if kind == "sync":
+                        yv = sync(xr.reshape(RESNET_BATCH, -1, c)
+                                  .permute(0, 2, 1))
+                        yv.backward(dy.reshape(RESNET_BATCH, -1, c)
+                                    .permute(0, 2, 1))
+                        return
+                    yv, _, _ = bn.bn_train_split(xr, gr, br, eps, group,
+                                                 plain=kind == "plain")
+                    yv.backward(dy)
+                return f
+
+            shift = x[0].float().clone()
+            sums = bn.split_fwd_stats(x, shift)
+            _, mean, var = bn.split_fwd_apply(x, g, b, sums, shift, rows, eps)
+            sums4 = torch.cat([bn.split_bwd_stats(x, mean, var, dy, eps),
+                               torch.zeros(2, c, device="cuda")])
+
+            def fwd_kernels():  # the stats and apply launches alone
+                bn.split_fwd_apply(x, g, b, bn.split_fwd_stats(x, shift),
+                                   shift, rows, eps)
+
+            def bwd_kernels():
+                bn.split_bwd_stats(x, mean, var, dy, eps)
+                bn.split_bwd_apply(x, g, mean, var, dy, sums4, rows, eps)
+
+            with torch.no_grad():
+                t = {"fwd": cuda_ms(fwd), "fwd_plain": cuda_ms(fwd_plain),
+                     "fwd_one_launch": cuda_ms(fwd_one),
+                     "fwd_library": cuda_ms(fwd_sync),
+                     "fwd_kernels": cuda_ms(fwd_kernels),
+                     "bwd_kernels": cuda_ms(bwd_kernels)}
+            t["fwd_bwd"] = cuda_ms(fwd_bwd("split"))
+            t["fwd_bwd_plain"] = cuda_ms(fwd_bwd("plain"))
+            t["fwd_bwd_library"] = cuda_ms(fwd_bwd("sync"))
+            t["bwd"] = t["fwd_bwd"] - t["fwd"]
+            t["bwd_plain"] = t["fwd_bwd_plain"] - t["fwd_plain"]
+            t["bwd_library"] = t["fwd_bwd_library"] - t["fwd_library"]
+            fb, by = bn_bound(rows, c, itemsize, "fwd")
+            bb, _ = bn_bound(rows, c, itemsize, "bwd")
+            timings.append(dict(t, map=label, rows=rows, c=c,
+                                dtype=str(dtype).replace("torch.", ""),
+                                fwd_bound_ms=fb, bwd_bound_ms=bb,
+                                bound_by=by))
+            del x, dy, sync, xs, xr
+    bn.reset_launches()
+    return {"maps": len(maps), "worst_rel_err": worst,
+            "two_ranks_worst_rel_err": two_ranks,
+            "worst_abs_err_to_plain": worst_abs,
+            "tol": {"bfloat16": TOL_SPLIT_BN_BF16,
+                    "float32": TOL_SPLIT_BN_F32},
+            "timings": timings}
+
+
+def so_gang_reference(fa, bn, fx, variables, x, y) -> dict:
+    """The one-process run (d) is held to: the same ResNet-50, images,
+    seed and learning rate, the whole batch of 128 a step, eager."""
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    est = Estimator.from_keras(
+        so_resnet_model(bn, variables),
+        loss="sparse_categorical_crossentropy", optimizer="sgd",
+        learning_rate=SCALEOUT_GANG_LR, seed=SEED, cuda_graphs=False)
+    losses = []
+    inner = est._train_step
+
+    def step(batch):
+        loss = inner(batch)
+        losses.append(float(loss))
+        return loss
+
+    est._train_step = step
+    autots_reset_counts(fa, bn, fx)
+    est.fit((x, y), epochs=SCALEOUT_GANG_EPOCHS, batch_size=RESNET_BATCH,
+            verbose=False)
+    counts = read_bn_counts(bn, "scaleout reference", bf16=SCALEOUT_GANG_EPOCHS)
+    every = so_counts(fa, bn, fx, "reference", **{
+        f"{BN_KERNEL}_{p}_bf16": RESNET_BN * SCALEOUT_GANG_EPOCHS
+        for p in bn.PASSES})
+    del est
+    torch.cuda.empty_cache()
+    return {"step_losses": losses, "bn_launches": counts, "counts": every}
+
+
+def so_single_child(out_path: str) -> int:
+    """The world-size-1 child: (a), (b), (c) and (d)'s reference, each
+    kernel count read in this process; the results to ``out_path``."""
+    import importlib
+    fa = importlib.import_module("analytics_zoo_tpu_torch.ops.flash_attention")
+    bn = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_bn")
+    fx = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_xent")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = {"bert": so_bert(fa, bn, fx, np.random.default_rng(SEED + 20))}
+    res["bert_s"] = time.perf_counter() - t0
+    res["compression"] = so_compression(fa, bn, fx)
+    res["split_bn"] = so_split_bn(bn)
+    variables = random_resnet_variables(TrainNet(norm="batch"), SEED)
+    x, y = so_resnet_data(RESNET_BATCH, SEED + 32)
+    res["gang_reference"] = so_gang_reference(fa, bn, fx, variables, x, y)
+    res["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def so_gang_child(out_dir: str) -> int:
+    """One rank of (d): ResNet-50 bf16 dp over the gang, 64 rows a rank of
+    each global batch of 128, eager (gloo), a checkpoint every epoch and
+    auto_resume; rank 1 of the first attempt dies before its 4th step.
+    Each step's loss and the rank's kernel counts go to a jsonl file
+    as they happen."""
+    import importlib
+    from analytics_zoo_tpu_torch.core import faults
+    from analytics_zoo_tpu_torch.core.context import init_orca_context
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    fa = importlib.import_module("analytics_zoo_tpu_torch.ops.flash_attention")
+    bn = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_bn")
+    fx = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_xent")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_orca_context("multihost")
+    attempt = int(os.environ.get("ZOO_RESTART_COUNT", "0"))
+    variables = random_resnet_variables(TrainNet(norm="batch"), SEED)
+    x, y = so_resnet_data(RESNET_BATCH, SEED + 32)
+    est = Estimator.from_keras(
+        so_resnet_model(bn, variables),
+        loss="sparse_categorical_crossentropy", optimizer="sgd",
+        learning_rate=SCALEOUT_GANG_LR, seed=SEED,
+        model_dir=os.path.join(out_dir, "ckpt"))
+    log = open(os.path.join(out_dir, f"rank{mesh.rank}.jsonl"), "a")
+    inner = est._train_step
+
+    def step(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = inner(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        log.write(json.dumps({
+            "attempt": attempt, "rank": mesh.rank, "step": est._py_step,
+            "loss": float(loss), "ms": ms, "backend": mesh.backend,
+            "cuda_graphs": est.cuda_graphs,
+            "capture_refused": est.capture_refused,
+            "split_launches": dict(bn.SPLIT_KERNEL_LAUNCHES),
+            "one_launch": dict(bn.KERNEL_LAUNCHES),
+            "counts": kn_counts(fa, bn, fx)}) + "\n")
+        log.flush()
+        return loss
+
+    est._train_step = step
+    if attempt == 0 and mesh.rank == 1:
+        faults.get_registry().enable("worker.crash", times=1,
+                                     after=SCALEOUT_GANG_KILL)
+    autots_reset_counts(fa, bn, fx)
+    est.fit((x, y), epochs=SCALEOUT_GANG_EPOCHS, batch_size=RESNET_BATCH,
+            verbose=False, checkpoint_trigger="every_epoch",
+            auto_resume=True)
+    log.write(json.dumps({"attempt": attempt, "rank": mesh.rank,
+                          "done": True, "epoch": est._epoch}) + "\n")
+    log.close()
+    return 0
+
+
+def phase_scaleout(bn) -> dict:
+    """The Estimator over several processes: (a), (b), (c) in one child
+    process that ``launch`` starts as a world of 1 over NCCL, then (d), a
+    2-process gang on the one card over gloo under the supervisor, with a
+    rank killed after a checkpoint and the gang restarted."""
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.core import launcher
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    me = os.path.abspath(__file__)
+    root = tempfile.mkdtemp(prefix="zoo_scaleout_")
+    try:
+        out = os.path.join(root, "single.json")
+        rc = launcher.launch(me, ["--scaleout-child", "single", out], 1,
+                             platform="cuda", timeout=SCALEOUT_TIMEOUT)
+        if rc != 0:
+            raise AssertionError(f"scaleout: the world-1 child exited {rc}")
+        with open(out) as f:
+            single = json.load(f)
+        t_single = time.perf_counter() - t0
+        gang_dir = os.path.join(root, "gang")
+        metrics_dir = os.path.join(root, "metrics")
+        os.makedirs(gang_dir)
+        events = []
+        rc = launcher.launch(
+            me, ["--scaleout-child", "gang", gang_dir], SCALEOUT_GANG_RANKS,
+            platform="cuda", timeout=SCALEOUT_TIMEOUT, max_restarts=1,
+            heartbeat_timeout=120, status_interval=1.0,
+            metrics_dir=metrics_dir,
+            on_event=lambda kind, info: events.append([kind, info]))
+        if rc != 0:
+            raise AssertionError(f"scaleout (d): the gang exited {rc} "
+                                 f"({events})")
+        ranks = []
+        for r in range(SCALEOUT_GANG_RANKS):
+            with open(os.path.join(gang_dir, f"rank{r}.jsonl")) as f:
+                ranks.append([json.loads(line) for line in f])
+        gang_lines = []
+        gm = os.path.join(metrics_dir, "gang_metrics.jsonl")
+        if os.path.exists(gm):
+            with open(gm) as f:
+                gang_lines = [json.loads(line) for line in f]
+        from analytics_zoo_tpu_torch.core.launcher import \
+            aggregate_worker_metrics
+        gang_snapshot = aggregate_worker_metrics(metrics_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # rank 0's steps: the killed attempt's, then the resumed ones; the
+    # resumed attempt starts at the last checkpoint's step
+    steps = {}
+    for rec in ranks[0]:
+        if "loss" in rec:
+            steps[rec["step"]] = rec  # a later attempt's step wins
+    losses = [steps[s]["loss"] for s in sorted(steps)]
+    ref = single["gang_reference"]["step_losses"]
+    if len(losses) != len(ref):
+        raise AssertionError(f"scaleout (d): rank 0 ran steps "
+                             f"{sorted(steps)}, want {len(ref)}")
+    gap = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, ref))
+    if gap > TOL_SCALEOUT_GANG or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"scaleout (d): gang losses {losses} vs one "
+                             f"process {ref} (worst {gap} > "
+                             f"{TOL_SCALEOUT_GANG})")
+    kinds = [k for k, _ in events]
+    if kinds != ["crash", "restart", "ok"]:
+        raise AssertionError(f"scaleout (d): supervisor events {events}")
+    done = [rec for rank in ranks for rec in rank if rec.get("done")]
+    if len(done) != SCALEOUT_GANG_RANKS or any(
+            rec["attempt"] != 1 or rec["epoch"] != SCALEOUT_GANG_EPOCHS
+            for rec in done):
+        raise AssertionError(f"scaleout (d): finished ranks {done}")
+    per_rank = {}
+    for r, recs in enumerate(ranks):
+        by_attempt = {}
+        for rec in recs:
+            if "split_launches" in rec:
+                by_attempt[rec["attempt"]] = rec
+        per_rank[r] = {a: {"steps": sum(1 for x in recs if "loss" in x
+                                        and x["attempt"] == a),
+                           "split_launches": rec["split_launches"],
+                           "one_launch": rec["one_launch"],
+                           "counts": rec["counts"],
+                           "backend": rec["backend"],
+                           "cuda_graphs": rec["cuda_graphs"],
+                           "capture_refused": rec["capture_refused"]}
+                       for a, rec in by_attempt.items()}
+        for a, rec in per_rank[r].items():
+            want = RESNET_BN * rec["steps"]
+            got = {k: v for k, v in rec["split_launches"].items() if v}
+            every = {k: v for k, v in rec["counts"].items() if v}
+            if got != {f"{p}_bf16": want for p in bn.SPLIT_PASSES} or any(
+                    rec["one_launch"].values()) or every != {
+                        f"{BN_KERNEL}_{k}": v for k, v in got.items()}:
+                raise AssertionError(f"scaleout (d) rank {r} attempt {a}: "
+                                     f"split launches {got}, one-launch "
+                                     f"{rec['one_launch']}, all {every}; "
+                                     f"want {want} of each bf16 split "
+                                     "entry, no other launch")
+    split_total = {k: sum(rec["split_launches"][k]
+                          for rank in per_rank.values()
+                          for rec in rank.values())
+                   for k in bn.SPLIT_KERNEL_LAUNCHES}
+    counts_total = {k: sum(rec["counts"][k] for rank in per_rank.values()
+                           for rec in rank.values())
+                    for k in ranks[0][0]["counts"]}
+    step_ms = {r: [rec["ms"] for rec in recs if "ms" in rec]
+               for r, recs in enumerate(ranks)}
+    res = {"phase": "scaleout", "single": single, "gang": {
+        "ranks": SCALEOUT_GANG_RANKS, "global_batch": RESNET_BATCH,
+        "lr": SCALEOUT_GANG_LR, "step_losses": losses,
+        "step_ms_by_rank": step_ms,
+        "step_ms_p50": float(np.median([v for r in step_ms.values()
+                                        for v in r[1:]])),
+        "reference_losses": ref, "worst_rel_gap": gap,
+        "tol": TOL_SCALEOUT_GANG, "events": events,
+        "per_rank": per_rank, "split_launches": split_total,
+        "counts": counts_total,
+        "gang_metrics_lines": len(gang_lines),
+        "gang_metrics_last": gang_lines[-1] if gang_lines else None,
+        "gang_snapshot_series": sorted(gang_snapshot)},
+        "single_child_s": t_single,
+        "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7037,6 +7681,10 @@ def kernel_entry(name, design, launches, path, replaces, x) -> dict:
 
 def main(argv) -> int:
     only = []
+    if argv[:1] == ["--scaleout-child"] and len(argv) == 3:
+        # a process that phase_scaleout's launcher started
+        return (so_single_child if argv[1] == "single"
+                else so_gang_child)(argv[2])
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
     elif argv:
@@ -7076,26 +7724,34 @@ def main(argv) -> int:
                   "autots": lambda: phase_autots(fa, bn, fx),
                   "readers": lambda: phase_readers(fa, bn, fx),
                   "foreign": lambda: phase_foreign(bn),
-                  "train_knobs": lambda: phase_train_knobs(fa, bn, fx)}
+                  "train_knobs": lambda: phase_train_knobs(fa, bn, fx),
+                  "scaleout": lambda: phase_scaleout(bn)}
         for name in only:
             phases[name]()
         return 0
-    kern = phase_kernel(fa)
-    bn_kern = phase_fused_bn(bn)
-    serve = phase_bert_serve(fa)
-    int8 = phase_int8_serve(fa)
-    cluster = phase_cluster_serve(fa)
-    train = phase_bert_train(fa)
-    resnet = phase_resnet_train(bn)
-    xent_kern = phase_fused_xent(fx)
-    mlm = phase_bert_mlm_train(fa, fx)
-    phase_ncf_train()
-    phase_recsys()
-    state = phase_state_plane(fa, bn)
-    autots = phase_autots(fa, bn, fx)
-    readers = phase_readers(fa, bn, fx)
-    foreign = phase_foreign(bn)
-    knobs = phase_train_knobs(fa, bn, fx)
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        emit({"phase_seconds": name, "seconds": time.perf_counter() - t})
+        return out
+
+    kern = timed("kernel", phase_kernel, fa)
+    bn_kern = timed("fused_bn", phase_fused_bn, bn)
+    serve = timed("bert_serve", phase_bert_serve, fa)
+    int8 = timed("int8_serve", phase_int8_serve, fa)
+    cluster = timed("cluster_serve", phase_cluster_serve, fa)
+    train = timed("bert_train", phase_bert_train, fa)
+    resnet = timed("resnet_train", phase_resnet_train, bn)
+    xent_kern = timed("fused_xent", phase_fused_xent, fx)
+    mlm = timed("bert_mlm_train", phase_bert_mlm_train, fa, fx)
+    timed("ncf_train", phase_ncf_train)
+    timed("recsys", phase_recsys)
+    state = timed("state_plane", phase_state_plane, fa, bn)
+    autots = timed("autots", phase_autots, fa, bn, fx)
+    readers = timed("readers", phase_readers, fa, bn, fx)
+    foreign = timed("foreign", phase_foreign, bn)
+    knobs = timed("train_knobs", phase_train_knobs, fa, bn, fx)
+    scaleout = timed("scaleout", phase_scaleout, bn)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -7273,13 +7929,16 @@ def main(argv) -> int:
     # the autots path launches no kernel of the port (phase_autots holds
     # every count to 0 over it); the readers' path only the batch norm's
     # (set above), every other count 0
+    def mine(k, entry):  # the split entries' counts are theirs alone
+        return k.startswith(entry["name"]) and "_split_" not in k
+
     for entry in entries:
         entry["launches_autots"] = sum(
             n for k, n in autots["kernel_launches"].items()
-            if k.startswith(entry["name"]))
+            if mine(k, entry))
         entry.setdefault("launches_readers", sum(
             n for k, n in readers["kernel_launches"].items()
-            if k.startswith(entry["name"])))
+            if mine(k, entry)))
         # the foreign phase's counted windows: the converted ResNet-50's
         # replays, the transfer's and DCGAN's D and G steps (f32 batch
         # norm only)
@@ -7292,6 +7951,7 @@ def main(argv) -> int:
     # train_knobs: (a)'s and (b)'s captured runs, by entry
     flash_keys = ("flash_attention_fwd_bf16", "flash_attention_fwd_f32",
                   "flash_attention_bwd_bf16", "flash_attention_bwd_f32")
+    keys = []  # each entry's key in kn_counts
     for i, entry in enumerate(entries):
         if i < len(flash_keys):
             key = flash_keys[i]
@@ -7299,7 +7959,73 @@ def main(argv) -> int:
             sfx = "bf16" if entry["shape"]["dtype"] == "bfloat16" else "f32"
             key = (f"{entry['name']}_{next(iter(entry['launches_by_pass']))}"
                    f"_{sfx}")
+        keys.append(key)
         entry["launches_train_knobs"] = knobs["kernel_launches"][key]
+    # scaleout: (a)'s captured fits, (b)'s, (d)'s one-process reference
+    # and (d)'s gang, every kernel counted in each
+    single = scaleout["single"]
+    so_runs = ([single["bert"]["no_context"]]
+               + list(single["bert"]["strategies"].values())
+               + [r for r in single["compression"].values()
+                  if isinstance(r, dict) and "counts" in r]
+               + [single["gang_reference"], scaleout["gang"]])
+
+    def so_launches(key):
+        return sum(r["counts"][key] for r in so_runs)
+
+    for key, entry in zip(keys, entries):
+        entry["launches_scaleout"] = so_launches(key)
+    split = single["split_bn"]
+    split_times = {(x["map"], x["dtype"]): x for x in split["timings"]}
+    for direction in ("fwd", "bwd"):
+        for dtype, sfx in (("bfloat16", "bf16"), ("float32", "f32")):
+            x = split_times[("stem", dtype)]
+            key = f"{BN_KERNEL}_split_{direction}_stats_{sfx}"
+            launches = scaleout["gang"]["counts"][key]
+            entry = {
+                "name": f"{BN_KERNEL}_split_{direction}", "route": "cuda",
+                "design": f"{dtype}, {direction}, over a batch split across "
+                          "processes: a stats launch (a (channel tile x row "
+                          "split) grid of 512-thread blocks writing f32 "
+                          "partials, then a per-channel sum of the splits "
+                          "in order), an all_reduce of the sums over the "
+                          "data group, an apply launch (the one-launch "
+                          "kernel's finalize and element pass); no atomics",
+                "source": f"analytics_zoo_tpu_torch/csrc/{BN_KERNEL}.cu",
+                "replaces": bn_src,
+                "path": "scaleout (d) bf16 gang" if sfx == "bf16" else
+                        "none (the (d) gang is bf16; checked in (c))",
+                "launches": launches,
+                "launches_by_pass": {
+                    p: scaleout["gang"]["split_launches"][f"{p}_{sfx}"]
+                    for p in bn.SPLIT_PASSES if direction in p},
+                "launches_scaleout": so_launches(key),
+                "launches_autots": autots["kernel_launches"][key],
+                "launches_readers": readers["kernel_launches"][key],
+                "launches_foreign": foreign["kernel_launches"][key],
+                "launches_train_knobs": knobs["kernel_launches"][key],
+                "launches_by_rank": {
+                    r: {a: rec["split_launches"] for a, rec in att.items()}
+                    for r, att in scaleout["gang"]["per_rank"].items()},
+                "max_abs_err": split["worst_abs_err_to_plain"][dtype],
+                "max_rel_err": split["worst_rel_err"][dtype]["plain"],
+                "max_rel_err_to_one_launch":
+                    split["worst_rel_err"][dtype]["one_launch"],
+                "max_rel_err_two_ranks":
+                    split["two_ranks_worst_rel_err"][dtype],
+                "ms": x[direction], "plain_ms": x[f"{direction}_plain"],
+                "kernels_ms": x[f"{direction}_kernels"],
+                "bound_ms": x[f"{direction}_bound_ms"],
+                "bound_by": x["bound_by"],
+                "library_ms": x[f"{direction}_library"],
+                "library": "torch.nn.SyncBatchNorm at world size 1",
+                "shape": {"rows": x["rows"], "c": x["c"], "dtype": dtype},
+                "at_other_maps": {
+                    label: {k: split_times[(label, dtype)][k] for k in (
+                        "rows", "c", direction, f"{direction}_plain",
+                        f"{direction}_library", f"{direction}_bound_ms")}
+                    for label in ("most_norms", "stage3")}}
+            entries.append(entry)
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",

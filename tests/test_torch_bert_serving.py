@@ -297,6 +297,12 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.models.recommendation",
                 "analytics_zoo_tpu_torch.parallel",
                 "analytics_zoo_tpu_torch.parallel.embedding",
+                "analytics_zoo_tpu_torch.parallel.sharding",
+                "analytics_zoo_tpu_torch.parallel.util",
+                "analytics_zoo_tpu_torch.parallel.tensor_parallel",
+                "analytics_zoo_tpu_torch.core.context",
+                "analytics_zoo_tpu_torch.core.launcher",
+                "analytics_zoo_tpu_torch.orca.learn.scaleout",
                 "analytics_zoo_tpu_torch.nn.recurrent",
                 "analytics_zoo_tpu_torch.models.seq2seq",
                 "analytics_zoo_tpu_torch.automl",

@@ -164,14 +164,20 @@ def test_write_failure_is_retried(tmp_path):
 
 
 def test_multi_process_layout_waits_for_sharding(tmp_path):
-    tckpt.save(str(tmp_path), {"w": torch.ones(2)})
+    # the JAX package's multi-process layout restores: a sharded entry's
+    # pieces (here two, in two processes' files) are reassembled whole
+    tckpt.save(str(tmp_path), {"w": torch.ones(4)})
     path = tmp_path / "treedef.json"
     meta = json.loads(path.read_text())
-    meta["sharded"] = [{"shape": [2], "dtype": "float32",
-                        "shards": {"0:2": 0}}]
+    meta["sharded"] = [{"shape": [4], "dtype": "float32",
+                        "shards": {"0:2": 0, "2:4": 1}}]
+    meta["scalars"] = [None]
+    for proc, key, vals in ((0, "0:2", [1, 2]), (1, "2:4", [3, 4])):
+        np.savez(tmp_path / f"shards_{meta['gen']}_p{proc}.npz",
+                 **{f"a0__{key}": np.asarray(vals, np.float32)})
     path.write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tckpt.restore(str(tmp_path))
+    np.testing.assert_array_equal(tckpt.restore(str(tmp_path))["w"],
+                                  np.asarray([1, 2, 3, 4], np.float32))
 
 
 # -- a manager directory, both ways -------------------------------------------

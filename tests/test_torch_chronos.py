@@ -17,7 +17,9 @@ package on the CPU.
   max(1, max |ref|)); ``TCMFForecaster`` saved by JAX and predicting in
   the port.
 - TCMF given the JAX initial ``F`` and ``X``: the factors and the
-  factorization loss within 1e-4 of max(1, max |ref|); one device only.
+  factorization loss within 1e-4 of max(1, max |ref|); on one device,
+  and with the rows split over 2 and 3 devices against the JAX TCMF
+  sharding them over a data mesh of that size.
 - ``AutoTSEstimator`` on a 200-point series with 2 trials, the search's
   configs the JAX package's for the seed; the detectors; ARIMA and
   Prophet's numpy backends equal to the JAX package's.
@@ -373,8 +375,35 @@ def test_tcmf_xshards_input_and_one_device():
     parts = out.collect()
     assert [p["prediction"].shape for p in parts] == [(2, 3), (4, 3)]
     assert list(parts[1]["id"]) == ["c", "d", "e", "f"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        chronos.TCMFForecaster(device=["cpu", "cpu"])
+    # a list of devices is taken now (the rows split over them)
+    assert chronos.TCMFForecaster(device=["cpu", "cpu"]).devices == [
+        torch.device("cpu")] * 2
+
+
+@pytest.mark.parametrize("dp", [2, 3])
+def test_tcmf_over_several_devices_matches_jax_on_a_data_mesh(dp):
+    """The rows split over ``dp`` devices (zero-padded, masked) against
+    the JAX TCMF sharding them over a ``data`` mesh of ``dp`` devices,
+    from the JAX draw of the padded panel: F, X and the loss at 1e-4."""
+    from analytics_zoo_tpu.core import (init_orca_context as jinit,
+                                        stop_orca_context as jstop)
+    y = _panel(n=10, t=40)
+    n, t = y.shape
+    kw = dict(rank=3, y_iters=40, tcn_lookback=8, num_channels_X=(4,))
+    pad = (-n) % dp
+    f0, x0 = _jax_init(0, n + pad, 3, t)
+    jstop()
+    jinit("local", mesh_shape={"data": dp})
+    try:
+        jfc = jchronos.TCMFForecaster(**kw)
+        want = jfc.fit({"y": y}, epochs=1)
+    finally:
+        jstop()
+    tfc = chronos.TCMFForecaster(device=["cpu"] * dp, **kw)
+    got = tfc.fit({"y": y}, epochs=1, _init=(f0[:n], x0))
+    assert abs(got - want) <= 1e-4 * max(1.0, abs(want)), (got, want)
+    _close(tfc.F, jfc.F, 1e-4, "F")
+    _close(tfc.X, jfc.X, 1e-4, "X")
 
 
 # -- detectors and the classical forecasters ----------------------------------

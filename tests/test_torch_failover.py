@@ -1,6 +1,6 @@
 """The port's preemption-safe training (``core/failover.py``) on the CPU:
-twins of ``tests/test_failover.py``'s guard and preemption tests (the
-gang supervisor and the NaN policies stay with ROADMAP Queue 1 item 7),
+twins of ``tests/test_failover.py``'s guard and preemption tests (its
+gang-supervisor cases are twinned in ``tests/test_torch_gang.py``),
 a SIGTERM to a training subprocess that checkpoints and resumes, and the
 in-process preemption of a fit whose ``Preempted.step`` is the restored
 state's step."""

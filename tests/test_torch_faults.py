@@ -4,9 +4,9 @@ package's) and its seams in the port.
 
 The registry itself must be boring and exact: disabled points are no-ops,
 armed points fire deterministically (seeded), counts are bounded, and the
-scoped helpers always disarm.  The port has no ``init_orca_context``
-(``core/context.py``, ROADMAP Queue 1 item 7), so the config case arms the
-registry from a ``ZooConfig``'s ``faults`` directly.
+scoped helpers always disarm.  The config case arms the registry from a
+``ZooConfig``'s ``faults`` directly; its twin at context init
+(``init_orca_context``) is in ``tests/test_torch_gang.py``.
 """
 
 import threading

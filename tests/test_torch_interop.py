@@ -179,9 +179,19 @@ def test_evaluate_empty_iterable_feed_raises():
 
 
 def test_several_processes_wait_for_item_7(monkeypatch):
-    monkeypatch.setattr(interop, "process_grid", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        list(from_iterator(lambda e: _gen(4), 2).epoch(CPU, 0))
+    # several processes are taken now: process 1 of 2 strides the stream
+    # (samples 1, 3, 5, ...) and the global batch is gathered over the
+    # host group; here the gather is this process's rows twice
+    monkeypatch.setattr(interop, "process_grid", lambda: (1, 2))
+    monkeypatch.setattr(interop, "_allgather_ints",
+                        lambda v: [tuple(v), tuple(v)])
+    monkeypatch.setattr(interop, "_gather_rows",
+                        lambda a: np.concatenate([a, a]))
+    feed = from_iterator(lambda e: _gen(8), 4)
+    batches = list(feed.epoch(CPU, 0))
+    assert len(batches) == 2
+    first = [float(v) for v in batches[0]["y"]]
+    assert first[:2] == first[2:] and len(first) == 4
 
 
 class _DS(torch.utils.data.Dataset):

@@ -10,9 +10,9 @@ invariant, step-loop instrumentation (snapshot and the ``log_dir``
 summaries), checkpoint, streaming-feed and AutoML timings, fault
 arming/firing counted through the registry, the metric catalog, and the
 instrumentation overhead guard (slow).  The heartbeat payload and the
-gang-status cases wait for ``core/context.py`` and the gang supervisor
-(ROADMAP Queue 1 item 7); the bench-record case reads bench.py's JAX
-benchmark and has no twin.
+gang-status cases are twinned in ``tests/test_torch_gang.py`` (with the
+port's ``core/context.py`` and gang supervisor); the bench-record case
+reads bench.py's JAX benchmark and has no twin.
 """
 
 import json
@@ -490,7 +490,8 @@ def test_step_loop_instrumentation_overhead_under_5_percent():
 def test_metric_catalog_matches_code():
     """``dev/check_metric_docs.py``'s rule over the port: the metric
     series and spans the port's code registers are the
-    docs/observability.md catalog's, but for the multi-process ones."""
+    docs/observability.md catalog's (the gradient collective's series
+    and the sharding fallbacks included, since the multi-process slice)."""
     import importlib.util
     import pathlib
     repo = pathlib.Path(__file__).resolve().parent.parent
@@ -499,9 +500,5 @@ def test_metric_catalog_matches_code():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.PKG = repo / "analytics_zoo_tpu_torch"
-    # the gradient collective's series come with several processes
-    # (ROADMAP Queue 1 item 7)
-    waiting = {"train.comm_ms", "train.grad_bytes",
-               "train.sharding_fallbacks"}
-    assert mod.code_metrics() == mod.documented("Metric catalog") - waiting
+    assert mod.code_metrics() == mod.documented("Metric catalog")
     assert mod.code_spans() == mod.documented("Span catalog")

@@ -207,8 +207,10 @@ def test_sparse_guardrails_raise_as_the_reference():
     with pytest.raises(ValueError, match="embedding_lr=0.0"):
         Estimator.from_keras(model, loss=LOSS, device="cpu",
                              frozen=["mlp_user_embed"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Estimator.from_keras(model, loss=LOSS, device="cpu", sharding="fsdp")
+    # the JAX package's third guardrail: no quantized wire for row grads
+    with pytest.raises(ValueError, match="grad_compression"):
+        Estimator.from_keras(model, loss=LOSS, device="cpu",
+                             grad_compression="int8")
     # a dense model takes grad_accum, and frozen= on its dense layers
     Estimator.from_keras(NeuralCF(16, 8), loss=LOSS, device="cpu",
                          grad_accum=2)

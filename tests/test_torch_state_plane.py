@@ -354,8 +354,9 @@ def test_touched_masks_mark_no_row_for_the_padding(tmp_path):
 
 def test_nan_policy_rollback_still_waits_for_item_7(tmp_path):
     """On one process ``nan_policy="rollback"`` reloads ``model_dir`` in
-    place and re-runs the epoch (the rollback across processes is ROADMAP
-    Queue 1 item 7): a NaN at step 3 of 4 ends on the clean run's losses
+    place and re-runs the epoch (across processes every rank reads the
+    same global loss, so all roll back together): a NaN at step 3 of 4
+    ends on the clean run's losses
     and parameters, bit for bit, with the step count rewound."""
     rng = np.random.default_rng(0)
     x = rng.normal(size=(64, 4)).astype(np.float32)
@@ -516,11 +517,26 @@ def test_chip_smoke_state_plane_phase_runs_on_the_cpu_at_tiny_sizes():
     assert res["squad"]["zoo_serving"]["requests"] == chip_smoke.SP_SERVE
 
 
-def test_gang_launcher_waits_for_item_7():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        launcher.launch()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        launcher.main([])
+def test_gang_launcher_waits_for_item_7(tmp_path, monkeypatch):
+    # the gang launcher runs now: a 2-process CPU gang whose workers join
+    # the context over gloo from the launcher's environment
+    script = tmp_path / "job.py"
+    out = tmp_path / "out"
+    script.write_text(
+        "import sys\n"
+        "from analytics_zoo_tpu_torch.core.context import "
+        "init_orca_context\n"
+        "m = init_orca_context('multihost')\n"
+        "open(sys.argv[1] + str(m.rank), 'w').write(f'{m.rank}/{m.size} '"
+        "f'{m.backend}')\n")
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [REPO, os.environ.get("PYTHONPATH", "")]))
+    assert launcher.launch(str(script), [str(out)], 2, platform="cpu",
+                           timeout=120) == 0
+    assert [(tmp_path / f"out{r}").read_text() for r in (0, 1)] == [
+        "0/2 gloo", "1/2 gloo"]
+    with pytest.raises(SystemExit):
+        launcher.main([])  # --nprocs and the script are required
 
 
 # -- on the card ---------------------------------------------------------------

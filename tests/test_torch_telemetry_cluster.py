@@ -15,8 +15,8 @@ cluster-scope scrape, the estimator's step profiler and its flight record
 on a non-finite loss, the streaming feed's decode spans, and the serving
 instrumentation overhead guard (slow).  The gang cases (the supervisor's
 snapshot fold, its worker-metrics reader, rotation and metrics port, and
-the heartbeat's registry payload) wait for the gang supervisor and
-``core/context.py`` (ROADMAP Queue 1 item 7).
+the heartbeat's registry payload) are twinned in
+``tests/test_torch_gang.py``.
 """
 
 import json

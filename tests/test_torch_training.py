@@ -468,6 +468,14 @@ def test_estimator_asks_for_the_card_by_default(monkeypatch):
     ("sharding", "fsdp"), ("grad_compression", "int8"),
     ("aux_loss_weight", 0.5)])
 def test_unported_knobs_raise(knob, value):
+    # sharding= and grad_compression= are taken since the multi-process
+    # slice (in one process they run the one-process step); the MoE
+    # layers' knob still raises, naming its ROADMAP item
+    if knob != "aux_loss_weight":
+        est = Estimator.from_keras(tnn.Dense(2, 2), loss="mse", device="cpu",
+                                   **{knob: value})
+        assert getattr(est, knob) == value
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         Estimator.from_keras(tnn.Dense(2, 2), loss="mse", device="cpu",
                              **{knob: value})
