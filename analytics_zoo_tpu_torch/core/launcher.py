@@ -71,6 +71,29 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+# coordinator ports held by this process (the newest _RESERVE_KEEP)
+_RESERVED: List[socket.socket] = []
+_RESERVE_KEEP = 64
+
+
+def reserve_port() -> int:
+    """A free port for a gang's coordinator, held by this process: the
+    socket stays bound (``SO_REUSEADDR``, never listening) after the call,
+    so no other ``bind(("", 0))`` on the machine is handed the port while
+    the gang's rank 0 starts, and the store's own bind (which sets
+    ``SO_REUSEADDR`` too) still succeeds.  A bare :func:`_free_port` lets
+    the port go between the pick and the store's bind, and two gangs that
+    start together (test files side by side) can meet on one port and
+    wait out their time limits."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("127.0.0.1", 0))
+    _RESERVED.append(s)
+    while len(_RESERVED) > _RESERVE_KEEP:
+        _RESERVED.pop(0).close()
+    return s.getsockname()[1]
+
+
 def _terminate_gang(procs: List[subprocess.Popen], grace: float) -> None:
     """SIGTERM every live child, give them ``grace`` seconds to exit, then
     SIGKILL stragglers and reap."""
@@ -556,7 +579,7 @@ def _run_attempts(script, script_args, nprocs, devices_per_proc,
     attempt = 0
     first_fail_counts: Dict[int, int] = {}
     while True:
-        coord = coordinator or f"127.0.0.1:{_free_port()}"
+        coord = coordinator or f"127.0.0.1:{reserve_port()}"
         procs: List[subprocess.Popen] = []
         hb_files: List[Optional[str]] = []
         try:

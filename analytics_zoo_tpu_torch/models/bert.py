@@ -32,14 +32,17 @@ class BERT(nn.Module):
     parameters sit under ``remat_{i}/layer_{i}``, as in the JAX tree).
     ``remat_attention``: checkpoint only the dense attention core (not
     with ``use_flash=True``, which keeps no attention maps).  Both
-    recompute in the backward what they do not keep; ``use_ring``
-    (sequence parallelism) is not ported yet."""
+    recompute in the backward what they do not keep.  ``use_ring``:
+    every block's attention is ``parallel.ring_self_attention``, the
+    sequence split over the mesh's ``seq`` axis (plain attention where
+    the mesh has none)."""
 
     def __init__(self, vocab_size: int = 30522, hidden_size: int = 768,
                  n_layers: int = 12, n_heads: int = 12,
                  intermediate_mult: int = 4, max_position: int = 512,
                  type_vocab: int = 2, dropout: float = 0.1,
-                 use_flash: bool = False, segments: bool = False,
+                 use_flash: bool = False, use_ring: bool = False,
+                 segments: bool = False,
                  remat: bool = False, remat_attention: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -58,7 +61,8 @@ class BERT(nn.Module):
             block = TransformerLayer(
                 hidden_size, n_heads, hidden_mult=intermediate_mult,
                 dropout=dropout, pre_ln=True, use_flash=use_flash,
-                remat_attention=remat_attention and not remat)
+                remat_attention=remat_attention and not remat,
+                use_ring=use_ring)
             if remat:
                 self.add_module(f"remat_{i}", Remat(block, f"layer_{i}"))
             else:

@@ -3,9 +3,12 @@
 
 Layouts are the JAX package's: activations ``[B, T, H, D]`` inside the
 attention, bias-free projections ``wq/wk/wv`` of shape ``(d_model, H*D)`` and
-``wo`` of shape ``(H*D, d_model)``.  With ``use_flash`` and no mask the core
-goes through ``ops.flash_attention`` (the CUDA kernel on the card);
-otherwise through the dense ``dot_product_attention``.
+``wo`` of shape ``(H*D, d_model)``.  With ``use_ring`` and no mask the core
+is ``parallel.ring_self_attention`` (the sequence over the mesh's ``seq``
+axis, the flash kernels on each chunk; plain attention without that
+axis); else with ``use_flash`` and no mask it goes through
+``ops.flash_attention`` (the CUDA kernel on the card); otherwise through
+the dense ``dot_product_attention``.
 
 A layer given a ``parallel.tensor_parallel.ModelParallel`` as ``tp`` (the
 Estimator does, over a mesh with a ``model`` axis and the tensor-parallel
@@ -99,12 +102,12 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int,
                  head_dim: Optional[int] = None, dropout: float = 0.0,
                  use_flash: Union[bool, str] = False, causal: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, use_ring: bool = False):
         super().__init__()
         if use_flash not in (True, False, "auto"):
             raise ValueError(f"use_flash must be True, False, or 'auto'; "
                              f"got {use_flash!r}")
-        if remat and use_flash is True:
+        if remat and (use_flash is True or use_ring):
             raise ValueError(
                 "remat=True applies to the dense attention path only; "
                 "use_flash/use_ring kernels already rematerialize — "
@@ -112,6 +115,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = head_dim or d_model // num_heads
         self.use_flash = use_flash
+        self.use_ring = use_ring  # sequence-parallel ring (seq axis)
         self.causal = causal
         self.remat = remat
         inner = num_heads * self.head_dim
@@ -148,7 +152,10 @@ class MultiHeadAttention(nn.Module):
         use_flash = self.use_flash
         if use_flash == "auto":
             use_flash = kv.shape[1] >= FLASH_AUTO_MIN_SEQ
-        if use_flash and mask is None:
+        if self.use_ring and mask is None:
+            from ..parallel.ring_attention import ring_self_attention
+            ctx = ring_self_attention(q, k, v, causal=self.causal)
+        elif use_flash and mask is None:
             from ..ops import flash_attention
             ctx = flash_attention(q, k, v, causal=self.causal)
         else:
@@ -178,12 +185,13 @@ class TransformerLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, hidden_mult: int = 4,
                  dropout: float = 0.0, pre_ln: bool = False,
                  use_flash: Union[bool, str] = False, causal: bool = False,
-                 remat_attention: bool = False):
+                 remat_attention: bool = False, use_ring: bool = False):
         super().__init__()
         self.pre_ln = pre_ln
         self.mha = MultiHeadAttention(d_model, num_heads, dropout=dropout,
                                       use_flash=use_flash, causal=causal,
-                                      remat=remat_attention)
+                                      remat=remat_attention,
+                                      use_ring=use_ring)
         self.ln1 = LayerNormalization(d_model)
         self.ln2 = LayerNormalization(d_model)
         self.ffn1 = Dense(d_model, d_model * hidden_mult, activation="gelu")

@@ -30,6 +30,7 @@ from .layers import (Add, Concatenate, Dropout, Multiply, _norm_padding,
                      _pair)
 from .layers_extra import (Average, Dot, Maximum, Minimum, _channels_first,
                            _triple, conv_channels_last, deconv_channels_last)
+from .module import record_aux_loss
 
 
 # -- recurrent convolution -----------------------------------------------------
@@ -311,9 +312,10 @@ class Softmax(nn.Module):
 
 class ActivityRegularization(nn.Module):
     """Identity that records ``l1 * sum|x| + l2 * sum x^2`` (f32) in its
-    buffer ``aux_loss``, the JAX layer's ``state`` (which the JAX
-    Estimator adds to the loss with ``aux_loss_weight``), and in
-    ``penalty`` the same number with its gradient, for a loss of the
+    buffer ``aux_loss``, the JAX layer's ``state``, and hands the same
+    number with its gradient to the aux-loss channel
+    (``nn.module.record_aux_loss``), which the Estimator adds to the loss
+    with ``aux_loss_weight``; ``penalty`` keeps it too, for a loss of the
     caller's to add."""
 
     def __init__(self, l1: float = 0.0, l2: float = 0.0):
@@ -325,6 +327,7 @@ class ActivityRegularization(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pen = (self.l1 * x.abs().sum() + self.l2 * x.square().sum()).float()
         self.penalty = pen
+        record_aux_loss(self, pen)
         with torch.no_grad():
             self.aux_loss.copy_(pen)
         return x

@@ -10,11 +10,22 @@ submodule's dotted name with ``/`` for ``.`` is its scope path
 submodule records its output.  A module called twice in one forward (a
 shared layer of a functional ``Model``) records one tap per call, the
 second under ``"<path>#1"``, as the JAX package does.
+
+The aux-loss channel: a layer with an auxiliary loss (``ActivityRegularization``'s
+penalty, ``parallel.MoE``'s load-balance loss) hands it, with its gradient,
+to :func:`record_aux_loss` in its forward, and the Estimator's train step
+adds ``aux_loss_weight`` times the f32 sum of what :func:`aux_losses`
+collected in that forward to the loss.  The JAX package sums the
+``aux_loss`` leaves of the forward's new state; a module's record
+replaces its earlier one in the same forward, as ``put_variable`` does.
+The sum is made from the forward's own tensors, so a captured step
+computes it in its graph.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Tuple
 
 import torch
@@ -105,5 +116,46 @@ def apply_with_taps(model: nn.Module, *args: Any, **kwargs: Any
     return out, taps
 
 
-__all__ = ["apply_with_taps", "param_count", "recording_taps",
-           "scope_paths", "snake"]
+class _AuxCtx(threading.local):
+    def __init__(self) -> None:
+        self.records: Optional[Dict[int, torch.Tensor]] = None
+
+
+_AUX = _AuxCtx()
+
+
+@contextlib.contextmanager
+def aux_losses() -> Iterator[Dict[int, torch.Tensor]]:
+    """Collect the aux losses that the layers record while the block runs:
+    a dict of each recording module's last value (keyed by the module's
+    id).  Nested collectors are independent; the outer one resumes when
+    the inner one closes."""
+    prev = _AUX.records
+    _AUX.records = {}
+    try:
+        yield _AUX.records
+    finally:
+        _AUX.records = prev
+
+
+def record_aux_loss(module: nn.Module, value: torch.Tensor) -> None:
+    """``module``'s aux loss of this forward (a scalar that keeps its
+    gradient), for the open :func:`aux_losses` collector; dropped when
+    none is open (eval, predict, a caller's own loop)."""
+    if _AUX.records is not None:
+        _AUX.records[id(module)] = value
+
+
+def aux_loss_sum(records: Dict[int, torch.Tensor]) -> Optional[torch.Tensor]:
+    """The f32 sum of a collector's records; None when it holds none."""
+    if not records:
+        return None
+    vals = [v.float() for v in records.values()]
+    total = vals[0]
+    for v in vals[1:]:
+        total = total + v
+    return total
+
+
+__all__ = ["apply_with_taps", "aux_loss_sum", "aux_losses", "param_count",
+           "record_aux_loss", "recording_taps", "scope_paths", "snake"]

@@ -116,9 +116,16 @@ beats the supervisor's heartbeat (``core.context.heartbeat``), and meters
 ``train.grad_bytes`` a step and ``train.comm_ms`` an epoch under
 ``grad_compression``.  A checkpoint over several processes is the JAX
 package's multi-process layout, written collectively
-(``checkpoint_async`` falls back to it).  The MoE layers' knob
-(``aux_loss_weight``) raises ``NotImplementedError`` (naming its ROADMAP
-item) when set to anything but its default; it is never ignored.
+(``checkpoint_async`` falls back to it).  ShardedEmbedding tables under
+``embedding_row_rules`` are held by rows across the processes: each rank
+keeps its block of every table, and a lookup sends its unique ids to
+their owners and gets their rows back (``parallel/embedding.py``).
+
+``aux_loss_weight`` (default 0.01, the JAX package's): the train step's
+loss is the model's loss plus ``aux_loss_weight`` times the f32 sum of
+the aux losses its layers recorded in the forward
+(``nn.module.aux_losses``: ``ActivityRegularization``'s penalty,
+``parallel.MoE``'s load-balance loss), inside a captured step too.
 
 The state plane is the JAX package's: ``save``/``load`` write and read
 ``core/checkpoint.py``'s format (the JAX estimator's tree: ``params`` and
@@ -173,6 +180,7 @@ from ...data.stream import make_placer
 from ...nn import losses as losses_lib
 from ...nn import metrics as metrics_lib
 from ...nn.layers import Dropout, _indexed, seed_dropout
+from ...nn.module import aux_loss_sum, aux_losses
 from ...ops import _launches
 from ...parallel import embedding as emb_lib
 from . import optimizers as opt_lib
@@ -183,10 +191,8 @@ logger = logging.getLogger("analytics_zoo_tpu_torch")
 
 _Q1 = "ROADMAP Queue 1 item"
 # the JAX estimator's knobs that the port does not take yet: name ->
-# (default, where it is scheduled)
-_UNPORTED_KNOBS = {
-    "aux_loss_weight": (0.01, f"{_Q1} 9 (MoE auxiliary losses)"),
-}
+# (default, where it is scheduled); every knob is ported
+_UNPORTED_KNOBS: Dict[str, tuple] = {}
 
 #: Valid values for ``ZooEstimator(nan_policy=...)``.
 NAN_POLICIES = ("warn", "skip_step", "rollback", "raise")
@@ -370,6 +376,7 @@ class ZooEstimator:
                  log_dir: Optional[str] = None,
                  app_name: str = "train",
                  grad_compression: Optional[str] = None,
+                 aux_loss_weight: float = 0.01,
                  **knobs: Any):
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -400,15 +407,15 @@ class ZooEstimator:
                     "grad_compression=None (or 'none' for wire metering of "
                     "the dense leaves).")
         self.grad_compression = grad_compression
+        self.aux_loss_weight = float(aux_loss_weight)
         self.sharding = sharding
         mesh = current_mesh()
+        # over several processes each rank keeps its rows of the tables
+        # (before the model moves to its device: no rank holds a whole
+        # table there); in one process every table stays whole
+        self._row_shards = emb_lib.shard_tables(model, mesh, sharding)
         if emb_lib.is_row_rules(sharding):
-            sharding = "dp"  # one process: every table whole on its device
-        if self._sparse and mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"ShardedEmbedding tables over {mesh.size} processes are "
-                f"not ported yet ({_Q1} 19 (row-sharded tables across "
-                "processes)); one process trains them on its device")
+            sharding = "dp"  # the dense leaves: replicated
         self.embedding_lr = embedding_lr
         self._learning_rate = learning_rate
         self.grad_accum = int(grad_accum)
@@ -592,8 +599,12 @@ class ZooEstimator:
         (a model without such tables has no taps)."""
         if self.augment is not None:
             x = self.augment(x, self._aug_gen, training=True)
-        with emb_lib.inject_taps() as taps:
+        with emb_lib.inject_taps() as taps, aux_losses() as aux:
             loss = self.loss_fn(self.model(x), y)
+        extra = aux_loss_sum(aux)
+        if extra is not None:
+            # the JAX step's loss + aux_loss_weight * the state's aux sum
+            loss = loss + self.aux_loss_weight * extra
         n = len(self._params)
         grads = torch.autograd.grad(
             loss, self._params + [t.rows for t in taps], allow_unused=True)
@@ -705,8 +716,7 @@ class ZooEstimator:
                 if g is not None:
                     if ok is not None:
                         g = g.masked_fill(~ok, 0)
-                    tap.table.index_add_(0, tap.uniq, g.to(tap.table.dtype),
-                                         alpha=-self._embed_lr())
+                    emb_lib.apply_row_update(tap, g, self._embed_lr())
                     mask = self._touched.get(self._table_path[id(tap.table)])
                     if mask is not None:
                         # the padded slots land on the spare last slot
@@ -1353,7 +1363,9 @@ class ZooEstimator:
         """The current variables as the JAX tree ``{"params", "state"}``
         of numpy arrays (``convert.to_jax_variables``): parameters under
         ``"params"``, buffers (batch norm's running statistics) under
-        ``"state"``."""
+        ``"state"``.  Over several processes a leaf this rank holds as
+        its piece (an expert-parallel MoE's ``wi``/``wo``, a row-sharded
+        table) comes as that piece; ``save`` writes the whole leaf."""
         return to_jax_variables(self.model.state_dict(),
                                 buffer_names(self.model))
 
@@ -1493,9 +1505,13 @@ class ZooEstimator:
         else:
             tree = ckpt_io.restore(path)
             extra = ckpt_io.load_extra(path)
+        params = tree["params"]
+        if self._scale is not None:
+            # the pieces this rank holds: its experts, its tables' rows
+            params = self._scale.localize(params)
         # copy_ into the live tensors: a captured step replays on them
         self.model.load_state_dict(from_jax_variables(
-            {"params": tree["params"], "state": tree.get("state") or {}}),
+            {"params": params, "state": tree.get("state") or {}}),
             strict=True)
         opt_lib.load_optax(self._optax_state(), tree["opt_state"])
         if self._scale is not None:

@@ -36,6 +36,21 @@ does what GSPMD does for the train step:
   weight under a whole-leaf optimizer) are summed over the model group.
   Other layers compute whole on every model rank (their leaves still
   stored as pieces);
+- **expert parallelism**: over an ``expert`` axis, every
+  ``parallel.MoE`` whose ``wi``/``wo`` the rules shard by experts over
+  ``expert`` alone gets an ``ExpertParallel`` and runs only this rank's
+  ``E/n`` experts; with a sharded optimizer the parameters themselves hold
+  only those experts (their data replaced by the piece: nothing is
+  gathered after the step), else they stay whole and their gradients are
+  summed over the expert group;
+- **sequence, pipeline and expert axes**: ring attention, the pipeline and
+  MoE communicate inside the forward and backward over their groups; the
+  gradients are then whole on every rank of those groups, and only the
+  batch axes' reduce follows;
+- **row-sharded tables** (``embedding_row_rules``): ``parallel/
+  embedding.py``'s ``shard_tables`` keeps each rank's rows of every
+  ShardedEmbedding table; the checkpoint writes them as pieces and a load
+  takes this rank's rows of each;
 - **``grad_compression``** ``"bf16"``/``"int8"``: each rank's gradient goes
   through ``parallel.util.allreduce_compressed`` (int8 codes and f32
   scales on the wire, error-feedback residuals kept per rank); batch norm
@@ -44,7 +59,8 @@ does what GSPMD does for the train step:
   merges them (the mean of float buffers, shard 0's of the others).
   ``"none"`` meters the wire and keeps the uncompressed step bit for bit.
 
-A step with a collective in it runs eagerly: gloo's collectives cannot be
+A step with a collective in it (a mesh with a sized ``seq``, ``pipe`` or
+``expert`` axis included) runs eagerly: gloo's collectives cannot be
 captured in a CUDA graph, and no capture of NCCL collectives is attempted
 yet (ROADMAP Queue 1 item 18).  The estimator logs that and records it as
 ``capture_refused``.  At world size 1 nothing here communicates: every
@@ -123,11 +139,14 @@ def warn_strategy_mesh_mismatch(sharding: Any, mesh: Any) -> None:
 
 def one_process(model: nn.Module) -> None:
     """Take any process group an earlier estimator handed ``model``'s
-    layers (batch norm's ``group``, the transformer blocks' ``tp``) back:
-    the model computes whole, in this process alone."""
+    layers (batch norm's ``group``, the transformer blocks' ``tp``, an
+    MoE's ``ep`` over whole experts) back: the model computes whole, in
+    this process alone."""
     for m in model.modules():
         if getattr(m, "tp", None) is not None:
             m.tp = None
+        if getattr(m, "ep", None) is not None and not m.ep.local:
+            m.ep = None
         if hasattr(m, "train_fn") and getattr(m, "group", None) is not None:
             m.group = None
 
@@ -210,12 +229,20 @@ class Scaleout:
                 "the optimizer %s needs whole-leaf norms: its state stays "
                 "whole on every rank; the checkpoint still writes each "
                 "rank's pieces", type(inner).__name__)
+        # the MoE experts: this rank's block computed (and, with a sharded
+        # optimizer, held: the leaves in ``local``)
+        self.local: set = set()
+        self.expert_group, self.ep_layers, self.expert_reduced = \
+            self._expert_parallel(est.model, mesh, params)
+        self.row_shards = dict(est._row_shards)
         # the optimizer's parameters: a sharded leaf's piece (in the JAX
-        # layout, contiguous), every other parameter itself
+        # layout, contiguous), every other parameter (a held piece too)
+        # itself
         self.opt_params: List[torch.Tensor] = []
-        for name, p, spec, sh in zip(names, params, self.specs,
-                                     self.sharded):
-            if sh and self.shard_opt:
+        for i, (name, p, spec, sh) in enumerate(zip(names, params,
+                                                    self.specs,
+                                                    self.sharded)):
+            if sh and self.shard_opt and i not in self.local:
                 view = _jax_view(name, p)
                 idx = sharding_lib.piece_index(spec, view.shape, mesh)
                 self.opt_params.append(view[idx].detach().clone())
@@ -275,16 +302,57 @@ class Scaleout:
                 reduced |= {where[n] for n in dims}
         return (group if layers else None), layers, reduced
 
+    def _expert_parallel(self, model: nn.Module, mesh: Any,
+                         params: List[torch.Tensor]):
+        """Hand every MoE whose ``wi`` and ``wo`` the specs shard by
+        experts over ``expert`` alone its ``ExpertParallel``; under a
+        sharded optimizer replace their data by this rank's experts.
+        Returns (the expert group or None, the layers' names, the indices
+        of the parameters whose gradients are summed over the group)."""
+        size = mesh.shape.get("expert", 1)
+        if not self.rules or size <= 1:
+            return None, [], set()
+        from ...parallel.moe import ExpertParallel, MoE
+        group = mesh.group(("expert",))
+        index = mesh.index(("expert",))
+        where = {n: i for i, n in enumerate(self.names)}
+        layers, reduced = [], set()
+        for prefix, m in model.named_modules():
+            if not isinstance(m, MoE) or m.num_experts % size:
+                continue
+            p = f"{prefix}." if prefix else ""
+            idx = [where.get(f"{p}wi"), where.get(f"{p}wo")]
+            if None in idx or not all(
+                    sharding_lib.spec_axes(self.specs[i]) == ("expert",)
+                    and sharding_lib._entry_axes(self.specs[i][0])
+                    == ("expert",) for i in idx):
+                continue
+            m.ep = ExpertParallel(group, size, index, local=self.shard_opt)
+            layers.append(prefix)
+            if self.shard_opt:
+                blk = m.ep.block(m.num_experts)
+                with torch.no_grad():
+                    for i in idx:
+                        params[i].data = params[i].data[blk].clone()
+                self.local |= set(idx)
+            else:
+                reduced |= set(idx)
+        return (group if layers else None), layers, reduced
+
     def agree(self, flag: torch.Tensor) -> torch.Tensor:
-        """A boolean every rank of the model group agrees on (all of them
-        true), where the layers compute blocks: each rank's gradients then
-        hold only its blocks."""
-        if self.model_group is None:
-            return flag
+        """A boolean every rank of the model and expert groups agrees on
+        (all of them true), where the layers compute blocks: each rank's
+        gradients then hold only its blocks; and over the batch group
+        where tables travel: each rank's row gradients are its own
+        batch's."""
         import torch.distributed as dist
-        t = flag.to(torch.int32).reshape(1).clone()
-        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.model_group)
-        return t[0].bool()
+        rows = self.batch_group if self.row_shards else None
+        for g in (self.model_group, self.expert_group, rows):
+            if g is not None:
+                t = flag.to(torch.int32).reshape(1).clone()
+                dist.all_reduce(t, op=dist.ReduceOp.MIN, group=g)
+                flag = t[0].bool()
+        return flag
 
     # -- the step -------------------------------------------------------------
 
@@ -292,7 +360,8 @@ class Scaleout:
     def communicates(self) -> bool:
         """Whether the step runs a collective (then it runs eagerly)."""
         return (self.batch_group is not None or self.model_group is not None
-                or any(g is not None for g in self.groups))
+                or any(g is not None for g in self.groups)
+                or self.mesh.group(("seq", "pipe", "expert")) is not None)
 
     def reduce(self, loss: torch.Tensor, grads: List[torch.Tensor]
                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -300,12 +369,13 @@ class Scaleout:
         global batch's (through the compressed wire where configured)."""
         import torch.distributed as dist
         g, s = self.batch_group, self.batch_size
-        if self.model_reduced:
-            # what a rank's blocks computed, summed over the model group
+        for group, which in ((self.model_group, self.model_reduced),
+                             (self.expert_group, self.expert_reduced)):
+            # what a rank's blocks computed, summed over their group
             grads = list(grads)
-            for i in self.model_reduced:
+            for i in which:
                 t = grads[i].contiguous().clone()
-                dist.all_reduce(t, group=self.model_group)
+                dist.all_reduce(t, group=group)
                 grads[i] = t
         if self.compress_wire:
             # one shard quantizes its own gradient too, as the JAX step
@@ -353,9 +423,9 @@ class Scaleout:
         if not self.shard_opt:
             return grads
         out = []
-        for name, g, spec, sh, p in zip(self.names, grads, self.specs,
-                                        self.sharded, self.opt_params):
-            if sh:
+        for i, (name, g, spec, sh) in enumerate(zip(
+                self.names, grads, self.specs, self.sharded)):
+            if sh and i not in self.local:
                 view = _jax_view(name, g)
                 idx = sharding_lib.piece_index(spec, view.shape, self.mesh)
                 out.append(view[idx].contiguous())
@@ -369,10 +439,10 @@ class Scaleout:
         import torch.distributed as dist
         if not self.shard_opt:
             return
-        for name, p, piece, spec, sh, g in zip(
+        for i, (name, p, piece, spec, sh, g) in enumerate(zip(
                 self.names, params, self.opt_params, self.specs,
-                self.sharded, self.groups):
-            if not sh:
+                self.sharded, self.groups)):
+            if not sh or i in self.local:
                 continue
             view = _jax_view(name, p)
             ranks = self.mesh.ranks(sharding_lib.spec_axes(spec))
@@ -398,10 +468,10 @@ class Scaleout:
         if not self.shard_opt:
             return
         with torch.no_grad():
-            for name, p, piece, spec, sh in zip(self.names, params,
-                                                self.opt_params, self.specs,
-                                                self.sharded):
-                if sh:
+            for i, (name, p, piece, spec, sh) in enumerate(zip(
+                    self.names, params, self.opt_params, self.specs,
+                    self.sharded)):
+                if sh and i not in self.local:
                     view = _jax_view(name, p)
                     idx = sharding_lib.piece_index(spec, view.shape,
                                                    self.mesh)
@@ -455,14 +525,27 @@ class Scaleout:
         residuals under ``"ef"`` (``[S, ...]`` a parameter, JAX layout)."""
         multi = self.mesh.size > 1
         if multi:
-            for name, spec, sh in zip(self.names, self.specs, self.sharded):
+            for i, (name, spec, sh) in enumerate(zip(self.names, self.specs,
+                                                     self.sharded)):
                 if not sh:
                     continue
                 node, *rest = _path(tree["params"], name)
                 leaf = node[rest[0]]
+                if i in self.local:  # the leaf is this rank's piece
+                    node[rest[0]] = ShardedLeaf(
+                        leaf, self._whole_shape(name), spec,
+                        self.mesh).read()
+                    continue
                 idx = sharding_lib.piece_index(spec, leaf.shape, self.mesh)
                 node[rest[0]] = ShardedLeaf(leaf[idx], leaf.shape, spec,
                                             self.mesh).read()
+            for path, shard in self.row_shards.items():
+                if shard.serve:
+                    node, leaf = _path(tree["params"], path.replace("/", "."))
+                    t = node[leaf]
+                    node[leaf] = ShardedLeaf(
+                        t, (shard.rows,) + tuple(t.shape[1:]), shard.spec,
+                        self.mesh).read()
         if self.ef is not None:
             ef: Dict[str, Any] = {}
             for name, leaf in zip(self.names, self.ef_leaves()):
@@ -472,6 +555,20 @@ class Scaleout:
                     node = node.setdefault(k, {})
                 node[last] = leaf.read() if multi else leaf.local
             tree["ef"] = ef
+
+    def localize(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """A loaded params tree (whole leaves) with the leaves this rank
+        holds as pieces (the experts, the served tables' rows) cut to this
+        rank's piece, in place; returns it."""
+        cuts = [(self.names[i], self.specs[i]) for i in sorted(self.local)]
+        cuts += [(path.replace("/", "."), shard.spec)
+                 for path, shard in self.row_shards.items() if shard.serve]
+        for name, spec in cuts:
+            node, leaf = _path(params, name)
+            whole = node[leaf]
+            idx = sharding_lib.piece_index(spec, whole.shape, self.mesh)
+            node[leaf] = whole[idx]
+        return params
 
     def load_tree(self, tree: Dict[str, Any]) -> None:
         """This rank's residuals from a loaded tree (zeros where it has

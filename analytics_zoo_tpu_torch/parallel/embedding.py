@@ -26,9 +26,20 @@ under ``torch.use_deterministic_algorithms``), so a captured step gives the
 eager step's bits.
 
 In one process, row sharding (``embedding_row_rules``) keeps every table
-whole on its device; the rules keep the reference's form.  Tables sharded
-by rows across processes are ROADMAP Queue 1 item 19 (the Estimator
-refuses a sparse model over several processes until then).
+whole on its device.  Over several processes (:func:`shard_tables`, which
+the Estimator calls before it moves the model to its device) each rank
+keeps its block of rows of every table, as the rules place them over the
+sized axes, and no rank holds a whole table.  A lookup keeps the static
+shapes: each rank's unique ids are gathered over the table's group, each
+owner gathers the rows it holds for every rank (zeros for ids it does not
+own) and sends them back (``all_to_all``), and the rows' gradients are
+gathered to the owners, who add ``-embedding_lr`` times their own ids'
+rows (:func:`apply_row_update`).  A table that the rules leave whole on
+every rank of several batch shards is looked up locally, and its row
+gradients are gathered over the batch group the same way.  The row
+gradients are the local batch's; the update scales them by one over the
+batch shards (and over the ranks of the group that share a batch shard),
+so the step is the global batch's, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -72,16 +83,39 @@ def is_row_rules(sharding: Any) -> bool:
 
 # -- the per-thread sparse context --------------------------------------------
 
+@dataclass
+class RowShard:
+    """A table over a process group: ``serve`` (its rows split, block
+    ``index`` of ``size``: global rows ``[offset, offset + block)`` on this
+    rank) or not (whole on every rank; only the row gradients travel, over
+    the batch group).  ``rows`` is the whole table's row count, ``spec``
+    its placement (the checkpoint's), ``scale`` the row gradients' factor
+    (one over the batch shards times the group's ranks a batch shard)."""
+    group: Any
+    size: int
+    index: int
+    offset: int
+    block: int
+    rows: int
+    spec: Any
+    scale: float
+    serve: bool
+
+
 class Tap(NamedTuple):
     """One lookup's application under ``inject_taps``: the table it read,
     its unique ids (``[size]``, padded with 0), its gathered unique rows
     (``[size, dim]``, a leaf that requires grad) and which slots hold a
     looked-up id (``[size]`` bool: the padding is False, so a touched-row
-    mask marks no row for it)."""
+    mask marks no row for it); over several processes the table's
+    ``RowShard`` and, for a served table, every rank's unique ids
+    (``[size of group, size]``)."""
     table: nn.Parameter
     uniq: torch.Tensor
     rows: torch.Tensor
     valid: Optional[torch.Tensor] = None
+    shard: Optional[RowShard] = None
+    uniq_all: Optional[torch.Tensor] = None
 
 
 class _SparseCtx(threading.local):
@@ -183,15 +217,55 @@ def static_unique(flat: torch.Tensor, size: int
     return uniq[:size], inv
 
 
+def _served_rows(table: torch.Tensor, uniq_all: torch.Tensor,
+                 shard: RowShard) -> torch.Tensor:
+    """The rows of every rank's unique ids (``uniq_all`` ``[n, size]``)
+    that this rank holds, zeros elsewhere, sent to their requesters;
+    returns this rank's ``[size, dim]`` rows summed over the owners (one
+    owner an id)."""
+    own = (uniq_all >= shard.offset) & (uniq_all < shard.offset
+                                        + shard.block)
+    local = torch.where(own, uniq_all - shard.offset, 0)
+    served = table.index_select(0, local.reshape(-1)).reshape(
+        uniq_all.shape + (table.shape[-1],)) * own[..., None]
+    from . import comm
+    return comm.all_to_all(served, shard.group).sum(0)
+
+
+def apply_row_update(tap: Tap, g: torch.Tensor, lr: float) -> None:
+    """``table -= lr x`` the row gradient ``g`` (``[size, dim]``) of one
+    lookup, at its unique ids: in place on this process's table, or over
+    the table's group, where every rank's ids and gradients are gathered
+    and each rank adds those of the rows it holds, scaled by
+    ``shard.scale``.  No ``[rows, dim]`` gradient is made."""
+    table, shard = tap.table, tap.shard
+    if shard is None:
+        table.index_add_(0, tap.uniq, g.to(table.dtype), alpha=-lr)
+        return
+    from . import comm
+    ids_all = tap.uniq_all if tap.uniq_all is not None else torch.stack(
+        comm.all_gather(tap.uniq, shard.group, shard.size))
+    g_all = torch.stack(comm.all_gather(g, shard.group, shard.size))
+    own = (ids_all >= shard.offset) & (ids_all < shard.offset + shard.block)
+    idx = torch.where(own, ids_all - shard.offset, 0).reshape(-1)
+    upd = (g_all * own[..., None]).reshape(-1, g.shape[-1])
+    table.index_add_(0, idx, upd.to(table.dtype), alpha=-lr * shard.scale)
+
+
 def dedup_lookup(table: torch.Tensor, ids: torch.Tensor,
                  combiner: Optional[str] = None,
-                 max_unique: Optional[int] = None) -> torch.Tensor:
+                 max_unique: Optional[int] = None,
+                 shard: Optional[RowShard] = None) -> torch.Tensor:
     """Dedup-before-gather lookup.  ``ids``: any int shape; negative ids
     are masked (a zero vector, a zero weight in the combiners).  Without
     ``combiner`` returns ``ids.shape + (dim,)``; with ``"sum"``/``"mean"``
     the trailing ids axis is the multi-hot axis and reduces away.
     ``max_unique`` caps the unique buffer (default: the flat batch size);
-    ids past the cap come back as NaN rows, as in the reference."""
+    ids past the cap come back as NaN rows, as in the reference.  With a
+    serving ``shard`` ``table`` is this rank's block, and the rows come
+    from their owners (collective: every rank of the group looks up
+    together); their gradient reaches the table only through the
+    Estimator's sparse path (``inject_taps``)."""
     if combiner not in _COMBINERS:
         raise ValueError(f"combiner must be one of {_COMBINERS}, "
                          f"got {combiner!r}")
@@ -203,14 +277,23 @@ def dedup_lookup(table: torch.Tensor, ids: torch.Tensor,
     size = int(max_unique) if max_unique else int(flat.numel())
     uniq, inv = static_unique(flat, size)
     taps = _CTX.taps
+    uniq_all = None
+    if shard is not None and shard.serve:
+        from . import comm
+        uniq_all = torch.stack(comm.all_gather(uniq, shard.group,
+                                               shard.size))
+        rows = _served_rows(table.detach(), uniq_all, shard)
     if taps is not None:
-        rows = table.detach().index_select(0, uniq).requires_grad_(True)
+        if uniq_all is None:
+            rows = table.detach().index_select(0, uniq)
+        rows = rows.requires_grad_(True)
         # the distinct values fill the first slots; the rest is padding
         distinct = torch.zeros(size + 1, dtype=torch.bool,
                                device=uniq.device)
         distinct.index_fill_(0, inv.clamp(max=size), True)
-        taps.append(Tap(table, uniq, rows, distinct[:size]))
-    else:
+        taps.append(Tap(table, uniq, rows, distinct[:size], shard,
+                        uniq_all))
+    elif uniq_all is None:
         rows = table.index_select(0, uniq)
     # a slot at or past ``size`` reads a NaN row (the reference's
     # ``jnp.take`` fill), whose gradient is dropped
@@ -250,6 +333,7 @@ class ShardedEmbedding(nn.Module):
         self.embeddings_init = initializers.get(embeddings_init)
         self.sharded_embeddings = nn.Parameter(
             torch.empty(input_dim, output_dim))
+        self.shard: Optional[RowShard] = None  # set by shard_tables
         self.reset_parameters()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -258,7 +342,65 @@ class ShardedEmbedding(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return dedup_lookup(self.sharded_embeddings, ids,
                             combiner=self.combiner,
-                            max_unique=self.max_unique)
+                            max_unique=self.max_unique, shard=self.shard)
+
+
+def shard_tables(model: nn.Module, mesh: Any, sharding: Any
+                 ) -> Dict[str, RowShard]:
+    """Place ``model``'s ShardedEmbedding tables over the processes of
+    ``mesh``, in place: under row rules (``embedding_row_rules``) each
+    table keeps only this rank's block of rows (its parameter's data
+    replaced) and looks up over its group; a table left whole on several
+    batch shards gets the batch group for its row gradients.  Returns
+    ``{table path: RowShard}`` of the tables that travel (none in one
+    process).  The row axes must cover the mesh's sized batch axes, or a
+    batch shard's gradients would miss rows' owners."""
+    from ..data.feed import BATCH_AXES, batch_axis_size
+    from .sharding import spec_axes, spec_for
+    out: Dict[str, RowShard] = {}
+    if mesh is None or mesh.size <= 1:
+        return out
+    rules = list(sharding) if is_row_rules(sharding) else None
+    n_batch = batch_axis_size(mesh)
+    batch_sized = {a for a in BATCH_AXES if mesh.shape.get(a, 1) > 1}
+    for name, m in model.named_modules():
+        if not isinstance(m, ShardedEmbedding):
+            continue
+        path = (name.replace(".", "/") + "/" if name else "") + SPARSE_LEAF
+        table = m.sharded_embeddings
+        if m.shard is not None and m.shard.serve:
+            # an earlier estimator's cut: the table already holds its rows
+            out[path] = m.shard
+            continue
+        rows = int(table.shape[0])
+        spec = spec_for(path, tuple(table.shape), rules, mesh) if rules \
+            else P()
+        axes = tuple(a for a in spec_axes(spec) if mesh.shape.get(a, 1) > 1)
+        if axes:
+            if not batch_sized <= set(axes):
+                raise ValueError(
+                    f"the rows of {path} are sharded over {axes}, which "
+                    f"do not cover the mesh's batch axes "
+                    f"{sorted(batch_sized)}: shard the rows over every "
+                    "batch axis (embedding_row_rules() does)")
+            from .sharding import piece_index
+            size = mesh.axis_size(axes)
+            sl = piece_index(spec, tuple(table.shape), mesh)[0]
+            dup = mesh.axis_size([a for a in axes if a not in BATCH_AXES])
+            shard = RowShard(mesh.group(axes), size, mesh.index(axes),
+                             int(sl.start), rows // size, rows, spec,
+                             1.0 / (n_batch * dup), True)
+            with torch.no_grad():
+                table.data = table.data[sl].clone()
+        elif n_batch > 1:
+            shard = RowShard(mesh.group(BATCH_AXES), n_batch,
+                             mesh.index(BATCH_AXES), 0, rows, rows, spec,
+                             1.0 / n_batch, False)
+        else:
+            continue
+        m.shard = shard
+        out[path] = shard
+    return out
 
 
 # -- host-side gather accounting ----------------------------------------------
@@ -282,8 +424,8 @@ def lookup_stats(ids: Any, dim: int, itemsize: int = 4,
     return deduped, naive
 
 
-__all__ = ["SPARSE_LEAF", "ShardingRule", "ShardedEmbedding", "Tap",
-           "dedup_lookup", "embedding_row_rules", "inject_taps",
-           "is_row_rules", "is_sparse_path", "lookup_stats", "merge_sparse",
-           "sparse_parameters", "sparse_paths", "split_sparse",
-           "static_unique"]
+__all__ = ["RowShard", "SPARSE_LEAF", "ShardingRule", "ShardedEmbedding",
+           "Tap", "apply_row_update", "dedup_lookup", "embedding_row_rules",
+           "inject_taps", "is_row_rules", "is_sparse_path", "lookup_stats",
+           "merge_sparse", "shard_tables", "sparse_parameters",
+           "sparse_paths", "split_sparse", "static_unique"]

@@ -167,6 +167,25 @@ def infer_param_specs(params: Any, rules: Sequence[ShardingRule],
     return walk(params, "")
 
 
+def shard_variables(variables: Any, rules: Sequence[ShardingRule],
+                    mesh: Any) -> Any:
+    """A ``{"params", "state", ...}`` tree (JAX layout) placed by the
+    rules on this rank: each ``params`` leaf cut to the piece this rank
+    holds (:func:`piece_index`), the other collections whole (replicated),
+    as the JAX function's ``device_put`` places them."""
+    out = dict(variables)
+    if "params" in variables:
+        specs = infer_param_specs(variables["params"], rules, mesh)
+
+        def place(node: Any, spec: Any) -> Any:
+            if isinstance(node, dict):
+                return {k: place(v, spec[k]) for k, v in node.items()}
+            return node[piece_index(spec, tuple(node.shape), mesh)]
+
+        out["params"] = place(variables["params"], specs)
+    return out
+
+
 def spec_axes(spec: Sequence[Any]) -> Tuple[str, ...]:
     """Every axis a spec names, in order."""
     return tuple(a for e in spec for a in _entry_axes(e))
@@ -230,5 +249,5 @@ def owners(spec: Sequence[Any], shape: Sequence[int], mesh: Any
 
 __all__ = ["P", "PartitionSpec", "ShardingRule", "fsdp_rules",
            "index_key", "infer_param_specs", "owners", "piece_index",
-           "placements",
-           "spec_axes", "spec_for", "tensor_parallel_rules"]
+           "placements", "shard_variables", "spec_axes", "spec_for",
+           "tensor_parallel_rules"]

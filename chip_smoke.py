@@ -329,7 +329,8 @@ JSON line:
    the port's gang launcher (``core/launcher.launch``) starts from this
    script (``--scaleout-child``).  One child, a world of 1 over NCCL
    (``init_orca_context("multihost")``): (a) bert_train's BERT-base SQuAD
-   (bf16, flash, batch 32) under ``sharding`` dp, fsdp, tp and 2d against
+   (bf16, flash, batch 32) under ``sharding="2d"`` (one strategy: at
+   world size 1 every strategy trims to the one-process step) against
    the same Estimator made before the context: the captured fit's step
    losses (equal bits expected), 12 + 12 flash launches a step, ms a step
    of a window of replays; (b) resnet_train's ResNet-50 (bf16, batch 128)
@@ -348,12 +349,37 @@ JSON line:
    restarted and resumes; the 5 step losses against the one-process run
    on the whole batch, the split entries' launches in each rank, the
    supervisor's events and its gang metrics.
-16. ``devices``: the card as ``nvidia-smi`` reports it.
+16. ``parallel_extras``: ring attention, MoE, the GPipe pipeline and
+   ShardedEmbedding tables by rows, in one 2-rank gang on the card (gloo;
+   ``--extras-child``), each case under its own mesh, with one process's
+   reference run here.  First the flash kernels at the ring's chunk shape
+   (BH 96, Tq = Tk = 256, d 64, bf16, causal and not) against their plain
+   versions, timed beside SDPA and the bound.  (a) ``{seq: 2}``:
+   bert_train's BERT-base SQuAD (bf16, dropout 0.1) with ``use_ring`` for
+   4 steps at a global batch of 8 (each rank 256 tokens' queries), the
+   losses within 2e-2 of one process with ``use_flash``, the ms a step,
+   24 + 24 flash launches a step a rank (12 layers x 2 chunks); one
+   layer's ring at [8, 512, 12, 64] bf16 against the plain ring, causal
+   and not.  (b) ``{expert: 2}``: two MoE layers (8 experts, top-2,
+   capacity 1.25, ``hidden_mult`` 4) with residuals and a Dense(2) head
+   on [8, 512, 768] f32, 4 steps under ``sharding="tp"`` and
+   ``aux_loss_weight=0.01``, the losses within 1e-4 of one process
+   holding every expert, 4 experts' ``wi``/``wo`` a rank.  (c) ``{pipe:
+   2}``: BERT-base's 12 encoder blocks as stacked stages, 6 a rank, on
+   [8, 512, 768] bf16 in 4 microbatches: the output and each rank's
+   stages' gradients against the stages in order.  (d) ``{data: 2}``:
+   bench_recsys's ShardedEmbedding NeuralCF under ``embedding_row_rules``,
+   4 steps of 2,048, half the rows of every table a rank: the losses and
+   rows within 1e-4 of one process on the global batch, no allocation of
+   a whole table.  The bytes that gloo's traffic staged through the host.
+17. ``devices``: the card as ``nvidia-smi`` reports it.
 
 Each phase's seconds follow it on a line of their own (the full run).
 Then the script's seconds, a ``kernels`` line (one entry per kernel and
-path; ``launches_scaleout`` the scaleout phase's, and one entry a
-direction and dtype for the split batch norm) and, last,
+path; ``launches_scaleout`` the scaleout phase's,
+``launches_parallel_extras`` the parallel_extras phase's (both ranks),
+``at_ring_chunk`` the flash entries' times at the ring's chunk, and one
+entry a direction and dtype for the split batch norm) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
 non-zero and prints no last line; it also exits non-zero when there is no
 CUDA card.  ``--only kernel,fused_bn,...`` runs the named phases alone and
@@ -520,10 +546,11 @@ XENT_EDGE = [(300, 40, 777, 100), (129, 13, 30, 43), (256, 64, 1000, 128),
 # the (d) variants: bench.py's training phases from CUDA graphs (one
 # captured step a batch key, replayed K times by Estimator._multi_step and
 # _multi_step_data).  bench_bert: `steps, repeats = 50, 3` after one warm
-# call, streaming `chunk_steps, n_chunks = 10, 3` from 8 worker threads
+# call (cut to 10 x 3 for the script's length: PR 22 50 -> 20, PR 23 20 ->
+# 10), streaming `chunk_steps, n_chunks = 10, 3` from 8 worker threads
 # with 4 batches of prefetch; bench_resnet50: 20 x 3, streaming 5 x 4 from
 # max(4, min(16, cores)) worker processes with 4 of prefetch
-MLM_RESIDENT = (20, 3)
+MLM_RESIDENT = (10, 3)
 MLM_STREAM = (10, 3)
 MLM_STREAM_WORKERS = 8
 RESNET_RESIDENT = (20, 3)
@@ -560,10 +587,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # the profiler lost a window's first kernels (of a window of one
 # fused_xent call it kept the last of 3 kernels or none, of ten calls 28
 # of 30, also with 50 ms idle at either end); the same calls in a fresh
-# process lost none.  What it loses is then the padding's.
+# process lost none.  What it loses is then the padding's.  The idle was
+# cut 50 -> 20 -> 10 ms for the script's length (PR 22, 23): a window that
+# still loses events is run again (device_windows).
 _PAD_LAUNCHES = 64
 _PAD_KERNEL = "spin_kernel"
-_PAD_IDLE_S = 0.02
+_PAD_IDLE_S = 0.01
 
 
 def _pad() -> None:
@@ -2203,14 +2232,15 @@ def failed_capture_check() -> dict:
     return {"raised": True, "message": line[len("RAISED "):]}
 
 
-def squad_examples(rng: np.random.Generator, n: int) -> tuple:
-    """n SQuAD-shaped examples at SEQ: random token ids and a random answer
-    span (start < end) each, labels int [n, 2].  Nothing in the input marks
-    the span, so the model can only learn the examples by heart: the loss
-    falls over epochs, not in one step."""
-    ids = rng.integers(0, BERT_BASE["vocab_size"], (n, SEQ)).astype(np.int32)
-    start = rng.integers(0, SEQ - 64, n)
-    end = start + rng.integers(1, 64, n)
+def squad_examples(rng: np.random.Generator, n: int, seq: int = SEQ,
+                   vocab: int = BERT_BASE["vocab_size"]) -> tuple:
+    """n SQuAD-shaped examples at ``seq``: random token ids and a random
+    answer span (start < end, under seq / 8 tokens) each, labels int [n,
+    2].  Nothing in the input marks the span, so the model can only learn
+    the examples by heart: the loss falls over epochs, not in one step."""
+    ids = rng.integers(0, vocab, (n, seq)).astype(np.int32)
+    start = rng.integers(0, seq - seq // 8, n)
+    end = start + rng.integers(1, seq // 8, n)
     return ids, np.stack([start, end], axis=1).astype(np.int32)
 
 
@@ -2220,12 +2250,15 @@ def record_steps(est) -> tuple:
     fills."""
     losses, times = [], []
     inner = est._train_step
+    card = torch.cuda.is_available()
 
     def step(batch):
-        torch.cuda.synchronize()
+        if card:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = inner(batch)
-        torch.cuda.synchronize()
+        if card:
+            torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
         return loss
@@ -5553,8 +5586,8 @@ def captured_and_eager(sizes, make, loss, xy, cmp_steps, window, lr=1e-3):
     deterministic algorithms (step losses, equal bits on the card), then
     each estimator's window of ``window`` steps on one batch (ms a step;
     on the card its kernels a step and the busy and idle share of a
-    profiled step or five), and the captured one's fit over all of ``xy``
-    (one epoch, ms a step)."""
+    profiled step or five, the eager recurrent step's not), and the
+    captured one's fit over all of ``xy`` (one epoch, ms a step)."""
     from analytics_zoo_tpu_torch.orca.learn import Estimator
     card = sizes.device == "cuda"
     init = make().state_dict()
@@ -5583,9 +5616,11 @@ def captured_and_eager(sizes, make, loss, xy, cmp_steps, window, lr=1e-3):
         del est._train_step
         run["window_ms_a_step"] = rd_window(
             sizes, lambda: est._multi_step(b0, window), window)
-        if card:  # the card's kernels a step, busy and idle, profiled
-            # over a step or five (a recurrent step is 18,000-26,000
-            # kernels, whose trace the profiler takes seconds to read)
+        # the card's kernels a step, busy and idle, profiled over a step
+        # or five; a recurrent step is 18,000-26,000 kernels, whose eager
+        # trace (with ~10^5 host events) the profiler takes tens of
+        # seconds to read: those encoders are profiled captured only
+        if card and (graphs or window >= 5):
             steps = 1 if window < 5 else 5
             run["profiled"] = profiled_window(
                 lambda: est._multi_step(b0, steps), steps, {})
@@ -7049,7 +7084,9 @@ def phase_train_knobs(fa, bn, fx, sizes=None) -> dict:
 
 # -- scaleout: the Estimator over several processes ---------------------------
 
-SCALEOUT_STRATEGIES = ("dp", "fsdp", "tp", "2d")
+# one strategy: at world size 1 every strategy trims to the same captured
+# one-process step (61.7-63.9 ms each over dp/fsdp/tp/2d, PR 22)
+SCALEOUT_STRATEGIES = ("2d",)
 SCALEOUT_BERT_EXAMPLES = 64     # (a): 2 steps an epoch at batch 32
 SCALEOUT_BERT_EPOCHS = 2        # (a): the captured fit, 4 steps
 SCALEOUT_WINDOW = 5             # (a), (b): replays of a timed window
@@ -7653,6 +7690,578 @@ def phase_scaleout(bn) -> dict:
     return res
 
 
+# -- parallel_extras: ring attention, MoE, the pipeline, row-sharded tables -
+
+EXTRAS_RANKS = 2          # one gang on the one card, over gloo
+EXTRAS_TIMEOUT = 600      # the gang's attempt, seconds
+EXTRAS_RING_CHUNK = dict(bh=96, t=256, d=64)  # BERT-base at batch 8 / 2
+# (b) MoE against one process holding every expert: f32 router and
+# experts, the same sums but the experts' outputs gathered from two ranks
+TOL_EXTRAS_MOE = 1e-4
+# (d) the tables' rows and the losses against one process: f32 sums of
+# the row gradients in another order (each rank's unique ids, gathered)
+TOL_EXTRAS_TABLES = 1e-4
+
+
+class ExtrasSizes:
+    """The phase's shapes: the card's by default; the CPU rehearsal
+    (tests) shrinks them."""
+
+    def __init__(self, device="cuda", **kw):
+        self.device = device
+        self.bert = dict(BERT_BASE)
+        self.seq, self.bert_batch, self.bert_steps = SEQ, 8, 4
+        self.moe_d, self.moe_t, self.moe_batch = 768, SEQ, 8
+        self.moe_experts, self.moe_mult, self.moe_steps = 8, 4, 4
+        self.pipe_stages, self.pipe_batch, self.pipe_micro = 12, 8, 4
+        self.ncf_users, self.ncf_items = RECSYS_EVENTS[1], RECSYS_EVENTS[2]
+        self.ncf_batch, self.ncf_steps = NCF_BATCH, 4
+        self.__dict__.update(kw)
+
+    def to_json(self) -> str:
+        return json.dumps({k: v for k, v in self.__dict__.items()})
+
+
+def px_bert_fit(sizes, ring: bool) -> dict:
+    """(a)'s fit: bert_train's BERT-base SQuAD (bf16, dropout 0.1, adamw
+    at 1e-4) for ``bert_steps`` steps at a global batch of ``bert_batch``,
+    under ``use_ring`` (the gang) or ``use_flash`` (one process); the step
+    losses and the ms of each step (synchronised around it)."""
+    from analytics_zoo_tpu_torch.convert import from_jax_variables
+    from analytics_zoo_tpu_torch.models import BERTSQuAD, squad_span_loss
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    cfg = dict(sizes.bert, max_position=sizes.seq)
+    state = from_jax_variables(random_bert_variables(
+        BERTSQuAD(use_flash=True, **cfg), SEED))
+    x, y = squad_examples(np.random.default_rng(SEED + 40),
+                          sizes.bert_batch * sizes.bert_steps, sizes.seq,
+                          cfg["vocab_size"])
+    m = BERTSQuAD(use_ring=ring, use_flash=not ring,
+                  **dict(cfg, dropout=0.1, dtype=torch.bfloat16))
+    m.load_state_dict(state, strict=True)
+    est = Estimator.from_keras(m, loss=squad_span_loss, optimizer="adamw",
+                               learning_rate=TRAIN_LR, seed=SEED,
+                               device=sizes.device)
+    losses, ms = record_steps(est)
+    est.fit((x, y), epochs=1, batch_size=sizes.bert_batch, verbose=False)
+    out = {"step_losses": losses, "step_ms": ms,
+           "cuda_graphs": est.cuda_graphs,
+           "capture_refused": est.capture_refused}
+    del est, m
+    return out
+
+
+def px_ring_check(fa, sizes) -> dict:
+    """One layer's ring attention at (a)'s shapes ([B, T, 12, 64] bf16,
+    each rank's chunk T/2) through the kernels against the plain ring
+    (the kernels' plain versions on the same chunks), causal and not: the
+    output and the gradients of q, k and v, each relative to its max
+    |ref| within the flash phase's bf16 limits."""
+    from analytics_zoo_tpu_torch.parallel import ring_self_attention
+    h = sizes.bert["n_heads"]
+    d = sizes.bert["hidden_size"] // h
+    gen = torch.Generator(device=sizes.device).manual_seed(SEED + 41)
+    shape = (sizes.bert_batch, sizes.seq, h, d)
+    q, k, v, w = (torch.randn(shape, device=sizes.device, generator=gen)
+                  .to(torch.bfloat16) for _ in range(4))
+    out = {}
+    for causal in (False, True):
+        got = {}
+        for plain in (False, True):
+            xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = ring_self_attention(*xs, causal=causal, plain=plain)
+            (o.float() * w.float()).sum().backward()
+            got[plain] = [o] + [t.grad for t in xs]
+        errs = {}
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got[False],
+                              got[True]):
+            top = b.float().abs().max().item()
+            errs[name] = (a.float() - b.float()).abs().max().item() / max(
+                top, 1e-30)
+            tol = TOL_BF16_REL if name == "out" else TOL_BWD_BF16
+            if not math.isfinite(errs[name]) or errs[name] > tol:
+                raise AssertionError(
+                    f"parallel_extras (a): ring {name} causal={causal} "
+                    f"{errs[name]} of max |plain ring| > {tol}")
+        out["causal" if causal else "full"] = errs
+    return out
+
+
+class PxMoENet(torch.nn.Module):
+    """(b)'s model: two MoE layers (top-2, capacity 1.25), each with a
+    residual around it, then a Dense(2) head over the mean-pooled
+    tokens."""
+
+    def __init__(self, sizes):
+        super().__init__()
+        from analytics_zoo_tpu_torch import nn as tnn
+        from analytics_zoo_tpu_torch.parallel import MoE
+        for i in range(2):
+            self.add_module(f"moe_{i}", MoE(
+                sizes.moe_d, sizes.moe_experts, hidden_mult=sizes.moe_mult,
+                top_k=2, capacity_factor=1.25))
+        self.head = tnn.Dense(sizes.moe_d, 2)
+
+    def forward(self, x):
+        for i in range(2):
+            x = x + getattr(self, f"moe_{i}")(x)
+        return self.head(x.mean(1))
+
+
+def px_moe_fit(sizes, gang: bool) -> dict:
+    """(b)'s fit: ``moe_steps`` steps of adam (1e-3) with
+    ``aux_loss_weight=0.01`` under ``sharding="tp"``: over the gang's
+    ``{expert: 2}`` each rank runs and holds 4 of the 8 experts; in one
+    process every expert."""
+    from analytics_zoo_tpu_torch.models.common import init_weights
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    model = init_weights(PxMoENet(sizes),
+                         torch.Generator().manual_seed(SEED + 42))
+    rng = np.random.default_rng(SEED + 43)
+    n = sizes.moe_batch * sizes.moe_steps
+    x = rng.normal(size=(n, sizes.moe_t, sizes.moe_d)).astype(np.float32)
+    y = rng.integers(0, 2, n).astype(np.int32)
+    est = Estimator.from_keras(model, loss="sparse_categorical_crossentropy",
+                               optimizer="adam", learning_rate=1e-3,
+                               seed=SEED, sharding="tp", aux_loss_weight=0.01,
+                               device=sizes.device)
+    losses = record_losses(est)
+    est.fit((x, y), epochs=1, batch_size=sizes.moe_batch, verbose=False)
+    out = {"step_losses": [float(v) for v in losses],
+           "aux_loss": [float(getattr(model, f"moe_{i}").aux_loss)
+                        for i in range(2)],
+           "expert_weights": {
+               n: {"shape": list(p.shape),
+                   "bytes": p.numel() * p.element_size()}
+               for n, p in model.named_parameters()
+               if n.endswith(("wi", "wo"))}}
+    if gang:
+        out["ep_layers"] = est._scale.ep_layers
+    del est, model
+    return out
+
+
+def px_pipe(fa, bn, fx, sizes) -> dict:
+    """(c): BERT-base's encoder blocks (pre-LN, flash, bf16 activations)
+    as ``pipe_stages`` stacked stages over ``{pipe: 2}``, half on each
+    rank, on ``[pipe_batch, T, 768]`` in ``pipe_micro`` microbatches: the
+    output on every rank and this rank's stages' gradients of
+    ``sum(out * w)`` against the stages run in order in this process on
+    the same microbatches (the flash launches of the pipeline's run
+    counted first)."""
+    from torch.func import functional_call
+    from analytics_zoo_tpu_torch.core.context import get_mesh
+    from analytics_zoo_tpu_torch.nn import TransformerLayer
+    from analytics_zoo_tpu_torch.parallel import (pipeline_apply,
+                                                  stacked_stage_init)
+    cfg = sizes.bert
+    # the stages' module: functional_call runs it on each stage's tensors
+    layer = TransformerLayer(cfg["hidden_size"], cfg["n_heads"],
+                             hidden_mult=cfg["intermediate_mult"],
+                             pre_ln=True, use_flash=True)
+
+    def init(gen):
+        for m in layer.modules():
+            reset = getattr(m, "reset_parameters", None)
+            if reset is not None:
+                reset(gen)
+        return {n: p.detach().clone() for n, p in layer.named_parameters()}
+
+    stacked = {k: v.to(sizes.device) for k, v in stacked_stage_init(
+        init, sizes.pipe_stages, SEED + 44).items()}
+    gen = torch.Generator(device=sizes.device).manual_seed(SEED + 45)
+    shape = (sizes.pipe_batch, sizes.seq, cfg["hidden_size"])
+    x = torch.randn(shape, device=sizes.device, generator=gen).to(torch.bfloat16)
+    w = torch.randn(shape, device=sizes.device, generator=gen)
+    params = {k: v.requires_grad_(True) for k, v in stacked.items()}
+    autots_reset_counts(fa, bn, fx)
+    sp_sync(sizes)
+    t0 = time.perf_counter()
+    out = pipeline_apply(layer, params, x, sizes.pipe_micro)
+    (out.float() * w).sum().backward()
+    sp_sync(sizes)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kn_counts(fa, bn, fx)
+    grads = {k: v.grad for k, v in params.items()}
+    # the same stages in order, the same microbatches, in this process
+    ref_params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in stacked.items()}
+    mb = sizes.pipe_batch // sizes.pipe_micro
+    outs = []
+    for m in range(sizes.pipe_micro):
+        h = x[m * mb:(m + 1) * mb]
+        for i in range(sizes.pipe_stages):
+            h = functional_call(layer, {k: v[i] for k, v in
+                                        ref_params.items()}, (h,))
+        outs.append(h)
+    ref = torch.cat(outs)
+    (ref.float() * w).sum().backward()
+    mesh = get_mesh()
+    mine = mesh.index(("pipe",))
+    local = sizes.pipe_stages // mesh.shape["pipe"]
+    rows = slice(mine * local, (mine + 1) * local)
+    top = ref.float().abs().max().item()
+    errs = {"out": (out.float() - ref.float()).abs().max().item() / top}
+    for k, g in grads.items():
+        r = ref_params[k].grad[rows].float()
+        errs[k] = (g[rows].float() - r).abs().max().item() / max(
+            r.abs().max().item(), 1e-30)
+        other = torch.cat([g[:rows.start], g[rows.stop:]])
+        if other.numel() and other.abs().max().item() != 0.0:
+            raise AssertionError(f"parallel_extras (c): {k} has gradient "
+                                 "rows of another rank's stages")
+    worst = max(errs.values())
+    if not math.isfinite(worst) or worst > TOL_BWD_BF16:
+        raise AssertionError(f"parallel_extras (c): pipeline vs the stages "
+                             f"in order: {errs}")
+    return {"ms": ms, "rel_err": errs, "worst_rel_err": worst,
+            "equal_bits": bool(torch.equal(out, ref)),
+            "stages_here": [rows.start, rows.stop], "launches": launches}
+
+
+def px_tables_fit(sizes) -> tuple:
+    """(d)'s fit: bench_recsys's ShardedEmbedding NeuralCF (16-wide
+    tables, MLP 32/16, adam 1e-3) on the sparse path under
+    ``embedding_row_rules()``, ``ncf_steps`` steps of ``ncf_batch`` rows
+    (over the gang: each rank half the batch and half the rows of every
+    table); the allocations from before the Estimator to the end of its
+    fit, none a whole table's bytes (on the card).  Returns (the record,
+    this process's rows of each table as numpy)."""
+    from analytics_zoo_tpu_torch.models import NeuralCF
+    from analytics_zoo_tpu_torch.orca.learn import Estimator
+    from analytics_zoo_tpu_torch.parallel import embedding_row_rules
+    kw = dict(user_count=sizes.ncf_users, item_count=sizes.ncf_items,
+              class_num=2, user_embed=16, item_embed=16,
+              hidden_layers=(32, 16), mf_embed=16, sharded_embeddings=True)
+    state = NeuralCF(**kw).init_weights(
+        torch.Generator().manual_seed(SEED + 46)).state_dict()
+    rng = np.random.default_rng(SEED + 47)
+    n = sizes.ncf_batch * sizes.ncf_steps
+    x = np.stack([rng.integers(0, sizes.ncf_users, n),
+                  rng.integers(0, sizes.ncf_items, n)], 1).astype(np.int32)
+    y = rng.integers(0, 2, n).astype(np.int32)
+    whole = {k: v.numel() * 4 for k, v in state.items()
+             if k.endswith("sharded_embeddings")}
+    record = sizes.device == "cuda"
+    if record:
+        torch.cuda.synchronize()
+        torch.cuda.memory._record_memory_history(max_entries=200_000)
+    try:
+        model = NeuralCF(**kw)
+        model.load_state_dict(state)
+        est = Estimator.from_keras(
+            model, loss="sparse_categorical_crossentropy", optimizer="adam",
+            learning_rate=1e-3, seed=SEED, sharding=embedding_row_rules(),
+            device=sizes.device)
+        losses = record_losses(est)
+        est.fit((x, y), epochs=1, batch_size=sizes.ncf_batch, verbose=False)
+        snap = torch.cuda.memory._snapshot() if record else {}
+    finally:
+        if record:
+            torch.cuda.memory._record_memory_history(enabled=None)
+    allocs = [e["size"] for t in snap.get("device_traces", []) for e in t
+              if e["action"] == "alloc"]
+    sizes_whole = [(b, -(-b // 512) * 512) for b in whole.values()]
+    tables = {k: p for k, p in model.named_parameters()
+              if k.endswith("sharded_embeddings")}
+    out = {"step_losses": [float(v) for v in losses],
+           "table_shapes": {k: list(p.shape) for k, p in tables.items()},
+           "table_bytes_held": sum(p.numel() * p.element_size()
+                                   for p in tables.values()),
+           "table_bytes_whole": sum(whole.values()),
+           "allocations_recorded": len(allocs),
+           "whole_table_allocations": [a for a in allocs if any(
+               lo <= a <= hi for lo, hi in sizes_whole)]}
+    rows = {k: p.detach().cpu().numpy() for k, p in tables.items()}
+    del est, model
+    return out, rows
+
+
+def px_child(out_dir: str, sizes_json: str) -> int:
+    """One rank of the phase's gang: (a)-(d) in turn, each under its own
+    mesh (the process group outlives the contexts), the kernel counts of
+    each main path read before its comparisons, and the bytes the gloo
+    traffic staged through the host; the results to
+    ``out_dir/rank<r>.json``."""
+    import importlib
+    import torch.distributed as dist
+    from analytics_zoo_tpu_torch.core.context import (init_orca_context,
+                                                      stop_orca_context)
+    from analytics_zoo_tpu_torch.parallel import comm
+    sizes = ExtrasSizes(**json.loads(sizes_json))
+    fa = importlib.import_module("analytics_zoo_tpu_torch.ops.flash_attention")
+    bn = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_bn")
+    fx = importlib.import_module("analytics_zoo_tpu_torch.ops.fused_xent")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["ZOO_PROCESS_ID"])
+    if sizes.device == "cuda":
+        torch.cuda.set_device(0)
+    else:  # a rank of the CPU rehearsal beside other test files
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{os.environ['ZOO_COORDINATOR']}",
+        rank=rank, world_size=int(os.environ["ZOO_NUM_PROCESSES"]))
+    res = {"rank": rank}
+
+    def ring():
+        r = px_bert_fit(sizes, ring=True)
+        r["launches"] = kn_counts(fa, bn, fx)
+        r["check"] = px_ring_check(fa, sizes)
+        return r
+
+    def tables():
+        out, rows = px_tables_fit(sizes)
+        np.savez(os.path.join(out_dir, f"tables{rank}.npz"), **rows)
+        return out
+
+    for name, mesh, fn in (
+            ("ring", {"seq": 2}, ring),
+            ("moe", {"expert": 2}, lambda: px_moe_fit(sizes, True)),
+            ("pipe", {"pipe": 2}, lambda: px_pipe(fa, bn, fx, sizes)),
+            ("tables", {"data": 2}, tables)):
+        stop_orca_context()
+        init_orca_context("multihost", mesh_shape=mesh)
+        comm.reset_staged()
+        autots_reset_counts(fa, bn, fx)
+        t0 = time.perf_counter()
+        res[name] = fn()
+        res[name]["launches"] = res[name].get("launches") or kn_counts(
+            fa, bn, fx)
+        res[name]["staged"] = dict(comm.STAGED)
+        res[name]["seconds"] = time.perf_counter() - t0
+        sp_free(sizes)
+    stop_orca_context()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def px_chunk_timings(fa, sizes) -> list:
+    """The flash kernels at the ring's chunk shape (BH 96, Tq = Tk = 256,
+    d 64, bf16), causal and not, each direction: checked against its
+    plain version on the inputs it is timed on, then its ms, the plain
+    version's, SDPA's (its backward alone for the backward), and the
+    bound."""
+    b = EXTRAS_RING_CHUNK
+    bh, t, d = b["bh"], b["t"], b["d"]
+    h = sizes.bert["n_heads"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 48)
+    out = []
+    for causal in (False, True):
+        q, k, v, g = (torch.randn(bh, t, d, device="cuda", generator=gen)
+                      .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        ref, _ = fa.flash_attention_fwd_reference(q, k, v, causal)
+        err = (o.float() - ref.float()).abs().max().item()
+        if err > TOL_BF16_REL * ref.float().abs().max().item():
+            raise AssertionError(f"parallel_extras: chunk forward err {err}")
+        q4, k4, v4 = (x.view(bh // h, h, t, d).detach().requires_grad_()
+                      for x in (q, k, v))
+        out4 = torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal)
+        g4 = g.view(bh // h, h, t, d)
+        fwd = [lambda: fa.flash_attention_fwd(q, k, v, causal),
+               lambda: fa.flash_attention_fwd_reference(q, k, v, causal),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=causal)]
+        ms, plain_ms, library_ms = (cuda_ms(f) for f in fwd)
+        bound_ms, bound_by = attention_bound(bh, t, t, d, 2, causal)
+        out.append({"direction": "fwd", "causal": causal, "bh": bh, "t": t,
+                    "d": d, "dtype": "bfloat16", "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+        got = fa.flash_attention_bwd(q, k, v, o, lse, g, causal)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, g, causal)
+        err = 0.0
+        for a, r in zip(got, want):
+            e = (a.float() - r.float()).abs().max().item()
+            if e > TOL_BWD_BF16 * r.float().abs().max().item():
+                raise AssertionError(f"parallel_extras: chunk backward err "
+                                     f"{e}")
+            err = max(err, e)
+        bwd = [lambda: fa.flash_attention_bwd(q, k, v, o, lse, g, causal),
+               lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, g,
+                                                        causal),
+               lambda: torch.autograd.grad(out4, (q4, k4, v4), g4,
+                                           retain_graph=True)]
+        ms, plain_ms, library_ms = (cuda_ms(f, iters=10) for f in bwd)
+        pairs = t * (t + 1) / 2 if causal else t * t
+        bound_ms, bound_by = bound(10.0 * bh * pairs * d, 8.0 * bh * t * d * 2,
+                                   2)
+        out.append({"direction": "bwd", "causal": causal, "bh": bh, "t": t,
+                    "d": d, "dtype": "bfloat16", "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+        del q4, k4, v4, out4
+    return out
+
+
+def px_worst_rel(got, want) -> float:
+    return max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(got, want))
+
+
+def phase_parallel_extras(fa, bn, fx, sizes=None) -> dict:
+    """Ring attention, MoE, the pipeline and row-sharded tables over one
+    2-rank gang on the card (gloo): (a) BERT-base with ``use_ring`` under
+    ``{seq: 2}`` fine-tuned 4 steps, held to one process with
+    ``use_flash``, its flash launches a step a rank, and one layer's ring
+    against the plain ring; (b) two MoE layers at BERT-base width under
+    ``{expert: 2}``, 4 steps with ``aux_loss_weight``, held to one process
+    holding every expert; (c) BERT-base's 12 encoder blocks as a 2-rank
+    GPipe pipeline, held to the stages in order; (d) bench_recsys's
+    NeuralCF with its tables by rows under ``{data: 2}``, held to one
+    process on the global batch.  The references run in this process;
+    the flash kernels' times at the ring's chunk shape come first.
+    ``kernel_launches`` sums the ranks' main-path runs ((a)'s fit, (c)'s
+    pipeline; (b) and (d), held to none, launch no kernel of the
+    port)."""
+    import shutil
+    import tempfile
+    from analytics_zoo_tpu_torch.core import launcher
+    sizes = sizes or ExtrasSizes()
+    t_phase = time.perf_counter()
+    cuda = sizes.device == "cuda"
+    res = {"phase": "parallel_extras", "card": nvidia_smi() if cuda
+           else "cpu", "part_seconds": {}}
+    if cuda:
+        t0 = time.perf_counter()
+        res["ring_chunk_timings"] = px_chunk_timings(fa, sizes)
+        res["part_seconds"]["chunk_timings"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="zoo_extras_")
+    try:
+        t0 = time.perf_counter()
+        rc = launcher.launch(os.path.abspath(__file__),
+                             ["--extras-child", root, sizes.to_json()],
+                             EXTRAS_RANKS, platform=sizes.device,
+                             timeout=EXTRAS_TIMEOUT)
+        if rc != 0:
+            raise AssertionError(f"parallel_extras: the gang exited {rc}")
+        ranks = []
+        for r in range(EXTRAS_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        tables = [dict(np.load(os.path.join(root, f"tables{r}.npz")))
+                  for r in range(EXTRAS_RANKS)]
+        res["part_seconds"]["gang"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    refs = {"ring": px_bert_fit(sizes, ring=False),
+            "moe": px_moe_fit(sizes, False)}
+    sp_free(sizes)
+    ref_tables, ref_rows = px_tables_fit(sizes)
+    res["part_seconds"]["references"] = time.perf_counter() - t0
+
+    # (a) the ring BERT: each rank's losses within the gang tolerance of
+    # one process; 12 layers x 2 chunks of each direction a step a rank
+    ring = [r["ring"] for r in ranks]
+    gaps = [px_worst_rel(r["step_losses"], refs["ring"]["step_losses"])
+            for r in ring]
+    if max(gaps) > TOL_SCALEOUT_GANG:
+        raise AssertionError(f"parallel_extras (a): ring losses "
+                             f"{[r['step_losses'] for r in ring]} vs "
+                             f"{refs['ring']['step_losses']}")
+    # a rank's queries against both chunks (not causal), every layer
+    chunks = 2 * sizes.bert["n_layers"] * sizes.bert_steps
+    for r in ring:
+        want = {"flash_attention_fwd_bf16": chunks,
+                "flash_attention_bwd_bf16": chunks} if cuda else {}
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"parallel_extras (a): launches {got}; "
+                                 f"want {want}")
+    res["ring"] = {
+        "ranks": ring, "reference": refs["ring"], "worst_rel_gap": gaps,
+        "tol": TOL_SCALEOUT_GANG,
+        "ms_per_step_p50": float(np.median([m for r in ring
+                                            for m in r["step_ms"][1:]])),
+        "reference_ms_per_step_p50": float(np.median(
+            refs["ring"]["step_ms"][1:])),
+        "flash_launches_per_step_per_rank": {
+            k: v / sizes.bert_steps for k, v in ring[0]["launches"].items()
+            if v}}
+
+    # (b) MoE: the losses within 1e-4 of one process; 4 of 8 experts a rank
+    moe = [r["moe"] for r in ranks]
+    gaps = [px_worst_rel(r["step_losses"], refs["moe"]["step_losses"])
+            for r in moe]
+    if max(gaps) > TOL_EXTRAS_MOE:
+        raise AssertionError(f"parallel_extras (b): MoE losses "
+                             f"{[r['step_losses'] for r in moe]} vs "
+                             f"{refs['moe']['step_losses']}")
+    e_here = sizes.moe_experts // EXTRAS_RANKS
+    for r in moe:
+        for name, wgt in r["expert_weights"].items():
+            whole = refs["moe"]["expert_weights"][name]
+            if wgt["shape"][0] != e_here or wgt["shape"][1:] != \
+                    whole["shape"][1:] or 2 * wgt["bytes"] != whole["bytes"]:
+                raise AssertionError(f"parallel_extras (b): {name} holds "
+                                     f"{wgt}, the whole layer {whole}")
+        if r["ep_layers"] != ["moe_0", "moe_1"]:
+            raise AssertionError(f"parallel_extras (b): expert-parallel "
+                                 f"layers {r['ep_layers']}")
+    res["moe"] = {"ranks": moe, "reference": refs["moe"],
+                  "worst_rel_gap": gaps, "tol": TOL_EXTRAS_MOE}
+
+    # (c) the pipeline: held to the stages in order inside each rank
+    pipe = [r["pipe"] for r in ranks]
+    per_rank = (sizes.pipe_stages // EXTRAS_RANKS) * sizes.pipe_micro
+    for r in pipe:
+        want = {"flash_attention_fwd_bf16": per_rank,
+                "flash_attention_bwd_bf16": per_rank} if cuda else {}
+        got = {k: v for k, v in r["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"parallel_extras (c): launches {got}; "
+                                 f"want {want}")
+    res["pipe"] = {"ranks": pipe}
+
+    # (d) the tables: losses and every row within 1e-4 of one process; no
+    # rank holds or allocates a whole table
+    tab = [r["tables"] for r in ranks]
+    gaps = [px_worst_rel(r["step_losses"], ref_tables["step_losses"])
+            for r in tab]
+    row_err = 0.0
+    for name, want in ref_rows.items():
+        got = np.concatenate([t[name] for t in tables])
+        row_err = max(row_err, float(np.abs(got - want).max()) / max(
+            1.0, float(np.abs(want).max())))
+    for r in tab:
+        held, whole = r["table_bytes_held"], r["table_bytes_whole"]
+        if 2 * held != whole or r["whole_table_allocations"] or (
+                cuda and not r["allocations_recorded"]):
+            raise AssertionError(f"parallel_extras (d): a rank holds {held} "
+                                 f"of {whole} table bytes, whole-table "
+                                 f"allocations {r['whole_table_allocations']}"
+                                 f" of {r['allocations_recorded']}")
+    if max(gaps) > TOL_EXTRAS_TABLES or row_err > TOL_EXTRAS_TABLES:
+        raise AssertionError(f"parallel_extras (d): losses "
+                             f"{[r['step_losses'] for r in tab]} vs "
+                             f"{ref_tables['step_losses']}, rows {row_err}")
+    res["tables"] = {"ranks": tab, "reference": ref_tables,
+                     "worst_rel_gap": gaps, "worst_row_rel_err": row_err,
+                     "tol": TOL_EXTRAS_TABLES}
+    for case in ("moe", "tables"):  # no kernel of the port on these paths
+        for r in ranks:
+            if any(r[case]["launches"].values()):
+                raise AssertionError(f"parallel_extras ({case}): launches "
+                                     f"{r[case]['launches']}")
+    res["kernel_launches"] = {
+        k: sum(r[case]["launches"][k] for r in ranks
+               for case in ("ring", "moe", "pipe", "tables"))
+        for k in ranks[0]["ring"]["launches"]}
+    res["staged"] = {case: [r[case]["staged"] for r in ranks]
+                     for case in ("ring", "moe", "pipe", "tables")}
+    res["case_seconds"] = {case: [r[case]["seconds"] for r in ranks]
+                           for case in ("ring", "moe", "pipe", "tables")}
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def phase_devices() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7685,6 +8294,9 @@ def main(argv) -> int:
         # a process that phase_scaleout's launcher started
         return (so_single_child if argv[1] == "single"
                 else so_gang_child)(argv[2])
+    if argv[:1] == ["--extras-child"] and len(argv) == 3:
+        # a rank of phase_parallel_extras's gang
+        return px_child(argv[1], argv[2])
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = argv[1].split(",")
     elif argv:
@@ -7725,7 +8337,9 @@ def main(argv) -> int:
                   "readers": lambda: phase_readers(fa, bn, fx),
                   "foreign": lambda: phase_foreign(bn),
                   "train_knobs": lambda: phase_train_knobs(fa, bn, fx),
-                  "scaleout": lambda: phase_scaleout(bn)}
+                  "scaleout": lambda: phase_scaleout(bn),
+                  "parallel_extras":
+                      lambda: phase_parallel_extras(fa, bn, fx)}
         for name in only:
             phases[name]()
         return 0
@@ -7752,6 +8366,7 @@ def main(argv) -> int:
     foreign = timed("foreign", phase_foreign, bn)
     knobs = timed("train_knobs", phase_train_knobs, fa, bn, fx)
     scaleout = timed("scaleout", phase_scaleout, bn)
+    extras = timed("parallel_extras", phase_parallel_extras, fa, bn, fx)
     smi = phase_devices()
     print(smi, flush=True)
     timed = {x["kernel"]: x for x in kern["timings"]
@@ -7975,6 +8590,17 @@ def main(argv) -> int:
 
     for key, entry in zip(keys, entries):
         entry["launches_scaleout"] = so_launches(key)
+        # parallel_extras: (a)'s ring fits and (c)'s pipeline, both ranks
+        entry["launches_parallel_extras"] = extras["kernel_launches"][key]
+    # the flash kernels at the ring's chunk shape, by causal
+    for i, direction in ((0, "fwd"), (2, "bwd")):
+        entries[i]["at_ring_chunk"] = {
+            "causal" if x["causal"] else "full": {
+                k: x[k] for k in ("bh", "t", "d", "ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "max_abs_err")}
+            for x in extras["ring_chunk_timings"]
+            if x["direction"] == direction}
     split = single["split_bn"]
     split_times = {(x["map"], x["dtype"]): x for x in split["timings"]}
     for direction in ("fwd", "bwd"):
@@ -8004,6 +8630,7 @@ def main(argv) -> int:
                 "launches_readers": readers["kernel_launches"][key],
                 "launches_foreign": foreign["kernel_launches"][key],
                 "launches_train_knobs": knobs["kernel_launches"][key],
+                "launches_parallel_extras": extras["kernel_launches"][key],
                 "launches_by_rank": {
                     r: {a: rec["split_launches"] for a, rec in att.items()}
                     for r, att in scaleout["gang"]["per_rank"].items()},

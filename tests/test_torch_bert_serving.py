@@ -300,6 +300,10 @@ PORT_MODULES = ["analytics_zoo_tpu_torch", "analytics_zoo_tpu_torch.convert",
                 "analytics_zoo_tpu_torch.parallel.sharding",
                 "analytics_zoo_tpu_torch.parallel.util",
                 "analytics_zoo_tpu_torch.parallel.tensor_parallel",
+                "analytics_zoo_tpu_torch.parallel.comm",
+                "analytics_zoo_tpu_torch.parallel.moe",
+                "analytics_zoo_tpu_torch.parallel.pipeline",
+                "analytics_zoo_tpu_torch.parallel.ring_attention",
                 "analytics_zoo_tpu_torch.core.context",
                 "analytics_zoo_tpu_torch.core.launcher",
                 "analytics_zoo_tpu_torch.orca.learn.scaleout",

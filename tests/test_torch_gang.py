@@ -36,6 +36,9 @@ from analytics_zoo_tpu_torch.core.faults import get_registry
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MULTIHOST = os.path.join(REPO, "tests", "_torch_multihost_worker.py")
+# each supervisor case's own bound on an attempt (its children sleep at
+# most 60 s), well under the suite's
+LAUNCH_LIMIT = 90
 
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -64,7 +67,7 @@ def test_multiprocess_fit_eval_sharded_checkpoint(tmp_path, nprocs):
     ckpt = tmp_path / "ckpt"
     env = dict(os.environ)
     procs = []
-    coordinator = f"127.0.0.1:{launcher._free_port()}"
+    coordinator = f"127.0.0.1:{launcher.reserve_port()}"
     for pid in range(nprocs):
         penv = launcher._child_env(coordinator, nprocs, pid,
                                    devices_per_proc=None, platform="cpu")
@@ -196,7 +199,7 @@ def test_init_binds_the_rank_to_its_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "set_device", bound.append,
                         raising=False)
     ctx.init_orca_context(
-        "multihost", coordinator_address=f"127.0.0.1:{launcher._free_port()}",
+        "multihost", coordinator_address=f"127.0.0.1:{launcher.reserve_port()}",
         num_processes=1, process_id=0, backend="gloo")
     assert bound == [1]
 
@@ -211,7 +214,7 @@ def test_supervisor_restarts_crashed_gang(tmp_path):
                 "else 0)\n")
     events = []
     rc = launcher.launch(s, [], nprocs=2, max_restarts=1, backoff=0.05,
-                         grace=1.0,
+                         grace=1.0, timeout=LAUNCH_LIMIT,
                          on_event=lambda k, i: events.append((k, i)))
     assert rc == 0
     assert [k for k, _ in events] == ["crash", "restart", "ok"]
@@ -225,7 +228,8 @@ def test_supervisor_detects_dead_worker_promptly(tmp_path):
                 "sys.exit(2) if os.environ['ZOO_PROCESS_ID'] == '0' "
                 "else time.sleep(60)\n")
     t0 = time.monotonic()
-    rc = launcher.launch(s, [], nprocs=3, max_restarts=0, grace=0.5)
+    rc = launcher.launch(s, [], nprocs=3, max_restarts=0, grace=0.5,
+                         timeout=LAUNCH_LIMIT)
     assert rc == 2
     assert time.monotonic() - t0 < 20
 
@@ -239,6 +243,7 @@ def test_supervisor_crash_loop_aborts_with_diagnosis(tmp_path):
     events = []
     rc = launcher.launch(s, [], nprocs=2, max_restarts=10, backoff=0.05,
                          grace=0.5, crash_loop_threshold=2,
+                         timeout=LAUNCH_LIMIT,
                          on_event=lambda k, i: events.append((k, i)))
     assert rc == launcher.EXIT_CRASH_LOOP
     assert events[-1][0] == "crash_loop" and events[-1][1]["rank"] == 1
@@ -249,7 +254,8 @@ def test_supervisor_crash_loop_aborts_with_diagnosis(tmp_path):
 def test_supervisor_restart_budget_exhausted_returns_rc(tmp_path):
     s = _script(tmp_path, "s.py", "import sys\nsys.exit(7)\n")
     rc = launcher.launch(s, [], nprocs=1, max_restarts=1, backoff=0.05,
-                         grace=0.5, crash_loop_threshold=5)
+                         grace=0.5, crash_loop_threshold=5,
+                         timeout=LAUNCH_LIMIT)
     assert rc == 7
 
 
@@ -263,7 +269,7 @@ def test_supervisor_kills_and_restarts_on_heartbeat_loss(tmp_path):
     t0 = time.monotonic()
     rc = launcher.launch(s, [], nprocs=2, max_restarts=1, backoff=0.05,
                          grace=0.5, heartbeat_timeout=1.0,
-                         on_event=lambda k, i: events.append((k, i)))
+                         timeout=LAUNCH_LIMIT, on_event=lambda k, i: events.append((k, i)))
     assert rc == 0
     assert [k for k, _ in events] == ["hang", "restart", "ok"]
     assert time.monotonic() - t0 < 30
@@ -280,7 +286,7 @@ def test_supervisor_slow_but_beating_worker_is_left_alone(tmp_path):
     events = []
     rc = launcher.launch(s, [], nprocs=2, max_restarts=1, backoff=0.05,
                          grace=0.5, heartbeat_timeout=1.0,
-                         on_event=lambda k, i: events.append((k, i)))
+                         timeout=LAUNCH_LIMIT, on_event=lambda k, i: events.append((k, i)))
     assert rc == 0
     assert [k for k, _ in events] == ["ok"]
 

@@ -9,7 +9,6 @@ max(1, |ref|) in f32 (the sums run in another order) and at 2e-2 in bf16
 kernels (``csrc/fused_bn.cu``) to the plain split version and to the
 one-launch kernel at a one-rank group."""
 
-import socket
 
 import numpy as np
 import pytest
@@ -62,9 +61,10 @@ def _jax_reference(x, g, b, dy, dm, dv, n):
 
 
 def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    # held by this process until the gang's store binds it: two gangs of
+    # test files side by side never meet on one port
+    from analytics_zoo_tpu_torch.core import launcher
+    return launcher.reserve_port()
 
 
 def _worker(rank, world, port, cases, out):

@@ -468,17 +468,15 @@ def test_estimator_asks_for_the_card_by_default(monkeypatch):
     ("sharding", "fsdp"), ("grad_compression", "int8"),
     ("aux_loss_weight", 0.5)])
 def test_unported_knobs_raise(knob, value):
-    # sharding= and grad_compression= are taken since the multi-process
-    # slice (in one process they run the one-process step); the MoE
-    # layers' knob still raises, naming its ROADMAP item
-    if knob != "aux_loss_weight":
-        est = Estimator.from_keras(tnn.Dense(2, 2), loss="mse", device="cpu",
-                                   **{knob: value})
-        assert getattr(est, knob) == value
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        Estimator.from_keras(tnn.Dense(2, 2), loss="mse", device="cpu",
-                             **{knob: value})
+    # every knob of the JAX estimator is taken: sharding= and
+    # grad_compression= since the multi-process slice (in one process they
+    # run the one-process step), aux_loss_weight since the MoE slice; none
+    # is left to raise NotImplementedError
+    est = Estimator.from_keras(tnn.Dense(2, 2), loss="mse", device="cpu",
+                               **{knob: value})
+    assert getattr(est, knob) == value
+    from analytics_zoo_tpu_torch.orca.learn import estimator as est_lib
+    assert est_lib._UNPORTED_KNOBS == {}
 
 
 def test_default_knobs_pass_and_unknown_ones_are_refused():
