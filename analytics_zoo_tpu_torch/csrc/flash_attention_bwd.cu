@@ -30,7 +30,7 @@
 //   3. dQ: one block per (q tile, bh), looping over key tiles (under
 //      `causal`, up to the diagonal): Q and dO staged once, K and V per
 //      tile, dQ in registers.
-// Five designs share that structure (`design` below picks one):
+// Six designs share that structure (`design` below picks one):
 //   * bf16 with head widths 33-64 (d a multiple of 8; the wrapper pads
 //     others), BERT's path: wgmma fed by TMA (hopper.cuh).  A block is one
 //     warpgroup owning 64 keys (dK/dV) or 64 q rows (dQ), which streams
@@ -49,6 +49,12 @@
 //     bit).  Three (dK/dV) or four (dQ) such blocks share an SM, so one's
 //     softmax algebra overlaps another's products.  Its delta pass reads
 //     out and dO in 16-byte pieces.
+//   * bf16 with head widths 65-256 (wgmma_pair): the same on tiles of up
+//     to four 64-wide swizzle atoms, a block two warpgroups that split the
+//     products instead of the rows (one S^T, P and dV, the other dP^T, dS
+//     and dK; in dQ one S and P, the other dP and dS, each half of dQ's
+//     columns), P and dS handed over as bf16 fragments in shared memory.
+//     Section "two warpgroups a block" below.
 //   * bf16 with head widths up to 32: the tensor cores by mma.sync.m16n8k16
 //     in blocks of 4 warps; each warp owns 16 keys (dK/dV) or 16 q rows
 //     (dQ) of a 64 x 64 tile, takes its K and V (or Q and dO) A-fragments
@@ -67,7 +73,7 @@
 //     as the bf16 design's, with 32-row streamed tiles and one block an SM
 //     (the parts of a block's tiles fill 160-192 KB).  Section "f32 on the
 //     tensor cores" below.
-//   * f32 and bf16 wider than 64, up to 256: scalar f32 FMAs from shared
+//   * f32 wider than 64, up to 256: scalar f32 FMAs from shared
 //     memory (tiles transposed, f32), 256 threads in a 16 x 16 grid: in
 //     dK/dV thread (ty, tx) owns keys ty*KR.. of S^T and dP^T and columns
 //     tx + 16 j of dK and dV; dQ mirrors the forward's f32 kernel, with dS
@@ -81,7 +87,8 @@
 // blocks, and an overlap of softmax and products inside a block (one
 // tile's dV/dK products in flight with the next tile's S/dP: ptxas
 // serialised that form, C7515; or FlashAttention-3's ping-pong of two
-// warpgroups); tensor cores for heads wider than 64; in the 3xTF32
+// warpgroups); tensor cores for f32 heads wider than 64 and for heads
+// wider than 256; in the 3xTF32
 // design, splitting in shared memory after the TMA load instead of the
 // split pass's extra traffic, and more than one block an SM.
 
@@ -1074,16 +1081,15 @@ __device__ __forceinline__ void issue_s_dp(float (&d0)[32], float (&d1)[32],
   wgmma_commit();
 }
 
-// delta = rowsum(out * dout) for rows of d bf16 (a multiple of 8, at most
-// 64, 16-byte aligned): 8 lanes a row, each one 16-byte piece of both.
+// delta = rowsum(out * dout) for rows of d bf16 (a multiple of 8, 16-byte
+// aligned): 8 lanes a row, each 16-byte pieces 64 columns apart of both.
 __global__ void __launch_bounds__(kThreads)
 bwd_delta_x8_kernel(const bf16* __restrict__ out,
                     const bf16* __restrict__ dout, float* __restrict__ delta,
                     int64_t rows, int d) {
   const int64_t row = (int64_t(blockIdx.x) * kThreads + threadIdx.x) / 8;
-  const int c = (threadIdx.x & 7) * 8;
   float s = 0.f;
-  if (row < rows && c < d) {
+  for (int c = (threadIdx.x & 7) * 8; row < rows && c < d; c += 64) {
     const uint4 o = *reinterpret_cast<const uint4*>(out + row * d + c);
     const uint4 g = *reinterpret_cast<const uint4*>(dout + row * d + c);
     const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
@@ -1360,6 +1366,476 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                      col) =
             warp_mma::pack_bf16(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
     }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores by wgmma, head widths 65-256: two warpgroups a
+// block, one on P and one on dS (wgmma_pair)
+// ---------------------------------------------------------------------------
+//
+// The wgmma design above with tiles NA = ceil(d / 64) swizzle atoms wide: a
+// 64-row tile of width d is NA 64 x 64 atoms, each its own 8 KB box of the
+// same tensor map (columns 64 a .. 64 a + 63; those >= d read zeros), all
+// completing on one mbarrier.  The products that sum over d (S^T and dP^T,
+// S and dP) walk the atoms in k16 steps; those whose N runs over d (dV, dK,
+// dQ) issue one m64n64k16 per atom and k16 step, with B at that atom.
+//
+// A warpgroup's dK and dV accumulators for 64 keys take d registers a
+// thread (256 at d 256), which cannot fit beside S^T and dP^T.  So a block
+// is two warpgroups that split the pass's products instead of its rows.  In
+// dK/dV warpgroup 0 computes S^T and P and accumulates dV; warpgroup 1
+// computes dP^T, takes P from warpgroup 0 through shared memory (its bf16 A
+// fragments, 8 KB, the same thread layout on both sides), computes dS and
+// accumulates dK.  In dQ warpgroup 0 computes S and P, warpgroup 1 dP and
+// dS, which it hands back through the same buffer, and each accumulates
+// half of dQ's columns.  Each thread holds at most 4 x 32 accumulators;
+// nothing is computed twice, and S^T and dP^T (S and dP) run side by side
+// on the tensor cores.  dS is computed from P as rounded to bf16 (the
+// fragment it is handed as) and is rounded to bf16 for its product, as in
+// the design above.  Still three passes and no atomics.
+//
+// What bounds it: operations, the FA2 backward's 10 BH T^2 d FLOP (0.130
+// ms at BH 384 x T 512 x d 128 on an H100); the passes do 14 BH T^2 d, dQ
+// computing S and dP again so that no block adds into another's rows.
+// Registers decide the overlap: with P and dS held in place of S^T and dP^T
+// (below), dK/dV takes 128 a thread at d 65-128, two blocks an SM, so one
+// block's softmax algebra and barriers overlap the other's products.
+
+constexpr int kPairThreads = 2 * kWgThreads;
+
+// Shared memory of the two-warpgroup passes for tiles of NA atoms, in bytes
+// from a 1024-aligned base: the two held tiles, kStages ring stages of the
+// two streamed ones (the first RA0 atoms wide: dQ's K takes both
+// warpgroups' atoms), the fragments the warpgroups hand each other (16
+// words a thread), the streamed rows' lse (x log2 e) and delta (dK/dV
+// only; two slots of 64), and kStages + 1 mbarriers.
+template <int NA, int RA0>
+struct PairSmem {
+  static constexpr uint32_t kTile = NA * kWgTileBytes;
+  static constexpr uint32_t kHeld0 = 0;
+  static constexpr uint32_t kHeld1 = kHeld0 + kTile;
+  static constexpr uint32_t kRing0 = kHeld1 + kTile;
+  static constexpr uint32_t kStage0 = RA0 * kWgTileBytes;
+  static constexpr uint32_t kRing1 = kRing0 + kStages * kStage0;
+  static constexpr uint32_t kXfer = kRing1 + kStages * kTile;
+  static constexpr uint32_t kLse = kXfer + 16 * kWgThreads * sizeof(uint32_t);
+  static constexpr uint32_t kDelta = kLse + 2 * kWgRows * sizeof(float);
+  static constexpr uint32_t kBar = kDelta + 2 * kWgRows * sizeof(float);
+  static constexpr size_t kBytes =
+      kBar + (kStages + 1) * sizeof(uint64_t) + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// Barrier `id` (1 or 2; 0 is __syncthreads's) over both warpgroups.
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kPairThreads) : "memory");
+}
+
+// d = A B^T over a depth of NA atoms, A and B 64-row K-major tiles of NA
+// atoms at the given shared addresses; one group.
+template <int NA>
+__device__ __forceinline__ void issue_atoms_abt(float (&d)[32], uint32_t a,
+                                                uint32_t b) {
+  using namespace hopper;
+  wgmma_ss<false>(d, desc_k_major(a, 0), desc_k_major(b, 0));
+#pragma unroll
+  for (int at = 0; at < NA; ++at)
+#pragma unroll
+    for (int kd = at == 0 ? 1 : 0; kd < 4; ++kd)
+      wgmma_ss<true>(d, desc_k_major(a + at * kWgTileBytes, kd),
+                     desc_k_major(b + at * kWgTileBytes, kd));
+  wgmma_commit();
+}
+
+// The fragments of P or dS live in place in the accumulator array they
+// were computed from: word r of k16 step kk (elements 8 kk + 2 r and + 1,
+// rounded to bf16 and packed) overwrites x[8 kk + r], whose own element
+// was already read.  So x[8 kk .. 8 kk + 3] is the A fragment of step kk,
+// and no second set of 16 registers is held beside the accumulators: the
+// dK/dV pass at d 65-128 then fits in 128 registers, two blocks an SM.
+__device__ __forceinline__ uint32_t frag_word(const float (&x)[32], int kk,
+                                             int r) {
+  return __float_as_uint(x[8 * kk + r]);
+}
+
+// acc[at] += A B_at for atoms at < N over a depth of 64: A the fragments
+// held in x, B_at atom `at` of the 64-row tile at b, read MN-major; one
+// group.
+template <int N>
+__device__ __forceinline__ void issue_atoms_ab(float (&acc)[N][32],
+                                               const float (&x)[32],
+                                               uint32_t b) {
+  using namespace hopper;
+#pragma unroll
+  for (int at = 0; at < N; ++at)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {frag_word(x, kk, 0), frag_word(x, kk, 1),
+                             frag_word(x, kk, 2), frag_word(x, kk, 3)};
+      wgmma_rs(acc[at], a, desc_mn_major(b + at * kWgTileBytes, kk));
+    }
+  wgmma_commit();
+}
+
+// P of one 64 x 64 tile from its S^T (kKeysAreRows) or S accumulators in
+// x, in place as above; lse2 and the masks as wgmma_p_ds's.
+template <bool kMask, bool kKeysAreRows>
+__device__ __forceinline__ void pair_p(float (&x)[32], const float* lse2,
+                                       float scale_log2, int row0, int col0,
+                                       int tq, int tk, int causal) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // elements 8 kk + 2 r + u are e = 2 h + u of accumulator chunk i
+      const int i = 2 * kk + (r >> 1), h = r & 1;
+      float p[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float l = kKeysAreRows ? lse2[8 * i + u] : lse2[h];
+        bool keep = true;
+        if (kMask) {
+          const int rw = row0 + h * 8, c = col0 + 8 * i + u;
+          const int key = kKeysAreRows ? rw : c, row = kKeysAreRows ? c : rw;
+          keep = key < tk && row < tq && (!causal || row >= key);
+        }
+        p[u] = keep ? warp_mma::exp2_approx(
+                          fmaf(x[8 * kk + 2 * r + u], scale_log2, -l))
+                    : 0.f;
+      }
+      x[8 * kk + r] = __uint_as_float(warp_mma::pack_bf16(p[0], p[1]));
+    }
+}
+
+// dS = P (dP - delta) scale from dP's (or dP^T's) accumulators in x and
+// P's fragment words in shared memory (word 4 kk + r of thread wt at
+// (4 kk + r) * 128 + wt), in place in x as above; dlt as wgmma_p_ds's.
+// Masked elements have P 0, so dS 0.
+template <bool kKeysAreRows>
+__device__ __forceinline__ void pair_ds(float (&x)[32], const uint32_t* buf,
+                                        int wt, const float* dlt,
+                                        float scale) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 2 * kk + (r >> 1), h = r & 1;
+      const uint32_t w = buf[(4 * kk + r) * kWgThreads + wt];
+      const float p[2] = {__uint_as_float(w << 16),
+                          __uint_as_float(w & 0xffff0000u)};
+      float ds[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float dd = kKeysAreRows ? dlt[8 * i + u] : dlt[h];
+        ds[u] = p[u] * (x[8 * kk + 2 * r + u] - dd) * scale;
+      }
+      x[8 * kk + r] = __uint_as_float(warp_mma::pack_bf16(ds[0], ds[1]));
+    }
+}
+
+// A warpgroup's 16 fragment words (held in x) to and from shared memory:
+// word 4 kk + r of thread wt at (4 kk + r) * 128 + wt (no bank
+// conflicts).
+__device__ __forceinline__ void frag_store(uint32_t* buf,
+                                           const float (&x)[32], int wt) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+    buf[n * kWgThreads + wt] = frag_word(x, n / 4, n % 4);
+}
+
+__device__ __forceinline__ void frag_load(const uint32_t* buf,
+                                          float (&x)[32], int wt) {
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+    x[8 * (n / 4) + n % 4] = __uint_as_float(buf[n * kWgThreads + wt]);
+}
+
+// Per q tile: both warpgroups wait for the tile's copy and issue their
+// product over d (S^T or dP^T); warpgroup 0 turns S^T into P and hands it
+// over; warpgroup 1 turns dP^T into dS; each issues its NA products into
+// dV or dK; then the stage is refilled (by thread 0) once every warp has
+// finished with it, as in the design above.
+// At NA 2 (d 65-128) two blocks share an SM: 128 registers, 106 KB.
+template <int NA>
+__global__ void __launch_bounds__(kPairThreads, NA == 2 ? 2 : 1)
+bwd_dkdv_pair_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap g_map,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int tq, int tk, int d,
+                     int n_ktiles, float scale, int causal) {
+  using namespace hopper;
+  using L = PairSmem<NA, NA>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wgmma_smem_base(smem_raw);
+  const uint32_t sbase = warp_mma::smem_addr(base);
+  float* lse_s = reinterpret_cast<float*>(base + L::kLse);
+  float* delta_s = reinterpret_cast<float*>(base + L::kDelta);
+  uint32_t* xfer = reinterpret_cast<uint32_t*>(base + L::kXfer);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);  // stages
+  uint64_t* held = full + kStages;                                 // K, V
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads, wt = tid % kWgThreads;
+  const int warp = wt / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / n_ktiles;
+  const int k0 = (blockIdx.x % n_ktiles) * kWgRows;  // the block's keys
+  const float* lb = lse + int64_t(bh) * tq;
+  const float* db = delta + int64_t(bh) * tq;
+  const float scale_log2 = scale * kLog2e;
+
+  // rows before k0 see no key of this tile under `causal`
+  const int qstart = causal ? (min(k0, tq) / kWgRows) * kWgRows : 0;
+  const int n_qt = (tq - qstart + kWgRows - 1) / kWgRows;
+  auto stage_rows = [&](int j) {  // lse and delta of q tile j, slot j & 1
+    if (tid < kWgRows) {
+      const int row = qstart + j * kWgRows + tid;
+      const bool in = row < tq;
+      lse_s[(j & 1) * kWgRows + tid] = in ? lb[row] * kLog2e : 0.f;
+      delta_s[(j & 1) * kWgRows + tid] = in ? db[row] : 0.f;
+    }
+  };
+  auto load_q_tile = [&](int j) {  // one thread: Q and dO of q tile j
+    const int st = j % kStages, row = qstart + j * kWgRows;
+    mbar_expect_tx(&full[st], 2 * L::kTile);
+#pragma unroll
+    for (int at = 0; at < NA; ++at) {
+      const uint32_t off = (st * NA + at) * kWgTileBytes;
+      tma_load_3d(base + L::kRing0 + off, &q_map, &full[st], 64 * at, row,
+                  bh);
+      tma_load_3d(base + L::kRing1 + off, &g_map, &full[st], 64 * at, row,
+                  bh);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0 && n_qt > 0) {
+    mbar_expect_tx(held, 2 * L::kTile);
+#pragma unroll
+    for (int at = 0; at < NA; ++at) {
+      tma_load_3d(base + L::kHeld0 + at * kWgTileBytes, &k_map, held,
+                  64 * at, k0, bh);
+      tma_load_3d(base + L::kHeld1 + at * kWgTileBytes, &v_map, held,
+                  64 * at, k0, bh);
+    }
+    for (int j = 0; j < kStages && j < n_qt; ++j) load_q_tile(j);
+  }
+  if (n_qt > 0) stage_rows(0);
+  __syncthreads();
+
+  float acc[NA][32];  // warpgroup 0: dV; warpgroup 1: dK
+#pragma unroll
+  for (int at = 0; at < NA; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[at][i] = 0.f;
+  // warpgroup 0: S^T = K Q^T, then dV += P^T dO; warpgroup 1: dP^T = V
+  // dO^T, then dK += dS^T Q
+  const uint32_t held_a = sbase + (wg ? L::kHeld1 : L::kHeld0);
+  const uint32_t ring_b1 = sbase + (wg ? L::kRing1 : L::kRing0);
+  const uint32_t ring_b2 = sbase + (wg ? L::kRing0 : L::kRing1);
+  if (n_qt > 0) mbar_wait(held, 0);
+
+  for (int j = 0; j < n_qt; ++j) {
+    const int st = j % kStages;
+    const int q0 = qstart + j * kWgRows;
+    if (j + 1 < n_qt) stage_rows(j + 1);
+    // every thread waits for the tile, so no copy outlives the block;
+    // every tile is computed, the masks zero what the keys cannot see
+    mbar_wait(&full[st], (j / kStages) & 1);
+    float x[32];  // S^T or dP^T: 64 keys x 64 q rows
+    wgmma_fence();
+    issue_atoms_abt<NA>(x, held_a, ring_b1 + st * L::kTile);
+    wgmma_wait<0>();
+    fence_regs(x);
+    const int row0 = k0 + 16 * warp + g, col0 = q0 + 2 * t;
+    const int slot = (j & 1) * kWgRows + 2 * t;  // columns' lse and delta
+    if (wg == 0) {  // P, handed over
+      if (q0 + kWgRows > tq || k0 + kWgRows > tk ||
+          (causal && q0 < k0 + kWgRows - 1))
+        pair_p<true, true>(x, lse_s + slot, scale_log2, row0, col0, tq, tk,
+                           causal);
+      else
+        pair_p<false, true>(x, lse_s + slot, scale_log2, row0, col0, tq, tk,
+                            causal);
+      frag_store(xfer, x, wt);
+    }
+    pair_sync(1);
+    if (wg == 1) pair_ds<true>(x, xfer, wt, delta_s + slot, scale);
+    // dV += P^T dO or dK += dS^T Q over the tile's 64 q rows
+    fence_regs(x);
+    wgmma_fence();
+    issue_atoms_ab<NA>(acc, x, ring_b2 + st * L::kTile);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(x);
+    __syncthreads();  // stage st and the fragments read; rows j+1 staged
+    if (tid == 0 && j + kStages < n_qt) load_q_tile(j + kStages);
+  }
+
+  bf16* grad = wg ? dk : dv;
+#pragma unroll
+  for (int at = 0; at < NA; ++at)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = k0 + 16 * warp + g + 8 * r;
+        const int col = 64 * at + 8 * i + 2 * t;
+        if (key < tk && col < d)
+          *reinterpret_cast<uint32_t*>(grad + (int64_t(bh) * tk + key) * d +
+                                       col) =
+              warp_mma::pack_bf16(acc[at][4 * i + 2 * r],
+                                  acc[at][4 * i + 2 * r + 1]);
+      }
+}
+
+// Per key tile: warpgroup 0 computes S and P and hands P over; warpgroup 1
+// computes dP and dS and hands dS back; each accumulates dQ += dS K over
+// its H atoms of dQ's columns.  The ring's K stages hold 2 H atoms; an atom
+// past NA is never loaded, and only feeds columns >= d, which are never
+// stored.
+template <int NA>
+__global__ void __launch_bounds__(kPairThreads, 1)
+bwd_dq_pair_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap g_map,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int tq, int tk, int d, int n_qtiles, float scale,
+                   int causal) {
+  using namespace hopper;
+  constexpr int H = (NA + 1) / 2;  // dQ's atoms a warpgroup
+  using L = PairSmem<NA, 2 * H>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base = wgmma_smem_base(smem_raw);
+  const uint32_t sbase = warp_mma::smem_addr(base);
+  uint32_t* xfer = reinterpret_cast<uint32_t*>(base + L::kXfer);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);  // stages
+  uint64_t* held = full + kStages;                                 // Q, dO
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads, wt = tid % kWgThreads;
+  const int warp = wt / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x / n_qtiles;
+  // the block's q rows; the last tile (the longest under `causal`) first
+  const int q0 = (n_qtiles - 1 - blockIdx.x % n_qtiles) * kWgRows;
+  const float scale_log2 = scale * kLog2e;
+
+  // keys past the block's last q row are all masked under `causal`
+  const int kend = causal ? min(tk, q0 + kWgRows) : tk;
+  const int n_kt = (kend + kWgRows - 1) / kWgRows;
+  auto load_kv_tile = [&](int j) {  // one thread: K and V of key tile j
+    const int st = j % kStages;
+    mbar_expect_tx(&full[st], 2 * L::kTile);
+#pragma unroll
+    for (int at = 0; at < NA; ++at) {
+      tma_load_3d(base + L::kRing0 + st * L::kStage0 + at * kWgTileBytes,
+                  &k_map, &full[st], 64 * at, j * kWgRows, bh);
+      tma_load_3d(base + L::kRing1 + (st * NA + at) * kWgTileBytes, &v_map,
+                  &full[st], 64 * at, j * kWgRows, bh);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(held, 2 * L::kTile);
+#pragma unroll
+    for (int at = 0; at < NA; ++at) {
+      tma_load_3d(base + L::kHeld0 + at * kWgTileBytes, &q_map, held,
+                  64 * at, q0, bh);
+      tma_load_3d(base + L::kHeld1 + at * kWgTileBytes, &g_map, held,
+                  64 * at, q0, bh);
+    }
+    for (int j = 0; j < kStages && j < n_kt; ++j) load_kv_tile(j);
+  }
+
+  // lse (x log2 e) and delta of this thread's rows g and g + 8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    l2[h] = row < tq ? lse[int64_t(bh) * tq + row] * kLog2e : 0.f;
+    dl[h] = row < tq ? delta[int64_t(bh) * tq + row] : 0.f;
+  }
+  float acc[H][32];
+#pragma unroll
+  for (int at = 0; at < H; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[at][i] = 0.f;
+  // warpgroup 0: S = Q K^T; warpgroup 1: dP = dO V^T
+  const uint32_t held_a = sbase + (wg ? L::kHeld1 : L::kHeld0);
+  mbar_wait(held, 0);
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % kStages;
+    const int k0 = j * kWgRows;
+    const uint32_t k_addr = sbase + L::kRing0 + st * L::kStage0;
+    const uint32_t v_addr = sbase + L::kRing1 + st * L::kTile;
+    // every thread waits for the tile, so no copy outlives the block;
+    // every tile is computed, the masks zero rows >= Tq and, under
+    // `causal`, keys after them
+    mbar_wait(&full[st], (j / kStages) & 1);
+    float x[32];  // S or dP: 64 q rows x 64 keys
+    wgmma_fence();
+    issue_atoms_abt<NA>(x, held_a, wg ? v_addr : k_addr);
+    wgmma_wait<0>();
+    fence_regs(x);
+    const int row0 = q0 + 16 * warp + g, col0 = k0 + 2 * t;
+    if (wg == 0) {  // P, handed over
+      if (q0 + kWgRows > tq || k0 + kWgRows > tk ||
+          (causal && k0 + kWgRows - 1 > q0))
+        pair_p<true, false>(x, l2, scale_log2, row0, col0, tq, tk, causal);
+      else
+        pair_p<false, false>(x, l2, scale_log2, row0, col0, tq, tk, causal);
+      frag_store(xfer, x, wt);
+    }
+    pair_sync(1);
+    if (wg == 1) {  // dS, handed back
+      pair_ds<false>(x, xfer, wt, dl, scale);
+      frag_store(xfer, x, wt);
+    }
+    pair_sync(2);
+    if (wg == 0) frag_load(xfer, x, wt);
+    // dQ += dS K over the tile's 64 keys, this warpgroup's H atoms
+    fence_regs(x);
+    wgmma_fence();
+    issue_atoms_ab<H>(acc, x, k_addr + wg * H * kWgTileBytes);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(x);
+    __syncthreads();  // stage st and the fragments read by every warp
+    if (tid == 0 && j + kStages < n_kt) load_kv_tile(j + kStages);
+  }
+
+#pragma unroll
+  for (int at = 0; at < H; ++at)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + 16 * warp + g + 8 * r;
+        const int col = 64 * (wg * H + at) + 8 * i + 2 * t;
+        if (row < tq && col < d)
+          *reinterpret_cast<uint32_t*>(dq + (int64_t(bh) * tq + row) * d +
+                                       col) =
+              warp_mma::pack_bf16(acc[at][4 * i + 2 * r],
+                                  acc[at][4 * i + 2 * r + 1]);
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -1850,7 +2326,9 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-// The wgmma design's three passes (delta in 16-byte pieces, dK/dV, dQ).
+// The wgmma designs' three passes (delta in 16-byte pieces, dK/dV, dQ):
+// one warpgroup a block (d 33-64: NA 1) or two (d 65-256: NA 2-4 atoms).
+template <int NA>
 cudaError_t launch_wgmma(const Args& a) {
   const int64_t rows = int64_t(a.bh) * a.tq;
   const int64_t delta_blocks = (rows * 8 + kThreads - 1) / kThreads;
@@ -1870,25 +2348,33 @@ cudaError_t launch_wgmma(const Args& a) {
   if (int64_t(a.bh) * n_ktiles > INT32_MAX ||
       int64_t(a.bh) * n_qtiles > INT32_MAX)
     return cudaErrorInvalidValue;
-  constexpr size_t smem = WgmmaSmem::kBytes;
-  const auto dkdv = bwd_dkdv_wgmma_kernel;
-  const auto dqk = bwd_dq_wgmma_kernel;
+  int threads = kWgThreads;
+  size_t kv_smem = WgmmaSmem::kBytes, q_smem = WgmmaSmem::kBytes;
+  auto dkdv = bwd_dkdv_wgmma_kernel;
+  auto dqk = bwd_dq_wgmma_kernel;
+  if constexpr (NA > 1) {
+    threads = kPairThreads;
+    kv_smem = PairSmem<NA, NA>::kBytes;
+    q_smem = PairSmem<NA, 2 * ((NA + 1) / 2)>::kBytes;
+    dkdv = bwd_dkdv_pair_kernel<NA>;
+    dqk = bwd_dq_pair_kernel<NA>;
+  }
   int dev;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   static hopper::SmemLimit dkdv_limit, dq_limit;
-  if ((err = dkdv_limit.raise(dkdv, dev, smem)) != cudaSuccess ||
-      (err = dq_limit.raise(dqk, dev, smem)) != cudaSuccess)
+  if ((err = dkdv_limit.raise(dkdv, dev, kv_smem)) != cudaSuccess ||
+      (err = dq_limit.raise(dqk, dev, q_smem)) != cudaSuccess)
     return err;
   bwd_delta_x8_kernel<<<int(delta_blocks), kThreads, 0, a.stream>>>(
       static_cast<const bf16*>(a.out), static_cast<const bf16*>(a.dout),
       delta, rows, a.d);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dkdv<<<a.bh * n_ktiles, kWgThreads, smem, a.stream>>>(
+  dkdv<<<a.bh * n_ktiles, threads, kv_smem, a.stream>>>(
       qm, km, vm, gm, lse, delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.tq, a.tk, a.d, n_ktiles, a.scale,
       a.causal);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dqk<<<a.bh * n_qtiles, kWgThreads, smem, a.stream>>>(
+  dqk<<<a.bh * n_qtiles, threads, q_smem, a.stream>>>(
       qm, km, vm, gm, lse, delta, static_cast<bf16*>(a.dq), a.tq, a.tk, a.d,
       n_qtiles, a.scale, a.causal);
   return cudaGetLastError();
@@ -2131,12 +2617,15 @@ tf32_check_kernel(const __grid_constant__ CUtensorMap a_map,
 }
 
 // The backward's designs, as flash_attention.py's bwd_design names them.
+// (kWgmmaWide is the forward's alone.)
 enum Design {
   kScalar = 0,
   kMmaSync = 1,
   kWgmma = 2,
   kWide = 3,
-  kWgmmaTf32 = 4
+  kWgmmaTf32 = 4,
+  kWgmmaWide = 5,
+  kWgmmaPair = 6
 };
 
 // The design that takes a head of (padded) width d.
@@ -2144,7 +2633,8 @@ Design design(bool is_bf16, int d) {
   if (d > 256) return kWide;
   if (is_bf16 && d <= 32) return kMmaSync;
   if (is_bf16 && d <= 64) return kWgmma;
-  if (!is_bf16 && d <= 64) return kWgmmaTf32;
+  if (is_bf16) return kWgmmaPair;
+  if (d <= 64) return kWgmmaTf32;
   return kScalar;
 }
 
@@ -2181,7 +2671,7 @@ cudaError_t launch(const Args& a) {
     return cudaErrorInvalidValue;
   const Design des = design(std::is_same<T, bf16>::value, a.d);
   if (des == kWgmmaTf32) return launch_tf32(a);  // with its own delta pass
-  if (des == kMmaSync || des == kWgmma) {
+  if (des == kMmaSync || des == kWgmma || des == kWgmmaPair) {
     // the tensor cores take rows of whole 16-byte pieces, 16-byte
     // aligned, by cp.async or TMA (the wrapper pads d and copies a
     // misaligned view)
@@ -2192,7 +2682,11 @@ cudaError_t launch(const Args& a) {
         reinterpret_cast<uintptr_t>(a.dq) |
         reinterpret_cast<uintptr_t>(a.dk) | reinterpret_cast<uintptr_t>(a.dv);
     if (a.d % 8 || addr % 16) return cudaErrorInvalidValue;
-    if (des == kWgmma) return launch_wgmma(a);  // with its own delta pass
+    // with their own delta pass
+    if (des == kWgmma) return launch_wgmma<1>(a);
+    if (des == kWgmmaPair)
+      return a.d <= 128 ? launch_wgmma<2>(a)
+             : a.d <= 192 ? launch_wgmma<3>(a) : launch_wgmma<4>(a);
   }
   const int64_t rows = int64_t(a.bh) * a.tq;
   const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
@@ -2205,16 +2699,17 @@ cudaError_t launch(const Args& a) {
   if constexpr (std::is_same<T, bf16>::value) {
     if (des == kMmaSync) return a.d <= 16 ? launch_mma<16>(a)
                                           : launch_mma<32>(a);
+  } else {
+    if (a.d <= 128) return launch_small<T, 128, 64>(a);
+    if (a.d <= 256) return launch_small<T, 256, 32>(a);
   }
-  if (a.d <= 128) return launch_small<T, 128, 64>(a);
-  if (a.d <= 256) return launch_small<T, 256, 32>(a);
   return launch_wide<T>(a);
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Take any d >= 1 and
-// contiguous [BH, T, d] tensors of the entry's dtype (bf16 with d <= 64:
+// contiguous [BH, T, d] tensors of the entry's dtype (bf16 with d <= 256:
 // d a multiple of 8 and every pointer 16-byte aligned); `delta` is f32
 // scratch of BH * Tq floats, `work` f32 scratch of
 // flash_attention_bwd_work_floats floats (16-byte aligned; null where

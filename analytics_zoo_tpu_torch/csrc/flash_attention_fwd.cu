@@ -20,7 +20,7 @@
 // 2^x (one a logit, 16 an SM a cycle) costs the SM as many cycles as the
 // two products of a tile on the tensor cores, so the two must overlap.
 //
-// Two designs (`design` below picks one; ops/flash_attention.py's
+// Three designs (`design` below picks one; ops/flash_attention.py's
 // fwd_design names it):
 //
 // wgmma, head widths 33-64 (BERT's 64): a block is one warpgroup (128
@@ -47,6 +47,17 @@
 //     the Q tile (swizzled, so no bank conflicts) and stores 16-byte pieces
 //     of rows < Tq, columns < d; lse in f32.
 //
+// wgmma_wide, head widths above 256 (any multiple of 8): a block is one
+// warpgroup owning 64 q rows and a group of 256 output columns.  A 64-row
+// Q or K tile of such a head does not fit in shared memory beside a ring
+// (128 KB at d 1024), so S = Q K^T streams the depth's 64-wide swizzle
+// atoms as (Q atom, K atom) pairs through a 4-stage TMA ring, one wgmma
+// group an atom with the next in flight; the softmax is the design
+// above's; O += P V is one m64n64k16 an atom of the group's V tile and
+// k16 step, 128 accumulators a thread.  S is computed once for each column
+// group (2.5 x the least FLOP at d 1024); 204 registers and 97 KB: two
+// blocks an SM.  Section "head widths above 256" below.
+//
 // mma.sync, head widths up to 32 and 65-256 (the FA2 structure on
 // mma.sync.m16n8k16):
 //   * a block of 4 warps owns one q tile of one bh: 64 rows, 16 per warp,
@@ -68,12 +79,13 @@
 //     tiles are the A fragment of one k16 step, see warp_mma.cuh);
 //   * the epilogue stages the warp's rows in shared memory and stores them
 //     with coalesced 16-byte stores.
-// Both take the true d <= their padded width at run time; d must be a
+// All take the true d <= their padded width at run time; d must be a
 // multiple of 8 (each row a whole number of 16-byte copies), and the
 // wrapper pads the rare other d.  What they leave: a producer warp and
 // consumer warpgroups that overlap one block's softmax with its own
-// products (FlashAttention-3's ping-pong), persistent blocks, and the wgmma
-// design for the other widths.
+// products (FlashAttention-3's ping-pong), persistent blocks, the wgmma
+// design for the other widths, and in wgmma_wide an S shared by the column
+// groups (two warpgroups splitting the depth).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -596,6 +608,210 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
+// wgmma fed by a TMA ring, head widths above 256 (wgmma_wide)
+// ---------------------------------------------------------------------------
+
+constexpr int kWideAtoms = 4;   // output atoms (256 columns) a block
+constexpr int kWideStages = 4;  // (Q atom, K atom) pairs of the ring
+constexpr uint32_t kWidePair = 2 * kWgTileBytes;
+
+// Shared memory in bytes from a 1024-aligned base: the ring's stages (a Q
+// atom, then the K atom of the same columns), the V tile of the block's
+// columns, then the mbarriers (one a stage, V's).
+struct WideSmem {
+  static constexpr uint32_t kRing = 0;
+  static constexpr uint32_t kV = kRing + kWideStages * kWidePair;
+  static constexpr uint32_t kBar = kV + kWideAtoms * kWgTileBytes;
+  static constexpr size_t kBytes =
+      kBar + (kWideStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// s (+)= Q_a K_a^T over one atom's 64 columns of depth, Q's and K's atoms
+// at `stage`; without kAccumulate the first product overwrites s.
+template <bool kAccumulate>
+__device__ __forceinline__ void wide_issue_s(float (&s)[32],
+                                             uint32_t stage) {
+  using namespace hopper;
+  wgmma_ss<kAccumulate>(s, desc_k_major(stage, 0),
+                        desc_k_major(stage + kWgTileBytes, 0));
+#pragma unroll
+  for (int kd = 1; kd < 4; ++kd)
+    wgmma_ss<true>(s, desc_k_major(stage, kd),
+                   desc_k_major(stage + kWgTileBytes, kd));
+  wgmma_commit();
+}
+
+// A block is one warpgroup owning 64 q rows of one bh and a group of 256
+// output columns (blocks: bh x q tiles x groups, the last q tile first).
+// Neither a Q nor a K tile of a wide head fits in shared memory beside a
+// ring (64 x 1024 bf16 is 128 KB), so S = Q K^T of each key tile streams
+// the depth's atoms: pair c (key tile c / na, atom c % na) sits in stage
+// c % kWideStages, and once every warp's products of pair c - 1 are done
+// (wgmma_wait<1> with pair c in flight, then a block barrier) thread 0
+// refills its stage with pair c - 1 + kWideStages.  The softmax is the d
+// 33-64 design's; P, rounded to bf16 in registers, is the A operand of O
+// += P V over the block's 4 atoms of V, one m64n64k16 an atom and k16
+// step, V loaded (only its atoms that hold columns < d) once the previous
+// tile's products are done, while the next S runs.  S is computed once per
+// column group: 2 x (the least FLOP) at d 512, 2.5 x at d 1024.  Group 0
+// writes lse.
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            bf16* __restrict__ out, float* __restrict__ lse,
+                            int tq, int tk, int d, int n_qtiles, int n_groups,
+                            float scale_log2, int causal) {
+  using namespace hopper;
+  using L = WideSmem;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_addr(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBar);
+  uint64_t* v_bar = full + kWideStages;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int per_bh = n_qtiles * n_groups;
+  const int bh = blockIdx.x / per_bh;
+  const int rest = blockIdx.x % per_bh;
+  const int q0 = (n_qtiles - 1 - rest / n_groups) * kWgRows;
+  const int grp = rest % n_groups;
+  const int c0 = grp * kWideAtoms * 64;  // the block's first output column
+  const int row_w = q0 + 16 * warp;      // the warp's first row
+  // keys past the block's last q row are all masked under `causal`
+  const int kend = causal ? min(tk, q0 + kWgRows) : tk;
+  const int n_kt = (kend + kWgRows - 1) / kWgRows;
+  const int na = (d + 63) / 64;  // atoms of the depth
+  const int n_pairs = n_kt * na;
+  // V's atoms in this group that hold columns < d
+  const int nv = min(kWideAtoms, (d - c0 + 63) / 64);
+
+  auto load_pair = [&](int c) {  // one thread: Q's and K's atom of pair c
+    const int st = c % kWideStages, at = c % na;
+    unsigned char* dst = base + L::kRing + st * kWidePair;
+    mbar_expect_tx(&full[st], kWidePair);
+    tma_load_3d(dst, &q_map, &full[st], 64 * at, q0, bh);
+    tma_load_3d(dst + kWgTileBytes, &k_map, &full[st], 64 * at,
+                (c / na) * kWgRows, bh);
+  };
+  auto load_v = [&](int j) {  // one thread: V's atoms of key tile j
+    mbar_expect_tx(v_bar, nv * kWgTileBytes);
+    for (int at = 0; at < nv; ++at)
+      tma_load_3d(base + L::kV + at * kWgTileBytes, &v_map, v_bar,
+                  c0 + 64 * at, j * kWgRows, bh);
+  };
+  auto stage = [&](int c) {
+    return sbase + L::kRing + (c % kWideStages) * kWidePair;
+  };
+  auto needs_mask = [&](int j) {
+    const int k0 = j * kWgRows;
+    return k0 + kWgRows > tk || (causal && k0 + kWgRows - 1 > row_w);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kWideStages; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int c = 0; c < kWideStages && c < n_pairs; ++c) load_pair(c);
+    load_v(0);
+  }
+
+  float acc[kWideAtoms][32];
+#pragma unroll
+  for (int at = 0; at < kWideAtoms; ++at)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[at][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t p[4][4];
+  const int row0 = row_w + g, col0 = 2 * t;
+  int c = 0;  // the next pair to compute
+
+  for (int j = 0; j < n_kt; ++j) {
+    // S = Q K^T: 64 q rows x 64 keys over the depth's atoms
+    float s[32];
+    mbar_wait(&full[c % kWideStages], (c / kWideStages) & 1);
+    wgmma_fence();
+    wide_issue_s<false>(s, stage(c));
+    ++c;
+    for (int at = 1; at < na; ++at, ++c) {
+      mbar_wait(&full[c % kWideStages], (c / kWideStages) & 1);
+      wgmma_fence();
+      wide_issue_s<true>(s, stage(c));
+      wgmma_wait<1>();  // pair c - 1's products are done
+      __syncthreads();  // ... in every warp
+      if (tid == 0 && c - 1 + kWideStages < n_pairs)
+        load_pair(c - 1 + kWideStages);
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+    __syncthreads();
+    if (tid == 0 && c - 1 + kWideStages < n_pairs)
+      load_pair(c - 1 + kWideStages);
+    if (needs_mask(j))
+      wg_softmax<true>(s, m, l, alpha, scale_log2, row0, col0 + j * kWgRows,
+                       tk, causal);
+    else
+      wg_softmax<false>(s, m, l, alpha, scale_log2, row0,
+                        col0 + j * kWgRows, tk, causal);
+    // O = alpha O + P V over the tile's 64 keys and the group's columns
+#pragma unroll
+    for (int at = 0; at < kWideAtoms; ++at)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[at][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        p[kk][x] = pack_bf16(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+    mbar_wait(v_bar, j & 1);
+    fence_regs(p);
+    wgmma_fence();
+#pragma unroll
+    for (int at = 0; at < kWideAtoms; ++at)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc[at], p[kk],
+                 desc_mn_major(sbase + L::kV + at * kWgTileBytes, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+    __syncthreads();  // V read by every warp
+    if (tid == 0 && j + 1 < n_kt) load_v(j + 1);
+  }
+
+  // epilogue: 4-byte stores of rows < tq, columns < d; lse by group 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    lr = keep_nan_max(lr, 1e-30f);
+    const float inv = 1.f / lr;
+    const int qpos = row0 + 8 * r;
+    if (qpos >= tq) continue;
+    if (grp == 0 && t == 0) lse[int64_t(bh) * tq + qpos] = m[r] * kLn2 + logf(lr);
+#pragma unroll
+    for (int at = 0; at < kWideAtoms; ++at)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = c0 + 64 * at + 8 * i + 2 * t;
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(out + (int64_t(bh) * tq + qpos) * d +
+                                       col) =
+              pack_bf16(acc[at][4 * i + 2 * r] * inv,
+                        acc[at][4 * i + 2 * r + 1] * inv);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -649,8 +865,9 @@ cudaError_t launch_mma(const Args& a) {
   return launch_mt<DP, 1>(a);
 }
 
-// wgmma: one warpgroup a block, 64 q rows.
-cudaError_t launch_wgmma(const Args& a) {
+// wgmma: one warpgroup a block, 64 q rows (and, above d 256, a group of
+// 256 output columns).
+cudaError_t launch_wgmma(const Args& a, bool wide) {
   // TMA reads and the 16-byte stores need 16-byte aligned rows
   const uintptr_t addr = reinterpret_cast<uintptr_t>(a.q) |
                          reinterpret_cast<uintptr_t>(a.k) |
@@ -664,27 +881,44 @@ cudaError_t launch_wgmma(const Args& a) {
       (err = tile_map(&km, a.k, a.bh, a.tk, a.d)) != cudaSuccess ||
       (err = tile_map(&vm, a.v, a.bh, a.tk, a.d)) != cudaSuccess)
     return err;
-  constexpr size_t smem = WgSmem::kBytes;
-  static hopper::SmemLimit limit;
-  if ((err = limit.raise(flash_fwd_wgmma_kernel, a.dev, smem)) != cudaSuccess)
-    return err;
   const int n_qtiles = (a.tq + kWgRows - 1) / kWgRows;
-  if (int64_t(a.bh) * n_qtiles > INT32_MAX) return cudaErrorInvalidValue;
-  flash_fwd_wgmma_kernel<<<a.bh * n_qtiles, kWgThreads, smem, a.stream>>>(
-      qm, km, vm, a.out, a.lse, a.tq, a.tk, a.d, n_qtiles, a.scale * kLog2e,
-      a.causal);
+  const int n_groups = wide ? (a.d + 64 * kWideAtoms - 1) / (64 * kWideAtoms)
+                            : 1;
+  if (int64_t(a.bh) * n_qtiles * n_groups > INT32_MAX)
+    return cudaErrorInvalidValue;
+  const int grid = a.bh * n_qtiles * n_groups;
+  static hopper::SmemLimit limit, wide_limit;
+  if (wide) {
+    constexpr size_t smem = WideSmem::kBytes;
+    if ((err = wide_limit.raise(flash_fwd_wgmma_wide_kernel, a.dev, smem)) !=
+        cudaSuccess)
+      return err;
+    flash_fwd_wgmma_wide_kernel<<<grid, kWgThreads, smem, a.stream>>>(
+        qm, km, vm, a.out, a.lse, a.tq, a.tk, a.d, n_qtiles, n_groups,
+        a.scale * kLog2e, a.causal);
+  } else {
+    constexpr size_t smem = WgSmem::kBytes;
+    if ((err = limit.raise(flash_fwd_wgmma_kernel, a.dev, smem)) !=
+        cudaSuccess)
+      return err;
+    flash_fwd_wgmma_kernel<<<grid, kWgThreads, smem, a.stream>>>(
+        qm, km, vm, a.out, a.lse, a.tq, a.tk, a.d, n_qtiles,
+        a.scale * kLog2e, a.causal);
+  }
   return cudaGetLastError();
 }
 
 // The forward's designs, as flash_attention.py's fwd_design names them
-// (flash_attention_fwd_f32.cu runs the scalar, wide and wgmma_tf32 ones).
+// (flash_attention_fwd_f32.cu runs the scalar, wide and wgmma_tf32 ones;
+// kWgmmaPair is the backward's alone).
 enum Design {
-  kScalar = 0, kMmaSync = 1, kWgmma = 2, kWide = 3, kWgmmaTf32 = 4
+  kScalar = 0, kMmaSync = 1, kWgmma = 2, kWide = 3, kWgmmaTf32 = 4,
+  kWgmmaWide = 5, kWgmmaPair = 6
 };
 
 // The design that takes a head of (padded) width d.
 Design design(bool is_bf16, int d) {
-  if (d > 256) return kWide;
+  if (d > 256) return is_bf16 ? kWgmmaWide : kWide;
   if (!is_bf16) return d <= 64 ? kWgmmaTf32 : kScalar;
   if (d > 32 && d <= 64) return kWgmma;
   return kMmaSync;
@@ -692,16 +926,16 @@ Design design(bool is_bf16, int d) {
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Takes d in 8, 16, ..., 256;
-// launches on `stream`, does not synchronise, allocates nothing; returns the
-// launch's cudaError_t (0 on success).  The wgmma design (d 33-64) needs
-// 16-byte aligned tensors.
+// Plain C entry point, bound with ctypes.  Takes any d that is a multiple
+// of 8; launches on `stream`, does not synchronise, allocates nothing;
+// returns the launch's cudaError_t (0 on success).  The wgmma designs (d
+// 33-64 and above 256) need 16-byte aligned tensors.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* out, void* lse,
                                         int bh, int tq, int tk, int d,
                                         int causal, float scale,
                                         void* stream) {
-  if (bh < 1 || tq < 1 || tk < 1 || d < 8 || d > 256 || d % 8)
+  if (bh < 1 || tq < 1 || tk < 1 || d < 8 || d % 8)
     return cudaErrorInvalidValue;
   Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
          static_cast<const bf16*>(v), static_cast<bf16*>(out),
@@ -709,7 +943,9 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
          static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaGetDevice(&a.dev);
   if (err != cudaSuccess) return err;
-  if (design(true, d) == kWgmma) return launch_wgmma(a);
+  const Design des = design(true, d);
+  if (des == kWgmma || des == kWgmmaWide)
+    return launch_wgmma(a, des == kWgmmaWide);
   if (d <= 16) return launch_mma<16>(a);
   if (d <= 32) return launch_mma<32>(a);
   if (d <= 96) return launch_mma<96>(a);

@@ -61,8 +61,7 @@
 //   Its loads are synchronous and every product goes through shared
 //   memory, so it runs at a fraction of the FMAs' rate.
 //
-// wide, heads above 256 (f32, and bf16 inputs computed in f32 as the TPU
-// kernel upcasts its blocks): 16-row q tiles and 16-key tiles, the head
+// wide, f32 heads above 256: 16-row q tiles and 16-key tiles, the head
 // dim staged in chunks of 64 columns for S, and each block owning a chunk
 // of 256 output columns (S is recomputed once per chunk); thread (a, b) of
 // the 16 x 16 grid holds logit (row a, key b), the online softmax reduces
@@ -75,7 +74,6 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "flash_tf32.cuh"
@@ -546,19 +544,9 @@ constexpr int kWT = 16;          // q rows and keys per wide tile
 constexpr int kWChunk = 64;      // head-dim columns staged at a time
 constexpr int kWCols = kThreads; // output columns per block
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
                       float* __restrict__ lse, int tq, int tk, int d,
                       int n_qtiles, int n_chunks, float scale, int causal) {
   __shared__ float qs[kWT][kWChunk + 1], ks[kWT][kWChunk + 1];
@@ -571,9 +559,9 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int col = chunk * kWCols + threadIdx.x;
   const int tid = threadIdx.x;
   const int a = tid >> 4, b = tid & 15;  // logit (row a, key b)
-  const T* qb = q + bh * tq * d;
-  const T* kb = k + bh * tk * d;
-  const T* vb = v + bh * tk * d;
+  const float* qb = q + bh * tq * d;
+  const float* kb = k + bh * tk * d;
+  const float* vb = v + bh * tk * d;
 
   float m = kNegInf, l = 0.f;  // row a's, the same in its 16 lanes
   float acc[kWT];
@@ -589,9 +577,9 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = idx / kWChunk, c = idx % kWChunk;
         const bool cin = c0 + c < d;
         qs[r][c] = cin && q0 + r < tq
-                       ? to_f(qb[int64_t(q0 + r) * d + c0 + c]) : 0.f;
+                       ? qb[int64_t(q0 + r) * d + c0 + c] : 0.f;
         ks[r][c] = cin && k0 + r < tk
-                       ? to_f(kb[int64_t(k0 + r) * d + c0 + c]) : 0.f;
+                       ? kb[int64_t(k0 + r) * d + c0 + c] : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -613,7 +601,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < kWT; ++i) acc[i] *= alpha_s[i];
       const int kn = min(kWT, tk - k0);  // keys >= tk are never read
       for (int j = 0; j < kn; ++j) {
-        const float vv = to_f(vb[int64_t(k0 + j) * d + col]);
+        const float vv = vb[int64_t(k0 + j) * d + col];
 #pragma unroll
         for (int i = 0; i < kWT; ++i) acc[i] = fmaf(ps[i][j], vv, acc[i]);
       }
@@ -628,49 +616,31 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (col < d) {
 #pragma unroll
     for (int i = 0; i < kWT; ++i)
-      if (q0 + i < tq) store(out + (bh * tq + q0 + i) * d + col, acc[i] / l_s[i]);
+      if (q0 + i < tq) out[(bh * tq + q0 + i) * d + col] = acc[i] / l_s[i];
   }
 }
 
-template <typename T>
-cudaError_t launch_wide(const T* q, const T* k, const T* v, T* out,
-                        float* lse, int bh, int tq, int tk, int d,
+cudaError_t launch_wide(const float* q, const float* k, const float* v,
+                        float* out, float* lse, int bh, int tq, int tk, int d,
                         float scale, int causal, cudaStream_t stream) {
   const int n_qtiles = (tq + kWT - 1) / kWT;
   const int n_chunks = (d + kWCols - 1) / kWCols;
   if (int64_t(bh) * n_qtiles * n_chunks > INT32_MAX)
     return cudaErrorInvalidValue;
-  flash_fwd_wide_kernel<T><<<bh * n_qtiles * n_chunks, kThreads, 0,
-                             stream>>>(q, k, v, out, lse, tq, tk, d,
-                                       n_qtiles, n_chunks, scale, causal);
+  flash_fwd_wide_kernel<<<bh * n_qtiles * n_chunks, kThreads, 0, stream>>>(
+      q, k, v, out, lse, tq, tk, d, n_qtiles, n_chunks, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes: float32 with any d >= 1,
-// and bfloat16 with d > 256 (narrower bf16 heads take the tensor-core
-// kernels of flash_attention_fwd.cu).  They launch on `stream`, do not
-// synchronise, allocate nothing, and return the launch's cudaError_t (0 on
-// success).
-extern "C" int flash_attention_fwd_wide_bf16(const void* q, const void* k,
-                                             const void* v, void* out,
-                                             void* lse, int bh, int tq,
-                                             int tk, int d, int causal,
-                                             float scale, void* stream) {
-  if (bh < 1 || tq < 1 || tk < 1 || d <= 256)
-    return cudaErrorInvalidValue;
-  using bf16 = __nv_bfloat16;
-  return launch_wide<bf16>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), bh, tq, tk, d, scale, causal,
-      static_cast<cudaStream_t>(stream));
-}
-
-// f32: heads up to 64 on the wgmma_tf32 design, whose split parts go to
-// `work` (flash_attention_fwd_f32_work_floats floats, 16-byte aligned;
-// unused by the other designs).
+// Plain C entry point, bound with ctypes: float32 with any d >= 1 (bf16
+// heads take the tensor-core kernels of flash_attention_fwd.cu).  It
+// launches on `stream`, does not synchronise, allocates nothing, and
+// returns the launch's cudaError_t (0 on success).  Heads up to 64 take
+// the wgmma_tf32 design, whose split parts go to `work`
+// (flash_attention_fwd_f32_work_floats floats, 16-byte aligned; unused by
+// the other designs).
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* out, void* lse,
                                        void* work, int bh, int tq, int tk,
@@ -689,7 +659,7 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                        tk, d, scale, causal, s);
   if (d <= 128) return launch<128>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
   if (d <= 256) return launch<256>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
-  return launch_wide<float>(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
+  return launch_wide(qf, kf, vf, of, lf, bh, tq, tk, d, scale, causal, s);
 }
 
 // The f32 workspace the forward needs at these sizes (0 but for the

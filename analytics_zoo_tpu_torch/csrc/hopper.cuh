@@ -92,6 +92,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for several accumulators of one shape (one a swizzle atom of a
+// product's N).
+template <int A, int N>
+__device__ __forceinline__ void fence_regs(float (&d)[A][N]) {
+#pragma unroll
+  for (int a = 0; a < A; ++a) fence_regs(d[a]);
+}
+
 // The same for the register A fragments of wgmma_rs (k16 steps x four
 // registers), which the products read asynchronously: fenced before
 // wgmma_fence and after wgmma_wait, they stay live and unchanged until the

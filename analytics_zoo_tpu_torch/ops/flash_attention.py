@@ -6,18 +6,18 @@ the forward as a Pallas kernel (``_fwd_kernel``) inside a ``jax.custom_vjp``
 whose backward is the blocked FA2 math of ``_blocked_bwd_jax``.  Here, for a
 tensor on the card:
 
-- ``flash_attention_fwd`` launches the bfloat16 tensor-core kernel
-  (``csrc/flash_attention_fwd.cu``: heads of 33-64 on ``wgmma`` fed by a
-  TMA ring, other heads up to 256 on ``mma.sync``) or the float32 kernels
-  (``csrc/flash_attention_fwd_f32.cu``: heads up to 64 on ``wgmma`` in
-  3xTF32 after a split pass, up to 256 on scalar FMAs, wider heads, and
-  bfloat16 heads wider than 256, in f32 on the wide kernel);
-  ``fwd_design`` names the design;
+- ``flash_attention_fwd`` launches the bfloat16 tensor-core kernels
+  (``csrc/flash_attention_fwd.cu``: heads of 33-64 and above 256 on
+  ``wgmma`` fed by a TMA ring, other heads on ``mma.sync``) or the float32
+  kernels (``csrc/flash_attention_fwd_f32.cu``: heads up to 64 on
+  ``wgmma`` in 3xTF32 after a split pass, up to 256 on scalar FMAs, wider
+  heads on the wide kernel); ``fwd_design`` names the design;
 - ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu``: bf16
-  heads of 33-64 on ``wgmma`` fed by a TMA ring, up to 32 on ``mma.sync``,
-  f32 heads up to 64 on ``wgmma`` in 3xTF32 (three tf32 products per f32
-  product, about f32's accuracy), wider heads in scalar f32
-  (``bwd_design`` names the design);
+  heads of 33-256 on ``wgmma`` fed by a TMA ring (65-256 with two
+  warpgroups a block), up to 32 on ``mma.sync``, f32 heads up to 64 on
+  ``wgmma`` in 3xTF32 (three tf32 products per f32 product, about f32's
+  accuracy), wider heads in scalar f32 (``bwd_design`` names the
+  design);
 - ``flash_attention`` ties them together in a ``torch.autograd.Function``.
 
 Every kernel takes any BH and any head dim of at least 1, as the JAX
@@ -41,17 +41,16 @@ import torch
 from . import _launches
 
 _NEG_INF = -1e30
-# the bf16 tensor-core forward's widest head; wider bf16 heads take the f32
-# source's wide kernel
-TC_MAX_HEAD_DIM = 256
 # the backward's bf16 tensor-core paths' widest head; wider heads take its
-# scalar f32 paths
-BWD_TC_MAX_HEAD_DIM = 64
+# wide kernels (the bf16 forward runs every width on the tensor cores)
+BWD_TC_MAX_HEAD_DIM = 256
 # the designs of both directions, in the order of the `Design` of
 # csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu
 # (flash_attention_fwd_design and flash_attention_bwd_design return the
-# index)
-DESIGNS = ("scalar", "mma.sync", "wgmma", "wide", "wgmma_tf32")
+# index): "wgmma_wide" is the bf16 forward above 256, "wgmma_pair" the
+# bf16 backward at 65-256
+DESIGNS = ("scalar", "mma.sync", "wgmma", "wide", "wgmma_tf32", "wgmma_wide",
+           "wgmma_pair")
 FWD_BF16 = "flash_attention_fwd"      # csrc/<source>.cu
 FWD_F32 = "flash_attention_fwd_f32"
 BWD = "flash_attention_bwd"
@@ -72,9 +71,7 @@ def fwd_kernel(dtype: torch.dtype, d: int) -> Tuple[str, str]:
     """(source, C entry point) of the forward kernel for ``dtype`` and a
     head dim of ``d``."""
     if dtype == torch.bfloat16:
-        if d <= TC_MAX_HEAD_DIM:
-            return FWD_BF16, "flash_attention_fwd_bf16"
-        return FWD_F32, "flash_attention_fwd_wide_bf16"
+        return FWD_BF16, "flash_attention_fwd_bf16"
     return FWD_F32, _FWD_F32_ENTRY
 
 
@@ -82,7 +79,8 @@ def fwd_design(dtype: torch.dtype, d: int) -> str:
     """The design that takes the forward of a head dim ``d`` in ``dtype``
     (after the wrapper's padding of bf16 tensor-core heads to a multiple
     of 8): one of ``DESIGNS``.  bf16 heads of 33-64 run on ``wgmma``,
-    other bf16 heads up to 256 on ``mma.sync`` (both in
+    heads above 256 on ``wgmma_wide`` (column groups of 256, the depth's
+    atoms streamed), other bf16 heads on ``mma.sync`` (all in
     ``csrc/flash_attention_fwd.cu``); f32 heads up to 64 on ``wgmma`` in
     3xTF32 (``wgmma_tf32``), up to 256 on the scalar kernel and heads
     above 256 on the wide one (all in
@@ -91,9 +89,9 @@ def fwd_design(dtype: torch.dtype, d: int) -> str:
     faster than ``mma.sync`` at every BH, 12 included (``PERF.md``).
     Mirrors the source's ``design``; a ``cuda`` test holds the two
     together."""
-    width = _kernel_head_dim(d, dtype, TC_MAX_HEAD_DIM)
-    if width > TC_MAX_HEAD_DIM:
-        return "wide"
+    width = _kernel_head_dim(d, dtype)
+    if width > 256:
+        return "wgmma_wide" if dtype == torch.bfloat16 else "wide"
     if dtype != torch.bfloat16:
         return "wgmma_tf32" if width <= 64 else "scalar"
     if 32 < width <= 64:
@@ -105,18 +103,19 @@ def bwd_design(dtype: torch.dtype, d: int) -> str:
     """The design of ``csrc/flash_attention_bwd.cu`` that takes the
     backward of a head dim ``d`` in ``dtype`` (after the wrapper's padding
     of bf16 tensor-core heads to a multiple of 8): one of ``DESIGNS``.
-    bf16 heads of 33-64 run on ``wgmma``, up to 32 on ``mma.sync``; f32
-    heads up to 64 on ``wgmma`` in 3xTF32 (``wgmma_tf32``); wider heads up
-    to 256 on the scalar kernels, above 256 on the wide ones.  Mirrors the
+    bf16 heads of 33-64 run on ``wgmma``, 65-256 on ``wgmma_pair`` (two
+    warpgroups a block, one on P and one on dS), up to 32 on ``mma.sync``;
+    f32 heads up to 64 on ``wgmma`` in 3xTF32 (``wgmma_tf32``), 65-256 on
+    the scalar kernels; heads above 256 on the wide ones.  Mirrors the
     source's ``design``; a ``cuda`` test holds the two together."""
     width = _kernel_head_dim(d, dtype, BWD_TC_MAX_HEAD_DIM)
     if width > 256:
         return "wide"
-    if width <= BWD_TC_MAX_HEAD_DIM:
-        if dtype != torch.bfloat16:
-            return "wgmma_tf32"
-        return "mma.sync" if width <= 32 else "wgmma"
-    return "scalar"
+    if dtype != torch.bfloat16:
+        return "wgmma_tf32" if width <= 64 else "scalar"
+    if width <= 32:
+        return "mma.sync"
+    return "wgmma" if width <= 64 else "wgmma_pair"
 
 
 def flash_attention_fwd_reference(q3: torch.Tensor, k3: torch.Tensor,
@@ -228,12 +227,14 @@ def _pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
-def _kernel_head_dim(d: int, dtype: torch.dtype, tc_max: int) -> int:
-    """The head dim a kernel is handed for a true ``d``: bf16 heads up to
-    ``tc_max`` go to a tensor-core kernel, which copies rows in whole
-    16-byte pieces, so they are padded to a multiple of 8; the scalar
-    kernels load element by element and take any ``d``."""
-    if dtype == torch.bfloat16 and d <= tc_max:
+def _kernel_head_dim(d: int, dtype: torch.dtype,
+                     tc_max: Optional[int] = None) -> int:
+    """The head dim a kernel is handed for a true ``d``: bf16 heads (up to
+    ``tc_max``, where one is given) go to a tensor-core kernel, which
+    copies rows in whole 16-byte pieces, so they are padded to a multiple
+    of 8; the scalar and wide kernels load element by element and take any
+    ``d``."""
+    if dtype == torch.bfloat16 and (tc_max is None or d <= tc_max):
         return -(-d // 8) * 8
     return d
 
@@ -241,7 +242,7 @@ def _kernel_head_dim(d: int, dtype: torch.dtype, tc_max: int) -> int:
 def _launch(q3, k3, v3, causal):
     _check_launch(q3, k3, v3)
     d = q3.shape[-1]
-    width = _kernel_head_dim(d, q3.dtype, TC_MAX_HEAD_DIM)
+    width = _kernel_head_dim(d, q3.dtype)
     if width != d:
         q3, k3, v3 = (_pad_head_dim(x, width) for x in (q3, k3, v3))
     out, lse = _run_kernel(q3, k3, v3, causal, 1.0 / math.sqrt(d))

@@ -425,6 +425,15 @@ HEAD_DIMS = (1, 5, 8, 24, 48, 80, 96, 112, 256)
 WIDE_HEAD_DIMS = (320, 1024, 1536, 2048)
 WIDE_TIMED_DIMS = (320, 1024)
 WIDE_TIMED_SHAPE = dict(b=2, h=12, t=SEQ)
+# the bf16 backward's wgmma_pair widths (65-256: one to four swizzle atoms,
+# 72 and 136 just past an atom's edge) and the forward's wgmma_wide ones
+# (above 256: 264 just past the first atom of a column group) beyond those
+# above
+PAIR_HEAD_DIMS = (72, 136, 192)
+WGMMA_WIDE_HEAD_DIMS = (264, 520)
+# a layer with 128-wide heads: MultiHeadAttention(768, 6) on [4, 512, 768]
+# bf16, flash against the dense core
+LAYER_CHECK = dict(b=4, t=SEQ, hidden=768, heads=6)
 # the bert_train recipe (bench.py's BERT-base SQuAD: seq 512, global batch
 # 32, adamw at 1e-4)
 TRAIN_LR = 1e-4
@@ -702,6 +711,7 @@ def attention_bound(bh: int, tq: int, tk: int, d: int, itemsize: int,
 
 
 def phase_kernel(fa) -> dict:
+    reset_counts(fa)  # the phase's own launches by design, read at its end
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"f32_out": 0.0, "lse": 0.0, "bf16_out_rel": 0.0,
              "bwd_f32_rel": 0.0, "bwd_bf16_rel": 0.0}
@@ -779,6 +789,12 @@ def phase_kernel(fa) -> dict:
     cases += [(3, tq, tk, dd, torch.bfloat16, c) for dd in (36, 40, 48, 56)
               for tq, tk in ((77, 130), (130, 77)) for c in (False, True)]
     cases += [(3, 1, 300, 64, torch.bfloat16, c) for c in (False, True)]
+    # the bf16 wgmma_wide design (heads above 256) beyond WIDE_HEAD_DIMS:
+    # widths just past an atom, one key, one query row
+    cases += [(2, 77, 130, dd, torch.bfloat16, c)
+              for dd in WGMMA_WIDE_HEAD_DIMS for c in (False, True)]
+    cases += [(3, 100, 1, 320, torch.bfloat16, False),
+              (3, 1, 300, 520, torch.bfloat16, True)]
     for case in cases:
         check(*case)
 
@@ -832,19 +848,27 @@ def phase_kernel(fa) -> dict:
     bwd_cases += [(3, tq, tk, d, torch.bfloat16, c) for d in (36, 40, 56)
                   for tq, tk in ((77, 130), (130, 77)) for c in (False, True)]
     bwd_cases += [(tb * th, tt, tt, td, torch.bfloat16, True)]
+    # the bf16 wgmma_pair design (heads 65-256) beyond HEAD_DIMS' 80-256:
+    # widths just past an atom's edge and three atoms, ragged Tq != Tk
+    # under `causal`, and the training shape's BH at D 128 under `causal`
+    bwd_cases += [(3, tq, tk, d, torch.bfloat16, c) for d in PAIR_HEAD_DIMS
+                  for tq, tk in ((77, 130), (130, 77)) for c in (False, True)]
+    bwd_cases += [(tb * th, tt, tt, 128, torch.bfloat16, True)]
     for case in bwd_cases:
         check_bwd(*case)
     # no atomics: the backward twice on one input at the training shape
     # gives the same bits, in both dtypes
-    for dtype in dtypes:
-        q, k, v = qkv(tb * th, tt, tt, td, dtype)
+    # (and the bf16 wgmma_pair design's at D 128 and 256)
+    for dtype, rd in [(dt, td) for dt in dtypes] + [
+            (torch.bfloat16, 128), (torch.bfloat16, 256)]:
+        q, k, v = qkv(tb * th, tt, tt, rd, dtype)
         g = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
         out, lse = fa.flash_attention_fwd(q, k, v, False)
         first, second = (fa.flash_attention_bwd(q, k, v, out, lse, g, False)
                          for _ in range(2))
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
-            raise AssertionError(f"{dtype} backward: two calls on one input "
-                                 f"differ")
+            raise AssertionError(f"{dtype} backward at D {rd}: two calls on "
+                                 f"one input differ")
         del q, k, v, g, out, lse, first, second
 
     # times at every serving shape and the training shape (bf16), the
@@ -940,15 +964,17 @@ def phase_kernel(fa) -> dict:
         del q4, k4, v4, out4
     # the bf16 designs no main path takes at the training shape's BH 384 x
     # T 512: the forward's and the backward's mma.sync at D 32, the
-    # forward's mma.sync and the backward's scalar kernel at D 128; each
-    # checked on the inputs it is timed on, beside its bound, its plain
-    # version and SDPA's (forward, or its backward alone)
+    # forward's mma.sync and the backward's wgmma_pair at D 128, and the
+    # latter at D 256; each checked on the inputs it is timed on, beside its
+    # bound, its plain version and SDPA's (forward, or its backward alone)
     other_timings = []
-    for od in (32, 128):
+    for od, directions in ((32, ("fwd", "bwd")), (128, ("fwd", "bwd")),
+                           (256, ("bwd",))):
         bh = tb * th
         q, k, v, out, g, err = check_bwd(bh, tt, tt, od, torch.bfloat16,
                                          False)
-        fwd_err = check(bh, tt, tt, od, torch.bfloat16, False)[3]
+        fwd_err = check(bh, tt, tt, od, torch.bfloat16, False)[3] \
+            if "fwd" in directions else None
         lse = fa.flash_attention_fwd(q, k, v, False)[1]
         q4, k4, v4 = (x.view(tb, th, tt, od).detach().requires_grad_()
                       for x in (q, k, v))
@@ -967,6 +993,8 @@ def phase_kernel(fa) -> dict:
                  lambda: torch.autograd.grad(out4, (q4, k4, v4), g4,
                                              retain_graph=True),
                  bwd_bound(bh, tt, od, 2), err)):
+            if direction not in directions:
+                continue
             other_timings.append({
                 "kernel": fa.fwd_kernel(torch.bfloat16, od)[0]
                 if direction == "fwd" else BWD_KERNEL,
@@ -1006,6 +1034,33 @@ def phase_kernel(fa) -> dict:
         "fma_bound_ms": attention_bound(bh, tt, tt, od, 4, False,
                                         fma=True)[0]})
     del q, k, v, q4, k4, v4
+    # the f32 backward's scalar design (heads 65-256) at the same shape,
+    # beside its 3xTF32 and FMA bounds, its plain version and SDPA's
+    # backward
+    q, k, v, out, g, err = check_bwd(bh, tt, tt, od, torch.float32, False)
+    lse = fa.flash_attention_fwd(q, k, v, False)[1]
+    q4, k4, v4 = (x.view(tb, th, tt, od).detach().requires_grad_()
+                  for x in (q, k, v))
+    out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4)
+    g4 = g.view(tb, th, tt, od)
+    bnd = bwd_bound(bh, tt, od, 4)
+    kernel, plain, library = (
+        lambda: fa.flash_attention_bwd(q, k, v, out, lse, g, False),
+        lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, g, False),
+        lambda: torch.autograd.grad(out4, (q4, k4, v4), g4,
+                                    retain_graph=True))
+    other_timings.append({
+        "kernel": BWD_KERNEL, "direction": "bwd",
+        "design": fa.bwd_design(torch.float32, od), "bh": bh, "t": tt,
+        "d": od, "dtype": "float32", "max_abs_err": err,
+        "ms": cuda_ms(kernel, iters=5), "plain_ms": cuda_ms(plain, iters=5),
+        "library_ms": cuda_ms(library, iters=10),
+        "device_ms": device_ms(kernel, iters=5),
+        "plain_device_ms": device_ms(plain, iters=5),
+        "library_device_ms": device_ms(library, iters=10),
+        "bound_ms": bnd[0], "bound_by": bnd[1],
+        "fma_bound_ms": bwd_bound(bh, tt, od, 4, fma=True)[0]})
+    del q, k, v, out, g, lse, q4, k4, v4, out4
     # the wide kernels (head dims above 256) at D 320 and 1024, both
     # directions and dtypes; SDPA's yardstick is whichever of its
     # memory-efficient and math backends takes the head dim
@@ -1047,7 +1102,9 @@ def phase_kernel(fa) -> dict:
                     device_ms(f, iters=5) for f in (kernel, plain, library))
                 wide_timings.append({
                     "kernel": fa.fwd_kernel(dtype, d)[0] if direction == "fwd"
-                    else BWD_KERNEL, "direction": direction, "bh": bh,
+                    else BWD_KERNEL, "direction": direction,
+                    "design": fa.fwd_design(dtype, d) if direction == "fwd"
+                    else fa.bwd_design(dtype, d), "bh": bh,
                     "t": wt, "d": d, "dtype": str(dtype).replace("torch.", ""),
                     "max_abs_err": fwd_err if direction == "fwd" else err,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1058,6 +1115,7 @@ def phase_kernel(fa) -> dict:
                     "fma_bound_ms": fma_bnd[0] if dtype == torch.float32
                     else None})
             del q4, k4, v4, sdpa_out
+    layer = mha_layer_check(fa, gen)
     res = {"phase": "kernel", "cases": len(cases),
            "bwd_cases": len(bwd_cases), "worst": worst,
            "tolerances": {"f32_out_abs": TOL_F32, "lse_abs": TOL_LSE,
@@ -1068,9 +1126,62 @@ def phase_kernel(fa) -> dict:
            "bwd_bf16_rel_by_case": bwd_bf16_rel,
            "timings": timings, "bwd_timings": bwd_timings,
            "other_design_timings": other_timings,
-           "wide_timings": wide_timings}
+           "wide_timings": wide_timings, "layer_check": layer,
+           "fwd_launches_by_design": dict(fa.FWD_LAUNCHES),
+           "bwd_launches_by_design": dict(fa.BWD_LAUNCHES)}
     emit(res)
     return res
+
+
+def mha_layer_check(fa, gen) -> dict:
+    """A layer the JAX package takes with 128-wide heads:
+    ``MultiHeadAttention(768, 6)`` on [4, 512, 768] bf16 with
+    ``use_flash=True`` against the same weights with the dense core
+    (``use_flash=False``), forward and backward (the input's and every
+    weight's gradient), each within TOL_BF16_REL / TOL_BWD_BF16 of its max
+    |ref|; one flash call launches one ``mma.sync`` forward and one
+    ``wgmma_pair`` backward."""
+    from analytics_zoo_tpu_torch import nn as tnn
+    b, t, hidden, heads = (LAYER_CHECK[x] for x in ("b", "t", "hidden",
+                                                     "heads"))
+    flash = tnn.MultiHeadAttention(hidden, heads, use_flash=True)
+    flash.reset_parameters(torch.Generator().manual_seed(SEED))
+    dense = tnn.MultiHeadAttention(hidden, heads, use_flash=False)
+    dense.load_state_dict(flash.state_dict())
+    x = torch.randn(b, t, hidden, device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    dy = torch.randn(b, t, hidden, device="cuda", generator=gen
+                     ).to(torch.bfloat16)
+    runs = {}
+    for name, layer in (("flash", flash), ("dense", dense)):
+        layer.cuda()
+        xs = x.clone().requires_grad_()
+        fwd0, bwd0 = dict(fa.FWD_LAUNCHES), dict(fa.BWD_LAUNCHES)
+        y = layer(xs)
+        grads = torch.autograd.grad(y, [xs, *layer.parameters()], dy)
+        torch.cuda.synchronize()
+        runs[name] = (y, grads, {
+            "fwd": {k: n - fwd0[k] for k, n in fa.FWD_LAUNCHES.items()
+                    if n != fwd0[k]},
+            "bwd": {k: n - bwd0[k] for k, n in fa.BWD_LAUNCHES.items()
+                    if n != bwd0[k]}})
+    (y, grads, launches), (y_ref, grads_ref, _) = runs["flash"], runs["dense"]
+    names = ["out", "dx"] + [f"d{n}" for n, _ in flash.named_parameters()]
+    rel = {}
+    for name, a, ref in zip(names, (y, *grads), (y_ref, *grads_ref)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"layer check: {name} not finite")
+        rel[name] = ((a.float() - ref.float()).abs().max().item()
+                     / max(ref.float().abs().max().item(), 1e-30))
+    tol = {n: TOL_BF16_REL if n == "out" else TOL_BWD_BF16 for n in names}
+    want = {"fwd": {fa.fwd_design(torch.bfloat16, hidden // heads): 1},
+            "bwd": {"wgmma_pair": 1}}
+    if launches != want or any(rel[n] > tol[n] for n in names):
+        raise AssertionError(f"layer check: launches {launches} (want "
+                             f"{want}), errors {rel} (limits {tol})")
+    return {"shape": dict(LAYER_CHECK, head_dim=hidden // heads,
+                          dtype="bfloat16"), "rel_err_to_max": rel,
+            "tolerances": tol, "launches_a_call": launches}
 
 
 def sdpa_any_head_dim(q4, k4, v4, backend=None):
@@ -8380,8 +8491,11 @@ def main(argv) -> int:
     for name, key, design, launches, path, replaces in (
             (BF16_KERNEL, BF16_KERNEL,
              "bf16: wgmma fed by a 2-stage TMA ring, one warpgroup a block "
-             "of 64 q rows (d 33-64); mma.sync with a cp.async ring for "
-             "the other heads up to 256",
+             "of 64 q rows (d 33-64); wgmma_wide above 256: a block of 64 q "
+             "rows and 256 output columns, S over the depth's swizzle atoms "
+             "streamed as (Q, K) atom pairs through a 4-stage TMA ring, P V "
+             "one m64n64k16 an atom; mma.sync with a cp.async ring for the "
+             "other heads",
              serve["flash_launches"][BF16_KERNEL], "bert_serve bf16",
              fwd_src),
             (F32_KERNEL, F32_KERNEL,
@@ -8395,8 +8509,11 @@ def main(argv) -> int:
              "bert_serve f32", fwd_src),
             (BWD_KERNEL, (BWD_KERNEL, "bfloat16"),
              "bf16: wgmma fed by a 2-stage TMA ring, one warpgroup a "
-             "block (d 33-64); mma.sync with a cp.async ring for d <= 32, "
-             "scalar f32 above 64; delta, dK/dV and dQ passes, no atomics",
+             "block (d 33-64), two (wgmma_pair, d 65-256: one on S^T and P "
+             "and dV, one on dP^T and dS and dK, P and dS handed over as "
+             "bf16 fragments in shared memory, tiles of up to four swizzle "
+             "atoms); mma.sync with a cp.async ring for d <= 32, the wide "
+             "kernels above 256; delta, dK/dV and dQ passes, no atomics",
              train["launches"][BWD_KERNEL], "bert_train bf16", bwd_src),
             (BWD_KERNEL, (BWD_KERNEL, "float32"),
              "f32: wgmma in 3xTF32 (big and small tf32 parts, three "
@@ -8442,6 +8559,24 @@ def main(argv) -> int:
                   "plain_device_ms", "library_device_ms", "bound_ms",
                   "fma_bound_ms", "max_abs_err")}
     entries[2]["launches_by_design"] = train["bwd_launches_by_design"]
+    # the designs no main path takes (no launch on any path), at their
+    # timed shapes, and every design's launches over the kernel phase
+    def at(rows, direction, dtype):
+        return [{k: x.get(k) for k in (
+            "design", "bh", "t", "d", "ms", "plain_ms", "library_ms",
+            "device_ms", "plain_device_ms", "library_device_ms", "bound_ms",
+            "bound_by", "fma_bound_ms", "max_abs_err")}
+            for x in rows if x.get("direction") == direction
+            and x["dtype"] == dtype]
+
+    for i, direction, dtype in ((0, "fwd", "bfloat16"), (1, "fwd", "float32"),
+                                (2, "bwd", "bfloat16"), (3, "bwd", "float32")):
+        entries[i]["at_other_designs"] = at(
+            kern["other_design_timings"] + kern["wide_timings"], direction,
+            dtype)
+        entries[i]["launches_kernel_phase_by_design"] = kern[
+            f"{direction}_launches_by_design"]
+    entries[0]["layer_check"] = kern["layer_check"]
     entries[3]["launches_by_design"] = \
         train["f32_check"]["bwd_launches_by_design"]
     entries[1]["launches_bert_train_f32"] = \

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's flash-attention backward spends its time, on a
 CUDA card, at BERT-base's training shape (BH 384 = batch 32 x 12 heads, T
-512, D 64), in bf16 or (``--f32``) f32.
+512, D 64, or the head dim ``--d`` gives), in bf16 or (``--f32``) f32.
 
 Run from the root of a checkout:
 
-    python3 dev/torch_bwd_parts.py [--f32] [--parent PKG]
+    python3 dev/torch_bwd_parts.py [--f32] [--d D] [--parent PKG]
         [-DNAME=VALUE | path/to/source.cu ...]
 
 Each argument adds one build variant (``dev/parts_harness.py``) beside the
@@ -88,6 +88,9 @@ def main(argv) -> int:
     dtype = torch.bfloat16
     if argv[:1] == ["--f32"]:
         dtype, argv = torch.float32, argv[1:]
+    d = smoke.TRAIN_SHAPE["d"]
+    if argv[:1] == ["--d"]:
+        d, argv = int(argv[1]), argv[2:]
     builds = ["default"] + list(argv)
     built = harness.build_variants(fa.BWD, builds, ("-Xptxas", "-v"))
     for label, (_, log) in zip(builds, built):
@@ -98,7 +101,7 @@ def main(argv) -> int:
         sides.append(("parent", harness.parent_ops(
             parent, "flash_attention")[0], None))
     bh = smoke.TRAIN_SHAPE["b"] * smoke.TRAIN_SHAPE["h"]
-    t, d = smoke.SEQ, smoke.TRAIN_SHAPE["d"]
+    t = smoke.SEQ
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     inputs = {}
     for causal in (False, True):

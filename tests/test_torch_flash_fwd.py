@@ -1,11 +1,12 @@
 """The port's flash-attention forward by design: which design takes which
 (dtype, head dim) and, on the card, the ``wgmma`` design (bf16 heads of
-33-64) and the ``wgmma_tf32`` design (f32 heads up to 64) against the
-plain version.
+33-64), the ``wgmma_wide`` design (bf16 heads above 256) and the
+``wgmma_tf32`` design (f32 heads up to 64) against the plain version.
 
 The CPU tests hold the dispatch rule and the plain forward against the
-JAX package's ``_blocked_fwd_jax`` at the widths the ``wgmma`` design
-takes (2e-5, as tests/test_torch_ops.py); tests/test_torch_flash_shapes.py
+JAX package's ``_blocked_fwd_jax`` and custom_vjp at the widths the
+``wgmma`` and ``wgmma_wide`` designs take (2e-5, as
+tests/test_torch_ops.py); tests/test_torch_flash_shapes.py
 holds the wrapper's padding and scale at those widths.
 The ``cuda`` tests hold the kernels to their plain version at
 chip_smoke.py's tolerances (bf16 out 2% of max |ref|: one rounding of
@@ -21,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from analytics_zoo_tpu_torch.ops import (_build, flash_attention_fwd,
+from analytics_zoo_tpu_torch.ops import (_build, flash_attention,
+                                         flash_attention_fwd,
                                          flash_attention_fwd_reference)
 
 jfa = importlib.import_module("analytics_zoo_tpu.ops.flash_attention")
@@ -53,16 +55,18 @@ def _qkv3(seed, bh, tq, tk, d):
     (torch.bfloat16, 32, "mma.sync"), (torch.bfloat16, 33, "wgmma"),
     (torch.bfloat16, 36, "wgmma"), (torch.bfloat16, 57, "wgmma"),
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 65, "mma.sync"),
-    (torch.bfloat16, 256, "mma.sync"), (torch.bfloat16, 257, "wide"),
+    (torch.bfloat16, 256, "mma.sync"), (torch.bfloat16, 257, "wgmma_wide"),
     (torch.float32, 1, "wgmma_tf32"), (torch.float32, 8, "wgmma_tf32"),
     (torch.float32, 33, "wgmma_tf32"), (torch.float32, 64, "wgmma_tf32"),
     (torch.float32, 65, "scalar"), (torch.float32, 128, "scalar"),
-    (torch.float32, 256, "scalar"), (torch.float32, 320, "wide")])
+    (torch.float32, 256, "scalar"), (torch.float32, 320, "wide"),
+    (torch.bfloat16, 320, "wgmma_wide"), (torch.bfloat16, 2048, "wgmma_wide"),
+    (torch.float32, 2048, "wide")])
 def test_fwd_design_by_dtype_and_head_dim(dtype, d, design):
     """Which design of the forward takes which (dtype, head dim): bf16
-    heads padded to 40-64 go to wgmma, other bf16 heads up to 256 to
-    mma.sync, f32 heads up to 64 to wgmma in 3xTF32, 65-256 to the scalar
-    kernel, above 256 to the wide one."""
+    heads padded to 40-64 go to wgmma, above 256 to wgmma_wide, other bf16
+    heads to mma.sync, f32 heads up to 64 to wgmma in 3xTF32, 65-256 to
+    the scalar kernel, above 256 to the wide one."""
     assert tfa.fwd_design(dtype, d) == design
 
 
@@ -82,6 +86,32 @@ def test_reference_matches_blocked_jax_at_the_wgmma_widths(d, causal):
                                atol=TOL, rtol=TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
                                atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [264, 320, 520])
+def test_forward_matches_jax_custom_vjp_at_the_wide_wgmma_widths(d, causal):
+    """The head dims of the bf16 forward's wgmma_wide design (above 256:
+    one and two column groups, 520 past a group's edge), with Tq != Tk and
+    a ragged T, on bf16-rounded inputs: the port's forward (the plain
+    version, on the CPU) against the JAX custom_vjp's, and its lse against
+    ``_blocked_fwd_jax``'s (2e-5)."""
+    q, k, v = (torch.from_numpy(x).bfloat16().float().numpy()
+               for x in _qkv3(d + 3, 2, 19, 27, d))
+    want = np.asarray(jfa.flash_attention(
+        *(jnp.asarray(x[None].transpose(0, 2, 1, 3)) for x in (q, k, v)),
+        causal=causal))[0].transpose(1, 0, 2)
+    got = flash_attention(*(torch.from_numpy(x[None]).transpose(1, 2)
+                            for x in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got[0].transpose(0, 1).numpy(), want,
+                               atol=TOL, rtol=TOL)
+    _, want_lse = jfa._blocked_fwd_jax(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 1.0 / np.sqrt(d),
+        causal, 256)
+    _, lse = flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 causal)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=TOL,
+                               rtol=TOL)
 
 
 def _needs_card():
@@ -174,9 +204,61 @@ def test_fwd_design_of_the_source_matches_fwd_design_on_card():
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     for dtype in (torch.float32, torch.bfloat16):
         for d in range(1, 1101):
-            width = tfa._kernel_head_dim(d, dtype, tfa.TC_MAX_HEAD_DIM)
+            width = tfa._kernel_head_dim(d, dtype)
             got = tfa.DESIGNS[fn(int(dtype == torch.bfloat16), width)]
             assert got == tfa.fwd_design(dtype, d), (dtype, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,d,causal", [
+    (24, 512, 512, 1024, False), (24, 512, 512, 1024, True),
+    (24, 512, 512, 320, False), (96, 512, 512, 320, True),
+    *[(3, tq, tk, d, c) for d in (264, 320, 1024, 2048)
+      for tq, tk in ((77, 130), (130, 77)) for c in (False, True)],
+    (3, 100, 1, 320, False), (3, 100, 1, 520, True),
+    (3, 1, 300, 520, False), (70000, 8, 8, 264, True)])
+def test_wgmma_wide_fwd_matches_reference_on_card(bh, tq, tk, d, causal):
+    """The wgmma_wide design (bf16 heads above 256) against the plain
+    forward: BH 24 and 96 at T 512 (several waves of blocks), one to eight
+    column groups, 264 one atom past the last group's first, Tq != Tk
+    ragged both ways under `causal`, one key, one query row and BH past
+    65535; each call launches that design once and no other."""
+    _needs_card()
+    q, k, v = _card_qkv(bh + d + tq, bh, tq, tk, d)
+    before = dict(tfa.FWD_LAUNCHES)
+    _hold_to_reference(q, k, v, causal)
+    want = dict(before)
+    want["wgmma_wide"] += 1
+    assert tfa.FWD_LAUNCHES == want
+
+
+@pytest.mark.cuda
+def test_wgmma_wide_fwd_takes_a_misaligned_view_and_a_ragged_width_on_card():
+    """Views 2 bytes past a 16-byte boundary at D 300 (padded to 304 and
+    copied by the wrapper) give the plain version's out and lse."""
+    _needs_card()
+    q, k, v = _card_qkv(10, 4, 100, 100, 300)
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    _hold_to_reference(*(shifted(x) for x in (q, k, v)), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_wide_fwd_repeats_bit_for_bit_on_card(causal):
+    """Two calls on one input give identical out and lse at D 1024."""
+    _needs_card()
+    q, k, v = _card_qkv(16, 24, 512, 512, 1024)
+    first = flash_attention_fwd(q, k, v, causal)
+    second = flash_attention_fwd(q, k, v, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def _hold_f32_to_reference(q, k, v, causal, design):

@@ -221,15 +221,9 @@ def test_head_dims_above_1024_match_jax(causal, d):
     _close(_port_grads(q, k, v, g, causal), want)
 
 
-@pytest.mark.parametrize("d,dtype,width", [
-    (300, torch.bfloat16, 300), (1024, torch.float32, 1024),
-    (256, torch.bfloat16, 256), (2048, torch.bfloat16, 2048),
-    (1536, torch.float32, 1536)])
-def test_wide_heads_go_to_the_f32_source_unpadded(monkeypatch, d, dtype,
-                                                  width):
-    """Head dims above 256 take the f32 source's wide kernel in both dtypes,
-    with no padding (its loads are element-wise); 256 and below in bf16
-    stay on the tensor-core kernel."""
+def _forward_kernel_seen(monkeypatch, d, dtype):
+    """(source, width) of the forward kernel that ``_launch`` hands a
+    ``[1, 3, d]`` input (the kernel call replaced by the plain version)."""
     seen = []
 
     def fake_kernel(q3, k3, v3, causal, scale):
@@ -239,21 +233,47 @@ def test_wide_heads_go_to_the_f32_source_unpadded(monkeypatch, d, dtype,
 
     monkeypatch.setattr(tfa, "_run_kernel", fake_kernel)
     q = torch.randn(1, 3, d).to(dtype)
-    tfa._launch(q, q, q, False)
-    want = tfa.FWD_F32 if d > 256 else tfa.FWD_BF16
-    assert seen == [(want, width)]
+    out, _ = tfa._launch(q, q, q, False)
+    assert out.shape == (1, 3, d)
+    return seen
+
+
+@pytest.mark.parametrize("d,dtype,width", [
+    (1024, torch.float32, 1024), (256, torch.bfloat16, 256),
+    (1536, torch.float32, 1536)])
+def test_wide_heads_go_to_the_f32_source_unpadded(monkeypatch, d, dtype,
+                                                  width):
+    """f32 head dims above 256 take the f32 source's wide kernel with no
+    padding (its loads are element-wise); bf16 256 stays on the bf16
+    source's tensor-core kernels."""
+    want = tfa.FWD_F32 if dtype == torch.float32 else tfa.FWD_BF16
+    assert _forward_kernel_seen(monkeypatch, d, dtype) == [(want, width)]
+
+
+@pytest.mark.parametrize("d,width", [(257, 264), (300, 304), (520, 520),
+                                     (2048, 2048), (2049, 2056)])
+def test_wide_bf16_heads_go_to_the_bf16_source_padded(monkeypatch, d,
+                                                      width):
+    """bf16 head dims above 256 take the bf16 source's ``wgmma_wide``
+    design, padded to a multiple of 8 (TMA's 16-byte rows), the output cut
+    back to d."""
+    assert _forward_kernel_seen(monkeypatch, d, torch.bfloat16) == \
+        [(tfa.FWD_BF16, width)]
+    assert tfa.fwd_design(torch.bfloat16, d) == "wgmma_wide"
 
 
 @pytest.mark.parametrize("dtype,d,width", [
     (torch.bfloat16, 5, 8), (torch.bfloat16, 21, 24),
     (torch.bfloat16, 64, 64), (torch.bfloat16, 72, 72),
-    (torch.float32, 21, 21)])
+    (torch.float32, 21, 21), (torch.bfloat16, 130, 136),
+    (torch.bfloat16, 250, 256), (torch.bfloat16, 260, 260)])
 def test_bwd_launch_hands_the_kernel_its_width_and_the_true_scale(
         monkeypatch, dtype, d, width):
-    """The backward's launch path: bf16 heads up to 64 (its tensor-core
-    path) are padded to a multiple of 8 with zero columns, q, k, v, out and
-    dout alike, the scale stays 1/sqrt(d), and dq, dk, dv are cut back to
-    d (the kernel call replaced by the plain version, on the CPU)."""
+    """The backward's launch path: bf16 heads up to 256 (its tensor-core
+    paths) are padded to a multiple of 8 with zero columns, q, k, v, out
+    and dout alike, the scale stays 1/sqrt(d), and dq, dk, dv are cut back
+    to d (the kernel call replaced by the plain version, on the CPU); wider
+    heads go to the wide kernels as they are."""
     seen = []
 
     def fake_kernel(q3, k3, v3, out, lse, dout, causal, scale):
@@ -342,19 +362,39 @@ def test_grads_match_jax_custom_vjp_at_the_wgmma_widths(causal, d):
     _close(_port_grads(q, k, v, g, causal), want)
 
 
+def _bf16_rounded(*xs):
+    """Each array rounded to bf16 and back: inputs a bf16 caller hands both
+    packages, in f32."""
+    return [torch.from_numpy(x).bfloat16().float().numpy() for x in xs]
+
+
+@pytest.mark.parametrize("d", [72, 128, 136, 192, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_grads_match_jax_custom_vjp_at_the_pair_widths(causal, d):
+    """The head dims the bf16 backward's wgmma_pair design takes (65-256:
+    one, two and three swizzle atoms of 64, 136 and 192 past an atom's
+    edge), with Tq != Tk and ragged T, on bf16-rounded inputs, against the
+    JAX custom_vjp (f32, on the CPU; 5e-5 as the other cases)."""
+    q, k, v, g = _bf16_rounded(*_inputs(d + 11, b=1, tq=21, tk=29, h=2,
+                                        d=d))
+    want = _jax_grads(jfa.flash_attention, q, k, v, g, causal=causal)
+    _close(_port_grads(q, k, v, g, causal), want)
+
+
 @pytest.mark.parametrize("dtype,d,design", [
     (torch.bfloat16, 1, "mma.sync"), (torch.bfloat16, 24, "mma.sync"),
     (torch.bfloat16, 32, "mma.sync"), (torch.bfloat16, 33, "wgmma"),
     (torch.bfloat16, 40, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 65, "scalar"), (torch.bfloat16, 256, "scalar"),
+    (torch.bfloat16, 65, "wgmma_pair"), (torch.bfloat16, 256, "wgmma_pair"),
     (torch.bfloat16, 257, "wide"), (torch.float32, 8, "wgmma_tf32"),
     (torch.float32, 64, "wgmma_tf32"), (torch.float32, 65, "scalar"),
-    (torch.float32, 320, "wide")])
+    (torch.float32, 320, "wide"), (torch.bfloat16, 130, "wgmma_pair"),
+    (torch.bfloat16, 249, "wgmma_pair"), (torch.float32, 256, "scalar")])
 def test_bwd_design_by_dtype_and_head_dim(dtype, d, design):
     """Which design of the backward takes which (dtype, head dim): bf16
-    heads padded to 40-64 go to wgmma, up to 32 to mma.sync, f32 heads up
-    to 64 to wgmma in 3xTF32, f32 and bf16 65-256 to the scalar kernels,
-    above 256 to the wide ones."""
+    heads padded to 40-64 go to wgmma, 65-256 to wgmma_pair, up to 32 to
+    mma.sync, f32 heads up to 64 to wgmma in 3xTF32, f32 65-256 to the
+    scalar kernels, above 256 to the wide ones."""
     assert tfa.bwd_design(dtype, d) == design
 
 
@@ -427,6 +467,84 @@ def test_wgmma_bwd_repeats_bit_for_bit_on_card(causal):
     """No atomics: two calls on one input give identical dq, dk and dv."""
     _needs_card()
     case = _card_case(11, 48, 512, 512, 64, torch.bfloat16, causal)
+    first = flash_attention_bwd(*case[:5], case[5], causal)
+    second = flash_attention_bwd(*case[:5], case[5], causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+PAIR_WIDTHS = (72, 128, 136, 192, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,d,causal", [
+    (384, 512, 512, 128, False), (384, 512, 512, 128, True),
+    (384, 512, 512, 256, False), (96, 512, 512, 256, True),
+    *[(3, tq, tk, d, c) for d in PAIR_WIDTHS
+      for tq, tk in ((77, 130), (130, 77)) for c in (False, True)],
+    (2, 1, 300, 128, False), (7, 333, 333, 192, True),
+    (70000, 8, 8, 72, False)])
+def test_wgmma_pair_bwd_matches_reference_on_card(bh, tq, tk, d, causal):
+    """The wgmma_pair design (bf16 heads 65-256, two warpgroups a block)
+    against the plain backward: the training shape at D 128 and 256 (12
+    and more waves of blocks), every atom count (72 and 136 padded by TMA's
+    zero columns), Tq != Tk ragged under `causal`, one query row, and BH
+    past 65535; each call launches that design once and no other."""
+    _needs_card()
+    q, k, v, out, lse, g = _card_case(bh + d + tq, bh, tq, tk, d,
+                                      torch.bfloat16, causal)
+    before = dict(tfa.BWD_LAUNCHES)
+    _hold_bwd_to_reference(q, k, v, out, lse, g, causal)
+    want = dict(before)
+    want["wgmma_pair"] += 1
+    assert tfa.BWD_LAUNCHES == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+def test_wgmma_pair_bwd_takes_one_key_on_card(d):
+    """Tk 1: P is 1 and dS = P (dP - delta) is 0 in exact arithmetic, so dq
+    and dk are f32 rounding noise on both sides: dv is held as elsewhere,
+    dq and dk to 1e-3 absolute (their noise is about 1e-5)."""
+    _needs_card()
+    q, k, v, out, lse, g = _card_case(d, 3, 100, 1, d, torch.bfloat16,
+                                      False)
+    got = flash_attention_bwd(q, k, v, out, lse, g, False)
+    want = flash_attention_bwd_reference(q, k, v, out, lse, g, False)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max().item()
+        tol = 1e-2 * b.float().abs().max().item() if name == "dv" else 1e-3
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+def test_wgmma_pair_bwd_takes_a_misaligned_view_on_card():
+    """Views 2 bytes past a 16-byte boundary (the wrapper copies them for
+    TMA) give the plain version's gradients at D 128."""
+    _needs_card()
+    q, k, v, out, lse, g = _card_case(8, 4, 100, 100, 128, torch.bfloat16,
+                                      True)
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    q, k, v, out, g = (shifted(x) for x in (q, k, v, out, g))
+    _hold_bwd_to_reference(q, k, v, out, lse, g, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_pair_bwd_repeats_bit_for_bit_on_card(causal, d):
+    """No atomics: two calls on one input give identical dq, dk and dv."""
+    _needs_card()
+    case = _card_case(15 + d, 48, 512, 512, d, torch.bfloat16, causal)
     first = flash_attention_bwd(*case[:5], case[5], causal)
     second = flash_attention_bwd(*case[:5], case[5], causal)
     for a, b in zip(first, second):
